@@ -1,0 +1,154 @@
+"""The port's entry point, data, anchors and config on the CPU, and the
+rule that the port imports nothing of JAX or of the JAX package."""
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from uni_adapter_tpu import config as jcfg
+from uni_adapter_tpu.anchors import load_precomputed as jax_load_precomputed
+from uni_adapter_tpu.data import datasets as jdata
+from uni_adapter_torch import config as pcfg
+from uni_adapter_torch.anchors import load_precomputed
+from uni_adapter_torch.cli import tta
+from uni_adapter_torch.data import datasets as pdata
+
+REPO = Path(__file__).resolve().parent.parent
+SMALL_ARGS = ["--npoints", "128", "--eva-depth", "2", "--pc-feat-dim", "64",
+              "--num-group", "16", "--group-size", "8",
+              "--pc-encoder-dim", "32", "--eva-heads", "4",
+              "--compute-dtype", "float32",
+              "--precomputed-text-features", "large"]
+
+
+@pytest.fixture
+def stream_dir(tmp_path):
+    """The fast recipe's synthetic corruption set (8 clouds × 128 points)."""
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "data_uniform_5.npy",
+            rng.standard_normal((8, 128, 3)).astype(np.float32))
+    np.save(tmp_path / "label.npy", rng.integers(0, 40, (8,)).astype(np.int64))
+    return tmp_path
+
+
+def test_cli_on_cpu_writes_both_result_files(stream_dir, tmp_path):
+    summary = tta.main(["--device", "cpu", "--root", str(stream_dir),
+                        "--corruption", "uniform", "--output-dir",
+                        str(tmp_path / "out"), "--name", "run",
+                        *SMALL_ARGS])
+    log_dir = tmp_path / "out" / "run"
+    for name in ("results.json", "results_zs.json"):
+        res = json.loads((log_dir / name).read_text())
+        assert set(res) == {"uniform"} and 0.0 <= res["uniform"] <= 100.0
+    assert (log_dir / "out.log").exists()
+    assert len(summary["step_ms"]["uniform"]) == 8
+    assert summary["finite"]["uniform"]
+
+
+def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tta.main(["--root", str(stream_dir), "--corruption", "uniform",
+                  *SMALL_ARGS])
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--vlm3d", "ulip"], "M9"),
+    (["--vlm3d", "openshape"], "M10"),
+    (["--dota-use-mode-dota", "false", "--dota-use-dota", "true"], "M8"),
+    (["--dota-use-mode-dota", "false"], "M7"),
+    (["--vmap-corruptions", "true"], "M6"),
+    (["--continual", "true"], "M6"),
+    (["--dist-mode", "psum"], "M16"),
+    (["--trunk-parallel", "tp"], "M16"),
+    (["--checkpoint-path", "ckpt.npz"], "M12"),
+])
+def test_unported_paths_raise_and_name_their_roadmap_item(flags, item,
+                                                          stream_dir):
+    with pytest.raises(NotImplementedError, match=item):
+        tta.main(["--device", "cpu", "--root", str(stream_dir), *SMALL_ARGS,
+                  *flags])
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    """Import every module of the port in a fresh interpreter (this test
+    process has JAX loaded by conftest.py)."""
+    code = """
+import importlib, pkgutil, sys
+before = set(sys.modules)
+import uni_adapter_torch
+for m in pkgutil.walk_packages(uni_adapter_torch.__path__, "uni_adapter_torch."):
+    importlib.import_module(m.name)
+new = set(sys.modules) - before
+bad = sorted(n for n in new if n.split(".")[0] in
+             ("jax", "jaxlib", "flax", "optax", "uni_adapter_tpu", "triton"))
+assert not bad, bad
+from uni_adapter_torch.ops import build
+assert build.load.cache_info().currsize == 0
+print(len([n for n in new if n.startswith("uni_adapter_torch")]))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_as_arrays_and_iter_batches_match_jax_on_ragged_clouds():
+    """Clouds of other sizes are resampled with the same seeded draws."""
+    rng = np.random.default_rng(5)
+    data = np.empty(5, dtype=object)
+    for i, n in enumerate((100, 128, 90, 128, 140)):
+        data[i] = rng.standard_normal((n, 3)).astype(np.float32)
+    labels = rng.integers(0, 40, 5)
+    pds = pdata.TTADataset(data, labels, pdata.MODELNET40_CLASSES)
+    jds = jdata.TTADataset(data, labels, jdata.MODELNET40_CLASSES)
+    for a, b in zip(pds.as_arrays(2, npoints=128, seed=3),
+                    jds.as_arrays(2, npoints=128, seed=3)):
+        np.testing.assert_array_equal(a, b)
+    for pa, ja in zip(pds.iter_batches(2, npoints=128, seed=3),
+                      jds.iter_batches(2, npoints=128, seed=3)):
+        for a, b in zip(pa, ja):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_modelnet_loader_matches_jax(stream_dir):
+    cfg_p = pcfg.Config(data=pcfg.DataConfig(root=str(stream_dir),
+                                             corruption="uniform"))
+    cfg_j = jcfg.Config(data=jcfg.DataConfig(root=str(stream_dir),
+                                             corruption="uniform"))
+    p = pdata.load_tta_dataset(cfg_p)
+    j = jdata.load_tta_dataset(cfg_j)
+    np.testing.assert_array_equal(p.data, j.data)
+    np.testing.assert_array_equal(p.labels, j.labels)
+    assert p.class_names == j.class_names
+
+
+def test_anchor_bank_is_the_jax_packages():
+    got = load_precomputed("large", "modelnet")
+    assert got.dtype == torch.float32 and got.shape == (40, 1024)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_load_precomputed("large", "modelnet")))
+
+
+def test_config_copy_keeps_the_jax_defaults():
+    for pc, jc in ((pcfg.ModelConfig, jcfg.ModelConfig),
+                   (pcfg.DotaConfig, jcfg.DotaConfig),
+                   (pcfg.DataConfig, jcfg.DataConfig),
+                   (pcfg.RunConfig, jcfg.RunConfig)):
+        jdefaults = {f.name: f.default for f in dataclasses.fields(jc)}
+        for f in dataclasses.fields(pc):
+            if f.name == "device":     # the port runs on cuda by default
+                assert f.default == "cuda"
+                continue
+            assert f.default == jdefaults[f.name], (pc.__name__, f.name)
+    cfg = pcfg.parse_args(["--eva-depth", "2", "--dota-mode-M", "3"])
+    assert cfg.model.eva_depth == 2 and cfg.dota.mode_M == 3
+    assert not any(f.name.startswith("use_pallas") or f.name in
+                   ("approx_knn", "quantize_int8")
+                   for f in dataclasses.fields(pcfg.ModelConfig))

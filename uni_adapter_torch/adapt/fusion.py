@@ -1,0 +1,34 @@
+"""MODE-DOTA logit fusion (mirror of `uni_adapter_tpu/adapt/fusion.py`)."""
+from __future__ import annotations
+
+import torch
+
+from uni_adapter_torch.utils.math import softmax_entropy
+
+
+def dota_fusion_weight(rho: float, eta: float, c_mean: torch.Tensor,
+                       batch: float) -> torch.Tensor:
+    """w = min(ρ·mean(c)/B, η); `batch` is the batch the fit consumed."""
+    return torch.clamp(rho * c_mean / batch, max=eta)
+
+
+def fuse_mode_dota(clip_logits: torch.Tensor, dota_logits: torch.Tensor,
+                   weight: torch.Tensor,
+                   fix_normalization: bool = False) -> torch.Tensor:
+    """Inverse-entropy fusion.
+
+    By default the reference's double normalisation is kept: w_clip is
+    normalised first and w_dota then divides by the already-normalised
+    w_clip, so the two weights do not sum to 1.  `fix_normalization`
+    takes the convex combination instead.
+    """
+    scaled_dota = weight * dota_logits
+    w_clip = 1.0 / (softmax_entropy(clip_logits) + 1e-3)
+    w_dota = 1.0 / (softmax_entropy(scaled_dota) + 1e-3)
+    if fix_normalization:
+        total = w_clip + w_dota
+        w_clip, w_dota = w_clip / total, w_dota / total
+    else:
+        w_clip = w_clip / (w_clip + w_dota)
+        w_dota = w_dota / (w_clip + w_dota)
+    return w_clip[:, None] * clip_logits + w_dota[:, None] * scaled_dota

@@ -1,0 +1,129 @@
+"""MODE-DOTA: streaming per-class diagonal Gaussian mixture (mirror of
+`uni_adapter_tpu/adapt/mode_dota.py`).
+
+Every contraction is fp32 without TF32 (the JAX package runs them at
+`Precision.HIGHEST`); the entry points turn TF32 off for the process.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_VAR_FLOOR = 1e-8
+
+
+class ModeDotaState(NamedTuple):
+    mu: torch.Tensor            # (K, M, D) mode means
+    var: torch.Tensor           # (K, M, D) diagonal variances
+    pi: torch.Tensor            # (K, M) mixture weights
+    c: torch.Tensor             # (K, M) soft counts
+    class_counts: torch.Tensor  # (K,)
+    t: int                      # samples seen
+
+
+def resolve_sigma_init(sigma_cfg: float, input_dim: int) -> float:
+    """A config sigma ≥ 0.1 is read as a full-covariance-scale mistake and
+    replaced by 1/D (the per-dimension variance of unit-norm embeddings)."""
+    return 1.0 / input_dim if sigma_cfg >= 0.1 else sigma_cfg
+
+
+def init(epsilon: float, sigma: float, input_dim: int, num_classes: int,
+         clip_weights: torch.Tensor, num_modes: int = 4) -> ModeDotaState:
+    """Initialise the mixture.
+
+    Args:
+      clip_weights: (D, K) L2-normalised text anchors.
+
+    Means = class centre + an offset δ·(m+1) along axis m % D with
+    δ = 0.1·sigma_init; variances sigma_init·(1 + 0.05·m); π uniform;
+    soft counts 1/M.
+    """
+    del epsilon
+    K, M, D = num_classes, num_modes, input_dim
+    dev = clip_weights.device
+    sigma_init = resolve_sigma_init(sigma, D)
+    centers = clip_weights.T.to(torch.float32)                  # (K, D)
+    mode_ids = torch.arange(M, device=dev)
+    offsets = torch.zeros(M, D, device=dev)
+    offsets[mode_ids, mode_ids % D] = sigma_init * 0.1 * (mode_ids + 1.0)
+    mu = centers[:, None, :] + offsets[None, :, :]
+    scale_m = 1.0 + 0.05 * torch.arange(M, dtype=torch.float32, device=dev)
+    var = torch.clamp(torch.full((K, M, D), sigma_init, device=dev)
+                      * scale_m[None, :, None], min=_VAR_FLOOR)
+    return ModeDotaState(
+        mu=mu, var=var,
+        pi=torch.full((K, M), 1.0 / M, device=dev),
+        c=torch.full((K, M), 1.0 / M, device=dev),
+        class_counts=torch.zeros(K, device=dev), t=0)
+
+
+def regularized_var(state: ModeDotaState, epsilon: float) -> torch.Tensor:
+    """var + ε, floored."""
+    return torch.clamp(state.var + epsilon, min=_VAR_FLOOR)
+
+
+def log_likelihood(x: torch.Tensor, mu: torch.Tensor,
+                   var: torch.Tensor) -> torch.Tensor:
+    """Diagonal Gaussian log-likelihood without the D·log 2π constant,
+    through the two-matmul expansion
+        Σ_d (x−μ)²/v = Σ_d x²·(1/v) − 2·Σ_d x·(μ/v) + Σ_d μ²/v.
+
+    Args:
+      x: (B, D); mu, var: (K, M, D).
+    Returns:
+      (B, K, M).
+    """
+    K, M, D = mu.shape
+    x = x.to(torch.float32)
+    inv_v = (1.0 / var).reshape(K * M, D)
+    mu_over_v = (mu / var).reshape(K * M, D)
+    quad_const = torch.sum(mu * mu / var, dim=-1)                # (K, M)
+    log_det = torch.sum(torch.log(var), dim=-1)                  # (K, M)
+    x_sq_term = torch.matmul(x * x, inv_v.T)                     # (B, KM)
+    cross_term = torch.matmul(x, mu_over_v.T)
+    maha = (x_sq_term - 2.0 * cross_term).reshape(-1, K, M) + quad_const
+    return -0.5 * (log_det[None] + maha)
+
+
+def fit(state: ModeDotaState, x: torch.Tensor, gamma_class: torch.Tensor,
+        epsilon: float) -> ModeDotaState:
+    """One streaming EM step.
+
+    Args:
+      x: (B, D) L2-normalised features; gamma_class: (B, K) zero-shot
+        class probabilities.
+    """
+    x = x.to(torch.float32)
+    gamma_class = gamma_class.to(torch.float32)
+    # E-step
+    log_lik = log_likelihood(x, state.mu, regularized_var(state, epsilon))
+    log_joint = torch.log(state.pi + 1e-10)[None] + log_lik      # (B, K, M)
+    log_r = log_joint - torch.logsumexp(log_joint, dim=2, keepdim=True)
+    gamma = gamma_class[:, :, None] * torch.exp(log_r)
+    # sufficient statistics
+    sum_gamma = gamma.sum(dim=0)                                 # (K, M)
+    gamma_perm = gamma.permute(1, 2, 0)                          # (K, M, B)
+    weighted_x = torch.matmul(gamma_perm, x)                     # (K, M, D)
+    weighted_x_sq = torch.matmul(gamma_perm, x * x)
+    class_sum = gamma_class.sum(dim=0)
+    # streaming M-step
+    c_new = state.c + sum_gamma
+    mu_new = (state.c[..., None] * state.mu + weighted_x) / (
+        c_new[..., None] + 1e-10)
+    # Σ_b γ (x−μ_old)² = Σγx² − 2μ_old·Σγx + Σγ·μ_old²
+    wsq = (weighted_x_sq - 2.0 * state.mu * weighted_x
+           + sum_gamma[..., None] * state.mu ** 2)
+    var = torch.clamp((state.c[..., None] * state.var + wsq)
+                      / (c_new[..., None] + 1e-10), min=_VAR_FLOOR)
+    pi_new = c_new / (c_new.sum(dim=1, keepdim=True) + 1e-10)
+    return ModeDotaState(mu=mu_new, var=var, pi=pi_new, c=c_new,
+                         class_counts=state.class_counts + class_sum,
+                         t=state.t + x.shape[0])
+
+
+def predict(state: ModeDotaState, x: torch.Tensor,
+            epsilon: float) -> torch.Tensor:
+    """Class scores log P(x|k) = logsumexp_m[log π + log lik], (B, K)."""
+    log_lik = log_likelihood(x, state.mu, regularized_var(state, epsilon))
+    return torch.logsumexp(torch.log(state.pi + 1e-10)[None] + log_lik, dim=2)

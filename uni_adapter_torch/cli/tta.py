@@ -1,0 +1,143 @@
+"""Evaluation CLI: the per-corruption online-TTA loop (mirror of
+`uni_adapter_tpu/cli/tta.py`, its sequential replicated path).
+
+    python -m uni_adapter_torch.cli.tta --root DATA --corruption uniform \
+        --precomputed-text-features large [--device cuda|cpu]
+
+Runs on the GPU unless `--device cpu` is passed; asked for `cuda` on a
+host without one, it raises.  Writes `results.json` (adapted top-1 per
+corruption) and `results_zs.json` (the frozen anchors' top-1 from the
+same forwards) under `<output-dir>/<name>/`, in the JAX CLI's shape.
+Without `--checkpoint-path` (ROADMAP M12) the weights are random from
+`--seed`, so the accuracies only show that the pipeline ran.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import sys
+import time
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from uni_adapter_torch import engine
+from uni_adapter_torch.anchors import load_precomputed
+from uni_adapter_torch.config import CORRUPTIONS, parse_args, unported_paths
+from uni_adapter_torch.data.datasets import load_tta_dataset
+from uni_adapter_torch.models.uni3d import create_uni3d
+
+
+def resolve_device(name: str) -> torch.device:
+    """`cuda` needs a GPU (no silent CPU fallback); `cpu` is explicit."""
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda (the default) needs a CUDA GPU; "
+                               "pass --device cpu to run the plain PyTorch "
+                               "versions of the kernels on the CPU")
+        return torch.device("cuda")
+    if name == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"unknown device {name!r}")
+
+
+def set_numerics() -> None:
+    """fp32 products stay fp32: the JAX package runs the adaptation's
+    contractions (log-likelihoods, EM statistics, logits, the residual
+    loss) at Precision.HIGHEST, so TF32 is off; bf16 GEMMs reduce in fp32
+    as flax's bf16 Dense does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def setup_logging(log_file: str) -> None:
+    logger = logging.getLogger()
+    logger.setLevel(logging.INFO)
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    fmt = logging.Formatter("%(asctime)s | %(levelname)s | %(message)s",
+                            datefmt="%Y-%m-%d,%H:%M:%S")
+    for h in (logging.StreamHandler(sys.stdout), logging.FileHandler(log_file)):
+        h.setFormatter(fmt)
+        logger.addHandler(h)
+
+
+def main(argv=None) -> dict:
+    """Run the evaluation; returns per-corruption `acc1`, `zs_acc1`,
+    `step_ms` (wall time of each step, device-synchronised), `finite`
+    (every final logit finite) and the run's `log_dir`."""
+    cfg = parse_args(argv)
+    missing = unported_paths(cfg)
+    if not cfg.data.precomputed_text_features:
+        missing.append("anchors from the on-the-fly text tower; pass "
+                       "--precomputed-text-features (ROADMAP M11)")
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    device = resolve_device(cfg.run.device)
+    set_numerics()
+    name = cfg.run.name or datetime.now().strftime("%Y_%m_%d-%H_%M_%S")
+    log_dir = os.path.join(cfg.run.output_dir, name)
+    os.makedirs(log_dir, exist_ok=True)
+    setup_logging(os.path.join(log_dir, "out.log"))
+    logging.info("Running Experiment: %s on %s", name,
+                 torch.cuda.get_device_name(device) if device.type == "cuda"
+                 else "cpu")
+    logging.info("Config: %s", cfg)
+
+    model = create_uni3d(cfg.model, device, seed=cfg.run.seed)
+    logging.warning("No checkpoint configured — random weights; accuracy "
+                    "numbers are not meaningful.")
+    text = load_precomputed(cfg.data.precomputed_text_features,
+                            cfg.data.dataset_name).to(device)
+    step_fn = engine.make_step_fn(cfg, model)
+
+    corruptions = (list(CORRUPTIONS) if cfg.data.corruption == "all"
+                   else [cfg.data.corruption])
+    summary = {"acc1": {}, "zs_acc1": {}, "step_ms": {}, "finite": {},
+               "log_dir": log_dir}
+    for corr in corruptions:
+        c = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, corruption=corr))
+        logging.info("%s Processing corruption: %s %s", "=" * 20, corr,
+                     "=" * 20)
+        pcs, rgbs, targets = load_tta_dataset(c).as_arrays(
+            c.data.batch_size, npoints=c.data.npoints, seed=c.run.seed)
+        t0 = time.perf_counter()
+        res = engine.run_stream(c, model, text, zip(pcs, rgbs, targets),
+                                seed=c.run.seed, print_freq=c.run.print_freq,
+                                step_fn=step_fn)
+        dt = time.perf_counter() - t0
+        logging.info("Final Results: Acc@1 %.3f Acc@3 %.3f Acc@5 %.3f",
+                     res["acc1"], res["acc3"], res["acc5"])
+        logging.info("Zero-shot baseline (same run): Acc@1 %.3f "
+                     "(adaptation %+0.3f)", res["zs_acc1"],
+                     res["acc1"] - res["zs_acc1"])
+        logging.info("Total time: %.3f ms (%.1f pc/s)", dt * 1e3,
+                     res["n"] / dt)
+        summary["acc1"][corr] = float(res["acc1"])
+        summary["zs_acc1"][corr] = float(res["zs_acc1"])
+        summary["step_ms"][corr] = res["step_ms"]
+        summary["finite"][corr] = res["finite"]
+
+    logging.info("Summary of Results: %s", summary["acc1"])
+    logging.info("Average Top-1: %.3f",
+                 float(np.mean(list(summary["acc1"].values()))))
+    with open(os.path.join(log_dir, "results.json"), "w") as f:
+        json.dump(summary["acc1"], f, indent=2)
+    with open(os.path.join(log_dir, "results_zs.json"), "w") as f:
+        json.dump(summary["zs_acc1"], f, indent=2)
+    return summary
+
+
+def cli() -> int:
+    main()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(cli())

@@ -1,0 +1,184 @@
+"""Configuration of the port: the fields the Uni3D + MODE-DOTA path reads.
+
+A copy, not an import, of the dataclasses in `uni_adapter_tpu/config.py`,
+with the same names and defaults, cut to what this package runs.  Two
+differences by design:
+
+  * no kernel-selection fields (`use_pallas_*`, `approx_knn`,
+    `quantize_int8`): the device fixes the implementation — CUDA tensors
+    go through the Hopper kernels, CPU tensors through their plain
+    PyTorch versions;
+  * `--device` defaults to `cuda`, and a run asked for `cuda` on a host
+    without a GPU raises instead of falling back to the CPU.
+
+Flags that select a path this package does not have yet parse as in the
+JAX package and raise `NotImplementedError` naming their ROADMAP item
+(`unported_paths`).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from dataclasses import dataclass, field
+from typing import Optional
+
+ASSETS_DIR = os.path.join(os.path.dirname(__file__), "assets")
+
+#: The 15 corruption types of the -C benchmarks.
+CORRUPTIONS = (
+    "uniform", "gaussian", "background", "impulse", "upsampling",
+    "distortion_rbf", "distortion_rbf_inv", "density", "density_inc",
+    "shear", "rotation", "cutout", "distortion", "occlusion", "lidar",
+)
+
+
+@dataclass
+class ModelConfig:
+    vlm3d: str = "uni3d"                 # only uni3d is ported
+    pc_feat_dim: int = 1024              # transformer width (EVA02-L)
+    embed_dim: int = 1024                # CLIP embedding dim
+    num_group: int = 512
+    group_size: int = 64
+    pc_encoder_dim: int = 512            # mini-PointNet output channels
+    eva_depth: int = 24
+    eva_heads: int = 16
+    logit_scale: float = 100.0
+    compute_dtype: str = "bfloat16"
+    checkpoint_path: Optional[str] = None
+
+
+@dataclass
+class DotaConfig:
+    use_dota: bool = False
+    use_mode_dota: bool = True
+    use_gmm_dota: bool = False
+    use_adaptive_dota: bool = False
+    epsilon: float = 1e-4
+    sigma: float = 1e-4
+    eta: float = 0.1
+    rho: float = 0.02
+    mode_M: int = 4
+    res_learning: bool = True
+    noise_std: float = 0.05
+    residual_lr: float = 1e-3
+    residual_steps: int = 10
+    fp16_predict_input: bool = False
+    fix_fusion_normalization: bool = False
+
+
+@dataclass
+class DataConfig:
+    root: str = ""
+    dataset_name: str = "modelnet"
+    corruption: str = "all"
+    severity: int = 5
+    batch_size: int = 1
+    npoints: int = 1024
+    debug: bool = False
+    precomputed_text_features: Optional[str] = None
+
+
+@dataclass
+class RunConfig:
+    name: Optional[str] = None
+    output_dir: str = "./outputs"
+    seed: int = 42
+    print_freq: int = 100
+    device: str = "cuda"                 # cuda | cpu
+    vmap_corruptions: bool = False
+    continual: bool = False
+    dist_mode: str = "replicated"
+    trunk_parallel: str = "none"
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    dota: DotaConfig = field(default_factory=DotaConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+
+
+def unported_paths(cfg: Config) -> list[str]:
+    """What `cfg` asks for that this package does not run yet, each with
+    the ROADMAP item that ports it."""
+    m, d, r = cfg.model, cfg.dota, cfg.run
+    out = []
+    if m.vlm3d == "ulip":
+        out.append("--vlm3d ulip (ROADMAP M9)")
+    elif m.vlm3d == "openshape":
+        out.append("--vlm3d openshape (ROADMAP M10)")
+    elif m.vlm3d != "uni3d":
+        out.append(f"--vlm3d {m.vlm3d}")
+    # the JAX engine's dispatch order: MODE-DOTA wins over the others
+    if not d.use_mode_dota:
+        if d.use_dota:
+            out.append("plain DOTA, --dota-use-dota (ROADMAP M8)")
+        elif d.use_gmm_dota:
+            out.append("GMM-DOTA, --dota-use-gmm-dota (ROADMAP M8)")
+        elif d.use_adaptive_dota:
+            out.append("adaptive DOTA, --dota-use-adaptive-dota (ROADMAP M8)")
+        else:
+            out.append("the prototype cache path (ROADMAP M7)")
+    if m.checkpoint_path is not None:
+        out.append("--checkpoint-path (ROADMAP M12)")
+    if r.vmap_corruptions:
+        out.append("--vmap-corruptions (ROADMAP M6)")
+    if r.dist_mode != "replicated":
+        out.append(f"--dist-mode {r.dist_mode} (ROADMAP M16)")
+    if r.trunk_parallel != "none":
+        out.append(f"--trunk-parallel {r.trunk_parallel} (ROADMAP M16)")
+    if r.continual:
+        out.append("--continual (ROADMAP M6)")
+    return out
+
+
+def _field_arg_type(f, default):
+    """Argument parser of a dataclass field; None-default fields parse by
+    their annotation."""
+    if f.type in ("bool", bool) or isinstance(default, bool):
+        return lambda s: s.lower() in ("1", "true", "yes")
+    if default is not None:
+        return type(default)
+    ann = str(f.type)
+    if "int" in ann:
+        return int
+    if "float" in ann:
+        return float
+    return str
+
+
+def _add_fields(parser: argparse.ArgumentParser, prefix: str, dc) -> None:
+    for f in dataclasses.fields(dc):
+        arg = f"--{prefix}{f.name.replace('_', '-')}"
+        default = getattr(dc, f.name)
+        parser.add_argument(arg, type=_field_arg_type(f, default),
+                            default=argparse.SUPPRESS)
+
+
+def parse_args(argv=None) -> Config:
+    """The evaluation CLI's flags, spelled as in the JAX package
+    (`--eva-depth`, `--dota-mode-M`, ...).  Defaults, then explicit flags."""
+    cfg = Config()
+    parser = argparse.ArgumentParser(
+        description="Uni-Adapter on PyTorch/CUDA: online TTA for 3D VLMs")
+    _add_fields(parser, "", cfg.run)
+    _add_fields(parser, "", cfg.data)
+    _add_fields(parser, "", cfg.model)
+    _add_fields(parser, "dota-", cfg.dota)
+    ns = parser.parse_args(argv)
+
+    def explicit(dc, prefix=""):
+        return {f.name: getattr(ns, prefix + f.name)
+                for f in dataclasses.fields(dc) if hasattr(ns, prefix + f.name)}
+
+    cfg = Config(
+        model=dataclasses.replace(cfg.model, **explicit(cfg.model)),
+        dota=dataclasses.replace(cfg.dota, **explicit(cfg.dota, "dota_")),
+        data=dataclasses.replace(cfg.data, **explicit(cfg.data)),
+        run=dataclasses.replace(cfg.run, **explicit(cfg.run)),
+    )
+    if cfg.run.device not in ("cuda", "cpu"):
+        raise ValueError(f"--device {cfg.run.device!r}: expected cuda or cpu")
+    return cfg

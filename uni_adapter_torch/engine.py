@@ -1,0 +1,205 @@
+"""TTA engine: the online MODE-DOTA adaptation loop (mirror of
+`uni_adapter_tpu/engine.py`, its MODE-DOTA branch).
+
+The JAX package jit-compiles one pure step and scans it over the stream;
+here the step runs eagerly and `run_stream` is a Python loop.  The state
+stays on the device between steps and nothing is read back to the host
+inside a step: the residual-learning gate `step > 0` is a host integer.
+
+The MODE-DOTA noise comes from a `torch.Generator` carried in the state;
+`step(..., noise=...)` takes it from the caller instead, which is how the
+tests feed both packages the same draw.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+from typing import Callable, Iterable, NamedTuple, Optional
+
+import torch
+
+from uni_adapter_torch.adapt import fusion, mode_dota, residual
+from uni_adapter_torch.config import Config
+from uni_adapter_torch.utils.math import softmax_entropy
+from uni_adapter_torch.utils.metrics import topk_correct
+
+
+@dataclass
+class EngineState:
+    """The adaptation carry."""
+    method_state: mode_dota.ModeDotaState
+    res_state: Optional[residual.ResidualState]
+    step: int
+    generator: torch.Generator
+
+
+class StepOutput(NamedTuple):
+    final_logits: torch.Tensor        # (B, K)
+    clip_logits: torch.Tensor         # (B, K)
+    correct: torch.Tensor             # (3,) top-1/3/5 correct counts
+    zs_correct: torch.Tensor          # (3,) the frozen anchors' counts
+
+
+def encode_with(kind: str, model: Callable) -> Callable:
+    """(pc, rgb) -> L2-normalised (B, D) features for a backbone."""
+    if kind != "uni3d":
+        raise NotImplementedError(f"backbone {kind!r} is not ported yet "
+                                  f"(ROADMAP M9/M10)")
+
+    def encode(pc: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
+        feat = model(torch.cat([pc, rgb], dim=-1))
+        return feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-12)
+
+    return encode
+
+
+def clip_logits_from(feat: torch.Tensor, clip_weights: torch.Tensor,
+                     scale: float = 100.0):
+    """logits = scale·f@W in fp32, plus entropy, probabilities and the
+    sample-0 prediction."""
+    logits = scale * torch.matmul(feat.to(torch.float32), clip_weights)
+    ent = softmax_entropy(logits)
+    prob_map = torch.softmax(logits, dim=1)
+    pred = torch.argmax(logits[0])
+    return logits, ent, prob_map, pred
+
+
+def init_state(cfg: Config, text_features_initial: torch.Tensor,
+               seed: int = 42) -> EngineState:
+    """The MODE-DOTA carry: mixture from the anchors, zero residuals."""
+    K, D = text_features_initial.shape
+    dc = cfg.dota
+    ms = mode_dota.init(dc.epsilon, dc.sigma, D, K,
+                        text_features_initial.T, num_modes=dc.mode_M)
+    rs = residual.init(text_features_initial) if dc.res_learning else None
+    gen = torch.Generator(device=text_features_initial.device)
+    gen.manual_seed(seed)
+    return EngineState(ms, rs, 0, gen)
+
+
+def make_step_fn(cfg: Config, model: Callable) -> Callable:
+    """step(text_init, state, batch, noise=None) -> (state, StepOutput),
+    with batch = (pc (B, N, 3), rgb (B, N, 3), target (B,))."""
+    encode = encode_with(cfg.model.vlm3d, model)
+    dc = cfg.dota
+    if not dc.use_mode_dota:
+        raise NotImplementedError("only the MODE-DOTA path is ported "
+                                  "(ROADMAP M7/M8)")
+    use_res = dc.res_learning
+
+    def predict_input(f):
+        m = f.mean(dim=0, keepdim=True)
+        if dc.fp16_predict_input:
+            m = m.to(torch.float16).to(torch.float32)
+        return m
+
+    @torch.no_grad()
+    def step(text_init: torch.Tensor, state: EngineState, batch,
+             noise: Optional[torch.Tensor] = None):
+        pc, rgb, target = batch
+        text_init = text_init.to(torch.float32)
+        if use_res:
+            clip_weights = residual.adapted_text_weights(state.res_state,
+                                                         text_init)
+        else:
+            clip_weights = text_init.T
+
+        # clean and noise-augmented clouds in one 2B forward
+        B = pc.shape[0]
+        if noise is None:
+            noise = torch.randn(pc.shape, generator=state.generator,
+                                device=pc.device, dtype=pc.dtype)
+        pc_aug = pc + dc.noise_std * noise
+        feat_both = encode(torch.cat([pc, pc_aug], dim=0),
+                           torch.cat([rgb, rgb], dim=0))
+        feat, feat_aug = feat_both[:B], feat_both[B:]
+        clip_logits, _, prob_map, _ = clip_logits_from(
+            feat, clip_weights, scale=cfg.model.logit_scale)
+
+        ms = state.method_state
+        dota_logits = mode_dota.predict(ms, predict_input(feat), dc.epsilon)
+        ms = mode_dota.fit(ms, feat, prob_map, dc.epsilon)
+        # the noise-augmented fit uses the CLEAN prob_map
+        ms = mode_dota.fit(ms, feat_aug, prob_map, dc.epsilon)
+
+        res_state = state.res_state
+        if use_res and state.step > 0:
+            res_state = residual.optimize_residuals(
+                res_state, text_init, ms, dc.residual_lr, dc.epsilon,
+                num_steps=dc.residual_steps)
+
+        w = fusion.dota_fusion_weight(dc.rho, dc.eta, ms.c.mean(), float(B))
+        final = fusion.fuse_mode_dota(
+            clip_logits, dota_logits, w,
+            fix_normalization=dc.fix_fusion_normalization)
+        if use_res:
+            zs_logits = clip_logits_from(feat, text_init.T,
+                                         scale=cfg.model.logit_scale)[0]
+        else:
+            zs_logits = clip_logits
+        out = StepOutput(final, clip_logits,
+                         topk_correct(final, target, (1, 3, 5)),
+                         topk_correct(zs_logits, target, (1, 3, 5)))
+        return EngineState(ms, res_state, state.step + 1,
+                           state.generator), out
+
+    return step
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_stream(cfg: Config, model: Callable,
+               text_features_initial: torch.Tensor,
+               batches: Iterable, seed: int = 42,
+               print_freq: Optional[int] = None,
+               step_fn: Optional[Callable] = None) -> dict:
+    """Run one stream step by step.
+
+    Args:
+      batches: iterable of (pc, rgb, target) numpy arrays or tensors;
+        each is moved to the anchors' device.
+    Returns:
+      dict with acc1/acc3/acc5 and zs_acc1 (percent), per-step wall times
+      in ms (each step ends in a device synchronise), `finite` (every
+      final logit was finite) and the final `state`.
+    """
+    dev = text_features_initial.device
+    step = step_fn if step_fn is not None else make_step_fn(cfg, model)
+    state = init_state(cfg, text_features_initial, seed)
+    totals = torch.zeros(3, device=dev)
+    zs_totals = torch.zeros(3, device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    n = 0
+    step_ms = []
+    for i, (pc, rgb, target) in enumerate(batches):
+        batch = tuple(torch.as_tensor(a).to(dev) for a in (pc, rgb, target))
+        t0 = time.perf_counter()
+        state, out = step(text_features_initial, state, batch)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        totals += out.correct
+        zs_totals += out.zs_correct
+        finite &= torch.isfinite(out.final_logits).all()
+        n += int(batch[0].shape[0])
+        if print_freq and i % print_freq == 0:
+            logging.info("step %d: acc1=%.3f%%", i,
+                         100 * float(totals[0]) / n)
+    accs = (100.0 * totals / max(n, 1)).tolist()
+    return {"acc1": accs[0], "acc3": accs[1], "acc5": accs[2],
+            "zs_acc1": 100.0 * float(zs_totals[0]) / max(n, 1),
+            "n": n, "step_ms": step_ms, "finite": bool(finite),
+            "state": state}
+
+
+def summarize(outputs: list[StepOutput], n_samples: int) -> dict:
+    """Aggregate per-step outputs into percent accuracies."""
+    correct = torch.stack([o.correct for o in outputs]).sum(0).tolist()
+    zs = torch.stack([o.zs_correct for o in outputs]).sum(0).tolist()
+    return {"acc1": 100.0 * correct[0] / n_samples,
+            "acc3": 100.0 * correct[1] / n_samples,
+            "acc5": 100.0 * correct[2] / n_samples,
+            "zs_acc1": 100.0 * zs[0] / n_samples}

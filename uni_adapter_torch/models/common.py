@@ -1,0 +1,142 @@
+"""Transformer building blocks of the EVA02 trunk (mirror of
+`uni_adapter_tpu/models/common.py`, the Uni3D subset).
+
+Numerics follow the flax modules: dense layers run in the compute dtype
+and round before their bias; LayerNorm and BatchNorm keep fp32 parameters
+and fp32 arithmetic and round their output to the compute dtype.  Module
+and parameter names follow the flax tree (`q_proj`, `k_norm`, `fc1_g`,
+...) so `weights.from_jax_params` is a flatten plus a transpose.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from uni_adapter_torch.ops.attention import eva_attn_block
+
+#: flax's lecun_normal: a normal truncated at ±2σ, rescaled to unit variance.
+_TRUNC_STD = 0.87962566103423978
+#: EVA02's SwiGLU hidden width over the model width (1024 → 2730).
+MLP_RATIO = 4 * 2 / 3
+
+
+class Dense(nn.Module):
+    """flax `nn.Dense` in PyTorch's layout: weight (out, in), optional bias.
+
+    The product rounds to the compute dtype before the bias is added, as
+    flax does (F.linear with a bias would fuse the add before rounding).
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        std = 1.0 / math.sqrt(self.weight.shape[1]) / _TRUNC_STD
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight)
+        return y if self.bias is None else y + self.bias
+
+
+class LN(nn.Module):
+    """LayerNorm with eps 1e-5, fp32 parameters and statistics; the output
+    takes the input's dtype (the residual stream's compute dtype)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.to(torch.float32), (x.shape[-1],), self.weight,
+                         self.bias, eps=1e-5)
+        return y.to(x.dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The erf GELU (flax `nn.gelu(approximate=False)`)."""
+    return F.gelu(x)
+
+
+class BatchNormInference(nn.Module):
+    """BatchNorm with running statistics, fp32 arithmetic; parameters named
+    as the flax module's (mean, var, scale, bias)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.mean = nn.Parameter(torch.zeros(features))
+        self.var = nn.Parameter(torch.ones(features))
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.var + 1e-5) * self.scale
+        return (x.to(torch.float32) * inv + (self.bias - self.mean * inv)
+                ).to(x.dtype)
+
+
+class EvaAttention(nn.Module):
+    """EVA02 attention: separate q/k/v projections (k without bias),
+    per-head q/k LayerNorm, out projection.  Its only path is the
+    `ops.attention.eva_attn_block` kernel (the plain version on the CPU)."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        hd = dim // num_heads
+        self.q_proj = Dense(dim, dim)
+        self.k_proj = Dense(dim, dim, bias=False)
+        self.v_proj = Dense(dim, dim)
+        self.q_norm = LN(hd)
+        self.k_norm = LN(hd)
+        self.proj = Dense(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hd = x.shape[-1] // self.num_heads
+        return eva_attn_block(
+            x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
+            self.v_proj.weight, self.v_proj.bias, self.q_norm.weight,
+            self.q_norm.bias, self.k_norm.weight, self.k_norm.bias,
+            self.proj.weight, self.proj.bias, num_heads=self.num_heads,
+            scale=hd ** -0.5)
+
+
+class SwiGLU(nn.Module):
+    """EVA02 SwiGLU MLP with its mid LayerNorm."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__()
+        self.fc1_g = Dense(dim, hidden_dim)
+        self.fc1_x = Dense(dim, hidden_dim)
+        self.norm = LN(hidden_dim)
+        self.fc2 = Dense(hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.silu(self.fc1_g(x)) * self.fc1_x(x)
+        return self.fc2(self.norm(x))
+
+
+class EvaBlock(nn.Module):
+    """Pre-norm EVA02 block.  Rope is inactive, as in the reference's
+    Uni3D path (the JAX `EvaBlock` omits it for the same reason)."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.norm1 = LN(dim)
+        self.attn = EvaAttention(dim, num_heads)
+        self.norm2 = LN(dim)
+        self.mlp = SwiGLU(dim, int(dim * MLP_RATIO))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))

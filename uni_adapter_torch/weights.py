@@ -1,0 +1,54 @@
+"""Flax parameters (as numpy) → a state_dict of the port's modules.
+
+The port names its submodules after the flax tree, so the mapping is a
+flatten with these renames:
+
+  * `blocks_{i}` (flax list naming) → `blocks.{i}`;
+  * Dense `kernel` (in, out) → `weight` (out, in);
+  * LayerNorm `scale` → `weight` (`bias` stays);
+  * BatchNormInference `mean`/`var`/`scale`/`bias` and the bare
+    parameters `cls_token`/`cls_pos` keep their names.
+
+The JAX package's block-kernel parameter holders build the same
+Dense/LayerNorm tree, so one mapping covers both of its attention paths.
+No JAX is imported: the input is the nested dict of numpy arrays that
+`jax.tree_util.tree_map(np.asarray, params)` gives.
+"""
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_BN_KEYS = {"mean", "var", "scale", "bias"}
+
+
+def _module_name(part: str) -> str:
+    m = re.fullmatch(r"(.+)_(\d+)", part)
+    return f"{m.group(1)}.{m.group(2)}" if m else part
+
+
+def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax params (with or without the top-level "params" key) → state_dict."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: list[str]) -> None:
+        is_bn = set(node) == _BN_KEYS
+        for name, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, path + [_module_name(name)])
+                continue
+            arr = np.asarray(val, dtype=np.float32)
+            if name == "kernel":
+                name, arr = "weight", arr.T
+            elif name == "scale" and not is_bn:
+                name = "weight"
+            out[".".join(path + [name])] = torch.from_numpy(
+                np.ascontiguousarray(arr))
+
+    walk(tree, [])
+    return out
