@@ -114,6 +114,14 @@ def main() -> None:
             dc.epsilon, dc.residual_steps),
     }
     timings = {k: wall_ms(f, 10) for k, f in phases.items()}
+    # the same step as the stream loop runs it: fresh clouds from the host
+    # each step, state carried over
+    clouds = torch.randn(12, 1, 1024, 3, generator=gen, device=dev).cpu()
+    res = engine.run_stream(cfg, model, text, (
+        (c.numpy(), torch.ones_like(c).numpy(), [0]) for c in clouds),
+        step_fn=step)
+    timings["run_stream step (median of steps 2-11)"] = statistics.median(
+        res["step_ms"][2:])
     for k, v in timings.items():
         print(f"wall {k}: {v:.3f} ms")
 

@@ -134,3 +134,24 @@ def test_group_points_matches_jax_kernel_branches(pallas_interpret):
                                 torch.from_numpy(color), 16, 8)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _cpu_block_call():
+    w = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16)
+    return attention.eva_attn_block_cuda(
+        w(1, 5, 64), w(64, 64), w(64), w(64, 64), w(64, 64), w(64),
+        *(torch.ones(64),) * 4, w(64, 64), w(64), num_heads=1)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: fps.fps_cuda(torch.zeros(1, 8, 3), 4),
+    lambda: knn.knn_cuda(2, torch.zeros(1, 8, 3), torch.zeros(1, 4, 3)),
+    _cpu_block_call,
+], ids=["fps", "knn", "eva_attn_block"])
+def test_kernel_wrappers_reject_cpu_tensors_before_building(call):
+    """A kernel wrapper checks its inputs before it builds or launches:
+    CPU tensors raise, and nothing is compiled."""
+    from uni_adapter_torch.ops import build
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+    assert build.load.cache_info().currsize == 0
