@@ -15,8 +15,6 @@ After warm-up it prints, per step:
     of kernel times) against the unprofiled step's wall time, and device
     time by kernel, in groups (the port's CUDA kernels, library GEMMs,
     the rest).
-
-The Chrome trace goes to chiprun_out/torch_step_trace.json.
 """
 from __future__ import annotations
 
@@ -155,9 +153,6 @@ def main() -> None:
     for name, (ms, n) in top:
         print(f"kernel {ms / args.steps:9.3f} ms/step {n // args.steps:6d}x "
               f" {name[:90]}")
-    out = REPO / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "torch_step_trace.json"))
     print(json.dumps({"wall_ms": timings, "profiled_wall_ms": wall,
                       "device_busy_ms": busy, "groups_ms": groups}))
 
