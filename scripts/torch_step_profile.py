@@ -1,8 +1,8 @@
 """Where one MODE-DOTA step of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_step_profile.py [--depth 24] [--steps 5]
+    python3 scripts/torch_step_profile.py
 
-On one CUDA card: Uni3D (width 1024, 16 heads, `--depth` blocks) in bf16
+On one CUDA card: Uni3D-L (24 blocks, width 1024, 16 heads) in bf16
 with random weights from a seed, MODE-DOTA defaults with residual
 learning, the bundled ModelNet40 anchors and random 1024-point clouds.
 After warm-up it prints, per step:
@@ -11,14 +11,13 @@ After warm-up it prints, per step:
     step and of its three phases run alone: the fused 2B encoder forward,
     the MODE-DOTA predict + two fits + fusion, and the 10-step residual
     loop;
-  * from `torch.profiler` over `--steps` steps: device busy time (the sum
+  * from `torch.profiler` over 5 steps: device busy time (the sum
     of kernel times) against the unprofiled step's wall time, and device
     time by kernel, in groups (the port's CUDA kernels, library GEMMs,
     the rest).
 """
 from __future__ import annotations
 
-import argparse
 import collections
 import json
 import statistics
@@ -40,6 +39,8 @@ from uni_adapter_torch.models.uni3d import create_uni3d  # noqa: E402
 from uni_adapter_torch.ops import build  # noqa: E402
 
 OURS = ("fps_kernel", "knn_kernel", "gemm_kernel", "attn_kernel")
+DEPTH = 24           # the main path's trunk
+PROFILED_STEPS = 5
 
 
 def wall_ms(fn, n):
@@ -63,16 +64,12 @@ def group_of(name: str) -> str:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--depth", type=int, default=24)
-    ap.add_argument("--steps", type=int, default=5)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: needs a CUDA device")
     build.build_all()
     set_numerics()
     dev = torch.device("cuda")
-    cfg = Config(model=ModelConfig(eva_depth=args.depth))
+    cfg = Config(model=ModelConfig(eva_depth=DEPTH))
     dc = cfg.dota
     model = create_uni3d(cfg.model, dev, seed=0)
     text = load_precomputed("large", "modelnet").to(dev)
@@ -128,16 +125,16 @@ def main() -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.steps):
+        for _ in range(PROFILED_STEPS):
             state, _ = step(text, state, batch())
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / args.steps
+    wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
     by_kernel = collections.defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[ev.name][0] += ev.device_time_total / 1e3
             by_kernel[ev.name][1] += 1
-    busy = sum(v[0] for v in by_kernel.values()) / args.steps
+    busy = sum(v[0] for v in by_kernel.values()) / PROFILED_STEPS
     # the profiler slows the host, not the kernels: the share is taken
     # against the unprofiled step's wall time
     share = busy / timings["step"]
@@ -146,13 +143,13 @@ def main() -> None:
           f"{100 * (1 - share):.1f}% idle (profiled wall {wall:.1f} ms/step)")
     groups = collections.defaultdict(float)
     for name, (ms, _) in by_kernel.items():
-        groups[group_of(name)] += ms / args.steps
+        groups[group_of(name)] += ms / PROFILED_STEPS
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"group {g}: {ms:.3f} ms/step")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, n) in top:
-        print(f"kernel {ms / args.steps:9.3f} ms/step {n // args.steps:6d}x "
-              f" {name[:90]}")
+        print(f"kernel {ms / PROFILED_STEPS:9.3f} ms/step "
+              f"{n // PROFILED_STEPS:6d}x  {name[:90]}")
     print(json.dumps({"wall_ms": timings, "profiled_wall_ms": wall,
                       "device_busy_ms": busy, "groups_ms": groups}))
 

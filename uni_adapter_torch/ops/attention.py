@@ -121,7 +121,7 @@ def eva_attn_block_cuda(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
             attn.data_ptr(), out.data_ptr(), B, N, D, num_heads, scale, eps,
             build.stream_of(xn))
     build.check(rc, "eva_attn_block")
-    eva_attn_block.launches += 1
+    eva_attn_block.launches += 3            # q/k/v GEMM, attention, out GEMM
     return out
 
 
