@@ -9,18 +9,26 @@ exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi);
   2. building the CUDA kernels of `uni_adapter_torch/csrc/` with one
      `nvcc` per source, all started together;
-  3. each kernel at its main-path shape against its plain PyTorch version
-     on the card (FPS and kNN indices exactly, the attention block within
-     a bf16 tolerance that must reject planted faults), with kernel and
-     plain times (median of 20 runs, CUDA events) and the least time the
-     card could take (bound);
-  4. Uni3D features at depth 2 and full width on the card (kernels) against
-     the CPU (plain versions), the same weights in bf16;
-  5. the main path through `uni_adapter_torch.cli.tta.main`: Uni3D-L
-     (24 blocks, width 1024, 16 heads) in bf16 with random weights from a
+  3. each kernel at its main-path shapes against its plain PyTorch version
+     on the card: FPS, kNN and ball-query indices exactly (ball query also
+     on over-full and on empty balls), the attention block and the
+     natural-layout attention within a bf16 tolerance that planted faults
+     must fail; with kernel and plain times (median of 20 runs, CUDA
+     events), the least time the card could take (bound) and, for the
+     attention, PyTorch's `scaled_dot_product_attention` on the same
+     inputs as a yardstick (the port never calls it);
+  4. features of Uni3D, OpenShape-G and ULIP-2 at depth 2 and full width on
+     the card (kernels) against the CPU (plain versions), the same weights
+     in bf16;
+  5. the three main paths through `uni_adapter_torch.cli.tta.main`, each at
+     its published widths and depth in bf16 with random weights from a
      seed, MODE-DOTA defaults with residual learning, over a synthetic
-     16-cloud corruption stream; the kernels' launch counters are zeroed
-     just before and read just after, and every kernel must have run.
+     16-cloud corruption stream: Uni3D-L (24 EVA blocks, width 1024) on
+     the bundled anchors, OpenShape PPTA-G (12 blocks, width 512) on a
+     seeded (40, 1280) bank and ULIP-2 Point-BERT (12 blocks, width 384)
+     on a seeded (40, 512) bank, both written as .npy files.  The kernels'
+     launch counters are zeroed just before each path and read just after,
+     and every kernel of the path must have run.
 
 The line before the last is a JSON object of per-kernel numbers; the last
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -207,44 +215,234 @@ def check_kernels(torch, gen) -> list[dict]:
                 "plain_ms": time_ms(lambda: attention.eva_attn_block_plain(
                     *args, num_heads=H)),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    for k in out:
-        print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']} | "
-              f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
-              f"{k['bound_ms']:.5f} ms by {k['bound_by']})")
     return out
 
 
+def in_ball(xyz, new_xyz, r):
+    """(B, S, N) membership, decided as the ball query decides it."""
+    from uni_adapter_torch.ops import ballquery, knn
+
+    return knn.sqdist(xyz, new_xyz) <= ballquery.squared_radius(r)
+
+
+def query_ball_distances(torch, xyz, new_xyz, r, ns) -> int:
+    """The distances this data needs: for each query, the points up to its
+    ns-th in-ball point (all N when its ball holds fewer)."""
+    hits = in_ball(xyz, new_xyz, r).to(torch.int32).cumsum(dim=-1)
+    full = hits[..., -1] >= ns
+    need = torch.where(full, (hits < ns).sum(dim=-1) + 1, hits.shape[-1])
+    return int(need.sum().item())
+
+
+def check_ballquery(torch, gen) -> dict:
+    """OpenShape-G's set-abstraction ball query, (2, 1024) points → (2, 384)
+    FPS centres, r 0.2, 64 samples, on main-path-like clouds (points on a
+    sphere of radius 0.5); then every ball over-full (the cloud shrunk 20×)
+    and mostly empty balls (random queries, r 0.02).  Indices must equal
+    the plain version's."""
+    from uni_adapter_torch.ops import ballquery, fps
+    from uni_adapter_torch.ops.geometry import index_points
+
+    B, N, S, ns, r = 2, 1024, 384, 64, 0.2
+    xyz = torch.randn(B, N, 3, generator=gen, device="cuda")
+    xyz = 0.5 * xyz / xyz.norm(dim=-1, keepdim=True)
+    center = index_points(xyz, fps.fps_cuda(xyz, S))
+    queries = 2 * torch.rand(B, S, 3, generator=gen, device="cuda") - 1
+    cases = (("main-path", xyz, center, r), ("over-full", xyz * 0.05,
+                                              center * 0.05, r),
+             ("empty", xyz, queries, 0.02))
+    for name, pts, q, rad in cases:
+        got = ballquery.query_ball_cuda(rad, ns, pts, q)
+        want = ballquery.query_ball_plain(rad, ns, pts, q)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"ballquery ({name}): {(got != want).sum().item()} indices "
+                 f"differ")
+        hits = in_ball(pts, q, rad).sum(dim=-1)
+        print(f"ballquery {name}: indices equal; balls full "
+              f"{(hits >= ns).sum().item()}, partial "
+              f"{((hits > 0) & (hits < ns)).sum().item()}, empty "
+              f"{(hits == 0).sum().item()} of {B * S}")
+        if name == "empty" and not (hits == 0).any():
+            fail("ballquery: the empty-ball case has no empty ball")
+    n_dist = query_ball_distances(torch, xyz, center, r, ns)
+    b_ms, b_by = bound((B * N * 3 + B * S * 3) * 4 + B * S * ns * 4,
+                       n_dist * 8, PEAK_FP32)
+    return {"name": "ballquery", "route": "cuda",
+            "source": "uni_adapter_torch/csrc/ballquery.cu",
+            "replaces": "uni_adapter_tpu/ops/ballquery_pallas.py:60",
+            "max_abs_err": 0,
+            "ms": time_ms(lambda: ballquery.query_ball_cuda(r, ns, xyz,
+                                                            center)),
+            "plain_ms": time_ms(lambda: ballquery.query_ball_plain(
+                r, ns, xyz, center)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_eva_attention(torch, gen) -> dict:
+    """The natural-layout attention at OpenShape-G's and ULIP-2's shapes, on
+    the three column slices of one (B, N, 3D) tensor as `ViTAttention`
+    hands them over, bf16, no LayerNorm, q and k scaled by BLOCK_LN_GAMMA
+    so that logits have std ≈ 5 (peaked attention).  Within the block's
+    tolerance, which two planted faults must fail; the LayerNorm variant
+    once, at the OpenShape shape."""
+    import torch.nn.functional as F
+
+    from uni_adapter_torch.ops.eva_attention import (eva_attention_cuda,
+                                                     eva_attention_plain)
+
+    entry, shapes = None, {}
+    for path, (B, N, D, H) in (("openshape", (2, 385, 512, 8)),
+                               ("ulip", (2, 513, 384, 6))):
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda")
+        qkv[..., :2 * D] *= BLOCK_LN_GAMMA
+        qkv = qkv.to(torch.bfloat16)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        got = eva_attention_cuda(q, k, v, num_heads=H).float()
+        want = eva_attention_plain(q, k, v, num_heads=H).float()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"eva_attention ({path}): non-finite output")
+        err, r = (got - want).abs().max().item(), block_err(got, want)
+        print(f"eva_attention {path} {(B, N, D, H)}: max abs err {err}, "
+              f"err/tolerance {r:.3f} (rtol {BLOCK_RTOL}, atol "
+              f"{block_atol(want):.5f})")
+        if r > 1:
+            fail(f"eva_attention ({path}): outside the tolerance")
+        neighbour = want.clone()
+        neighbour[..., :64] = want[..., 64:128]
+        faults = (
+            (f"tail key {N - 1} dropped", eva_attention_plain(
+                q, k[:, :N - 1], v[:, :N - 1], num_heads=H).float()),
+            ("head 0 from head 1", neighbour))
+        for fault, bad in faults:
+            rf = block_err(bad, want)
+            print(f"  planted fault '{fault}': err/tolerance {rf:.1f}")
+            if rf <= 1:
+                fail(f"eva_attention ({path}): the tolerance passes the "
+                     f"planted fault '{fault}'")
+        if path == "openshape":
+            ln = [BLOCK_LN_GAMMA + 0.1 * torch.randn(
+                      64, generator=gen, device="cuda"),
+                  0.1 * torch.randn(64, generator=gen, device="cuda"),
+                  BLOCK_LN_GAMMA + 0.1 * torch.randn(
+                      64, generator=gen, device="cuda"),
+                  0.1 * torch.randn(64, generator=gen, device="cuda")]
+            qn, kn = q / BLOCK_LN_GAMMA, k / BLOCK_LN_GAMMA
+            got_ln = eva_attention_cuda(qn, kn, v, *ln, num_heads=H).float()
+            want_ln = eva_attention_plain(qn, kn, v, *ln, num_heads=H).float()
+            torch.cuda.synchronize()
+            r_ln = block_err(got_ln, want_ln)
+            print(f"eva_attention {path} with q/k LayerNorm: max abs err "
+                  f"{(got_ln - want_ln).abs().max().item()}, err/tolerance "
+                  f"{r_ln:.3f}")
+            if r_ln > 1 or not torch.isfinite(got_ln).all():
+                fail("eva_attention with q/k LayerNorm: outside the "
+                     "tolerance")
+            err = max(err, (got_ln - want_ln).abs().max().item())
+        heads = [t.unflatten(-1, (H, 64)).transpose(1, 2) for t in (q, k, v)]
+        b_ms, b_by = bound(4 * B * N * D * 2, 4 * B * H * N * N * 64,
+                           PEAK_BF16)
+        shapes[path] = {
+            "shape": [B, N, D, H], "max_abs_err": err,
+            "ms": time_ms(lambda: eva_attention_cuda(q, k, v, num_heads=H)),
+            "plain_ms": time_ms(lambda: eva_attention_plain(q, k, v,
+                                                            num_heads=H)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                *heads))}
+        if entry is None:              # the entry's numbers: OpenShape's
+            entry = {"name": "eva_attention", "route": "cuda",
+                     "source": "uni_adapter_torch/csrc/eva_attention.cu",
+                     "replaces": "uni_adapter_tpu/ops/attention_pallas.py:368",
+                     **{key: val for key, val in shapes[path].items()
+                        if key != "shape"}}
+    entry["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
+    entry["shapes"] = shapes
+    return entry
+
+
+def cloud(torch, gen, B=2, N=1024):
+    """xyz on a sphere of radius 0.5 (the synthetic stream's clouds) and a
+    random color, (B, N, 6)."""
+    xyz = torch.randn(B, N, 3, generator=gen, device="cuda")
+    return torch.cat([0.5 * xyz / xyz.norm(dim=-1, keepdim=True),
+                      torch.rand(B, N, 3, generator=gen, device="cuda")], -1)
+
+
 def check_features(torch, gen) -> None:
-    """Depth-2 Uni3D at full width: the card's kernels against the CPU's
-    plain versions on the same bf16 weights and input."""
+    """Uni3D-L, OpenShape-G and ULIP-2 at depth 2 and full width: the card's
+    kernels against the CPU's plain versions on the same bf16 weights and
+    input (cosine ≥ 0.99)."""
+    import dataclasses
+
     from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models import ppta
+    from uni_adapter_torch.models.pointbert import create_ulip
     from uni_adapter_torch.models.uni3d import create_uni3d
 
-    cfg = ModelConfig(eva_depth=2)
-    gpu = create_uni3d(cfg, "cuda", seed=0)
-    cpu = create_uni3d(cfg, "cpu", state_dict={
-        k: v.float().cpu() for k, v in gpu.state_dict().items()})
-    pc = torch.cat([torch.randn(2, 1024, 3, generator=gen, device="cuda"),
-                    torch.ones(2, 1024, 3, device="cuda")], dim=-1)
-    with torch.no_grad():
-        f_gpu = gpu(pc).cpu()
-        f_cpu = cpu(pc.cpu())
-    cos = torch.nn.functional.cosine_similarity(f_gpu, f_cpu, dim=-1)
-    print(f"features (depth 2, width 1024, bf16): cosine card vs cpu "
-          f"{cos.tolist()}, max abs diff "
-          f"{(f_gpu - f_cpu).abs().max().item():.4g}")
-    if not (torch.isfinite(f_gpu).all() and cos.min() > 0.99):
-        fail("features on the card disagree with the CPU's plain path")
+    g2 = dataclasses.replace(ppta.PRESETS[4], depth=2)
+    backbones = {
+        "uni3d": (lambda dev, sd: create_uni3d(
+            ModelConfig(eva_depth=2), dev, seed=0, state_dict=sd),
+            lambda pc: (pc,)),
+        "openshape": (lambda dev, sd: ppta.create_openshape(
+            ModelConfig(), dev, seed=0, state_dict=sd, preset=g2),
+            lambda pc: (pc[..., :3], pc)),
+        "ulip": (lambda dev, sd: create_ulip(
+            ModelConfig(ulip_depth=2), dev, seed=0, state_dict=sd),
+            lambda pc: (pc[..., :3],)),
+    }
+    for kind, (build_model, inputs) in backbones.items():
+        gpu = build_model("cuda", None)
+        cpu = build_model("cpu", {k: v.float().cpu()
+                                  for k, v in gpu.state_dict().items()})
+        if kind == "uni3d":
+            pc = torch.cat([torch.randn(2, 1024, 3, generator=gen,
+                                        device="cuda"),
+                            torch.ones(2, 1024, 3, device="cuda")], dim=-1)
+        else:
+            pc = cloud(torch, gen)
+        with torch.no_grad():
+            f_gpu = gpu(*inputs(pc)).cpu()
+            f_cpu = cpu(*inputs(pc.cpu()))
+        cos = torch.nn.functional.cosine_similarity(f_gpu, f_cpu, dim=-1)
+        print(f"features {kind} (depth 2, full width, bf16) {tuple(f_gpu.shape)}"
+              f": cosine card vs cpu {cos.tolist()}, max abs diff "
+              f"{(f_gpu - f_cpu).abs().max().item():.4g}")
+        if not (torch.isfinite(f_gpu).all() and cos.min() > 0.99):
+            fail(f"{kind} features on the card disagree with the CPU's plain "
+                 f"path")
 
 
-def run_main_path(torch, tmp: Path) -> dict:
+def launch_counters() -> dict:
+    """Each kernel's launch counter: the wrapper that owns it."""
+    from uni_adapter_torch.ops import attention, ballquery, eva_attention
+    from uni_adapter_torch.ops import fps, knn
+
+    return {"fps": fps.farthest_point_sample, "knn": knn.knn,
+            "eva_attn_block": attention.eva_attn_block,
+            "ballquery": ballquery.query_ball,
+            "eva_attention": eva_attention.eva_attention_fused}
+
+
+#: The three main paths: extra CLI flags, the anchor bank's width (None:
+#: the bundled 'large' bank), and the launches a 16-step run must reach
+#: per kernel (the block's wrapper launches three kernels a block).
+PATHS = {
+    "uni3d": ([], None, {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3}),
+    "openshape": (["--vlm3d", "openshape"], 1280,
+                  {"fps": 1, "ballquery": 1, "eva_attention": 12}),
+    "ulip": (["--vlm3d", "ulip"], 512,
+             {"fps": 1, "knn": 1, "eva_attention": 12}),
+}
+
+
+def write_stream(tmp: Path, n_clouds: int = 16, n_points: int = 1024) -> None:
     import numpy as np
 
-    from uni_adapter_torch.cli import tta
     from uni_adapter_torch.data.datasets import MODELNET40_CLASSES
-    from uni_adapter_torch.ops import attention, fps, knn
 
-    n_clouds, n_points = 16, 1024
     rng = np.random.default_rng(0)
     labels = rng.integers(0, len(MODELNET40_CLASSES), n_clouds)
     pts = rng.standard_normal((n_clouds, n_points, 3)).astype(np.float32)
@@ -252,39 +450,45 @@ def run_main_path(torch, tmp: Path) -> dict:
     pts *= (0.5 + 0.1 * (labels % 5))[:, None, None].astype(np.float32)
     np.save(tmp / "data_uniform_5.npy", pts)
     np.save(tmp / "label.npy", labels.astype(np.int64))
+    for width in (1280, 512):          # seeded, row-normalised banks
+        bank = np.random.default_rng(width).standard_normal((40, width))
+        bank /= np.linalg.norm(bank, axis=1, keepdims=True)
+        np.save(tmp / f"bank_{width}.npy", bank.astype(np.float32))
 
-    fps.farthest_point_sample.launches = 0
-    knn.knn.launches = 0
-    attention.eva_attn_block.launches = 0
+
+def run_main_path(tmp: Path, kind: str, n_clouds: int = 16) -> dict:
+    from uni_adapter_torch.cli import tta
+
+    flags, width, per_step = PATHS[kind]
+    bank = "large" if width is None else str(tmp / f"bank_{width}.npy")
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
     summary = tta.main(["--root", str(tmp), "--corruption", "uniform",
-                        "--precomputed-text-features", "large",
+                        "--precomputed-text-features", bank, *flags,
                         "--device", "cuda", "--output-dir", str(tmp / "out"),
-                        "--name", "smoke"])
-    launches = {"fps": fps.farthest_point_sample.launches,
-                "knn": knn.knn.launches,
-                "eva_attn_block": attention.eva_attn_block.launches}
+                        "--name", f"smoke-{kind}"])
+    launches = {n: c.launches for n, c in counters.items()}
 
     step_ms = summary["step_ms"]["uniform"]
     steady = statistics.median(step_ms[1:])
-    print(f"main path: {len(step_ms)} steps, first {step_ms[0]:.1f} ms, "
-          f"then median {steady:.2f} ms/step ({1e3 / steady:.2f} pc/s), "
+    print(f"main path {kind}: {len(step_ms)} steps, first {step_ms[0]:.1f} "
+          f"ms, then median {steady:.2f} ms/step ({1e3 / steady:.2f} pc/s), "
           f"mean {statistics.mean(step_ms[1:]):.2f}, "
           f"max {max(step_ms[1:]):.2f}")
-    print(f"launches: {launches}")
-    print(f"final logits finite: {summary['finite']['uniform']}")
-    # three block kernels (q/k/v GEMM, attention, out GEMM) per layer
-    want = {"fps": n_clouds, "knn": n_clouds,
-            "eva_attn_block": n_clouds * 24 * 3}
-    for name, n in want.items():
-        if launches[name] < n:
-            fail(f"{name} launched {launches[name]} times on the main path, "
-                 f"expected at least {n}")
+    print(f"main path {kind} launches: {launches}")
+    print(f"main path {kind} final logits finite: "
+          f"{summary['finite']['uniform']}")
+    for name, n in per_step.items():
+        if launches[name] < n * n_clouds:
+            fail(f"{name} launched {launches[name]} times on the {kind} main "
+                 f"path, expected at least {n * n_clouds}")
     if not summary["finite"]["uniform"]:
-        fail("non-finite final logits")
+        fail(f"{kind}: non-finite final logits")
     for f in ("results.json", "results_zs.json"):
         res = json.loads((Path(summary["log_dir"]) / f).read_text())
         if set(res) != {"uniform"}:
-            fail(f"{f}: unexpected content {res}")
+            fail(f"{kind} {f}: unexpected content {res}")
     return launches
 
 
@@ -318,11 +522,22 @@ def main() -> None:
     set_numerics()
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = check_kernels(torch, gen)
-    check_features(torch, gen)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches = run_main_path(torch, Path(tmp))
+    kernels.append(check_ballquery(torch, gen))
+    kernels.append(check_eva_attention(torch, gen))
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']} | "
+              f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.5f} ms by {k['bound_by']}, library "
+              f"{k['library_ms']})")
+    check_features(torch, gen)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_stream(Path(tmp))
+        for kind in PATHS:
+            by_path[kind] = run_main_path(Path(tmp), kind)
+    for k in kernels:
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """Where one MODE-DOTA step of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_step_profile.py
+    python3 scripts/torch_step_profile.py [--vlm3d uni3d|openshape|ulip]
 
-On one CUDA card: Uni3D-L (24 blocks, width 1024, 16 heads) in bf16
-with random weights from a seed, MODE-DOTA defaults with residual
-learning, the bundled ModelNet40 anchors and random 1024-point clouds.
-After warm-up it prints, per step:
+On one CUDA card, one backbone at its published widths and depth in bf16
+with random weights from a seed: Uni3D-L (24 blocks, width 1024, the
+bundled ModelNet40 anchors; the default), OpenShape PPTA-G (12 blocks,
+width 512, a seeded (40, 1280) bank) or ULIP-2 Point-BERT (12 blocks,
+width 384, a seeded (40, 512) bank); MODE-DOTA defaults with residual
+learning; random 1024-point clouds on a sphere of radius 0.5.  After
+warm-up it prints, per step:
 
   * wall time (host clock, ending in a device synchronise) of the whole
     step and of its three phases run alone: the fused 2B encoder forward,
@@ -18,6 +21,7 @@ After warm-up it prints, per step:
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import statistics
@@ -33,13 +37,13 @@ sys.path.insert(0, str(REPO))
 from uni_adapter_torch import engine  # noqa: E402
 from uni_adapter_torch.adapt import fusion, mode_dota, residual  # noqa: E402
 from uni_adapter_torch.anchors import load_precomputed  # noqa: E402
-from uni_adapter_torch.cli.tta import set_numerics  # noqa: E402
+from uni_adapter_torch.cli.tta import (BACKBONES, feature_width,  # noqa: E402
+                                       set_numerics)
 from uni_adapter_torch.config import Config, ModelConfig  # noqa: E402
-from uni_adapter_torch.models.uni3d import create_uni3d  # noqa: E402
 from uni_adapter_torch.ops import build  # noqa: E402
 
-OURS = ("fps_kernel", "knn_kernel", "gemm_kernel", "attn_kernel")
-DEPTH = 24           # the main path's trunk
+OURS = ("fps_kernel", "knn_kernel", "gemm_kernel", "attn_kernel",
+        "ballquery_kernel")
 PROFILED_STEPS = 5
 
 
@@ -64,21 +68,33 @@ def group_of(name: str) -> str:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--vlm3d", choices=sorted(BACKBONES), default="uni3d")
+    kind = ap.parse_args().vlm3d
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: needs a CUDA device")
     build.build_all()
     set_numerics()
     dev = torch.device("cuda")
-    cfg = Config(model=ModelConfig(eva_depth=DEPTH))
+    cfg = Config(model=ModelConfig(vlm3d=kind))
     dc = cfg.dota
-    model = create_uni3d(cfg.model, dev, seed=0)
-    text = load_precomputed("large", "modelnet").to(dev)
-    step = engine.make_step_fn(cfg, model)
-    encode = engine.encode_with("uni3d", model)
+    model = BACKBONES[kind](cfg.model, dev, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if kind == "uni3d":
+        text = load_precomputed("large", "modelnet").to(dev)
+    else:                                   # a seeded, row-normalised bank
+        text = torch.randn(40, feature_width(cfg.model), generator=gen,
+                           device=dev)
+        text = text / text.norm(dim=1, keepdim=True)
+    step = engine.make_step_fn(cfg, model)
+    encode = engine.encode_with(kind, model)
+
+    def sphere(*shape):
+        x = torch.randn(*shape, 3, generator=gen, device=dev)
+        return 0.5 * x / x.norm(dim=-1, keepdim=True)
 
     def batch():
-        pc = torch.randn(1, 1024, 3, generator=gen, device=dev)
+        pc = sphere(1, 1024)
         return pc, torch.ones_like(pc), torch.zeros(1, dtype=torch.int64,
                                                     device=dev)
 
@@ -111,7 +127,7 @@ def main() -> None:
     timings = {k: wall_ms(f, 10) for k, f in phases.items()}
     # the same step as the stream loop runs it: fresh clouds from the host
     # each step, state carried over
-    clouds = torch.randn(12, 1, 1024, 3, generator=gen, device=dev).cpu()
+    clouds = sphere(12, 1, 1024).cpu()
     res = engine.run_stream(cfg, model, text, (
         (c.numpy(), torch.ones_like(c).numpy(), [0]) for c in clouds),
         step_fn=step)
@@ -150,7 +166,7 @@ def main() -> None:
     for name, (ms, n) in top:
         print(f"kernel {ms / PROFILED_STEPS:9.3f} ms/step "
               f"{n // PROFILED_STEPS:6d}x  {name[:90]}")
-    print(json.dumps({"wall_ms": timings, "profiled_wall_ms": wall,
+    print(json.dumps({"vlm3d": kind, "wall_ms": timings, "profiled_wall_ms": wall,
                       "device_busy_ms": busy, "groups_ms": groups}))
 
 

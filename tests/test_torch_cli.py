@@ -59,8 +59,6 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--vlm3d", "ulip"], "M9"),
-    (["--vlm3d", "openshape"], "M10"),
     (["--dota-use-mode-dota", "false", "--dota-use-dota", "true"], "M8"),
     (["--dota-use-mode-dota", "false"], "M7"),
     (["--vmap-corruptions", "true"], "M6"),
@@ -134,6 +132,24 @@ def test_anchor_bank_is_the_jax_packages():
     assert got.dtype == torch.float32 and got.shape == (40, 1024)
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jax_load_precomputed("large", "modelnet")))
+
+
+def test_anchor_bank_from_npz_and_missing_paths_as_in_jax(tmp_path,
+                                                         monkeypatch):
+    """A .npz archive gives its first array; a missing path ending in .npy
+    or .npz raises FileNotFoundError, in both packages."""
+    bank = np.random.default_rng(0).standard_normal((40, 512))
+    np.savez(tmp_path / "bank.npz", bank, np.zeros(3))
+    path = str(tmp_path / "bank.npz")
+    got = load_precomputed(path)
+    assert got.dtype == torch.float32 and got.shape == (40, 512)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax_load_precomputed(path)))
+    monkeypatch.chdir(tmp_path)
+    for missing in ("missing.npz", "missing.npy"):
+        for load in (load_precomputed, jax_load_precomputed):
+            with pytest.raises(FileNotFoundError):
+                load(missing)
 
 
 def test_config_copy_keeps_the_jax_defaults():

@@ -14,10 +14,12 @@ import pytest
 import torch
 
 import uni_adapter_tpu.ops.attention_pallas as attention_pallas
+import uni_adapter_tpu.ops.ballquery_pallas as ballquery_pallas
 import uni_adapter_tpu.ops.fps_pallas as fps_pallas
 import uni_adapter_tpu.ops.knn_pallas as knn_pallas
 from uni_adapter_tpu.ops import geometry as jax_geometry
-from uni_adapter_torch.ops import attention, fps, geometry, knn
+from uni_adapter_torch.ops import (attention, ballquery, eva_attention, fps,
+                                   geometry, knn)
 
 
 def _rand(shape, seed):
@@ -59,6 +61,88 @@ def test_knn_ties_go_to_the_lowest_index():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got[0, :, :2],
                                   np.stack([np.arange(8), np.arange(8) + 8], 1))
+
+
+def _uniform(shape, seed):
+    return np.random.default_rng(seed).uniform(-0.5, 0.5, shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("B,S,N,k,r", [
+    (2, 16, 128, 8, 0.3),      # the four cases of test_ballquery_pallas.py
+    (3, 40, 256, 8, 0.25),
+    (2, 16, 200, 8, 0.3),
+    (2, 16, 128, 8, 0.02),     # mostly empty balls (clamped to N-1)
+])
+def test_query_ball_matches_pallas_kernel(B, S, N, k, r):
+    """Exact index equality (tolerance 0)."""
+    xyz = _uniform((B, N, 3), seed=B * N)
+    q = _uniform((B, S, 3), seed=B * N + 1)
+    want = np.asarray(ballquery_pallas.query_ball_pallas(
+        r, k, jnp.asarray(xyz), jnp.asarray(q), interpret=True))
+    got = ballquery.query_ball(r, k, torch.from_numpy(xyz),
+                               torch.from_numpy(q))
+    assert got.dtype == torch.int64 and got.shape == (B, S, k)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["over-full", "empty"])
+def test_query_ball_full_and_empty_balls_match_pallas_kernel(case):
+    """An over-full ball keeps the first nsample indices by index; an
+    empty one gives N-1 in every slot."""
+    xyz = _uniform((1, 64, 3), seed=5)
+    if case == "over-full":
+        xyz, q, r = xyz * 0.05, np.zeros((1, 4, 3), np.float32), 0.5
+        expect = np.broadcast_to(np.arange(8), (1, 4, 8))
+    else:
+        q, r = _uniform((1, 4, 3), seed=6) + 5.0, 0.1
+        expect = np.full((1, 4, 8), 63)
+    want = np.asarray(ballquery_pallas.query_ball_pallas(
+        r, 8, jnp.asarray(xyz), jnp.asarray(q), interpret=True))
+    got = ballquery.query_ball(r, 8, torch.from_numpy(xyz),
+                               torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, expect)
+
+
+def _qkv_slices(B, N, D, seed):
+    """q, k, v as the three column slices of one (B, N, 3D) tensor, as
+    ViTAttention hands them over, plus per-head LayerNorm parameters."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((B, N, 3 * D)).astype(np.float32)
+    hd = 64
+    ln = [1.0 + 0.1 * rng.standard_normal(hd).astype(np.float32),
+          0.1 * rng.standard_normal(hd).astype(np.float32),
+          1.0 + 0.1 * rng.standard_normal(hd).astype(np.float32),
+          0.1 * rng.standard_normal(hd).astype(np.float32)]
+    return qkv, ln
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    # fp32: the same arithmetic in another summation order
+    ("float32", 1e-5),
+    # bf16: a last-bit difference can flip a bf16 rounding of p
+    ("bfloat16", 2e-2),
+])
+@pytest.mark.parametrize("with_ln", [False, True], ids=["no-ln", "ln"])
+@pytest.mark.parametrize("N", [37, 65])          # off the 64-key chunk
+def test_eva_attention_matches_pallas_kernel(N, with_ln, dtype, tol):
+    B, D, H = 2, 128, 2
+    qkv, ln = _qkv_slices(B, N, D, seed=N + 7 * with_ln)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jq = jnp.asarray(qkv).astype(jdt)
+    jln = [jnp.asarray(p) for p in ln] if with_ln else []
+    want = attention_pallas.eva_attention_fused(
+        jq[..., :D], jq[..., D:2 * D], jq[..., 2 * D:], *jln, num_heads=H,
+        interpret=True)
+    tq = torch.from_numpy(qkv).to(tdt)
+    tln = [torch.from_numpy(p) for p in ln] if with_ln else []
+    got = eva_attention.eva_attention_fused(
+        tq[..., :D], tq[..., D:2 * D], tq[..., 2 * D:], *tln, num_heads=H)
+    assert got.dtype == tdt and got.shape == (B, N, D)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
 
 
 def _block_inputs(B, N, D, H, seed):
@@ -119,6 +203,7 @@ def pallas_interpret(monkeypatch):
     mode (the pattern of tests/test_knn_pallas.py)."""
     for mod, name in ((fps_pallas, "fps_pallas_batched"),
                       (knn_pallas, "knn_pallas"),
+                      (ballquery_pallas, "query_ball_pallas"),
                       (attention_pallas, "eva_attn_block_fused")):
         monkeypatch.setattr(mod, name, functools.partial(
             getattr(mod, name), interpret=True))
@@ -136,6 +221,33 @@ def test_group_points_matches_jax_kernel_branches(pallas_interpret):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def test_group_points_without_color_matches_jax_kernel_branches(
+        pallas_interpret):
+    """ULIP-2's grouping: same centres and neighbourhoods, no features."""
+    xyz = _rand((2, 128, 3), seed=13)
+    want = jax_geometry.group_points(jnp.asarray(xyz), None, 16, 8,
+                                     use_pallas_fps=True, use_pallas_knn=True)
+    got = geometry.group_points(torch.from_numpy(xyz), None, 16, 8)
+    assert got[2] is None and want[2] is None
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_sample_and_group_matches_jax_kernel_branches(pallas_interpret):
+    """OpenShape's set-abstraction grouping (FPS kernel, ball-query kernel,
+    exact gather): same centres and grouped points, exactly."""
+    xyz = _uniform((2, 128, 3), seed=21)
+    pts = np.concatenate([xyz, _uniform((2, 128, 3), seed=22)], -1)
+    want = jax_geometry.sample_and_group(
+        16, 0.3, 8, jnp.asarray(xyz), jnp.asarray(pts), use_pallas_fps=True,
+        use_pallas_ballq=True)
+    got = geometry.sample_and_group(16, 0.3, 8, torch.from_numpy(xyz),
+                                    torch.from_numpy(pts))
+    assert got[1].shape == (2, 16, 8, 9)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def _cpu_block_call():
     w = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16)
     return attention.eva_attn_block_cuda(
@@ -147,7 +259,11 @@ def _cpu_block_call():
     lambda: fps.fps_cuda(torch.zeros(1, 8, 3), 4),
     lambda: knn.knn_cuda(2, torch.zeros(1, 8, 3), torch.zeros(1, 4, 3)),
     _cpu_block_call,
-], ids=["fps", "knn", "eva_attn_block"])
+    lambda: ballquery.query_ball_cuda(0.2, 2, torch.zeros(1, 8, 3),
+                                      torch.zeros(1, 4, 3)),
+    lambda: eva_attention.eva_attention_cuda(
+        *(torch.zeros(1, 5, 64, dtype=torch.bfloat16),) * 3, num_heads=1),
+], ids=["fps", "knn", "eva_attn_block", "ballquery", "eva_attention"])
 def test_kernel_wrappers_reject_cpu_tensors_before_building(call):
     """A kernel wrapper checks its inputs before it builds or launches:
     CPU tensors raise, and nothing is compiled."""

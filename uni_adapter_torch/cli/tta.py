@@ -3,6 +3,12 @@
 
     python -m uni_adapter_torch.cli.tta --root DATA --corruption uniform \
         --precomputed-text-features large [--device cuda|cpu]
+    python -m uni_adapter_torch.cli.tta --vlm3d openshape|ulip ... \
+        --precomputed-text-features BANK.npy
+
+`--vlm3d` picks the backbone: uni3d (Uni3D-L, the default), ulip
+(ULIP-2 Point-BERT, 512-d features) or openshape (PPTA, `vitg14` 1280-d
+or `vitl14` 768-d); the anchor bank must have the backbone's width.
 
 Runs on the GPU unless `--device cpu` is passed; asked for `cuda` on a
 host without one, it raises.  Writes `results.json` (adapted top-1 per
@@ -28,7 +34,13 @@ from uni_adapter_torch import engine
 from uni_adapter_torch.anchors import load_precomputed
 from uni_adapter_torch.config import CORRUPTIONS, parse_args, unported_paths
 from uni_adapter_torch.data.datasets import load_tta_dataset
+from uni_adapter_torch.models.pointbert import create_ulip
+from uni_adapter_torch.models.ppta import create_openshape
 from uni_adapter_torch.models.uni3d import create_uni3d
+
+#: Model constructors by `--vlm3d`: create(cfg.model, device, seed=...).
+BACKBONES = {"uni3d": create_uni3d, "ulip": create_ulip,
+             "openshape": create_openshape}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -52,6 +64,15 @@ def set_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def feature_width(m) -> int:
+    """The width of the features the configured backbone returns."""
+    if m.vlm3d == "ulip":
+        return m.ulip_embed_dim
+    if m.vlm3d == "openshape":
+        return m.oshape_clip_dim if m.oshape_version == "vitg14" else 768
+    return m.embed_dim
 
 
 def setup_logging(log_file: str) -> None:
@@ -89,11 +110,16 @@ def main(argv=None) -> dict:
                  else "cpu")
     logging.info("Config: %s", cfg)
 
-    model = create_uni3d(cfg.model, device, seed=cfg.run.seed)
+    model = BACKBONES[cfg.model.vlm3d](cfg.model, device, seed=cfg.run.seed)
     logging.warning("No checkpoint configured — random weights; accuracy "
                     "numbers are not meaningful.")
     text = load_precomputed(cfg.data.precomputed_text_features,
                             cfg.data.dataset_name).to(device)
+    width = feature_width(cfg.model)
+    if text.shape[1] != width:
+        raise ValueError(f"the anchor bank {cfg.data.precomputed_text_features}"
+                         f" is {tuple(text.shape)}; --vlm3d "
+                         f"{cfg.model.vlm3d} gives {width}-d features")
     step_fn = engine.make_step_fn(cfg, model)
 
     corruptions = (list(CORRUPTIONS) if cfg.data.corruption == "all"

@@ -1,4 +1,5 @@
-"""Configuration of the port: the fields the Uni3D + MODE-DOTA path reads.
+"""Configuration of the port: the fields its MODE-DOTA paths read, for the
+three backbones (Uni3D, ULIP-2, OpenShape).
 
 A copy, not an import, of the dataclasses in `uni_adapter_tpu/config.py`,
 with the same names and defaults, cut to what this package runs.  Two
@@ -35,7 +36,7 @@ CORRUPTIONS = (
 
 @dataclass
 class ModelConfig:
-    vlm3d: str = "uni3d"                 # only uni3d is ported
+    vlm3d: str = "uni3d"                 # uni3d | ulip | openshape
     pc_feat_dim: int = 1024              # transformer width (EVA02-L)
     embed_dim: int = 1024                # CLIP embedding dim
     num_group: int = 512
@@ -43,6 +44,16 @@ class ModelConfig:
     pc_encoder_dim: int = 512            # mini-PointNet output channels
     eva_depth: int = 24
     eva_heads: int = 16
+    # ULIP-2 / Point-BERT
+    ulip_trans_dim: int = 384
+    ulip_depth: int = 12
+    ulip_heads: int = 6
+    ulip_group_size: int = 32
+    ulip_encoder_dim: int = 256
+    ulip_embed_dim: int = 512
+    # OpenShape PPTA
+    oshape_version: str = "vitg14"       # vitg14 (scaling 4) | vitl14 (3)
+    oshape_clip_dim: int = 1280          # bigG text width
     logit_scale: float = 100.0
     compute_dtype: str = "bfloat16"
     checkpoint_path: Optional[str] = None
@@ -105,11 +116,7 @@ def unported_paths(cfg: Config) -> list[str]:
     the ROADMAP item that ports it."""
     m, d, r = cfg.model, cfg.dota, cfg.run
     out = []
-    if m.vlm3d == "ulip":
-        out.append("--vlm3d ulip (ROADMAP M9)")
-    elif m.vlm3d == "openshape":
-        out.append("--vlm3d openshape (ROADMAP M10)")
-    elif m.vlm3d != "uni3d":
+    if m.vlm3d not in ("uni3d", "ulip", "openshape"):
         out.append(f"--vlm3d {m.vlm3d}")
     # the JAX engine's dispatch order: MODE-DOTA wins over the others
     if not d.use_mode_dota:

@@ -1,0 +1,68 @@
+// Natural-layout multi-head attention for Hopper (sm_90a):
+// softmax(q.k^T * scale).v on q, k, v (B, N, D) in bf16, heads as 64-wide
+// column slices, with an optional per-head q/k LayerNorm.
+//
+// Replaces: uni_adapter_tpu/ops/attention_pallas.py::eva_attention_fused
+//   (_eva_fused_kernel).  Rounding points mirrored from that kernel: with
+//   gamma/beta given, q and k of each head go through a LayerNorm with fp32
+//   statistics and are rounded to bf16; scores are fp32 from bf16 operands;
+//   the maximum is taken over the real keys; p = exp((s - max) * scale) in
+//   fp32; p.v runs on bf16(p) with fp32 accumulation and is divided by the
+//   fp32 sum of p; the output is bf16.
+//
+// What bounds it on the H100: bytes.  At OpenShape-G's (B, N, D, H) =
+//   (2, 385, 512, 8) and ULIP-2's (2, 513, 384, 6) the function reads q, k
+//   and v and writes the output, 4 x B*N*D*2 bytes = ~3.2 MB, ~0.94 us at
+//   3.35 TB/s, against 4*B*H*N^2*64 = 0.61 and 0.81 GFLOP, ~0.6-0.8 us at
+//   989 TFLOP/s bf16.  At these sizes the kernel is short enough that
+//   launch latency and the ~110 blocks, fewer than the 132 SMs, set its
+//   time.
+//
+// What the design does about it: the attention kernel of the EVA block
+//   (attention_core.cuh), which already reads q, k and v as column slices
+//   of one row-strided tensor.  ViTAttention hands over the three slices of
+//   its fused (B, N, 3D) qkv product; each operand comes with its own row
+//   and batch stride, so no slice is copied, and the kernel writes a
+//   contiguous (B, N, D).  A first pass takes each row's exact maximum, a
+//   second forms p against it, so bf16(p) rounds as in the reference; the
+//   last 64-key chunk (one key at N = 385 and 513) is masked to the real
+//   keys.  The LayerNorm variant normalises each q tile once and each key
+//   chunk as it arrives in shared memory.
+#include "attention_core.cuh"
+
+// q, k, v: bf16 with unit column stride, 16-byte aligned rows (strides in
+// elements, multiples of 8); gq/bq/gk/bk: (64,) fp32 per-head LayerNorm, all
+// null for none; out: (B, N, D) bf16 contiguous.  Needs D == 64*H.  Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int uat_eva_attention(
+    const bf16* q, const bf16* k, const bf16* v, int64_t ld_q, int64_t ld_k,
+    int64_t ld_v, int64_t bs_q, int64_t bs_k, int64_t bs_v, const float* gq,
+    const float* bq, const float* gk, const float* bk, bf16* out, int B, int N,
+    int D, int H, float scale, float eps, cudaStream_t stream) {
+  if (D != H * kHead || B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ln = gq != nullptr;
+  if (ln && (bq == nullptr || gk == nullptr || bk == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  AttnArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.ld_q = ld_q;
+  a.ld_k = ld_k;
+  a.ld_v = ld_v;
+  a.bs_q = bs_q;
+  a.bs_k = bs_k;
+  a.bs_v = bs_v;
+  a.gq = gq;
+  a.bq = bq;
+  a.gk = gk;
+  a.bk = bk;
+  a.out = out;
+  a.N = N;
+  a.D = D;
+  a.scale = scale;
+  a.eps = eps;
+  const cudaError_t e = ln ? launch_attention<true>(a, B, H, stream)
+                           : launch_attention<false>(a, B, H, stream);
+  return static_cast<int>(e);
+}

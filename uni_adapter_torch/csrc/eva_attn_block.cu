@@ -25,7 +25,9 @@
 //       tiles prefetched into registers) of xn by [Wq|Wk|Wv].  A 64-wide
 //       column tile is one head, so the epilogue applies the bias and the
 //       per-head LayerNorm while the tile is still on chip;
-//   (b) attn_kernel: one block per (64 queries, head, batch); keys and
+//   (b) attn_kernel (attention_core.cuh, shared with eva_attention.cu)
+//       on the q/k/v columns of that product: one block per (64 queries,
+//       head, batch); keys and
 //       values stream through shared memory in chunks of 64.  A first pass
 //       finds each row's exact maximum, a second forms p against it, so no
 //       running rescale is needed and the rounding of bf16(p) is the
@@ -34,31 +36,11 @@
 //   The q/k/v and head-concat intermediates make one round trip through
 //   device memory (~8 MB at the main path), which is what a later PR with
 //   wgmma/TMA and a fused out projection would remove.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <mma.h>
-#include <cstdint>
+#include "attention_core.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int kHead = 64;      // head dim: one GEMM column tile per head
-constexpr int kTile = 64;      // GEMM tile rows/cols, attention query rows
 constexpr int kStepK = 32;     // GEMM K step
-constexpr int kThreads = 128;  // 4 warps
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ bf16 rn(float x) { return __float2bfloat16_rn(x); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
 
 // C[:, s*seg_n : (s+1)*seg_n] = A . W[s]^T (+ bias[s]) (-> LayerNorm[s]),
 // for the segments s the column tiles cover.  W[s] is (seg_n, K) row-major,
@@ -154,149 +136,11 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs g) {
       y0 = rn(bf(y0) + bf(bias[nl + lane]));
       y1 = rn(bf(y1) + bf(bias[nl + lane + 32]));
     }
-    if (ln_g != nullptr) {
-      const float x0 = bf(y0), x1 = bf(y1);
-      const float mu = warp_sum(x0 + x1) / kHead;
-      const float d0 = x0 - mu, d1 = x1 - mu;
-      const float var = warp_sum(d0 * d0 + d1 * d1) / kHead;
-      const float inv = 1.f / sqrtf(var + g.eps);
-      y0 = rn(__fadd_rn(__fmul_rn(__fmul_rn(d0, inv), ln_g[lane]), ln_b[lane]));
-      y1 = rn(__fadd_rn(__fmul_rn(__fmul_rn(d1, inv), ln_g[lane + 32]),
-                        ln_b[lane + 32]));
-    }
+    if (ln_g != nullptr)
+      head_layernorm(bf(y0), bf(y1), ln_g, ln_b, g.eps, lane, y0, y1);
     bf16* c = g.C + static_cast<size_t>(m) * g.ldc + n0;
     c[lane] = y0;
     c[lane + 32] = y1;
-  }
-}
-
-// Attention over one head for 64 query rows.  qkv: (B*N, 3D) with q, k, v
-// of head h at columns h*64, D + h*64, 2D + h*64; out: (B*N, D).
-constexpr int kLd = kHead + 8;  // bf16 row stride in shared memory
-constexpr int kLdS = kTile + 4;  // fp32 row stride
-constexpr size_t kAttnSmem =
-    3 * kTile * kLd * sizeof(bf16)            // sQ, sK, sV
-    + 4 * 16 * kLdS * sizeof(float)           // per-warp scores
-    + 4 * 16 * kLd * sizeof(bf16);            // per-warp bf16(p)
-
-__device__ __forceinline__ void load_rows(bf16 (*dst)[kLd], const bf16* src,
-                                         int row0, int n_rows, int ld) {
-  // 64 rows x 64 bf16 = 512 chunks of 16 bytes; rows past n_rows are zero
-  for (int chunk = threadIdx.x; chunk < kTile * kHead / 8; chunk += kThreads) {
-    const int r = chunk >> 3, col = (chunk & 7) * 8;
-    *reinterpret_cast<uint4*>(&dst[r][col]) =
-        (row0 + r < n_rows)
-            ? *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * ld + col)
-            : make_uint4(0, 0, 0, 0);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int D,
-            float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  auto sQ = reinterpret_cast<bf16 (*)[kLd]>(smem);
-  auto sK = sQ + kTile;
-  auto sV = sK + kTile;
-  auto sS = reinterpret_cast<float (*)[16][kLdS]>(
-      smem + 3 * kTile * kLd * sizeof(bf16));
-  auto sP = reinterpret_cast<bf16 (*)[16][kLd]>(
-      smem + 3 * kTile * kLd * sizeof(bf16) + 4 * 16 * kLdS * sizeof(float));
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int ld = 3 * D;
-  const bf16* base = qkv + static_cast<size_t>(b) * N * ld;
-  const bf16* qg = base + h * kHead;
-  const bf16* kg = base + D + h * kHead;
-  const bf16* vg = base + 2 * D + h * kHead;
-
-  load_rows(sQ, qg, q0, N, ld);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kHead / 16];
-#pragma unroll
-  for (int kk = 0; kk < kHead / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], &sQ[warp * 16][kk * 16], kLd);
-
-  // lane (r, half) owns row r of this warp's 16 and 32 of the 64 columns
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  float (*S)[kLdS] = sS[warp];
-  bf16 (*P)[kLd] = sP[warp];
-
-  auto scores = [&]() {  // S = Q_w . K_chunk^T, fp32
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kHead / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, &sK[j * 16][kk * 16], kLd);
-        wmma::mma_sync(s, qa[kk], kb, s);
-      }
-      wmma::store_matrix_sync(&S[0][j * 16], s, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-  };
-
-  // pass 1: the exact row maximum over all keys
-  float mx = -CUDART_INF_F;
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    load_rows(sK, kg, k0, N, ld);
-    __syncthreads();
-    scores();
-    const int valid = min(kTile, N - k0);
-    for (int c = 0; c < 32; ++c)
-      if (c0 + c < valid) mx = fmaxf(mx, S[r][c0 + c]);
-    __syncwarp();
-  }
-  mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-
-  // pass 2: p = exp((s - max) * scale); o = bf16(p) . v; l = sum of fp32 p
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kHead / 16];
-#pragma unroll
-  for (int j = 0; j < kHead / 16; ++j) wmma::fill_fragment(o[j], 0.f);
-  float l = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    load_rows(sK, kg, k0, N, ld);
-    load_rows(sV, vg, k0, N, ld);
-    __syncthreads();
-    scores();
-    const int valid = min(kTile, N - k0);
-    for (int c = 0; c < 32; ++c) {
-      float p = 0.f;
-      if (c0 + c < valid) {
-        p = expf(__fmul_rn(__fsub_rn(S[r][c0 + c], mx), scale));
-        l += p;
-      }
-      P[r][c0 + c] = rn(p);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, &P[0][kk * 16], kLd);
-#pragma unroll
-      for (int j = 0; j < kHead / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, &sV[kk * 16][j * 16], kLd);
-        wmma::mma_sync(o[j], pa, vb, o[j]);
-      }
-    }
-    __syncwarp();
-  }
-  l += __shfl_xor_sync(kFull, l, 1);
-
-#pragma unroll
-  for (int j = 0; j < kHead / 16; ++j)
-    wmma::store_matrix_sync(&S[0][j * 16], o[j], kLdS, wmma::mem_row_major);
-  __syncwarp();
-  const int q = q0 + warp * 16 + r;
-  if (q < N) {
-    bf16* dst = out + (static_cast<size_t>(b) * N + q) * D + h * kHead + c0;
-    for (int c = 0; c < 32; ++c) dst[c] = rn(S[r][c0 + c] / l);
   }
 }
 
@@ -334,12 +178,18 @@ extern "C" int uat_eva_attn_block(
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  e = cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kAttnSmem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid_attn((N + kTile - 1) / kTile, H, B);
-  attn_kernel<<<grid_attn, kThreads, kAttnSmem, stream>>>(qkv, attn, N, D, scale);
-  e = cudaGetLastError();
+  AttnArgs t{};
+  t.q = qkv;
+  t.k = qkv + D;
+  t.v = qkv + 2 * D;
+  t.ld_q = t.ld_k = t.ld_v = 3 * D;
+  t.bs_q = t.bs_k = t.bs_v = static_cast<int64_t>(N) * 3 * D;
+  t.out = attn;
+  t.N = N;
+  t.D = D;
+  t.scale = scale;
+  t.eps = eps;
+  e = launch_attention<false>(t, B, H, stream);  // q/k LayerNorm'd above
   if (e != cudaSuccess) return static_cast<int>(e);
 
   GemmArgs p{};

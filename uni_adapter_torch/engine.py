@@ -1,5 +1,5 @@
-"""TTA engine: the online MODE-DOTA adaptation loop (mirror of
-`uni_adapter_tpu/engine.py`, its MODE-DOTA branch).
+"""TTA engine: the online MODE-DOTA adaptation loop for the three
+backbones (mirror of `uni_adapter_tpu/engine.py`, its MODE-DOTA branch).
 
 The JAX package jit-compiles one pure step and scans it over the stream;
 here the step runs eagerly and `run_stream` is a Python loop.  The state
@@ -42,13 +42,18 @@ class StepOutput(NamedTuple):
 
 
 def encode_with(kind: str, model: Callable) -> Callable:
-    """(pc, rgb) -> L2-normalised (B, D) features for a backbone."""
-    if kind != "uni3d":
-        raise NotImplementedError(f"backbone {kind!r} is not ported yet "
-                                  f"(ROADMAP M9/M10)")
+    """(pc, rgb) -> L2-normalised (B, D) features for a backbone: uni3d
+    takes xyz‖color, ulip xyz only, openshape (xyz, xyz‖color)."""
+    if kind not in ("uni3d", "ulip", "openshape"):
+        raise ValueError(f"unknown backbone {kind!r}")
 
     def encode(pc: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
-        feat = model(torch.cat([pc, rgb], dim=-1))
+        if kind == "uni3d":
+            feat = model(torch.cat([pc, rgb], dim=-1))
+        elif kind == "ulip":
+            feat = model(pc)
+        else:
+            feat = model(pc, torch.cat([pc, rgb], dim=-1))
         return feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-12)
 
     return encode

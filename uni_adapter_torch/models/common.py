@@ -1,5 +1,6 @@
-"""Transformer building blocks of the EVA02 trunk (mirror of
-`uni_adapter_tpu/models/common.py`, the Uni3D subset).
+"""Transformer building blocks (mirror of `uni_adapter_tpu/models/
+common.py`): the EVA02 trunk of Uni3D, and the fused-qkv ViT blocks of
+ULIP-2's Point-BERT and OpenShape's PPTA.
 
 Numerics follow the flax modules: dense layers run in the compute dtype
 and round before their bias; LayerNorm and BatchNorm keep fp32 parameters
@@ -10,12 +11,14 @@ and parameter names follow the flax tree (`q_proj`, `k_norm`, `fc1_g`,
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from uni_adapter_torch.ops.attention import eva_attn_block
+from uni_adapter_torch.ops.eva_attention import eva_attention_fused
 
 #: flax's lecun_normal: a normal truncated at ±2σ, rescaled to unit variance.
 _TRUNC_STD = 0.87962566103423978
@@ -140,3 +143,96 @@ class EvaBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
+
+
+class Mlp(nn.Module):
+    """Two-layer GELU MLP (Point-BERT / PPTA feed-forward)."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__()
+        self.fc1 = Dense(dim, hidden_dim)
+        self.fc2 = Dense(hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+class ViTAttention(nn.Module):
+    """Fused-qkv multi-head attention (Point-BERT / PPTA): a bias-free
+    `qkv` Dense to 3·inner_dim, `ops.eva_attention.eva_attention_fused` on
+    its three column slices (the kernel on the card, the plain version on
+    the CPU), then `proj` back to dim.  The JAX module's other branches are
+    not ported: a mask, an attention bias, `return_attn` and head dims
+    that are not a multiple of 8 raise.  Its `project_out=False` (one head
+    of width dim, which no preset of either backbone builds) is left out."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 inner_dim: Optional[int] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.inner = inner_dim or dim
+        self.qkv = Dense(dim, 3 * self.inner, bias=False)
+        self.proj = Dense(self.inner, dim)
+
+    def forward(self, x: torch.Tensor, mask=None, attn_bias=None,
+                return_attn: bool = False) -> torch.Tensor:
+        for given, what in (
+                (mask is not None, "a mask (the CLIP text tower, ROADMAP M11)"),
+                (attn_bias is not None,
+                 "an attention bias (OpenShape's RelPE, ROADMAP M10)"),
+                (return_attn, "return_attn (attention maps, ROADMAP M14)"),
+                ((self.inner // self.num_heads) % 8 != 0,
+                 "a head dim that is not a multiple of 8 (the (B, H, N, hd) "
+                 "kernel, ROADMAP queue 2 item 7)")):
+            if given:
+                raise NotImplementedError(f"ViTAttention with {what} is not "
+                                          f"ported yet")
+        qkv = self.qkv(x)                                  # (B, N, 3·inner)
+        i = self.inner
+        out = eva_attention_fused(qkv[..., :i], qkv[..., i:2 * i],
+                                  qkv[..., 2 * i:], num_heads=self.num_heads,
+                                  scale=(i // self.num_heads) ** -0.5)
+        return self.proj(out)
+
+
+class ViTBlock(nn.Module):
+    """Pre-norm transformer block (Point-BERT), MLP hidden width 4·dim."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.norm1 = LN(dim)
+        self.attn = ViTAttention(dim, num_heads)
+        self.norm2 = LN(dim)
+        self.mlp = Mlp(dim, 4 * dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+def finish_model(model: nn.Module, device: torch.device | str,
+                 dtype: torch.dtype, seed: int, state_dict: Optional[dict],
+                 init_bare: Callable[[torch.Generator], None],
+                 keep_fp32: tuple = ()) -> nn.Module:
+    """The weights of a freshly built backbone, then frozen in eval mode.
+
+    The weights are `state_dict` (e.g. from `weights.from_jax_params`) or,
+    without one, random from `seed`: every Dense kernel lecun-normal as
+    flax draws it, in module order, then `init_bare(generator)` for the
+    bare parameters; the rest keep the flax defaults.  Dense layers are
+    stored in the compute dtype `dtype`, except the modules in `keep_fp32`
+    (heads that the JAX package runs in fp32); LayerNorm and BatchNorm
+    parameters stay fp32.
+    """
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for m in model.modules():
+            if isinstance(m, Dense):
+                m.reset_parameters(gen)
+        init_bare(gen)
+    for m in model.modules():
+        if isinstance(m, Dense) and not any(m is k for k in keep_fp32):
+            m.to(dtype)
+    return model.eval().requires_grad_(False)

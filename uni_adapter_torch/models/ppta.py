@@ -1,0 +1,169 @@
+"""OpenShape's PointPatchTransformer (PPTA), the `global` TTA path (mirror
+of `uni_adapter_tpu/models/ppta.py`).
+
+    (B, N, 3) xyz, (B, N, 6) xyz‖color
+      → set abstraction: FPS `patches` centres + ball query (radius prad,
+        nsamp points), rel-xyz ‖ xyz ‖ color, shared MLP [64, 64, sa_dim],
+        max-pool                                  (ops/geometry.py)
+      → lift Dense(3 + sa_dim → dim) + LayerNorm on centre ‖ features
+      → [CLS ‖ tokens] → `depth` pre-norm ViT blocks (heads of width 64)
+      → CLS → proj, an fp32 Dense to the CLIP text width
+
+Not ported: the relative positional bias (`RelPE`; `create_openshape`
+never turns it on, so the (B, S+1, S+1, 3) centroid deltas it would read
+are not built either) and the `local`/`hierarchical` cache types, which
+need k-means (ROADMAP M8/M10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from uni_adapter_torch.models.common import (LN, BatchNormInference, Dense,
+                                             Mlp, ViTAttention, finish_model)
+from uni_adapter_torch.ops.geometry import sample_and_group
+
+
+#: Every preset's head width: attention runs at width 64·heads, which
+#: need not be the model width.
+DIM_HEAD = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class PPTAPreset:
+    dim: int
+    depth: int
+    heads: int
+    mlp_dim: int
+    sa_dim: int
+    patches: int
+    prad: float
+    nsamp: int
+
+
+#: The reference's scaling table: vit-L = scaling 3, vit-G = scaling 4.
+PRESETS = {
+    1: PPTAPreset(256, 6, 4, 1024, 96, 64, 0.4, 256),
+    2: PPTAPreset(512, 6, 8, 1024, 128, 64, 0.4, 256),
+    3: PPTAPreset(512, 12, 8, 1024, 128, 128, 0.35, 128),   # vit-L
+    4: PPTAPreset(512, 12, 8, 512 * 3, 256, 384, 0.2, 64),  # vit-G
+    5: PPTAPreset(768, 12, 12, 768 * 3, 256, 512, 0.2, 64),
+    6: PPTAPreset(768, 24, 12, 768 * 4, 256, 512, 0.2, 64),
+}
+
+
+class SetAbstraction(nn.Module):
+    """PointNet++ set abstraction, single scale: per-point Dense + BatchNorm
+    + ReLU layers over each ball, then a max-pool over the ball."""
+
+    def __init__(self, npoint: int, radius: float, nsample: int,
+                 in_channels: int, mlp: tuple,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.dtype = dtype
+        chans = (in_channels, *mlp)
+        for i, (cin, cout) in enumerate(zip(chans, chans[1:])):
+            self.add_module(f"conv{i}", Dense(cin, cout))
+            self.add_module(f"bn{i}", BatchNormInference(cout))
+        self.n_layers = len(mlp)
+
+    def forward(self, xyz: torch.Tensor, points: torch.Tensor):
+        new_xyz, new_points = sample_and_group(self.npoint, self.radius,
+                                               self.nsample, xyz, points)
+        x = new_points.to(self.dtype)                          # (B, S, n, C)
+        for i in range(self.n_layers):
+            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
+            x = torch.relu(x)
+        return new_xyz, x.amax(dim=2)                   # (B, S, 3), (B, S, C')
+
+
+class PPTABlockPair(nn.Module):
+    """Pre-norm attention + pre-norm feed-forward."""
+
+    def __init__(self, dim: int, heads: int, mlp_dim: int):
+        super().__init__()
+        self.attn_norm = LN(dim)
+        self.attn = ViTAttention(dim, heads, inner_dim=DIM_HEAD * heads)
+        self.ff_norm = LN(dim)
+        self.ff = Mlp(dim, mlp_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x))
+        return x + self.ff(self.ff_norm(x))
+
+
+class PointPatchTransformer(nn.Module):
+    """The PPTA trunk on the `global` path: the CLS token out."""
+
+    def __init__(self, preset: PPTAPreset,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        p = preset
+        self.dtype = dtype
+        # the set abstraction sees rel-xyz ‖ the per-point xyz ‖ color
+        self.sa = SetAbstraction(p.patches, p.prad, p.nsamp, 3 + 6,
+                                 (64, 64, p.sa_dim), dtype=dtype)
+        self.lift = Dense(3 + p.sa_dim, p.dim)
+        self.lift_norm = LN(p.dim)
+        self.cls_token = nn.Parameter(torch.zeros(p.dim))
+        self.layers = nn.ModuleList(
+            PPTABlockPair(p.dim, p.heads, p.mlp_dim)
+            for _ in range(p.depth))
+
+    def forward(self, xyz: torch.Tensor,
+                features: torch.Tensor) -> torch.Tensor:
+        centroids, feat = self.sa(xyz, features)
+        x = self.lift_norm(self.lift(
+            torch.cat([centroids.to(self.dtype), feat], dim=-1)))
+        B, _, W = x.shape
+        x = torch.cat([self.cls_token.to(self.dtype).expand(B, 1, W), x],
+                      dim=1)
+        for layer in self.layers:
+            x = layer(x)
+        return x[:, 0]
+
+
+class Projected(nn.Module):
+    """PPTA + the CLIP-space projection `proj`, an fp32 Dense on the fp32
+    CLS token.  Takes (xyz (B, N, 3), features (B, N, 6)); returns
+    (B, out_channel) fp32."""
+
+    def __init__(self, preset: PPTAPreset, out_channel: int = 1280,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.ppat = PointPatchTransformer(preset, dtype=dtype)
+        self.proj = Dense(preset.dim, out_channel)
+
+    def forward(self, xyz: torch.Tensor,
+                features: torch.Tensor) -> torch.Tensor:
+        return self.proj(self.ppat(xyz, features).to(torch.float32))
+
+
+def create_openshape(cfg, device: torch.device | str,
+                     dtype: Optional[torch.dtype] = None, seed: int = 0,
+                     state_dict: Optional[dict] = None,
+                     preset: Optional[PPTAPreset] = None) -> Projected:
+    """Build OpenShape from a ModelConfig on `device`, frozen, in eval mode:
+    `vitg14` → scaling 4 into the 1280-d bigG text space (`oshape_clip_dim`),
+    `vitl14` → scaling 3 into the 768-d L text space.  `preset` replaces
+    the scaling's (to cut depth or width).
+
+    The weights are `state_dict` or random from `seed`, as
+    `common.finish_model` draws them (cls_token standard normal); Dense
+    layers are stored in the compute dtype, except `proj`, which stays
+    fp32 as in the JAX package.
+    """
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    vitg = cfg.oshape_version == "vitg14"
+    preset = preset or PRESETS[4 if vitg else 3]
+    with torch.device(device):
+        model = Projected(preset, cfg.oshape_clip_dim if vitg else 768,
+                          dtype=dtype)
+    return finish_model(
+        model, device, dtype, seed, state_dict,
+        lambda gen: nn.init.normal_(model.ppat.cls_token, generator=gen),
+        keep_fp32=(model.proj,))

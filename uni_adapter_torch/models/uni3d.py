@@ -15,19 +15,22 @@ import torch
 from torch import nn
 
 from uni_adapter_torch.models.common import (LN, BatchNormInference, Dense,
-                                             EvaBlock, gelu_exact)
+                                             EvaBlock, finish_model,
+                                             gelu_exact)
 from uni_adapter_torch.ops.geometry import group_points
 
 
 class MiniPointNet(nn.Module):
-    """Group-feature encoder: per-point MLP 6→128→256, group max-pool,
-    concat, 512→512→encoder_channel, max-pool."""
+    """Group-feature encoder: per-point MLP in_channels→128→256, group
+    max-pool, concat, 512→512→encoder_channel, max-pool.  `in_channels` is
+    6 for Uni3D's rel-xyz ‖ color groups, 3 for ULIP-2's rel-xyz."""
 
-    def __init__(self, encoder_channel: int,
+    def __init__(self, encoder_channel: int, in_channels: int = 6,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = Dense(6, 128)
+        self.in_channels = in_channels
+        self.conv1 = Dense(in_channels, 128)
         self.bn1 = BatchNormInference(128)
         self.conv2 = Dense(128, 256)
         self.conv3 = Dense(512, 512)
@@ -35,9 +38,9 @@ class MiniPointNet(nn.Module):
         self.conv4 = Dense(512, encoder_channel)
 
     def forward(self, point_groups: torch.Tensor) -> torch.Tensor:
-        if point_groups.shape[-1] != 6:
-            raise ValueError(f"MiniPointNet takes xyz‖color groups, got "
-                             f"{point_groups.shape[-1]} channels")
+        if point_groups.shape[-1] != self.in_channels:
+            raise ValueError(f"MiniPointNet(in_channels={self.in_channels}) "
+                             f"fed {point_groups.shape[-1]}-channel groups")
         x = point_groups.to(self.dtype)
         x = torch.relu(self.bn1(self.conv1(x)))
         x = self.conv2(x)                                     # (B, G, M, 256)
@@ -118,26 +121,16 @@ def create_uni3d(cfg, device: torch.device | str,
                  state_dict: Optional[dict] = None) -> Uni3D:
     """Build Uni3D from a ModelConfig on `device`, frozen and in eval mode.
 
-    The weights are `state_dict` (e.g. from `weights.from_jax_params`) or,
-    without one, random from `seed`: dense kernels lecun-normal as flax
-    draws them, cls_pos standard normal, the rest at the flax defaults.
-    Dense layers are stored in the compute dtype; LayerNorm and BatchNorm
-    parameters stay fp32.
+    The weights are `state_dict` or random from `seed`, as
+    `common.finish_model` draws them (cls_pos standard normal); every
+    Dense layer is stored in the compute dtype.
     """
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     with torch.device(device):
         model = Uni3D(cfg.pc_feat_dim, cfg.embed_dim, cfg.num_group,
                       cfg.group_size, cfg.pc_encoder_dim, cfg.eva_depth,
                       cfg.eva_heads, dtype=dtype)
-    if state_dict is not None:
-        model.load_state_dict(state_dict)
-    else:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        for m in model.modules():
-            if isinstance(m, Dense):
-                m.reset_parameters(gen)
-        nn.init.normal_(model.point_encoder.cls_pos, generator=gen)
-    for m in model.modules():
-        if isinstance(m, Dense):
-            m.to(dtype)
-    return model.eval().requires_grad_(False)
+    return finish_model(
+        model, device, dtype, seed, state_dict,
+        lambda gen: nn.init.normal_(model.point_encoder.cls_pos,
+                                    generator=gen))

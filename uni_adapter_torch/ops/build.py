@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` exports a plain C interface and is compiled by
 `nvcc` for `sm_90a` into `build/uni_adapter_torch/lib<name>-<hash>.so` at
 the root of the checkout, then loaded with `ctypes`.  The hash covers the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing here runs at import: a kernel is built at its first
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  Nothing here runs at import: a kernel is built at its first
 launch, or ahead of time by `build_all` (which starts one `nvcc` per
 source, all at once).
 """
@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uni_adapter_torch"
-SOURCES = ("fps", "knn", "eva_attn_block")
+SOURCES = ("fps", "knn", "eva_attn_block", "ballquery", "eva_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +39,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -97,7 +98,7 @@ def check(rc: int, name: str) -> None:
 
 
 def require_cuda(t: torch.Tensor, dtype: torch.dtype, ndim: int,
-                 what: str) -> None:
+                 what: str, contiguous: bool = True) -> None:
     """Checks shared by the kernel wrappers, before any pointer is passed."""
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
@@ -105,5 +106,5 @@ def require_cuda(t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")

@@ -1,11 +1,13 @@
-"""Point-cloud grouping for the Uni3D encoder (mirror of
-`uni_adapter_tpu/ops/geometry.py::group_points` on its kernel branches:
-FPS centres from `fps_pallas_batched`, neighbourhoods from `knn_pallas`,
-then an exact gather)."""
+"""Point-cloud grouping (mirror of `uni_adapter_tpu/ops/geometry.py` on its
+kernel branches: FPS centres from `fps_pallas_batched`, neighbourhoods from
+`knn_pallas` or `query_ball_pallas`, then an exact gather)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
+from uni_adapter_torch.ops.ballquery import query_ball
 from uni_adapter_torch.ops.fps import farthest_point_sample
 from uni_adapter_torch.ops.knn import knn
 
@@ -17,20 +19,40 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(points, 1, flat).reshape(*idx.shape, C)
 
 
-def group_points(xyz: torch.Tensor, color: torch.Tensor, num_group: int,
-                 group_size: int):
-    """FPS centres + kNN neighbourhoods, centre-relative coordinates.
+def group_points(xyz: torch.Tensor, color: Optional[torch.Tensor],
+                 num_group: int, group_size: int):
+    """FPS centres + kNN neighbourhoods, centre-relative coordinates (the
+    Uni3D grouping with color, ULIP-2's without).
 
     Args:
-      xyz: (B, N, 3); color: (B, N, 3).
+      xyz: (B, N, 3); color: (B, N, 3) or None.
     Returns:
       neighborhood (B, G, M, 3), center (B, G, 3), and features
-      (B, G, M, 6) = [rel-xyz ‖ color].
+      (B, G, M, 6) = [rel-xyz ‖ color], or None without color.
     """
     fps_idx = farthest_point_sample(xyz, num_group)               # (B, G)
     center = index_points(xyz, fps_idx)                           # (B, G, 3)
     idx = knn(group_size, xyz, center)                            # (B, G, M)
+    if color is None:
+        return index_points(xyz, idx) - center[:, :, None, :], center, None
     joined = index_points(torch.cat([xyz, color], dim=-1), idx)
     neighborhood = joined[..., :3] - center[:, :, None, :]
     features = torch.cat([neighborhood, joined[..., 3:]], dim=-1)
     return neighborhood, center, features
+
+
+def sample_and_group(npoint: int, radius: float, nsample: int,
+                     xyz: torch.Tensor, points: torch.Tensor):
+    """PointNet++ set-abstraction grouping: FPS centres + ball query.
+
+    Args:
+      xyz: (B, N, 3); points: (B, N, D) per-point features.
+    Returns:
+      new_xyz (B, npoint, 3) centres, and new_points (B, npoint, nsample,
+      3 + D) = [rel-xyz ‖ points].
+    """
+    new_xyz = index_points(xyz, farthest_point_sample(xyz, npoint))
+    idx = query_ball(radius, nsample, xyz, new_xyz)
+    joined = index_points(torch.cat([xyz, points], dim=-1), idx)
+    grouped_xyz = joined[..., :3] - new_xyz[:, :, None, :]
+    return new_xyz, torch.cat([grouped_xyz, joined[..., 3:]], dim=-1)
