@@ -17,9 +17,9 @@ exits non-zero before the result line:
      events), the least time the card could take (bound) and, for the
      attention, PyTorch's `scaled_dot_product_attention` on the same
      inputs as a yardstick (the port never calls it);
-  4. features of Uni3D, OpenShape-G and ULIP-2 at depth 2 and full width on
-     the card (kernels) against the CPU (plain versions), the same weights
-     in bf16;
+  4. features (and attention maps) of Uni3D, OpenShape-G and ULIP-2 at
+     depth 2 and full width on the card (kernels) against the CPU (plain
+     versions), the same weights in bf16;
   5. the three main paths through `uni_adapter_torch.cli.tta.main`, each at
      its published widths and depth in bf16 with random weights from a
      seed, MODE-DOTA defaults with residual learning, over a synthetic
@@ -28,7 +28,18 @@ exits non-zero before the result line:
      seeded (40, 1280) bank and ULIP-2 Point-BERT (12 blocks, width 384)
      on a seeded (40, 512) bank, both written as .npy files.  The kernels'
      launch counters are zeroed just before each path and read just after,
-     and every kernel of the path must have run.
+     and every kernel of the path must have run;
+  6. the attention-map extraction path of each backbone at full width and
+     depth through `uni_adapter_torch.cli.extract_attention` on the
+     synthetic sphere (the whole `main` where matplotlib imports, its
+     device half `extract` otherwise): 24 / 12 / 12 maps in
+     `attention_maps.npz`, one (B, H, N, hd) attention launch per layer,
+     none of the block or natural-layout kernels.
+
+Phase 3 also holds the (B, H, N, hd) attention at the three extraction
+shapes and three general head dims, and phase 4 runs each backbone with
+`return_attn` too: features against the CPU and against the card's own
+plain forward, and the maps against the CPU's.
 
 The line before the last is a JSON object of per-kernel numbers; the last
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -362,6 +373,85 @@ def check_eva_attention(torch, gen) -> dict:
     return entry
 
 
+#: The (B, H, N, hd) attention at each extraction path's shape.
+HEADS_SHAPES = {"uni3d": (1, 16, 513, 64), "openshape": (1, 8, 385, 64),
+                "ulip": (1, 6, 513, 64)}
+#: Head dims off the 64-wide path: the padded variants (16, 32 and 12 → 16).
+HEADS_GENERAL_SHAPES = ((2, 3, 70, 32), (3, 4, 77, 16), (1, 3, 77, 12))
+
+
+def check_attention_heads(torch, gen) -> dict:
+    """The (B, H, N, hd) attention, bf16, q and k scaled by BLOCK_LN_GAMMA
+    so that logits have std ≈ 5 (peaked attention): at the three
+    extraction paths' shapes within the block's tolerance, which two
+    planted faults must fail, and with times against SDPA; then the
+    general-hd variants at three more shapes."""
+    import torch.nn.functional as F
+
+    from uni_adapter_torch.ops.attention_heads import (attention_heads_cuda,
+                                                       attention_heads_plain)
+
+    def inputs(B, H, N, hd):
+        qkv = torch.randn(3, B, H, N, hd, generator=gen, device="cuda")
+        qkv[:2] *= BLOCK_LN_GAMMA        # logit std ≈ γ² whatever hd
+        return qkv.to(torch.bfloat16).unbind(0)
+
+    def check(what, q, k, v):
+        got = attention_heads_cuda(q, k, v).float()
+        want = attention_heads_plain(q, k, v).float()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"attention_heads ({what}): non-finite output")
+        err, r = (got - want).abs().max().item(), block_err(got, want)
+        print(f"attention_heads {what}: max abs err {err}, err/tolerance "
+              f"{r:.3f} (rtol {BLOCK_RTOL}, atol {block_atol(want):.5f})")
+        if r > 1:
+            fail(f"attention_heads ({what}): outside the tolerance")
+        return err, want
+
+    entry, shapes = None, {}
+    for path, (B, H, N, hd) in HEADS_SHAPES.items():
+        q, k, v = inputs(B, H, N, hd)
+        err, want = check(f"{path} {(B, H, N, hd)}", q, k, v)
+        neighbour = want.clone()
+        neighbour[:, 0] = want[:, 1]
+        faults = (
+            (f"tail key {N - 1} dropped", attention_heads_plain(
+                q, k[:, :, :N - 1], v[:, :, :N - 1]).float()),
+            ("head 0 from head 1", neighbour))
+        for fault, bad in faults:
+            rf = block_err(bad, want)
+            print(f"  planted fault '{fault}': err/tolerance {rf:.1f}")
+            if rf <= 1:
+                fail(f"attention_heads ({path}): the tolerance passes the "
+                     f"planted fault '{fault}'")
+        b_ms, b_by = bound(4 * B * H * N * hd * 2, 4 * B * H * N * N * hd,
+                           PEAK_BF16)
+        shapes[path] = {
+            "shape": [B, H, N, hd], "max_abs_err": err,
+            "ms": time_ms(lambda: attention_heads_cuda(q, k, v)),
+            "plain_ms": time_ms(lambda: attention_heads_plain(q, k, v)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v))}
+        t = shapes[path]
+        print(f"  {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.5f} ms by {b_by}, SDPA {t['library_ms']:.4f} ms)")
+        if entry is None:              # the entry's numbers: Uni3D's
+            entry = {"name": "attention_heads", "route": "cuda",
+                     "source": "uni_adapter_torch/csrc/attention_heads.cu",
+                     "replaces": "uni_adapter_tpu/ops/attention_pallas.py:141",
+                     **{key: val for key, val in shapes[path].items()
+                        if key != "shape"}}
+    for shape in HEADS_GENERAL_SHAPES:
+        err, _ = check(f"general head dim {shape}", *inputs(*shape))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [s["max_abs_err"] for s in shapes.values()])
+    entry["shapes"] = shapes
+    return entry
+
+
 def cloud(torch, gen, B=2, N=1024):
     """xyz on a sphere of radius 0.5 (the synthetic stream's clouds) and a
     random color, (B, N, 6)."""
@@ -370,10 +460,30 @@ def cloud(torch, gen, B=2, N=1024):
                       torch.rand(B, N, 3, generator=gen, device="cuda")], -1)
 
 
+#: Largest |Δ| of an attention-map entry, card against CPU, at depth 2 in
+#: bf16.  Both sides store q·kᵀ in bf16; where the two sums of one logit
+#: round to neighbouring bf16 values (or an upstream bf16 rounding
+#: flipped), that logit differs by one ulp, 2⁻⁸ of itself, and its
+#: probability by a few per cent of itself.  The card read at most 1.0e-3
+#: on these near-uniform random-weight maps (entries ≈ 1/N); 1e-2 leaves
+#: ten times that.  It bounds rounding in the maps' own path (`attn_probs`
+#: on the card's q and k); the kernel's faults are phase 3's to catch.
+MAP_ATOL = 1e-2
+
+
+#: Each backbone's forward arguments from a (B, N, 6) xyz‖color cloud.
+FORWARD_INPUTS = {"uni3d": lambda pc: (pc,),
+                  "openshape": lambda pc: (pc[..., :3], pc),
+                  "ulip": lambda pc: (pc[..., :3],)}
+
+
 def check_features(torch, gen) -> None:
     """Uni3D-L, OpenShape-G and ULIP-2 at depth 2 and full width: the card's
     kernels against the CPU's plain versions on the same bf16 weights and
-    input (cosine ≥ 0.99)."""
+    input (cosine ≥ 0.99), without and with `return_attn`.  With it, every
+    map must be finite with rows summing to 1 within 1e-3 and within
+    MAP_ATOL of the CPU's, and the card's features within cosine 0.99 of
+    its own plain forward (block or natural-layout kernel)."""
     import dataclasses
 
     from uni_adapter_torch.config import ModelConfig
@@ -383,17 +493,15 @@ def check_features(torch, gen) -> None:
 
     g2 = dataclasses.replace(ppta.PRESETS[4], depth=2)
     backbones = {
-        "uni3d": (lambda dev, sd: create_uni3d(
+        "uni3d": lambda dev, sd: create_uni3d(
             ModelConfig(eva_depth=2), dev, seed=0, state_dict=sd),
-            lambda pc: (pc,)),
-        "openshape": (lambda dev, sd: ppta.create_openshape(
+        "openshape": lambda dev, sd: ppta.create_openshape(
             ModelConfig(), dev, seed=0, state_dict=sd, preset=g2),
-            lambda pc: (pc[..., :3], pc)),
-        "ulip": (lambda dev, sd: create_ulip(
+        "ulip": lambda dev, sd: create_ulip(
             ModelConfig(ulip_depth=2), dev, seed=0, state_dict=sd),
-            lambda pc: (pc[..., :3],)),
     }
-    for kind, (build_model, inputs) in backbones.items():
+    for kind, build_model in backbones.items():
+        inputs = FORWARD_INPUTS[kind]
         gpu = build_model("cuda", None)
         cpu = build_model("cpu", {k: v.float().cpu()
                                   for k, v in gpu.state_dict().items()})
@@ -406,6 +514,8 @@ def check_features(torch, gen) -> None:
         with torch.no_grad():
             f_gpu = gpu(*inputs(pc)).cpu()
             f_cpu = cpu(*inputs(pc.cpu()))
+            fa_gpu, maps_gpu = gpu(*inputs(pc), return_attn=True)
+            fa_cpu, maps_cpu = cpu(*inputs(pc.cpu()), return_attn=True)
         cos = torch.nn.functional.cosine_similarity(f_gpu, f_cpu, dim=-1)
         print(f"features {kind} (depth 2, full width, bf16) {tuple(f_gpu.shape)}"
               f": cosine card vs cpu {cos.tolist()}, max abs diff "
@@ -413,17 +523,37 @@ def check_features(torch, gen) -> None:
         if not (torch.isfinite(f_gpu).all() and cos.min() > 0.99):
             fail(f"{kind} features on the card disagree with the CPU's plain "
                  f"path")
+        fa_gpu = fa_gpu.cpu()
+        cos_a = torch.nn.functional.cosine_similarity(fa_gpu, fa_cpu, dim=-1)
+        cos_k = torch.nn.functional.cosine_similarity(fa_gpu, f_gpu, dim=-1)
+        row_err = max((m.sum(-1) - 1).abs().max().item() for m in maps_gpu)
+        map_err = max((g.cpu() - c).abs().max().item()
+                      for g, c in zip(maps_gpu, maps_cpu))
+        print(f"return_attn {kind}: {len(maps_gpu)} maps "
+              f"{tuple(maps_gpu[0].shape)}; features cosine card vs cpu "
+              f"{min(cos_a.tolist()):.6f}, card vs its plain forward "
+              f"{min(cos_k.tolist()):.6f}; map rows sum to 1 within "
+              f"{row_err:.3g}; maps max abs diff card vs cpu {map_err:.4g} "
+              f"(tolerance {MAP_ATOL})")
+        if not (torch.isfinite(fa_gpu).all()
+                and all(torch.isfinite(m).all() for m in maps_gpu)):
+            fail(f"{kind} return_attn: non-finite features or maps")
+        if cos_a.min() < 0.99 or cos_k.min() < 0.99:
+            fail(f"{kind} return_attn features disagree (cosine < 0.99)")
+        if row_err > 1e-3 or map_err > MAP_ATOL:
+            fail(f"{kind} return_attn maps outside their tolerance")
 
 
 def launch_counters() -> dict:
     """Each kernel's launch counter: the wrapper that owns it."""
-    from uni_adapter_torch.ops import attention, ballquery, eva_attention
-    from uni_adapter_torch.ops import fps, knn
+    from uni_adapter_torch.ops import attention, attention_heads, ballquery
+    from uni_adapter_torch.ops import eva_attention, fps, knn
 
     return {"fps": fps.farthest_point_sample, "knn": knn.knn,
             "eva_attn_block": attention.eva_attn_block,
             "ballquery": ballquery.query_ball,
-            "eva_attention": eva_attention.eva_attention_fused}
+            "eva_attention": eva_attention.eva_attention_fused,
+            "attention_heads": attention_heads.attention_heads}
 
 
 #: The three main paths: extra CLI flags, the anchor bank's width (None:
@@ -492,6 +622,82 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16) -> dict:
     return launches
 
 
+#: The extraction paths at full width and depth: CLI flags, then the
+#: layers, heads and tokens of every map (one (B, H, N, hd) attention launch
+#: a layer).
+EXTRACT_PATHS = {
+    "uni3d": (["--vlm3d", "uni3d", "--depth", "24"], 24, 16, 513),
+    "openshape": (["--vlm3d", "openshape"], 12, 8, 385),
+    "ulip": (["--vlm3d", "ulip"], 12, 6, 513),
+}
+
+
+def run_extraction(tmp: Path, kind: str) -> dict:
+    """`python -m uni_adapter_torch.cli.extract_attention --device cuda` on
+    the synthetic sphere: the whole `main` where matplotlib imports, else
+    its device half `extract` (the same device work, no figures).  Checks
+    the maps and the launch counters, then times one more extraction."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from uni_adapter_torch.cli import extract_attention
+
+    flags, layers, H, N = EXTRACT_PATHS[kind]
+    argv = ["--device", "cuda", "--out", str(tmp / f"attn-{kind}"), *flags]
+    figures = importlib.util.find_spec("matplotlib") is not None
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    if figures:
+        extractor, pc, _ = extract_attention.main(argv)
+    else:
+        extractor, pc, _ = extract_attention.extract(
+            extract_attention.parse_args(argv))
+    run_s = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+
+    out = tmp / f"attn-{kind}"
+    maps = np.load(out / "attention_maps.npz")
+    if sorted(maps.files) != sorted(f"layer_{i}" for i in range(layers)):
+        fail(f"extract {kind}: attention_maps.npz holds {maps.files}")
+    for key in maps.files:
+        a = maps[key]
+        if a.shape != (1, H, N, N) or not np.isfinite(a).all() or \
+                np.abs(a.sum(-1) - 1).max() > 1e-3:
+            fail(f"extract {kind}: {key} is {a.shape}, or not finite, or its "
+                 f"rows do not sum to 1")
+    if not (out / "attention_stats.json").exists():
+        fail(f"extract {kind}: no attention_stats.json")
+    if launches["attention_heads"] != layers:
+        fail(f"extract {kind}: attention_heads launched "
+             f"{launches['attention_heads']} times, expected {layers}")
+    if launches["eva_attn_block"] or launches["eva_attention"]:
+        fail(f"extract {kind}: the block or natural-layout kernel ran "
+             f"({launches})")
+    t0 = time.perf_counter()
+    extractor.extract(pc)              # ends in the copy to the host
+    one_ms = (time.perf_counter() - t0) * 1e3
+    xyz = torch.as_tensor(pc, device="cuda")[None]
+    cloud6 = torch.cat([xyz, torch.ones_like(xyz)], dim=-1)   # as extract()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extractor.model(*FORWARD_INPUTS[kind](cloud6), return_attn=True)
+        torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    drawn = ("figures drawn" if figures else
+             "matplotlib does not import here: figures not drawn")
+    print(f"extract {kind}: {layers} maps of {(1, H, N, N)} in "
+          f"attention_maps.npz; {drawn}; whole run {run_s:.1f} s, one "
+          f"extraction {one_ms:.1f} ms wall, of which the forward with its "
+          f"maps on the card {fwd_ms:.1f} ms")
+    print(f"extract {kind} launches: {launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -524,6 +730,7 @@ def main() -> None:
     kernels = check_kernels(torch, gen)
     kernels.append(check_ballquery(torch, gen))
     kernels.append(check_eva_attention(torch, gen))
+    kernels.append(check_attention_heads(torch, gen))
     for k in kernels:
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']} | "
               f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
@@ -535,6 +742,8 @@ def main() -> None:
         write_stream(Path(tmp))
         for kind in PATHS:
             by_path[kind] = run_main_path(Path(tmp), kind)
+        for kind in EXTRACT_PATHS:
+            by_path[f"extract_{kind}"] = run_extraction(Path(tmp), kind)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -37,9 +37,10 @@ sys.path.insert(0, str(REPO))
 from uni_adapter_torch import engine  # noqa: E402
 from uni_adapter_torch.adapt import fusion, mode_dota, residual  # noqa: E402
 from uni_adapter_torch.anchors import load_precomputed  # noqa: E402
-from uni_adapter_torch.cli.tta import (BACKBONES, feature_width,  # noqa: E402
-                                       set_numerics)
+from uni_adapter_torch.cli.tta import feature_width, set_numerics  # noqa: E402
 from uni_adapter_torch.config import Config, ModelConfig  # noqa: E402
+from uni_adapter_torch.models.loader import (BACKBONES,  # noqa: E402
+                                             build_backbone)
 from uni_adapter_torch.ops import build  # noqa: E402
 
 OURS = ("fps_kernel", "knn_kernel", "gemm_kernel", "attn_kernel",
@@ -78,7 +79,7 @@ def main() -> None:
     dev = torch.device("cuda")
     cfg = Config(model=ModelConfig(vlm3d=kind))
     dc = cfg.dota
-    model = BACKBONES[kind](cfg.model, dev, seed=0)
+    model, _, _ = build_backbone(kind, cfg.model, dev, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
     if kind == "uni3d":
         text = load_precomputed("large", "modelnet").to(dev)

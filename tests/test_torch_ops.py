@@ -18,8 +18,8 @@ import uni_adapter_tpu.ops.ballquery_pallas as ballquery_pallas
 import uni_adapter_tpu.ops.fps_pallas as fps_pallas
 import uni_adapter_tpu.ops.knn_pallas as knn_pallas
 from uni_adapter_tpu.ops import geometry as jax_geometry
-from uni_adapter_torch.ops import (attention, ballquery, eva_attention, fps,
-                                   geometry, knn)
+from uni_adapter_torch.ops import (attention, attention_heads, ballquery,
+                                   eva_attention, fps, geometry, knn)
 
 
 def _rand(shape, seed):
@@ -263,7 +263,10 @@ def _cpu_block_call():
                                       torch.zeros(1, 4, 3)),
     lambda: eva_attention.eva_attention_cuda(
         *(torch.zeros(1, 5, 64, dtype=torch.bfloat16),) * 3, num_heads=1),
-], ids=["fps", "knn", "eva_attn_block", "ballquery", "eva_attention"])
+    lambda: attention_heads.attention_heads_cuda(
+        *(torch.zeros(1, 2, 5, 64, dtype=torch.bfloat16),) * 3),
+], ids=["fps", "knn", "eva_attn_block", "ballquery", "eva_attention",
+        "attention_heads"])
 def test_kernel_wrappers_reject_cpu_tensors_before_building(call):
     """A kernel wrapper checks its inputs before it builds or launches:
     CPU tensors raise, and nothing is compiled."""

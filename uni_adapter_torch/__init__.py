@@ -2,9 +2,11 @@
 
 The port of `uni_adapter_tpu` to PyTorch: the same online test-time
 adaptation of 3D vision-language models, with the TPU's Pallas kernels
-rewritten by hand in CUDA C++ for `sm_90a` (`csrc/`).  This slice covers
-Uni3D with the EVA02 trunk and MODE-DOTA adaptation, entered through
-`python -m uni_adapter_torch.cli.tta`.
+rewritten by hand in CUDA C++ for `sm_90a` (`csrc/`).  It covers Uni3D
+with the EVA02 trunk, OpenShape PPTA and ULIP-2 Point-BERT under MODE-DOTA
+adaptation, entered through `python -m uni_adapter_torch.cli.tta`, and
+their attention maps through `python -m
+uni_adapter_torch.cli.extract_attention`.
 
 Importing the package, or any module in it, builds nothing: each CUDA
 kernel is compiled by `nvcc` at its first launch (ops/build.py).

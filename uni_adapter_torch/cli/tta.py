@@ -34,13 +34,7 @@ from uni_adapter_torch import engine
 from uni_adapter_torch.anchors import load_precomputed
 from uni_adapter_torch.config import CORRUPTIONS, parse_args, unported_paths
 from uni_adapter_torch.data.datasets import load_tta_dataset
-from uni_adapter_torch.models.pointbert import create_ulip
-from uni_adapter_torch.models.ppta import create_openshape
-from uni_adapter_torch.models.uni3d import create_uni3d
-
-#: Model constructors by `--vlm3d`: create(cfg.model, device, seed=...).
-BACKBONES = {"uni3d": create_uni3d, "ulip": create_ulip,
-             "openshape": create_openshape}
+from uni_adapter_torch.models.loader import build_backbone
 
 
 def resolve_device(name: str) -> torch.device:
@@ -110,7 +104,8 @@ def main(argv=None) -> dict:
                  else "cpu")
     logging.info("Config: %s", cfg)
 
-    model = BACKBONES[cfg.model.vlm3d](cfg.model, device, seed=cfg.run.seed)
+    model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,
+                                 seed=cfg.run.seed)
     logging.warning("No checkpoint configured — random weights; accuracy "
                     "numbers are not meaningful.")
     text = load_precomputed(cfg.data.precomputed_text_features,

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from uni_adapter_torch.ops.attention import eva_attn_block
+from uni_adapter_torch.ops.attention_heads import attention_heads
 from uni_adapter_torch.ops.eva_attention import eva_attention_fused
 
 #: flax's lecun_normal: a normal truncated at ±2σ, rescaled to unit variance.
@@ -88,10 +89,38 @@ class BatchNormInference(nn.Module):
                 ).to(x.dtype)
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           scale: float) -> torch.Tensor:
+    """Attention on (B, H, N, hd) tensors: the unmasked, unbiased branch of
+    the JAX `_attend(use_pallas=True)`, i.e. `ops.attention_heads` (the
+    kernel on the card, the plain version on the CPU).  A mask (the CLIP
+    text tower, ROADMAP M11) or a bias (OpenShape's RelPE, M10) is not
+    ported; the modules raise before they get here."""
+    return attention_heads(q, k, v, scale)
+
+
+def attn_probs(q: torch.Tensor, k: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """The softmax map that `attend` applies, recomputed for extraction (the
+    JAX `_attn_probs`): under bf16 the q·kᵀ logits are stored in bf16
+    (fp32 accumulation, as XLA's bf16 einsum) before the fp32 softmax; in
+    fp32 they stay fp32.  Returns (B, H, N, N) fp32.  The maps do not come
+    from the kernel, which keeps fp32 scores."""
+    if q.dtype == torch.bfloat16:
+        s = torch.matmul(q, k.transpose(-1, -2))
+    else:
+        s = torch.matmul(q.to(torch.float32),
+                         k.to(torch.float32).transpose(-1, -2))
+    return torch.softmax(s.to(torch.float32) * scale, dim=-1)
+
+
 class EvaAttention(nn.Module):
     """EVA02 attention: separate q/k/v projections (k without bias),
-    per-head q/k LayerNorm, out projection.  Its only path is the
-    `ops.attention.eva_attn_block` kernel (the plain version on the CPU)."""
+    per-head q/k LayerNorm, out projection.  Its path is the
+    `ops.attention.eva_attn_block` kernel (the plain version on the CPU);
+    with `return_attn` it takes the JAX module's transposed branch instead:
+    the same parameters applied as modules on (B, H, N, hd), `attend`,
+    then `proj`, and the maps from `attn_probs` on the normalised q, k."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -104,14 +133,27 @@ class EvaAttention(nn.Module):
         self.k_norm = LN(hd)
         self.proj = Dense(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hd = x.shape[-1] // self.num_heads
-        return eva_attn_block(
-            x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
-            self.v_proj.weight, self.v_proj.bias, self.q_norm.weight,
-            self.q_norm.bias, self.k_norm.weight, self.k_norm.bias,
-            self.proj.weight, self.proj.bias, num_heads=self.num_heads,
-            scale=hd ** -0.5)
+    def forward(self, x: torch.Tensor, return_attn: bool = False):
+        B, N, D = x.shape
+        H = self.num_heads
+        hd = D // H
+        if not return_attn:
+            return eva_attn_block(
+                x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
+                self.v_proj.weight, self.v_proj.bias, self.q_norm.weight,
+                self.q_norm.bias, self.k_norm.weight, self.k_norm.bias,
+                self.proj.weight, self.proj.bias, num_heads=H,
+                scale=hd ** -0.5)
+
+        def heads(t):                                       # (B, H, N, hd)
+            return t.reshape(B, N, H, hd).transpose(1, 2)
+
+        q = self.q_norm(heads(self.q_proj(x)))
+        k = self.k_norm(heads(self.k_proj(x)))
+        v = heads(self.v_proj(x))
+        out = attend(q, k, v, hd ** -0.5)
+        out = self.proj(out.transpose(1, 2).reshape(B, N, D))
+        return out, attn_probs(q, k, hd ** -0.5)
 
 
 class SwiGLU(nn.Module):
@@ -140,9 +182,14 @@ class EvaBlock(nn.Module):
         self.norm2 = LN(dim)
         self.mlp = SwiGLU(dim, int(dim * MLP_RATIO))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, return_attn: bool = False):
+        a = self.attn(self.norm1(x), return_attn=return_attn)
+        attn = None
+        if return_attn:
+            a, attn = a
+        x = x + a
+        x = x + self.mlp(self.norm2(x))
+        return (x, attn) if return_attn else x
 
 
 class Mlp(nn.Module):
@@ -161,10 +208,12 @@ class ViTAttention(nn.Module):
     """Fused-qkv multi-head attention (Point-BERT / PPTA): a bias-free
     `qkv` Dense to 3·inner_dim, `ops.eva_attention.eva_attention_fused` on
     its three column slices (the kernel on the card, the plain version on
-    the CPU), then `proj` back to dim.  The JAX module's other branches are
-    not ported: a mask, an attention bias, `return_attn` and head dims
-    that are not a multiple of 8 raise.  Its `project_out=False` (one head
-    of width dim, which no preset of either backbone builds) is left out."""
+    the CPU), then `proj` back to dim.  As in the JAX module, `return_attn`
+    and head dims that are not a multiple of 8 take the (B, H, N, hd)
+    transpose of `qkv` through `attend` instead, and `return_attn` adds the
+    maps of `attn_probs`.  A mask and an attention bias are not ported and
+    raise.  Its `project_out=False` (one head of width dim, which no preset
+    of either backbone builds) is left out."""
 
     def __init__(self, dim: int, num_heads: int,
                  inner_dim: Optional[int] = None):
@@ -175,24 +224,29 @@ class ViTAttention(nn.Module):
         self.proj = Dense(self.inner, dim)
 
     def forward(self, x: torch.Tensor, mask=None, attn_bias=None,
-                return_attn: bool = False) -> torch.Tensor:
+                return_attn: bool = False):
         for given, what in (
                 (mask is not None, "a mask (the CLIP text tower, ROADMAP M11)"),
                 (attn_bias is not None,
-                 "an attention bias (OpenShape's RelPE, ROADMAP M10)"),
-                (return_attn, "return_attn (attention maps, ROADMAP M14)"),
-                ((self.inner // self.num_heads) % 8 != 0,
-                 "a head dim that is not a multiple of 8 (the (B, H, N, hd) "
-                 "kernel, ROADMAP queue 2 item 7)")):
+                 "an attention bias (OpenShape's RelPE, ROADMAP M10)")):
             if given:
                 raise NotImplementedError(f"ViTAttention with {what} is not "
                                           f"ported yet")
         qkv = self.qkv(x)                                  # (B, N, 3·inner)
-        i = self.inner
-        out = eva_attention_fused(qkv[..., :i], qkv[..., i:2 * i],
-                                  qkv[..., 2 * i:], num_heads=self.num_heads,
-                                  scale=(i // self.num_heads) ** -0.5)
-        return self.proj(out)
+        i, H = self.inner, self.num_heads
+        hd = i // H
+        if not return_attn and hd % 8 == 0:
+            out = eva_attention_fused(qkv[..., :i], qkv[..., i:2 * i],
+                                      qkv[..., 2 * i:], num_heads=H,
+                                      scale=hd ** -0.5)
+            return self.proj(out)
+        B, N = x.shape[:2]
+        q, k, v = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        out = attend(q, k, v, hd ** -0.5)                # (B, H, N, hd)
+        out = self.proj(out.transpose(1, 2).reshape(B, N, i))
+        if return_attn:
+            return out, attn_probs(q, k, hd ** -0.5)
+        return out
 
 
 class ViTBlock(nn.Module):
@@ -205,9 +259,14 @@ class ViTBlock(nn.Module):
         self.norm2 = LN(dim)
         self.mlp = Mlp(dim, 4 * dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, return_attn: bool = False):
+        a = self.attn(self.norm1(x), return_attn=return_attn)
+        attn = None
+        if return_attn:
+            a, attn = a
+        x = x + a
+        x = x + self.mlp(self.norm2(x))
+        return (x, attn) if return_attn else x
 
 
 def finish_model(model: nn.Module, device: torch.device | str,

@@ -42,7 +42,9 @@ class PointTransformer(nn.Module):
             ViTBlock(trans_dim, num_heads) for _ in range(depth))
         self.norm = LN(trans_dim)
 
-    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+    def forward(self, pts: torch.Tensor, return_attn: bool = False):
+        """concat[CLS, max] features; with `return_attn` also every block's
+        (B, H, N, N) fp32 attention map."""
         neighborhood, center, _ = group_points(pts, None, self.num_group,
                                                self.group_size)
         tokens = self.reduce_dim(self.encoder(neighborhood))
@@ -51,15 +53,21 @@ class PointTransformer(nn.Module):
                       dim=1)
         pos = torch.cat([self.cls_pos.to(self.dtype).expand(B, 1, W),
                          self.pos_embed(center)], dim=1)
+        maps = []
         for blk in self.blocks:
-            x = blk(x + pos)                   # pos re-added at every block
+            x = blk(x + pos, return_attn=return_attn)   # pos at every block
+            if return_attn:
+                x, attn = x
+                maps.append(attn)
         x = self.norm(x)
-        return torch.cat([x[:, 0], x[:, 1:].amax(dim=1)], dim=-1)
+        feat = torch.cat([x[:, 0], x[:, 1:].amax(dim=1)], dim=-1)
+        return (feat, maps) if return_attn else feat
 
 
 class ULIP(nn.Module):
     """Point-BERT features @ pc_projection, an fp32 product; takes (B, N, 3)
-    xyz and returns (B, embed_dim) fp32."""
+    xyz and returns (B, embed_dim) fp32 (with `return_attn`, and the
+    blocks' attention maps)."""
 
     def __init__(self, trans_dim: int = 384, depth: int = 12,
                  num_heads: int = 6, num_group: int = 512,
@@ -72,9 +80,11 @@ class ULIP(nn.Module):
         self.pc_projection = nn.Parameter(torch.zeros(2 * trans_dim,
                                                       embed_dim))
 
-    def forward(self, pc: torch.Tensor) -> torch.Tensor:
-        feat = self.point_encoder(pc).to(torch.float32)
-        return torch.matmul(feat, self.pc_projection)
+    def forward(self, pc: torch.Tensor, return_attn: bool = False):
+        out = self.point_encoder(pc, return_attn=return_attn)
+        feat, maps = out if return_attn else (out, None)
+        proj = torch.matmul(feat.to(torch.float32), self.pc_projection)
+        return (proj, maps) if return_attn else proj
 
 
 def create_ulip(cfg, device: torch.device | str,

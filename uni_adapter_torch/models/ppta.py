@@ -91,9 +91,14 @@ class PPTABlockPair(nn.Module):
         self.ff_norm = LN(dim)
         self.ff = Mlp(dim, mlp_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x))
-        return x + self.ff(self.ff_norm(x))
+    def forward(self, x: torch.Tensor, return_attn: bool = False):
+        a = self.attn(self.attn_norm(x), return_attn=return_attn)
+        attn = None
+        if return_attn:
+            a, attn = a
+        x = x + a
+        x = x + self.ff(self.ff_norm(x))
+        return (x, attn) if return_attn else x
 
 
 class PointPatchTransformer(nn.Module):
@@ -114,33 +119,54 @@ class PointPatchTransformer(nn.Module):
             PPTABlockPair(p.dim, p.heads, p.mlp_dim)
             for _ in range(p.depth))
 
-    def forward(self, xyz: torch.Tensor,
-                features: torch.Tensor) -> torch.Tensor:
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor,
+                return_attn: bool = False):
+        """The CLS token; with `return_attn` also every layer's
+        (B, H, N, N) fp32 attention map."""
         centroids, feat = self.sa(xyz, features)
         x = self.lift_norm(self.lift(
             torch.cat([centroids.to(self.dtype), feat], dim=-1)))
         B, _, W = x.shape
         x = torch.cat([self.cls_token.to(self.dtype).expand(B, 1, W), x],
                       dim=1)
+        maps = []
         for layer in self.layers:
-            x = layer(x)
-        return x[:, 0]
+            x = layer(x, return_attn=return_attn)
+            if return_attn:
+                x, attn = x
+                maps.append(attn)
+        return (x[:, 0], maps) if return_attn else x[:, 0]
 
 
 class Projected(nn.Module):
     """PPTA + the CLIP-space projection `proj`, an fp32 Dense on the fp32
     CLS token.  Takes (xyz (B, N, 3), features (B, N, 6)); returns
-    (B, out_channel) fp32."""
+    (B, out_channel) fp32, with `return_attn` also the layers' attention
+    maps.  Only `cache_type='global'` is ported (`local`/`hierarchical`
+    need k-means, ROADMAP M8)."""
 
     def __init__(self, preset: PPTAPreset, out_channel: int = 1280,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 cache_type: str = "global"):
         super().__init__()
+        self.cache_type = cache_type
         self.ppat = PointPatchTransformer(preset, dtype=dtype)
         self.proj = Dense(preset.dim, out_channel)
 
-    def forward(self, xyz: torch.Tensor,
-                features: torch.Tensor) -> torch.Tensor:
-        return self.proj(self.ppat(xyz, features).to(torch.float32))
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor,
+                return_attn: bool = False):
+        if self.cache_type != "global":
+            if return_attn:          # the JAX module's own check comes first
+                raise ValueError("return_attn is supported for "
+                                 "cache_type='global' (the TTA/extraction "
+                                 "path)")
+            raise NotImplementedError(
+                f"cache_type {self.cache_type!r} is not ported yet (k-means, "
+                f"ROADMAP M8)")
+        out = self.ppat(xyz, features, return_attn=return_attn)
+        if return_attn:
+            return self.proj(out[0].to(torch.float32)), out[1]
+        return self.proj(out.to(torch.float32))
 
 
 def create_openshape(cfg, device: torch.device | str,

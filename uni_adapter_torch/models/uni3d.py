@@ -84,7 +84,10 @@ class PointcloudEncoder(nn.Module):
         self.fc_norm = LN(trans_dim)
         self.trans2embed = Dense(trans_dim, embed_dim)
 
-    def forward(self, xyz: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
+    def forward(self, xyz: torch.Tensor, color: torch.Tensor,
+                return_attn: bool = False):
+        """(B, embed) features; with `return_attn` also the (B, H, N, N)
+        fp32 attention map of every block, in block order."""
         _, center, features = group_points(xyz, color, self.num_group,
                                            self.group_size)
         tokens = self.encoder2trans(self.encoder(features))
@@ -94,14 +97,19 @@ class PointcloudEncoder(nn.Module):
         pos = torch.cat([self.cls_pos.to(self.dtype).expand(B, 1, W),
                          self.pos_embed(center)], dim=1)
         x = x + pos                    # added once, before the blocks
+        maps = []
         for blk in self.blocks:
-            x = blk(x)
-        x = self.fc_norm(self.norm(x[:, 0, :]))
-        return self.trans2embed(x)
+            x = blk(x, return_attn=return_attn)
+            if return_attn:
+                x, attn = x
+                maps.append(attn)
+        x = self.trans2embed(self.fc_norm(self.norm(x[:, 0, :])))
+        return (x, maps) if return_attn else x
 
 
 class Uni3D(nn.Module):
-    """Splits (B, N, 6) into xyz and color and encodes; features in fp32."""
+    """Splits (B, N, 6) into xyz and color and encodes; features in fp32
+    (with `return_attn`, and the blocks' attention maps)."""
 
     def __init__(self, trans_dim: int = 1024, embed_dim: int = 1024,
                  num_group: int = 512, group_size: int = 64,
@@ -112,8 +120,12 @@ class Uni3D(nn.Module):
             trans_dim, embed_dim, num_group, group_size, encoder_dim, depth,
             num_heads, dtype=dtype)
 
-    def forward(self, pc: torch.Tensor) -> torch.Tensor:
-        return self.point_encoder(pc[:, :, :3], pc[:, :, 3:]).to(torch.float32)
+    def forward(self, pc: torch.Tensor, return_attn: bool = False):
+        out = self.point_encoder(pc[:, :, :3], pc[:, :, 3:],
+                                 return_attn=return_attn)
+        if return_attn:
+            return out[0].to(torch.float32), out[1]
+        return out.to(torch.float32)
 
 
 def create_uni3d(cfg, device: torch.device | str,
