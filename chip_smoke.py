@@ -11,7 +11,9 @@ exits non-zero before the result line:
      `nvcc` per source, all started together;
   3. each kernel at its main-path shapes against its plain PyTorch version
      on the card: FPS, kNN and ball-query indices exactly (ball query also
-     on over-full and on empty balls), the attention block and the
+     on over-full and on empty balls), the large-cloud kNN + gather and
+     FPS exactly at 10,000 and 8192 points, at a tile edge, on ties and
+     past the shared-memory limit, the attention block and the
      natural-layout attention within a bf16 tolerance that planted faults
      must fail; with kernel and plain times (median of 20 runs, CUDA
      events), the least time the card could take (bound) and, for the
@@ -19,7 +21,8 @@ exits non-zero before the result line:
      inputs as a yardstick (the port never calls it);
   4. features (and attention maps) of Uni3D, OpenShape-G and ULIP-2 at
      depth 2 and full width on the card (kernels) against the CPU (plain
-     versions), the same weights in bf16;
+     versions), the same weights in bf16; Uni3D and OpenShape-G also on
+     10,000-point clouds;
   5. the three main paths through `uni_adapter_torch.cli.tta.main`, each at
      its published widths and depth in bf16 with random weights from a
      seed, MODE-DOTA defaults with residual learning, over a synthetic
@@ -28,7 +31,12 @@ exits non-zero before the result line:
      seeded (40, 1280) bank and ULIP-2 Point-BERT (12 blocks, width 384)
      on a seeded (40, 512) bank, both written as .npy files.  The kernels'
      launch counters are zeroed just before each path and read just after,
-     and every kernel of the path must have run;
+     and every kernel of the path must have run; then two paths on clouds
+     above the register kernels' limits: Uni3D-L on an Objaverse-LVIS
+     stream of 10,000-point clouds with a seeded (1156, 1024) bank
+     (`fps_grid` and `knn_gather`, never `fps` or `knn`), and ULIP-2 on a
+     ScanObjectNN stream at `--npoints 8192` with a seeded (15, 512) bank
+     (`fps` at its limit and `knn_gather`, never `knn`);
   6. the attention-map extraction path of each backbone at full width and
      depth through `uni_adapter_torch.cli.extract_attention` on the
      synthetic sphere (the whole `main` where matplotlib imports, its
@@ -226,7 +234,161 @@ def check_kernels(torch, gen) -> list[dict]:
                 "plain_ms": time_ms(lambda: attention.eva_attn_block_plain(
                     *args, num_heads=H)),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    out[0]["shapes"] = {"1024": {
+        key: out[0][key] for key in ("ms", "plain_ms", "bound_ms")},
+        "8192": check_fps_at_its_limit(torch)}
     return out
+
+
+def check_fps_at_its_limit(torch) -> dict:
+    """fps.cu at the largest cloud it takes, ULIP-2's (2, 8192) → 512 on
+    the ScanObjectNN path: indices equal to the plain version's, and its
+    times (own generator, so the other checks' inputs do not move)."""
+    from uni_adapter_torch.ops import fps
+
+    B, N, G = 2, fps.MAX_POINTS, 512
+    gen = torch.Generator(device="cuda").manual_seed(N)
+    xyz = sphere_cloud(torch, gen, B, N)
+    got = fps.fps_cuda(xyz, G)
+    want = fps.fps_plain(xyz, G)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"fps at {N} points: {(got != want).sum().item()} indices differ")
+    print(f"fps {(B, N, G)}: indices equal")
+    return {"ms": time_ms(lambda: fps.fps_cuda(xyz, G)),
+            "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G), runs=5,
+                                per_run=1),
+            "bound_ms": bound(B * N * 3 * 4 + B * G * 4, B * G * N * 9,
+                              PEAK_FP32)[0]}
+
+
+def sphere_cloud(torch, gen, B, N):
+    """(B, N, 3) points on a sphere of radius 0.5, as the streams hold."""
+    xyz = torch.randn(B, N, 3, generator=gen, device="cuda")
+    return 0.5 * xyz / xyz.norm(dim=-1, keepdim=True)
+
+
+#: knn_gather's checks: (B, N, S, k, C) with FPS centres as the queries.
+#: The two main paths' shapes (timed; the first gives the entry's
+#: numbers), a cloud that knn.cu also takes, and one point past the first
+#: 2048-point tile.
+KNN_GATHER_SHAPES = {"uni3d_lvis10k": (2, 10000, 512, 64, 6),
+                     "ulip_scanobjectnn8192": (2, 8192, 512, 32, 3),
+                     "knn.cu's": (2, 1024, 512, 64, 6),
+                     "tile edge": (2, 2049, 512, 64, 0)}
+
+
+def check_knn_gather(torch, gen) -> dict:
+    """Indices equal to the plain version's and gathered values bitwise
+    equal, at KNN_GATHER_SHAPES and on a cloud whose every point appears
+    twice (ties, the copies 1500 indices apart, across a tile edge); at
+    N = 1024 also equal to knn.cu + index_points."""
+    from uni_adapter_torch.ops import fps, knn
+    from uni_adapter_torch.ops.geometry import index_points
+    from uni_adapter_torch.ops.knn_gather import (knn_gather_cuda,
+                                                  knn_gather_plain)
+
+    def check(what, xyz, q, k, vals):
+        got = knn_gather_cuda(k, xyz, q, vals)
+        want = knn_gather_plain(k, xyz, q, vals)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("indices", "values"), got, want):
+            if not torch.equal(g, w):
+                fail(f"knn_gather {what}: {(g != w).sum().item()} {name} "
+                     f"differ from the plain version's")
+        print(f"knn_gather {what}: indices and values equal")
+        return got
+
+    shapes = {}
+    for name, (B, N, S, k, C) in KNN_GATHER_SHAPES.items():
+        pc = cloud(torch, gen, B, N)
+        xyz = pc[..., :3].contiguous()
+        vals = pc[..., :C].contiguous()
+        q = index_points(xyz, fps.fps_grid_cuda(xyz, S))
+        idx, _ = check(f"{(B, N, S, k, C)}", xyz, q, k, vals)
+        if N <= knn.MAX_POINTS:
+            if not torch.equal(idx, knn.knn_cuda(k, xyz, q)):
+                fail(f"knn_gather {(B, N, S, k, C)}: indices differ from "
+                     f"knn.cu's")
+            print(f"knn_gather {(B, N, S, k, C)}: equal to knn.cu")
+        if name in PATHS:
+            b_ms, b_by = bound(
+                (B * N * 3 + B * S * 3 + B * N * C) * 4
+                + B * S * k * (4 + 4 * C), B * S * N * 8, PEAK_FP32)
+            shapes[name] = {
+                "shape": [B, N, S, k, C],
+                "ms": time_ms(lambda: knn_gather_cuda(k, xyz, q, vals)),
+                "plain_ms": time_ms(lambda: knn_gather_plain(k, xyz, q, vals)),
+                "bound_ms": b_ms, "bound_by": b_by}
+    base = sphere_cloud(torch, gen, 1, 1500)
+    xyz = torch.cat([base, base], dim=1).contiguous()
+    vals = torch.arange(3000, dtype=torch.float32, device="cuda")[None, :,
+                                                                  None]
+    idx, _ = check("(1, 3000 with every point twice, 64, 16, 1)", xyz,
+                   base[:, :64].contiguous(), 16, vals)
+    if not torch.equal(idx[0, :, :2], torch.stack(
+            [torch.arange(64, device="cuda")] * 2, 1)
+            + torch.tensor([0, 1500], device="cuda")):
+        fail("knn_gather: a query's own point and its copy are not its "
+             "first two neighbours, lower index first")
+    first = next(iter(shapes.values()))
+    return {"name": "knn_gather", "route": "cuda",
+            "source": "uni_adapter_torch/csrc/knn_gather.cu",
+            "replaces": "uni_adapter_tpu/ops/knn_pallas.py:130",
+            "max_abs_err": 0,
+            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")},
+            "library_ms": None, "shapes": shapes}
+
+
+#: fps_grid's checks: (B, N, npoint).  The 10,000-point path's (in shared
+#: memory; the entry's numbers) and one past the shared-memory branch, both
+#: timed, and a cloud that fps.cu also takes.
+FPS_GRID_SHAPES = {"uni3d_lvis10k": (2, 10000, 512),
+                   "device memory": (1, 20000, 512),
+                   "fps.cu's": (2, 1024, 512)}
+
+
+def check_fps_grid(torch, gen) -> dict:
+    """Indices equal to the plain version's at FPS_GRID_SHAPES, and to
+    fps.cu's at N = 1024."""
+    from uni_adapter_torch.ops import fps
+
+    limit = fps.fps_grid_shared_points(torch.device("cuda"))
+    print(f"fps_grid: xyz and running minimum in shared memory up to "
+          f"{limit} points, in device memory above")
+    if not (FPS_GRID_SHAPES["uni3d_lvis10k"][1] <= limit
+            < FPS_GRID_SHAPES["device memory"][1]):
+        fail(f"fps_grid: the checks do not cover both branches (limit "
+             f"{limit})")
+    shapes = {}
+    for name, (B, N, G) in FPS_GRID_SHAPES.items():
+        xyz = sphere_cloud(torch, gen, B, N)
+        got = fps.fps_grid_cuda(xyz, G)
+        want = fps.fps_plain(xyz, G)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fps_grid {(B, N, G)}: {(got != want).sum().item()} "
+                 f"indices differ")
+        if N <= fps.MAX_POINTS and not torch.equal(got, fps.fps_cuda(xyz, G)):
+            fail(f"fps_grid {(B, N, G)}: indices differ from fps.cu's")
+        print(f"fps_grid {(B, N, G)}: indices equal")
+        if N > fps.MAX_POINTS:
+            b_ms, b_by = bound(B * N * 3 * 4 + B * G * 4, B * G * N * 9,
+                               PEAK_FP32)
+            shapes[name] = {"shape": [B, N, G],
+                         "ms": time_ms(lambda: fps.fps_grid_cuda(xyz, G)),
+                         "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G),
+                                             runs=5, per_run=1),
+                         "bound_ms": b_ms, "bound_by": b_by}
+    first = shapes["uni3d_lvis10k"]
+    return {"name": "fps_grid", "route": "cuda",
+            "source": "uni_adapter_torch/csrc/fps_grid.cu",
+            "replaces": "uni_adapter_tpu/ops/fps_pallas.py:133",
+            "max_abs_err": 0,
+            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")},
+            "library_ms": None, "shapes": shapes}
 
 
 def in_ball(xyz, new_xyz, r):
@@ -455,8 +617,7 @@ def check_attention_heads(torch, gen) -> dict:
 def cloud(torch, gen, B=2, N=1024):
     """xyz on a sphere of radius 0.5 (the synthetic stream's clouds) and a
     random color, (B, N, 6)."""
-    xyz = torch.randn(B, N, 3, generator=gen, device="cuda")
-    return torch.cat([0.5 * xyz / xyz.norm(dim=-1, keepdim=True),
+    return torch.cat([sphere_cloud(torch, gen, B, N),
                       torch.rand(B, N, 3, generator=gen, device="cuda")], -1)
 
 
@@ -477,13 +638,21 @@ FORWARD_INPUTS = {"uni3d": lambda pc: (pc,),
                   "ulip": lambda pc: (pc[..., :3],)}
 
 
+#: Backbones also checked on 10,000-point clouds, and the kernels their
+#: grouping must launch there.
+LARGE_CLOUD_KERNELS = {"uni3d": ("fps_grid", "knn_gather"),
+                       "openshape": ("fps_grid", "ballquery")}
+
+
 def check_features(torch, gen) -> None:
     """Uni3D-L, OpenShape-G and ULIP-2 at depth 2 and full width: the card's
     kernels against the CPU's plain versions on the same bf16 weights and
     input (cosine ≥ 0.99), without and with `return_attn`.  With it, every
     map must be finite with rows summing to 1 within 1e-3 and within
     MAP_ATOL of the CPU's, and the card's features within cosine 0.99 of
-    its own plain forward (block or natural-layout kernel)."""
+    its own plain forward (block or natural-layout kernel).  Uni3D and
+    OpenShape also on 10,000-point clouds (cosine ≥ 0.99), where their
+    grouping must run the large-cloud kernels and not fps.cu or knn.cu."""
     import dataclasses
 
     from uni_adapter_torch.config import ModelConfig
@@ -542,59 +711,112 @@ def check_features(torch, gen) -> None:
             fail(f"{kind} return_attn features disagree (cosine < 0.99)")
         if row_err > 1e-3 or map_err > MAP_ATOL:
             fail(f"{kind} return_attn maps outside their tolerance")
+        if kind not in LARGE_CLOUD_KERNELS:
+            continue
+        pc = cloud(torch, gen, 2, 10000)
+        counters = launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        with torch.no_grad():
+            f_gpu = gpu(*inputs(pc)).cpu()
+        launches = {n: c.launches for n, c in counters.items()}
+        with torch.no_grad():
+            f_cpu = cpu(*inputs(pc.cpu()))
+        cos = torch.nn.functional.cosine_similarity(f_gpu, f_cpu, dim=-1)
+        print(f"features {kind} on 10,000-point clouds (depth 2, full width, "
+              f"bf16): cosine card vs cpu {cos.tolist()}, max abs diff "
+              f"{(f_gpu - f_cpu).abs().max().item():.4g}; launches "
+              f"{ {n: v for n, v in launches.items() if v} }")
+        if not (torch.isfinite(f_gpu).all() and cos.min() > 0.99):
+            fail(f"{kind} features on 10,000 points disagree with the CPU's")
+        if (not all(launches[n] for n in LARGE_CLOUD_KERNELS[kind])
+                or launches["fps"] or launches["knn"]):
+            fail(f"{kind} on 10,000 points took another route: {launches}")
 
 
 def launch_counters() -> dict:
     """Each kernel's launch counter: the wrapper that owns it."""
     from uni_adapter_torch.ops import attention, attention_heads, ballquery
-    from uni_adapter_torch.ops import eva_attention, fps, knn
+    from uni_adapter_torch.ops import eva_attention, fps, knn, knn_gather
 
     return {"fps": fps.farthest_point_sample, "knn": knn.knn,
             "eva_attn_block": attention.eva_attn_block,
             "ballquery": ballquery.query_ball,
             "eva_attention": eva_attention.eva_attention_fused,
-            "attention_heads": attention_heads.attention_heads}
+            "attention_heads": attention_heads.attention_heads,
+            "knn_gather": knn_gather.knn_gather,
+            "fps_grid": fps.fps_grid_cuda}
 
 
-#: The three main paths: extra CLI flags, the anchor bank's width (None:
-#: the bundled 'large' bank), and the launches a 16-step run must reach
-#: per kernel (the block's wrapper launches three kernels a block).
+#: The main paths: extra CLI flags; the stream's points a cloud and
+#: classes; the anchor bank ('large': the shipped bank of the dataset,
+#: else the (K, width) of a seeded file); the launches a 16-step run must
+#: reach per kernel (the block's wrapper launches three kernels a block);
+#: and the kernels that must not run.  The first three are the 1024-point
+#: ModelNet40 paths, the last two the clouds above the register kernels'
+#: limits (fps.cu: 8192 points, knn.cu: 2048).
 PATHS = {
-    "uni3d": ([], None, {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3}),
-    "openshape": (["--vlm3d", "openshape"], 1280,
-                  {"fps": 1, "ballquery": 1, "eva_attention": 12}),
-    "ulip": (["--vlm3d", "ulip"], 512,
-             {"fps": 1, "knn": 1, "eva_attention": 12}),
+    "uni3d": ([], (1024, 40), "large",
+              {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
+              ("fps_grid", "knn_gather")),
+    "openshape": (["--vlm3d", "openshape"], (1024, 40), (40, 1280),
+                  {"fps": 1, "ballquery": 1, "eva_attention": 12},
+                  ("fps_grid", "knn_gather")),
+    "ulip": (["--vlm3d", "ulip"], (1024, 40), (40, 512),
+             {"fps": 1, "knn": 1, "eva_attention": 12},
+             ("fps_grid", "knn_gather")),
+    "uni3d_lvis10k": (["--dataset-name", "objaverse_lvis", "--npoints",
+                       "10000"], (10000, 1156), (1156, 1024),
+                      {"fps_grid": 1, "knn_gather": 1,
+                       "eva_attn_block": 24 * 3}, ("fps", "knn")),
+    "ulip_scanobjectnn8192": (["--vlm3d", "ulip", "--dataset-name",
+                               "scanobjectnn", "--npoints", "8192"],
+                              (8192, 15), (15, 512),
+                              {"fps": 1, "knn_gather": 1, "eva_attention": 12},
+                              ("knn", "fps_grid")),
 }
 
 
-def write_stream(tmp: Path, n_clouds: int = 16, n_points: int = 1024) -> None:
+def write_stream(root: Path, n_points: int, n_classes: int,
+                 n_clouds: int = 16) -> None:
+    """A synthetic corruption stream: clouds on spheres of radius 0.5-0.9,
+    written at their full size (no resampling duplicates points)."""
     import numpy as np
 
-    from uni_adapter_torch.data.datasets import MODELNET40_CLASSES
-
     rng = np.random.default_rng(0)
-    labels = rng.integers(0, len(MODELNET40_CLASSES), n_clouds)
+    labels = rng.integers(0, n_classes, n_clouds)
     pts = rng.standard_normal((n_clouds, n_points, 3)).astype(np.float32)
     pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
     pts *= (0.5 + 0.1 * (labels % 5))[:, None, None].astype(np.float32)
-    np.save(tmp / "data_uniform_5.npy", pts)
-    np.save(tmp / "label.npy", labels.astype(np.int64))
-    for width in (1280, 512):          # seeded, row-normalised banks
-        bank = np.random.default_rng(width).standard_normal((40, width))
-        bank /= np.linalg.norm(bank, axis=1, keepdims=True)
-        np.save(tmp / f"bank_{width}.npy", bank.astype(np.float32))
+    root.mkdir(parents=True, exist_ok=True)
+    np.save(root / "data_uniform_5.npy", pts)
+    np.save(root / "label.npy", labels.astype(np.int64))
+
+
+def write_bank(path: Path, n_classes: int, width: int) -> None:
+    """A seeded, row-normalised (n_classes, width) anchor bank."""
+    import numpy as np
+
+    bank = np.random.default_rng(width).standard_normal((n_classes, width))
+    bank /= np.linalg.norm(bank, axis=1, keepdims=True)
+    np.save(path, bank.astype(np.float32))
 
 
 def run_main_path(tmp: Path, kind: str, n_clouds: int = 16) -> dict:
     from uni_adapter_torch.cli import tta
 
-    flags, width, per_step = PATHS[kind]
-    bank = "large" if width is None else str(tmp / f"bank_{width}.npy")
+    flags, (n_points, n_classes), bank, per_step, idle = PATHS[kind]
+    root = tmp / f"stream_{n_points}x{n_classes}"
+    if not root.exists():
+        write_stream(root, n_points, n_classes, n_clouds)
+    if bank != "large":
+        path = tmp / f"bank_{bank[0]}x{bank[1]}.npy"
+        write_bank(path, *bank)
+        bank = str(path)
     counters = launch_counters()
     for c in counters.values():
         c.launches = 0
-    summary = tta.main(["--root", str(tmp), "--corruption", "uniform",
+    summary = tta.main(["--root", str(root), "--corruption", "uniform",
                         "--precomputed-text-features", bank, *flags,
                         "--device", "cuda", "--output-dir", str(tmp / "out"),
                         "--name", f"smoke-{kind}"])
@@ -609,10 +831,16 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16) -> dict:
     print(f"main path {kind} launches: {launches}")
     print(f"main path {kind} final logits finite: "
           f"{summary['finite']['uniform']}")
+    if len(step_ms) != n_clouds:
+        fail(f"{kind}: {len(step_ms)} steps, expected {n_clouds}")
     for name, n in per_step.items():
         if launches[name] < n * n_clouds:
             fail(f"{name} launched {launches[name]} times on the {kind} main "
                  f"path, expected at least {n * n_clouds}")
+    for name in idle:
+        if launches[name]:
+            fail(f"{name} launched {launches[name]} times on the {kind} main "
+                 f"path, expected none")
     if not summary["finite"]["uniform"]:
         fail(f"{kind}: non-finite final logits")
     for f in ("results.json", "results_zs.json"):
@@ -731,6 +959,8 @@ def main() -> None:
     kernels.append(check_ballquery(torch, gen))
     kernels.append(check_eva_attention(torch, gen))
     kernels.append(check_attention_heads(torch, gen))
+    kernels.append(check_knn_gather(torch, gen))
+    kernels.append(check_fps_grid(torch, gen))
     for k in kernels:
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']} | "
               f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
@@ -739,7 +969,6 @@ def main() -> None:
     check_features(torch, gen)
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
-        write_stream(Path(tmp))
         for kind in PATHS:
             by_path[kind] = run_main_path(Path(tmp), kind)
         for kind in EXTRACT_PATHS:

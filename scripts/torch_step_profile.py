@@ -1,19 +1,23 @@
 """Where one MODE-DOTA step of the PyTorch/CUDA port spends its time.
 
     python3 scripts/torch_step_profile.py [--vlm3d uni3d|openshape|ulip]
+        [--npoints N] [--dataset-name NAME]
 
 On one CUDA card, one backbone at its published widths and depth in bf16
-with random weights from a seed: Uni3D-L (24 blocks, width 1024, the
-bundled ModelNet40 anchors; the default), OpenShape PPTA-G (12 blocks,
-width 512, a seeded (40, 1280) bank) or ULIP-2 Point-BERT (12 blocks,
-width 384, a seeded (40, 512) bank); MODE-DOTA defaults with residual
-learning; random 1024-point clouds on a sphere of radius 0.5.  After
-warm-up it prints, per step:
+with random weights from a seed: Uni3D-L (24 blocks, width 1024; the
+default), OpenShape PPTA-G (12 blocks, width 512) or ULIP-2 Point-BERT (12
+blocks, width 384); MODE-DOTA defaults with residual learning; random
+N-point clouds (default 1024) on a sphere of radius 0.5.  The anchors are
+the shipped bank of the dataset where Uni3D has one (ModelNet40, the
+default, ScanObjectNN, ShapeNetCore), else a seeded bank with the
+dataset's number of classes (1156 for objaverse_lvis) at the backbone's
+width.  After warm-up it prints, per step:
 
   * wall time (host clock, ending in a device synchronise) of the whole
-    step and of its three phases run alone: the fused 2B encoder forward,
-    the MODE-DOTA predict + two fits + fusion, and the 10-step residual
-    loop;
+    step and of its phases run alone: the fused 2B encoder forward, its
+    grouping (FPS + kNN or ball query on the 2B clouds; the kernels the
+    cloud's size picks), the MODE-DOTA predict + two fits + fusion, and
+    the 10-step residual loop;
   * from `torch.profiler` over 5 steps: device busy time (the sum
     of kernel times) against the unprofiled step's wall time, and device
     time by kernel, in groups (the port's CUDA kernels, library GEMMs,
@@ -38,13 +42,16 @@ from uni_adapter_torch import engine  # noqa: E402
 from uni_adapter_torch.adapt import fusion, mode_dota, residual  # noqa: E402
 from uni_adapter_torch.anchors import load_precomputed  # noqa: E402
 from uni_adapter_torch.cli.tta import feature_width, set_numerics  # noqa: E402
-from uni_adapter_torch.config import Config, ModelConfig  # noqa: E402
+from uni_adapter_torch.config import (Config, DataConfig,  # noqa: E402
+                                     ModelConfig, load_labels)
 from uni_adapter_torch.models.loader import (BACKBONES,  # noqa: E402
                                              build_backbone)
 from uni_adapter_torch.ops import build  # noqa: E402
+from uni_adapter_torch.ops.geometry import (group_points,  # noqa: E402
+                                            sample_and_group)
 
-OURS = ("fps_kernel", "knn_kernel", "gemm_kernel", "attn_kernel",
-        "ballquery_kernel")
+OURS = ("fps_kernel", "fps_grid_kernel", "knn_kernel", "knn_gather_kernel",
+        "gemm_kernel", "attn_kernel", "ballquery_kernel")
 PROFILED_STEPS = 5
 
 
@@ -71,22 +78,32 @@ def group_of(name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--vlm3d", choices=sorted(BACKBONES), default="uni3d")
-    kind = ap.parse_args().vlm3d
+    ap.add_argument("--npoints", type=int, default=1024)
+    ap.add_argument("--dataset-name", default="modelnet")
+    args = ap.parse_args()
+    kind, npoints = args.vlm3d, args.npoints
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: needs a CUDA device")
     build.build_all()
     set_numerics()
     dev = torch.device("cuda")
-    cfg = Config(model=ModelConfig(vlm3d=kind))
+    cfg = Config(model=ModelConfig(vlm3d=kind),
+                 data=DataConfig(dataset_name=args.dataset_name)).resolve()
     dc = cfg.dota
-    model, _, _ = build_backbone(kind, cfg.model, dev, seed=0)
+    model, n_group, group_size = build_backbone(kind, cfg.model, dev, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    text = None
     if kind == "uni3d":
-        text = load_precomputed("large", "modelnet").to(dev)
-    else:                                   # a seeded, row-normalised bank
-        text = torch.randn(40, feature_width(cfg.model), generator=gen,
-                           device=dev)
+        try:
+            text = load_precomputed("large", args.dataset_name).to(dev)
+        except KeyError:                    # no shipped bank for the family
+            pass
+    if text is None:                        # a seeded, row-normalised bank
+        text = torch.randn(len(load_labels(cfg)), feature_width(cfg.model),
+                           generator=gen, device=dev)
         text = text / text.norm(dim=1, keepdim=True)
+    print(f"{kind}, {npoints} points, {args.dataset_name}: anchors "
+          f"{tuple(text.shape)}")
     step = engine.make_step_fn(cfg, model)
     encode = engine.encode_with(kind, model)
 
@@ -95,7 +112,7 @@ def main() -> None:
         return 0.5 * x / x.norm(dim=-1, keepdim=True)
 
     def batch():
-        pc = sphere(1, 1024)
+        pc = sphere(1, npoints)
         return pc, torch.ones_like(pc), torch.zeros(1, dtype=torch.int64,
                                                     device=dev)
 
@@ -116,10 +133,19 @@ def main() -> None:
         fusion.fuse_mode_dota(logits, d, fusion.dota_fusion_weight(
             dc.rho, dc.eta, ms.c.mean(), 1.0))
 
+    xyz2, rgb2 = torch.cat([pc, pc]), torch.cat([rgb, rgb])
+    if kind == "openshape":
+        sa = model.ppat.sa
+        grouping = lambda: sample_and_group(            # noqa: E731
+            sa.npoint, sa.radius, sa.nsample, xyz2,
+            torch.cat([xyz2, rgb2], dim=-1))
+    else:
+        grouping = lambda: group_points(                # noqa: E731
+            xyz2, rgb2 if kind == "uni3d" else None, n_group, group_size)
     phases = {
         "step": lambda: step(text, state, (pc, rgb, tgt)),
-        "encoder forward (2B)": lambda: torch.no_grad()(encode)(
-            torch.cat([pc, pc]), torch.cat([rgb, rgb])),
+        "encoder forward (2B)": lambda: torch.no_grad()(encode)(xyz2, rgb2),
+        "grouping (2B)": grouping,
         "predict + 2 fits + fusion": torch.no_grad()(adapt),
         "residual loop (10 Adam steps)": lambda: residual.optimize_residuals(
             state.res_state, text, state.method_state, dc.residual_lr,
@@ -128,7 +154,7 @@ def main() -> None:
     timings = {k: wall_ms(f, 10) for k, f in phases.items()}
     # the same step as the stream loop runs it: fresh clouds from the host
     # each step, state carried over
-    clouds = sphere(12, 1, 1024).cpu()
+    clouds = sphere(12, 1, npoints).cpu()
     res = engine.run_stream(cfg, model, text, (
         (c.numpy(), torch.ones_like(c).numpy(), [0]) for c in clouds),
         step_fn=step)
@@ -167,8 +193,10 @@ def main() -> None:
     for name, (ms, n) in top:
         print(f"kernel {ms / PROFILED_STEPS:9.3f} ms/step "
               f"{n // PROFILED_STEPS:6d}x  {name[:90]}")
-    print(json.dumps({"vlm3d": kind, "wall_ms": timings, "profiled_wall_ms": wall,
-                      "device_busy_ms": busy, "groups_ms": groups}))
+    print(json.dumps({"vlm3d": kind, "npoints": npoints,
+                      "dataset_name": args.dataset_name, "wall_ms": timings,
+                      "profiled_wall_ms": wall, "device_busy_ms": busy,
+                      "groups_ms": groups}))
 
 
 if __name__ == "__main__":

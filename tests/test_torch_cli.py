@@ -162,6 +162,12 @@ def test_config_copy_keeps_the_jax_defaults():
             if f.name == "device":     # the port runs on cuda by default
                 assert f.default == "cuda"
                 continue
+            if f.name == "labels_path":   # the port's own copy of the file
+                assert Path(f.default).read_bytes() == Path(
+                    jdefaults[f.name]).read_bytes()
+                assert Path(f.default).parent == REPO / (
+                    "uni_adapter_torch/assets")
+                continue
             assert f.default == jdefaults[f.name], (pc.__name__, f.name)
     cfg = pcfg.parse_args(["--eva-depth", "2", "--dota-mode-M", "3"])
     assert cfg.model.eva_depth == 2 and cfg.dota.mode_M == 3

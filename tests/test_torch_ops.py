@@ -19,7 +19,8 @@ import uni_adapter_tpu.ops.fps_pallas as fps_pallas
 import uni_adapter_tpu.ops.knn_pallas as knn_pallas
 from uni_adapter_tpu.ops import geometry as jax_geometry
 from uni_adapter_torch.ops import (attention, attention_heads, ballquery,
-                                   eva_attention, fps, geometry, knn)
+                                   eva_attention, fps, geometry, knn,
+                                   knn_gather)
 
 
 def _rand(shape, seed):
@@ -265,8 +266,12 @@ def _cpu_block_call():
         *(torch.zeros(1, 5, 64, dtype=torch.bfloat16),) * 3, num_heads=1),
     lambda: attention_heads.attention_heads_cuda(
         *(torch.zeros(1, 2, 5, 64, dtype=torch.bfloat16),) * 3),
+    lambda: knn_gather.knn_gather_cuda(2, torch.zeros(1, 8, 3),
+                                       torch.zeros(1, 4, 3),
+                                       torch.zeros(1, 8, 6)),
+    lambda: fps.fps_grid_cuda(torch.zeros(1, 8, 3), 4),
 ], ids=["fps", "knn", "eva_attn_block", "ballquery", "eva_attention",
-        "attention_heads"])
+        "attention_heads", "knn_gather", "fps_grid"])
 def test_kernel_wrappers_reject_cpu_tensors_before_building(call):
     """A kernel wrapper checks its inputs before it builds or launches:
     CPU tensors raise, and nothing is compiled."""

@@ -1,11 +1,11 @@
 """Precomputed text anchors (mirror of `uni_adapter_tpu/anchors.py::
 load_precomputed`).
 
-The port ships its own copy of the Uni3D-L ModelNet40 bank
-(`assets/text_features_large.npy`, (40, 1024) fp32, the reference's
-precomputed CLIP text features); ULIP-2 (512-d) and OpenShape (1280-d or
-768-d) banks are passed as files.  Other shipped banks and the on-the-fly
-text tower are ROADMAP M11.
+The port ships its own copies of the JAX package's four banks (the
+reference's precomputed CLIP text features, fp32): Uni3D large and giant
+for ModelNet40, large for ScanObjectNN and for ShapeNetCore.  ULIP-2
+(512-d), OpenShape (1280-d or 768-d) and Objaverse-LVIS banks are passed
+as files.  The on-the-fly text tower is ROADMAP M11.
 """
 from __future__ import annotations
 
@@ -18,7 +18,12 @@ import torch
 from uni_adapter_torch.config import ASSETS_DIR
 
 #: Shipped banks, keyed by (backbone size, dataset family).
-PRECOMPUTED = {("large", "modelnet"): "text_features_large.npy"}
+PRECOMPUTED = {
+    ("large", "modelnet"): "text_features_large.npy",
+    ("giant", "modelnet"): "text_features_giant.npy",
+    ("large", "scanobject"): "text_features_large_scanobjectnn.npy",
+    ("large", "shapenet"): "text_features_large_shapenetcorev2.npy",
+}
 
 
 def load_precomputed(path_or_key: str,
@@ -37,13 +42,22 @@ def load_precomputed(path_or_key: str,
             f"precomputed text-feature file not found: {path_or_key}")
     family = next((f for f in ("modelnet", "scanobject", "shapenet")
                    if dataset_name and f in dataset_name.lower()), None)
-    if family is None and dataset_name is not None:
-        raise KeyError(f"no shipped anchor-bank family for dataset "
-                       f"'{dataset_name}' (or pass a .npy path)")
-    fname = PRECOMPUTED.get((path_or_key, family or "modelnet"))
-    if fname is None:
-        raise NotImplementedError(
-            f"the '{path_or_key}' bank for '{family or 'modelnet'}' is not "
-            f"shipped with the port yet (ROADMAP M11); pass a .npy path")
+    if family is None:
+        if dataset_name is not None:
+            # an unknown dataset must not get the ModelNet bank (another
+            # class set scores silently wrong)
+            raise KeyError(
+                f"no shipped anchor-bank family for dataset "
+                f"'{dataset_name}' (known: modelnet/scanobject/shapenet; "
+                f"or pass a .npy path)")
+        family = "modelnet"
+    try:
+        fname = PRECOMPUTED[(path_or_key, family)]
+    except KeyError:
+        avail = sorted({k for k, fam in PRECOMPUTED if fam == family})
+        raise KeyError(
+            f"no shipped '{path_or_key}' bank for dataset family "
+            f"'{family}' (available sizes: {avail}; or pass a .npy path)"
+        ) from None
     return torch.from_numpy(
         np.load(os.path.join(ASSETS_DIR, fname)).astype(np.float32))

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Optional
@@ -81,13 +82,16 @@ class DotaConfig:
 @dataclass
 class DataConfig:
     root: str = ""
-    dataset_name: str = "modelnet"
+    dataset_name: str = "modelnet"       # modelnet | scanobject | shapenetcore
+    # labels.json key; None = inferred from dataset_name (`Config.resolve`)
+    validate_dataset_name: Optional[str] = None
     corruption: str = "all"
     severity: int = 5
     batch_size: int = 1
     npoints: int = 1024
     debug: bool = False
     precomputed_text_features: Optional[str] = None
+    labels_path: str = os.path.join(ASSETS_DIR, "labels.json")
 
 
 @dataclass
@@ -109,6 +113,46 @@ class Config:
     dota: DotaConfig = field(default_factory=DotaConfig)
     data: DataConfig = field(default_factory=DataConfig)
     run: RunConfig = field(default_factory=RunConfig)
+
+    def resolve(self) -> "Config":
+        """Infer the labels.json key from the dataset name when it is not
+        set; families it cannot infer (OmniObject3D) keep None, and
+        `load_labels` raises only if their labels are needed.  (The JAX
+        `resolve` also sets the cache path's hyperparameters, ROADMAP M7.)"""
+        d = self.data
+        if d.validate_dataset_name is not None:
+            return self
+        try:
+            key = labels_key_for(d.dataset_name)
+        except ValueError:
+            return self
+        return dataclasses.replace(
+            self, data=dataclasses.replace(d, validate_dataset_name=key))
+
+
+def labels_key_for(dataset_name: str) -> str:
+    """labels.json key for a dataset family."""
+    name = dataset_name.lower()
+    if "modelnet" in name:
+        return "modelnet40_openshape"
+    if "scanobject" in name:
+        return "scanobjnn_openshape"
+    if "shapenet" in name:
+        return "shapenet_openshape"
+    if "lvis" in name or "objaverse" in name:
+        return "objaverse_lvis_openshape"
+    raise ValueError(f"cannot infer a labels.json key for dataset "
+                     f"{dataset_name!r}; set the key explicitly "
+                     f"(--validate-dataset-name on the evaluation CLI)")
+
+
+def load_labels(cfg: Config) -> list[str]:
+    """The class names of `cfg`'s dataset, from `cfg.data.labels_path`."""
+    key = cfg.data.validate_dataset_name
+    if key is None:   # hand-built / unresolved Config, or un-inferable family
+        key = labels_key_for(cfg.data.dataset_name)
+    with open(cfg.data.labels_path) as f:
+        return json.load(f)[key]
 
 
 def unported_paths(cfg: Config) -> list[str]:
@@ -188,4 +232,4 @@ def parse_args(argv=None) -> Config:
     )
     if cfg.run.device not in ("cuda", "cpu"):
         raise ValueError(f"--device {cfg.run.device!r}: expected cuda or cpu")
-    return cfg
+    return cfg.resolve()

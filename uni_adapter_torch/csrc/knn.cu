@@ -17,19 +17,22 @@
 //   registers (points lane, lane+32, ...), so the selection never touches
 //   memory: a round is a 5-step shuffle argmin on (value, lower index);
 //   only the winning lane then knocks its point out with +inf and rescans
-//   its own registers for its next local minimum.  Every distance uses
-//   __fmul_rn/__fadd_rn/__fsub_rn in the plain version's order, so no FMA
-//   contraction changes a tie: the indices equal the plain PyTorch
-//   version's exactly.
+//   its own registers for its next local minimum.  The distance and the
+//   argmin come from knn_core.cuh, shared with knn_gather.cu: the indices
+//   equal the plain PyTorch version's exactly.
+//
+// Takes N <= 2048 (64 distances a lane); larger clouds go to knn_gather.cu,
+//   which streams the cloud in tiles.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <climits>
 #include <cstdint>
 
+#include "knn_core.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
 
 template <int PPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -47,8 +50,7 @@ knn_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
     sx[j] = x;
     sy[j] = y;
     sz[j] = z;
-    sw[j] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                      __fmul_rn(z, z));
+    sw[j] = knn_core::norm2(x, y, z);
   }
   __syncthreads();
 
@@ -57,18 +59,14 @@ knn_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
   if (s >= S) return;  // whole warps only: no barrier follows
   const float* qp = query + (static_cast<size_t>(b) * S + s) * 3;
   const float qx = qp[0], qy = qp[1], qz = qp[2];
-  const float q2 = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)),
-                             __fmul_rn(qz, qz));
+  const float q2 = knn_core::norm2(qx, qy, qz);
 
   float d[PPL];
 #pragma unroll
   for (int t = 0; t < PPL; ++t) {
     const int j = lane + 32 * t;
     if (j < N) {
-      const float cross = __fadd_rn(
-          __fadd_rn(__fmul_rn(qx, sx[j]), __fmul_rn(qy, sy[j])),
-          __fmul_rn(qz, sz[j]));
-      d[t] = __fsub_rn(__fadd_rn(q2, sw[j]), __fmul_rn(2.f, cross));
+      d[t] = knn_core::sqdist(qx, qy, qz, q2, sx[j], sy[j], sz[j], sw[j]);
     } else {
       d[t] = CUDART_INF_F;  // pads never win
     }
@@ -89,15 +87,7 @@ knn_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
   for (int r = 0; r < k; ++r) {
     float bv = lv;
     int bi = li;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (ov < bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
+    knn_core::warp_argmin(bv, bi);
     if (lane == 0) o[r] = bi;
     if ((bi & 31) == lane) {
       const int tw = bi >> 5;

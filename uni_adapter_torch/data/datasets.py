@@ -1,5 +1,7 @@
-"""Corrupted point-cloud test sets, numpy only (a copy of the ModelNet40-C
-part of `uni_adapter_tpu/data/datasets.py`).
+"""Corrupted point-cloud test sets, numpy only (a copy of the -C loaders
+of `uni_adapter_tpu/data/datasets.py`: ModelNet40-C, ScanObjectNN-C,
+ShapeNetCore-C, and the generic -C family for Objaverse-LVIS and
+OmniObject3D, whose class names come from labels.json).
 
 Layout: `data_{corruption}_{severity}.npy` + `label.npy` under the root
 ('clean' reads `data_original.npy`).  Clouds whose point count differs
@@ -15,6 +17,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from uni_adapter_torch.config import load_labels
+
 MODELNET40_CLASSES = [
     "airplane", "bathtub", "bed", "bench", "bookshelf", "bottle", "bowl",
     "car", "chair", "cone", "cup", "curtain", "desk", "door", "dresser",
@@ -22,6 +26,22 @@ MODELNET40_CLASSES = [
     "mantel", "monitor", "night_stand", "person", "piano", "plant", "radio",
     "range_hood", "sink", "sofa", "stairs", "stool", "table", "tent",
     "toilet", "tv_stand", "vase", "wardrobe", "xbox",
+]
+
+SCANOBJECTNN_CLASSES = [
+    "bag", "bin", "box", "cabinet", "chair", "desk", "display", "door",
+    "shelf", "table", "bed", "pillow", "sink", "sofa", "toilet",
+]
+
+SHAPENETCORE_CLASSES = [
+    "airplane", "bag", "basket", "bathtub", "bed", "bench", "bottle", "bowl",
+    "bus", "cabinet", "can", "camera", "cap", "car", "chair", "clock",
+    "dishwasher", "monitor", "table", "telephone", "tin_can", "tower",
+    "train", "keyboard", "earphone", "faucet", "file", "guitar", "helmet",
+    "jar", "knife", "lamp", "laptop", "speaker", "mailbox", "microphone",
+    "microwave", "motorcycle", "mug", "piano", "pillow", "pistol", "pot",
+    "printer", "remote_control", "rifle", "rocket", "skateboard", "sofa",
+    "stove", "vessel", "washer", "cellphone", "birdhouse", "bookshelf",
 ]
 
 
@@ -40,9 +60,10 @@ def _npy_pair_paths(data_path: str, corruption: str, severity: int):
 def load_data(data_path: str, corruption: str, severity: int):
     """The npy pair of one corruption."""
     data_file, label_file = _npy_pair_paths(data_path, corruption, severity)
-    for f in (data_file, label_file):
-        if not os.path.exists(f):
-            raise FileNotFoundError(f"Data file not found: {f}")
+    if not os.path.exists(data_file):
+        raise FileNotFoundError(f"Data file not found: {data_file}")
+    if not os.path.exists(label_file):
+        raise FileNotFoundError(f"Label file not found: {label_file}")
     return (np.load(data_file, allow_pickle=True),
             np.load(label_file, allow_pickle=True))
 
@@ -106,18 +127,45 @@ def _normalize_labels(labels: np.ndarray) -> np.ndarray:
     return labels.astype(np.int64)
 
 
-def modelnet40_c(root: str, corruption: str, severity: int = 5,
-                 debug: bool = False) -> TTADataset:
+def generic_c(root: str, corruption: str, class_names: list[str],
+              severity: int = 5, debug: bool = False) -> TTADataset:
+    """A -C set in the common layout with its class names given.  Labels
+    are flattened before the debug slice (ScanObjectNN stores them as
+    [1, T]); the JAX package's other loaders slice first, which for 1-D
+    labels is the same."""
     data, labels = load_data(root, corruption, severity)
+    labels = _normalize_labels(labels)
     if debug:
         data, labels = data[:5], labels[:5]
-    return TTADataset(data, _normalize_labels(labels), MODELNET40_CLASSES)
+    return TTADataset(data, labels, class_names)
+
+
+def modelnet40_c(root: str, corruption: str, severity: int = 5,
+                 debug: bool = False) -> TTADataset:
+    return generic_c(root, corruption, MODELNET40_CLASSES, severity, debug)
+
+
+def scanobjectnn_c(root: str, corruption: str, severity: int = 5,
+                   debug: bool = False) -> TTADataset:
+    return generic_c(root, corruption, SCANOBJECTNN_CLASSES, severity, debug)
+
+
+def shapenetcore_c(root: str, corruption: str, severity: int = 5,
+                   debug: bool = False) -> TTADataset:
+    return generic_c(root, corruption, SHAPENETCORE_CLASSES, severity, debug)
 
 
 def load_tta_dataset(cfg) -> TTADataset:
     """Dataset for `cfg.data` (name-substring dispatch)."""
     d = cfg.data
-    if "modelnet" in d.dataset_name.lower():
+    name = d.dataset_name.lower()
+    if "modelnet" in name:
         return modelnet40_c(d.root, d.corruption, d.severity, d.debug)
-    raise NotImplementedError(f"dataset {d.dataset_name!r} is not ported yet "
-                              f"(ROADMAP M6); the port reads ModelNet40-C")
+    if "scanobject" in name:
+        return scanobjectnn_c(d.root, d.corruption, d.severity, d.debug)
+    if "shapenet" in name:
+        return shapenetcore_c(d.root, d.corruption, d.severity, d.debug)
+    if "lvis" in name or "objaverse" in name or "omniobject" in name:
+        return generic_c(d.root, d.corruption, load_labels(cfg), d.severity,
+                         d.debug)
+    raise NotImplementedError(f"Dataset {d.dataset_name} is not implemented")

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uni_adapter_torch"
 SOURCES = ("fps", "knn", "eva_attn_block", "ballquery", "eva_attention",
-           "attention_heads")
+           "attention_heads", "knn_gather", "fps_grid")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

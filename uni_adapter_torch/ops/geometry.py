@@ -1,6 +1,12 @@
 """Point-cloud grouping (mirror of `uni_adapter_tpu/ops/geometry.py` on its
 kernel branches: FPS centres from `fps_pallas_batched`, neighbourhoods from
-`knn_pallas` or `query_ball_pallas`, then an exact gather)."""
+`knn_pallas` or `query_ball_pallas` then an exact gather, or from
+`knn_gather_pallas` with the gather fused).
+
+The cloud's size picks the kernel: `group_points` takes `knn` + gather up
+to `knn.MAX_POINTS` points and one `knn_gather` launch above, and FPS picks
+its own kernel the same way (`fps.farthest_point_sample`).  The two routes
+give bitwise-identical outputs, as the JAX package's two routes do."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +15,8 @@ import torch
 
 from uni_adapter_torch.ops.ballquery import query_ball
 from uni_adapter_torch.ops.fps import farthest_point_sample
-from uni_adapter_torch.ops.knn import knn
+from uni_adapter_torch.ops.knn import MAX_POINTS, knn
+from uni_adapter_torch.ops.knn_gather import knn_gather
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -32,11 +39,14 @@ def group_points(xyz: torch.Tensor, color: Optional[torch.Tensor],
     """
     fps_idx = farthest_point_sample(xyz, num_group)               # (B, G)
     center = index_points(xyz, fps_idx)                           # (B, G, 3)
-    idx = knn(group_size, xyz, center)                            # (B, G, M)
+    values = xyz if color is None else torch.cat([xyz, color], dim=-1)
+    if xyz.shape[1] > MAX_POINTS:
+        _, joined = knn_gather(group_size, xyz, center, values)
+    else:
+        joined = index_points(values, knn(group_size, xyz, center))
+    neighborhood = joined[..., :3] - center[:, :, None, :]        # (B, G, M, 3)
     if color is None:
-        return index_points(xyz, idx) - center[:, :, None, :], center, None
-    joined = index_points(torch.cat([xyz, color], dim=-1), idx)
-    neighborhood = joined[..., :3] - center[:, :, None, :]
+        return neighborhood, center, None
     features = torch.cat([neighborhood, joined[..., 3:]], dim=-1)
     return neighborhood, center, features
 

@@ -17,6 +17,7 @@ import torch
 from uni_adapter_torch.ops import build
 
 #: Largest cloud the kernel takes: 64 distances in registers per lane.
+#: Larger clouds go to `csrc/knn_gather.cu`, which streams the cloud.
 MAX_POINTS = 2048
 
 
@@ -77,13 +78,18 @@ def knn(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     Args:
       xyz: (B, N, 3) points; new_xyz: (B, S, 3) queries.
     Returns:
-      (B, S, k) int64 indices.  CUDA tensors run the Hopper kernel, CPU
-      tensors `knn_plain`.
+      (B, S, k) int64 indices.  CUDA tensors run `csrc/knn.cu` up to
+      MAX_POINTS points and `csrc/knn_gather.cu` (no values) above; CPU
+      tensors run `knn_plain`.
     """
-    if xyz.is_cuda:
-        return knn_cuda(k, xyz.to(torch.float32).contiguous(),
-                        new_xyz.to(torch.float32).contiguous())
-    return knn_plain(k, xyz, new_xyz)
+    if not xyz.is_cuda:
+        return knn_plain(k, xyz, new_xyz)
+    if xyz.shape[1] > MAX_POINTS:
+        # knn_gather imports this module: imported here, not at the top
+        from uni_adapter_torch.ops.knn_gather import knn_gather
+        return knn_gather(k, xyz, new_xyz)[0]
+    return knn_cuda(k, xyz.to(torch.float32).contiguous(),
+                    new_xyz.to(torch.float32).contiguous())
 
 
 knn.launches = 0
