@@ -18,11 +18,17 @@ exits non-zero before the result line:
      must fail; with kernel and plain times (median of 20 runs, CUDA
      events), the least time the card could take (bound) and, for the
      attention, PyTorch's `scaled_dot_product_attention` on the same
-     inputs as a yardstick (the port never calls it);
+     inputs as a yardstick (the port never calls it); then the fp32
+     kernels (the (B, H, N, hd) attention, the natural layout with and
+     without its LayerNorm, the block) within an fp32 tolerance that
+     three planted faults (operands rounded to bf16, to TF32, the last
+     key dropped) must each fail by 5×, and float16 raising in every
+     attention wrapper;
   4. features (and attention maps) of Uni3D, OpenShape-G and ULIP-2 at
      depth 2 and full width on the card (kernels) against the CPU (plain
      versions), the same weights in bf16; Uni3D and OpenShape-G also on
-     10,000-point clouds;
+     10,000-point clouds; then all three in fp32 within 1 − cosine 1e-4
+     (maps within 1e-5), each forward on its fp32 kernels alone;
   5. the three main paths through `uni_adapter_torch.cli.tta.main`, each at
      its published widths and depth in bf16 with random weights from a
      seed, MODE-DOTA defaults with residual learning, over a synthetic
@@ -36,13 +42,18 @@ exits non-zero before the result line:
      stream of 10,000-point clouds with a seeded (1156, 1024) bank
      (`fps_grid` and `knn_gather`, never `fps` or `knn`), and ULIP-2 on a
      ScanObjectNN stream at `--npoints 8192` with a seeded (15, 512) bank
-     (`fps` at its limit and `knn_gather`, never `knn`);
+     (`fps` at its limit and `knn_gather`, never `knn`); then the three
+     1024-point paths with `--compute-dtype float32` (the fp32 kernels,
+     no bf16 attention kernel), and `--compute-dtype float16` raising;
   6. the attention-map extraction path of each backbone at full width and
      depth through `uni_adapter_torch.cli.extract_attention` on the
      synthetic sphere (the whole `main` where matplotlib imports, its
      device half `extract` otherwise): 24 / 12 / 12 maps in
      `attention_maps.npz`, one (B, H, N, hd) attention launch per layer,
-     none of the block or natural-layout kernels.
+     none of the block or natural-layout kernels; then each in fp32
+     (`build_backbone` with `compute_dtype="float32"` through
+     `AttentionExtractor`): one fp32 (B, H, N, hd) launch per layer and no
+     other attention kernel.
 
 Phase 3 also holds the (B, H, N, hd) attention at the three extraction
 shapes and three general head dims, and phase 4 runs each backbone with
@@ -56,6 +67,7 @@ result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -79,6 +91,21 @@ PEAK_BYTES = 3.35e12
 # the inputs below.  The planted faults of `check_block_tolerance` move
 # outputs by ~1.
 BLOCK_RTOL, BLOCK_ATOL_RMS = 2e-2, 2e-2
+# fp32 tolerance of the fp32 kernels (the block, the natural layout and
+# the (B, H, N, hd) attention) against their plain versions: the same
+# form, rtol 1e-4 and atol 1e-4 of the output's RMS.  Both sides compute
+# in fp32 (TF32 off for the plain version's products), so they differ only
+# in summation order and, in the kernels' online softmax, in when exp()
+# takes its max: a few fp32 ulps in each score and in q and k after the
+# block's K = 1024 products, which peaked logits (std ≈ 5) carry into the
+# output as ~1e-6 of its RMS, a hundredth of atol.  What the tolerance is
+# for, a kernel that does not keep fp32, fails it by far more than
+# F32_FAULT_MARGIN: operands rounded to TF32 (2⁻¹¹ relative) move logits
+# by ~2e-3 and outputs by ~1e-3 of their RMS, to bf16 eight times that
+# (`check_f32`'s planted faults; on the CPU's plain versions 45× and 335×
+# at the least), and a dropped key moves them by O(1).
+F32_RTOL, F32_ATOL_RMS = 1e-4, 1e-4
+F32_FAULT_MARGIN = 5
 # γ of the per-head q/k LayerNorms in the block check: softmax logits of
 # std ≈ γ² ≈ 5 over 513 keys, so attention is peaked (as in a trained
 # model) and a key the kernel drops or miscounts moves the output by O(1).
@@ -120,14 +147,54 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def block_atol(want) -> float:
-    return BLOCK_ATOL_RMS * want.pow(2).mean().sqrt().item()
+def block_atol(want, atol_rms: float = BLOCK_ATOL_RMS) -> float:
+    return atol_rms * want.pow(2).mean().sqrt().item()
 
 
-def block_err(got, want) -> float:
+def block_err(got, want, rtol: float = BLOCK_RTOL,
+              atol_rms: float = BLOCK_ATOL_RMS) -> float:
     """Largest |got − want| / (atol + rtol·|want|): at most 1 passes."""
     return ((got - want).abs()
-            / (block_atol(want) + BLOCK_RTOL * want.abs())).max().item()
+            / (block_atol(want, atol_rms) + rtol * want.abs())).max().item()
+
+
+def round_bf16(t):
+    import torch
+
+    return t.to(torch.bfloat16).float()
+
+
+def round_tf32(t):
+    """fp32 rounded to nearest even at TF32's 10 mantissa bits."""
+    import torch
+
+    b = t.contiguous().view(torch.int32)
+    return ((b + 0xFFF + ((b >> 13) & 1)) & -8192).view(torch.float32)
+
+
+def check_f32(what: str, got, want, faults: dict) -> float:
+    """An fp32 kernel's output within the fp32 tolerance of its plain
+    version's, and each planted fault ({name: (output, its reference)})
+    at least F32_FAULT_MARGIN times outside it.  Returns the max abs err."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite output")
+    err = (got - want).abs().max().item()
+    r = block_err(got, want, F32_RTOL, F32_ATOL_RMS)
+    print(f"{what}: max abs err {err:.3g}, err/tolerance {r:.4f} (rtol "
+          f"{F32_RTOL}, atol {block_atol(want, F32_ATOL_RMS):.3g} = "
+          f"{F32_ATOL_RMS} × output RMS)")
+    if r > 1:
+        fail(f"{what}: outside the fp32 tolerance")
+    for fault, (bad, ref) in faults.items():
+        rf = block_err(bad, ref, F32_RTOL, F32_ATOL_RMS)
+        print(f"  planted fault '{fault}': err/tolerance {rf:.1f}")
+        if rf < F32_FAULT_MARGIN:
+            fail(f"{what}: the planted fault '{fault}' is not "
+                 f"{F32_FAULT_MARGIN}× outside the fp32 tolerance")
+    return err
 
 
 def check_block_tolerance(torch, attention, args, want, H) -> None:
@@ -614,6 +681,202 @@ def check_attention_heads(torch, gen) -> dict:
     return entry
 
 
+def rounded_faults(run, operands) -> dict:
+    """The two rounding faults of an fp32 kernel: `run` on its operands
+    rounded to bf16 and to TF32 (rounding that a kernel on the tensor
+    cores would make)."""
+    return {f"operands rounded to {name}": run(*map(rnd, operands))
+            for name, rnd in (("bf16", round_bf16), ("TF32", round_tf32))}
+
+
+def check_attention_fp32(torch, gen) -> dict:
+    """Row 9, the fp32 (B, H, N, hd) attention, q and k scaled by
+    BLOCK_LN_GAMMA (peaked attention): at the three extraction paths'
+    shapes within the fp32 tolerance, which three planted faults must each
+    fail by F32_FAULT_MARGIN, with times against SDPA on the same fp32
+    inputs; then at head dims 32, 16 and 12."""
+    import torch.nn.functional as F
+
+    from uni_adapter_torch.ops.attention_fp32 import (attention_fp32_cuda,
+                                                      attention_fp32_plain)
+
+    def inputs(B, H, N, hd):
+        qkv = torch.randn(3, B, H, N, hd, generator=gen, device="cuda")
+        qkv[:2] *= BLOCK_LN_GAMMA
+        return qkv.unbind(0)
+
+    entry, shapes = None, {}
+    for path, (B, H, N, hd) in HEADS_SHAPES.items():
+        q, k, v = inputs(B, H, N, hd)
+        want = attention_fp32_plain(q, k, v)
+        faults = {name: (got, want) for name, got in rounded_faults(
+            attention_fp32_cuda, (q, k, v)).items()}
+        faults[f"last key {N - 1} dropped"] = (attention_fp32_plain(
+            q, k[:, :, :N - 1], v[:, :, :N - 1]), want)
+        err = check_f32(f"attention_fp32 {path} {(B, H, N, hd)}",
+                        attention_fp32_cuda(q, k, v), want, faults)
+        b_ms, b_by = bound(4 * B * H * N * hd * 4, 4 * B * H * N * N * hd,
+                           PEAK_FP32)
+        shapes[path] = {
+            "shape": [B, H, N, hd], "max_abs_err": err,
+            "ms": time_ms(lambda: attention_fp32_cuda(q, k, v)),
+            "plain_ms": time_ms(lambda: attention_fp32_plain(q, k, v)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v))}
+        if entry is None:              # the entry's numbers: Uni3D's
+            entry = {"name": "attention_fp32", "route": "cuda",
+                     "source": "uni_adapter_torch/csrc/attention_fp32.cu",
+                     "replaces": "uni_adapter_tpu/ops/attention_pallas.py:56",
+                     **{key: val for key, val in shapes[path].items()
+                        if key != "shape"}}
+    for shape in HEADS_GENERAL_SHAPES:
+        q, k, v = inputs(*shape)
+        err = check_f32(f"attention_fp32 general head dim {shape}",
+                        attention_fp32_cuda(q, k, v),
+                        attention_fp32_plain(q, k, v), {})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [s["max_abs_err"] for s in shapes.values()])
+    entry["shapes"] = shapes
+    return entry
+
+
+def check_eva_attention_fp32(torch, gen) -> dict:
+    """The fp32 natural-layout attention at OpenShape-G's and ULIP-2's
+    shapes on the three column slices of one fp32 (B, N, 3D) tensor, with
+    peaked attention, without and with the q/k LayerNorm: within the fp32
+    tolerance, each planted fault F32_FAULT_MARGIN outside it."""
+    import torch.nn.functional as F
+
+    from uni_adapter_torch.ops.eva_attention import (eva_attention_fp32_cuda,
+                                                     eva_attention_plain)
+
+    entry, shapes = None, {}
+    for path, (B, N, D, H) in (("openshape", (2, 385, 512, 8)),
+                               ("ulip", (2, 513, 384, 6))):
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda")
+        ln = [BLOCK_LN_GAMMA + 0.1 * torch.randn(64, generator=gen,
+                                                 device="cuda"),
+              0.1 * torch.randn(64, generator=gen, device="cuda"),
+              BLOCK_LN_GAMMA + 0.1 * torch.randn(64, generator=gen,
+                                                 device="cuda"),
+              0.1 * torch.randn(64, generator=gen, device="cuda")]
+        q0, k0, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        err = 0.0
+        # without the LayerNorm q and k carry the peak; with it, γ does
+        for variant, q, k, norm in (
+                ("", q0 * BLOCK_LN_GAMMA, k0 * BLOCK_LN_GAMMA, []),
+                (" with q/k LayerNorm", q0, k0, ln)):
+            def kernel(q, k, v):
+                return eva_attention_fp32_cuda(q, k, v, *norm, num_heads=H)
+
+            want = eva_attention_plain(q, k, v, *norm, num_heads=H)
+            faults = {name: (got, want) for name, got in rounded_faults(
+                kernel, (q, k, v)).items()}
+            faults[f"last key {N - 1} dropped"] = (eva_attention_plain(
+                q, k[:, :N - 1], v[:, :N - 1], *norm, num_heads=H), want)
+            err = max(err, check_f32(
+                f"eva_attention_fp32 {path} {(B, N, D, H)}{variant}",
+                kernel(q, k, v), want, faults))
+        q, k = qkv[..., :D], qkv[..., D:2 * D]   # the paths' slices, no LN
+        heads = [t.unflatten(-1, (H, 64)).transpose(1, 2) for t in (q, k, v)]
+        b_ms, b_by = bound(4 * B * N * D * 4, 4 * B * H * N * N * 64,
+                           PEAK_FP32)
+        shapes[path] = {
+            "shape": [B, N, D, H], "max_abs_err": err,
+            "ms": time_ms(lambda: eva_attention_fp32_cuda(q, k, v,
+                                                          num_heads=H)),
+            "plain_ms": time_ms(lambda: eva_attention_plain(q, k, v,
+                                                            num_heads=H)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                *heads))}
+        if entry is None:              # the entry's numbers: OpenShape's
+            entry = {"name": "eva_attention_fp32", "route": "cuda",
+                     "source": "uni_adapter_torch/csrc/eva_attention.cu",
+                     "replaces": "uni_adapter_tpu/ops/attention_pallas.py:368",
+                     **{key: val for key, val in shapes[path].items()
+                        if key != "shape"}}
+    entry["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
+    entry["shapes"] = shapes
+    return entry
+
+
+def check_block_fp32(torch, gen) -> dict:
+    """The fp32 EVA attention block at Uni3D-L's (2, 513, 1024), 16 heads,
+    fp32 weights, q/k LayerNorm γ ≈ BLOCK_LN_GAMMA (peaked attention):
+    within the fp32 tolerance; xn and the four weights rounded to bf16 and
+    to TF32, and the last token dropped, each F32_FAULT_MARGIN outside."""
+    from uni_adapter_torch.ops import attention
+
+    Bt, T, D, H = 2, 513, 1024, 16
+    hd = D // H
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    w = [rnd(D, D, std=D ** -0.5) for _ in range(4)]
+    b = [rnd(D, std=0.02) for _ in range(3)]
+    ln = [BLOCK_LN_GAMMA + rnd(hd, std=0.1), rnd(hd, std=0.1),
+          BLOCK_LN_GAMMA + rnd(hd, std=0.1), rnd(hd, std=0.1)]
+    xn = rnd(Bt, T, D)
+
+    def block(kernel, xn, wq, wk, wv, wo):
+        return kernel(xn, wq, b[0], wk, wv, b[1], *ln, wo, b[2],
+                      num_heads=H)
+
+    kernel = functools.partial(block, attention.eva_attn_block_fp32_cuda)
+    plain = functools.partial(block, attention.eva_attn_block_plain)
+    operands = (xn, w[0], w[1], w[2], w[3])
+    want = plain(*operands)
+    faults = {name: (got, want) for name, got in rounded_faults(
+        kernel, operands).items()}
+    faults[f"last token {T - 1} dropped"] = (
+        plain(xn[:, :T - 1].contiguous(), *operands[1:]), want[:, :T - 1])
+    err = check_f32(f"eva_attn_block_fp32 {(Bt, T, D, H)}",
+                    kernel(*operands), want, faults)
+    Mt = Bt * T
+    flops = 2 * Mt * D * 4 * D + 4 * Bt * H * T * T * hd
+    n_bytes = (2 * Mt * D + 4 * D * D + 3 * D + 4 * hd) * 4
+    b_ms, b_by = bound(n_bytes, flops, PEAK_FP32)
+    return {"name": "eva_attn_block_fp32", "route": "cuda",
+            "source": "uni_adapter_torch/csrc/eva_attn_block.cu",
+            "replaces": "uni_adapter_tpu/ops/attention_pallas.py:308",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: kernel(*operands)),
+            "plain_ms": time_ms(lambda: plain(*operands)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_float16_raises(torch) -> None:
+    """float16 has no kernel on the card: each attention wrapper raises a
+    ValueError naming it, before any launch."""
+    from uni_adapter_torch.ops import attention, attention_fp32
+    from uni_adapter_torch.ops import attention_heads, eva_attention
+
+    h = torch.zeros(1, 2, 5, 64, dtype=torch.float16, device="cuda")
+    x = torch.zeros(1, 5, 64, dtype=torch.float16, device="cuda")
+    w = torch.zeros(64, 64, dtype=torch.float16, device="cuda")
+    b = torch.zeros(64, dtype=torch.float16, device="cuda")
+    calls = {
+        "attention_heads": lambda: attention_heads.attention_heads(h, h, h),
+        "attention_fp32": lambda: attention_fp32.attention_fp32(h, h, h),
+        "eva_attention": lambda: eva_attention.eva_attention_fused(
+            x, x, x, num_heads=1),
+        "eva_attn_block": lambda: attention.eva_attn_block(
+            x, w, b, w, w, b, b, b, b, b, w, b, num_heads=1)}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if "float16" not in str(e):
+                fail(f"{name} on float16 raised without naming it: {e}")
+            continue
+        fail(f"{name} ran on float16 tensors on the card")
+    print(f"float16 on the card: {', '.join(calls)} raise, naming it")
+
+
 def cloud(torch, gen, B=2, N=1024):
     """xyz on a sphere of radius 0.5 (the synthetic stream's clouds) and a
     random color, (B, N, 6)."""
@@ -644,6 +907,29 @@ LARGE_CLOUD_KERNELS = {"uni3d": ("fps_grid", "knn_gather"),
                        "openshape": ("fps_grid", "ballquery")}
 
 
+def depth2_backbones(compute_dtype: str) -> dict:
+    """Uni3D-L, OpenShape-G and ULIP-2 at depth 2 and full width in
+    `compute_dtype`: kind → build(device, state_dict or None)."""
+    import dataclasses
+
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models import ppta
+    from uni_adapter_torch.models.pointbert import create_ulip
+    from uni_adapter_torch.models.uni3d import create_uni3d
+
+    g2 = dataclasses.replace(ppta.PRESETS[4], depth=2)
+    mc = ModelConfig(compute_dtype=compute_dtype)
+    return {
+        "uni3d": lambda dev, sd: create_uni3d(
+            dataclasses.replace(mc, eva_depth=2), dev, seed=0, state_dict=sd),
+        "openshape": lambda dev, sd: ppta.create_openshape(
+            mc, dev, seed=0, state_dict=sd, preset=g2),
+        "ulip": lambda dev, sd: create_ulip(
+            dataclasses.replace(mc, ulip_depth=2), dev, seed=0,
+            state_dict=sd),
+    }
+
+
 def check_features(torch, gen) -> None:
     """Uni3D-L, OpenShape-G and ULIP-2 at depth 2 and full width: the card's
     kernels against the CPU's plain versions on the same bf16 weights and
@@ -653,23 +939,7 @@ def check_features(torch, gen) -> None:
     its own plain forward (block or natural-layout kernel).  Uni3D and
     OpenShape also on 10,000-point clouds (cosine ≥ 0.99), where their
     grouping must run the large-cloud kernels and not fps.cu or knn.cu."""
-    import dataclasses
-
-    from uni_adapter_torch.config import ModelConfig
-    from uni_adapter_torch.models import ppta
-    from uni_adapter_torch.models.pointbert import create_ulip
-    from uni_adapter_torch.models.uni3d import create_uni3d
-
-    g2 = dataclasses.replace(ppta.PRESETS[4], depth=2)
-    backbones = {
-        "uni3d": lambda dev, sd: create_uni3d(
-            ModelConfig(eva_depth=2), dev, seed=0, state_dict=sd),
-        "openshape": lambda dev, sd: ppta.create_openshape(
-            ModelConfig(), dev, seed=0, state_dict=sd, preset=g2),
-        "ulip": lambda dev, sd: create_ulip(
-            ModelConfig(ulip_depth=2), dev, seed=0, state_dict=sd),
-    }
-    for kind, build_model in backbones.items():
+    for kind, build_model in depth2_backbones("bfloat16").items():
         inputs = FORWARD_INPUTS[kind]
         gpu = build_model("cuda", None)
         cpu = build_model("cpu", {k: v.float().cpu()
@@ -734,9 +1004,87 @@ def check_features(torch, gen) -> None:
             fail(f"{kind} on 10,000 points took another route: {launches}")
 
 
+#: fp32 features on the card against the CPU at depth 2: the largest
+#: 1 − cosine, and the largest |Δ| of a map entry.  Both sides compute in
+#: fp32 with the same weights (TF32 off), so they differ by summation order
+#: alone, ~1e-7 relative per layer; the gates leave a thousand times that.
+F32_FEATURE_1MCOS, F32_MAP_ATOL = 1e-4, 1e-5
+#: Each backbone's fp32 kernel without maps: the block for Uni3D, the
+#: natural layout for the ViT backbones.
+FP32_FORWARD_KERNEL = {"uni3d": "eva_attn_block_fp32",
+                       "openshape": "eva_attention_fp32",
+                       "ulip": "eva_attention_fp32"}
+#: The attention kernels, by dtype.
+BF16_ATTENTION = ("eva_attn_block", "eva_attention", "attention_heads")
+FP32_ATTENTION = ("eva_attn_block_fp32", "eva_attention_fp32",
+                  "attention_fp32")
+
+
+def check_features_fp32(torch, gen) -> None:
+    """The three backbones at depth 2 and full width in fp32, the card's
+    kernels against the CPU's plain versions on the same fp32 weights and
+    input, without and with `return_attn`: 1 − cosine ≤ F32_FEATURE_1MCOS
+    (also card with maps against card without), maps within F32_MAP_ATOL,
+    and the card's forward on its fp32 kernels alone (the block or the
+    natural layout without maps, row 9's kernel with them)."""
+    counters = launch_counters()
+    for kind, build_model in depth2_backbones("float32").items():
+        inputs = FORWARD_INPUTS[kind]
+        gpu = build_model("cuda", None)
+        cpu = build_model("cpu", {k: v.cpu() for k, v in
+                                  gpu.state_dict().items()})
+        pc = cloud(torch, gen)
+        card, host, launches = {}, {}, {}
+        for maps in (False, True):
+            for c in counters.values():
+                c.launches = 0
+            with torch.no_grad():
+                card[maps] = gpu(*inputs(pc), return_attn=maps)
+            torch.cuda.synchronize()
+            launches[maps] = {n: c.launches for n, c in counters.items()}
+            with torch.no_grad():
+                host[maps] = cpu(*inputs(pc.cpu()), return_attn=maps)
+        f_gpu, f_cpu = card[False].cpu(), host[False]
+        (fa_gpu, maps_gpu), (fa_cpu, maps_cpu) = card[True], host[True]
+        fa_gpu = fa_gpu.cpu()
+        cos = torch.nn.functional.cosine_similarity
+        gaps = {"card vs cpu": 1 - cos(f_gpu, f_cpu, dim=-1).min().item(),
+                "with maps, card vs cpu":
+                    1 - cos(fa_gpu, fa_cpu, dim=-1).min().item(),
+                "card with maps vs without":
+                    1 - cos(fa_gpu, f_gpu, dim=-1).min().item()}
+        map_err = max((g.cpu() - c).abs().max().item()
+                      for g, c in zip(maps_gpu, maps_cpu))
+        print(f"features {kind} (depth 2, full width, fp32) "
+              f"{tuple(f_gpu.shape)}: 1 − cosine "
+              f"{ {k: f'{v:.3g}' for k, v in gaps.items()} } (gate "
+              f"{F32_FEATURE_1MCOS}), max abs diff card vs cpu "
+              f"{(f_gpu - f_cpu).abs().max().item():.3g} (with maps "
+              f"{(fa_gpu - fa_cpu).abs().max().item():.3g}); {len(maps_gpu)} "
+              f"maps, max abs diff {map_err:.3g} (tolerance {F32_MAP_ATOL})")
+        print(f"features {kind} fp32 launches: without maps "
+              f"{ {n: v for n, v in launches[False].items() if v} }, with "
+              f"maps { {n: v for n, v in launches[True].items() if v} }")
+        if not (torch.isfinite(f_gpu).all() and torch.isfinite(fa_gpu).all()
+                and all(torch.isfinite(m).all() for m in maps_gpu)):
+            fail(f"{kind} fp32: non-finite features or maps")
+        if max(gaps.values()) > F32_FEATURE_1MCOS:
+            fail(f"{kind} fp32 features disagree: {gaps}")
+        if map_err > F32_MAP_ATOL:
+            fail(f"{kind} fp32 maps differ from the CPU's by {map_err}")
+        want = {False: FP32_FORWARD_KERNEL[kind], True: "attention_fp32"}
+        for maps, n in want.items():
+            ran = [k for k in BF16_ATTENTION + FP32_ATTENTION
+                   if launches[maps][k]]
+            if ran != [n]:
+                fail(f"{kind} fp32 forward (return_attn={maps}) ran the "
+                     f"attention kernels {ran}, expected [{n!r}]")
+
+
 def launch_counters() -> dict:
     """Each kernel's launch counter: the wrapper that owns it."""
-    from uni_adapter_torch.ops import attention, attention_heads, ballquery
+    from uni_adapter_torch.ops import attention, attention_fp32
+    from uni_adapter_torch.ops import attention_heads, ballquery
     from uni_adapter_torch.ops import eva_attention, fps, knn, knn_gather
 
     return {"fps": fps.farthest_point_sample, "knn": knn.knn,
@@ -745,35 +1093,55 @@ def launch_counters() -> dict:
             "eva_attention": eva_attention.eva_attention_fused,
             "attention_heads": attention_heads.attention_heads,
             "knn_gather": knn_gather.knn_gather,
-            "fps_grid": fps.fps_grid_cuda}
+            "fps_grid": fps.fps_grid_cuda,
+            "attention_fp32": attention_fp32.attention_fp32,
+            "eva_attention_fp32": eva_attention.eva_attention_fp32_cuda,
+            "eva_attn_block_fp32": attention.eva_attn_block_fp32_cuda}
 
 
 #: The main paths: extra CLI flags; the stream's points a cloud and
 #: classes; the anchor bank ('large': the shipped bank of the dataset,
 #: else the (K, width) of a seeded file); the launches a 16-step run must
-#: reach per kernel (the block's wrapper launches three kernels a block);
+#: reach per kernel (the block's wrappers launch three kernels a block);
 #: and the kernels that must not run.  The first three are the 1024-point
-#: ModelNet40 paths, the last two the clouds above the register kernels'
-#: limits (fps.cu: 8192 points, knn.cu: 2048).
+#: ModelNet40 paths, the next two the clouds above the register kernels'
+#: limits (fps.cu: 8192 points, knn.cu: 2048), the last three the
+#: 1024-point paths again with `--compute-dtype float32`: the fp32
+#: kernels, and no bf16 attention kernel.
 PATHS = {
     "uni3d": ([], (1024, 40), "large",
               {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
-              ("fps_grid", "knn_gather")),
+              ("fps_grid", "knn_gather") + FP32_ATTENTION),
     "openshape": (["--vlm3d", "openshape"], (1024, 40), (40, 1280),
                   {"fps": 1, "ballquery": 1, "eva_attention": 12},
-                  ("fps_grid", "knn_gather")),
+                  ("fps_grid", "knn_gather") + FP32_ATTENTION),
     "ulip": (["--vlm3d", "ulip"], (1024, 40), (40, 512),
              {"fps": 1, "knn": 1, "eva_attention": 12},
-             ("fps_grid", "knn_gather")),
+             ("fps_grid", "knn_gather") + FP32_ATTENTION),
     "uni3d_lvis10k": (["--dataset-name", "objaverse_lvis", "--npoints",
                        "10000"], (10000, 1156), (1156, 1024),
                       {"fps_grid": 1, "knn_gather": 1,
-                       "eva_attn_block": 24 * 3}, ("fps", "knn")),
+                       "eva_attn_block": 24 * 3},
+                      ("fps", "knn") + FP32_ATTENTION),
     "ulip_scanobjectnn8192": (["--vlm3d", "ulip", "--dataset-name",
                                "scanobjectnn", "--npoints", "8192"],
                               (8192, 15), (15, 512),
                               {"fps": 1, "knn_gather": 1, "eva_attention": 12},
-                              ("knn", "fps_grid")),
+                              ("knn", "fps_grid") + FP32_ATTENTION),
+    "uni3d_fp32": (["--compute-dtype", "float32"], (1024, 40), "large",
+                   {"fps": 1, "knn": 1, "eva_attn_block_fp32": 24 * 3},
+                   ("fps_grid", "knn_gather", "eva_attention_fp32",
+                    "attention_fp32") + BF16_ATTENTION),
+    "openshape_fp32": (["--vlm3d", "openshape", "--compute-dtype", "float32"],
+                       (1024, 40), (40, 1280),
+                       {"fps": 1, "ballquery": 1, "eva_attention_fp32": 12},
+                       ("fps_grid", "knn_gather", "eva_attn_block_fp32",
+                        "attention_fp32") + BF16_ATTENTION),
+    "ulip_fp32": (["--vlm3d", "ulip", "--compute-dtype", "float32"],
+                  (1024, 40), (40, 512),
+                  {"fps": 1, "knn": 1, "eva_attention_fp32": 12},
+                  ("fps_grid", "knn_gather", "eva_attn_block_fp32",
+                   "attention_fp32") + BF16_ATTENTION),
 }
 
 
@@ -902,9 +1270,10 @@ def run_extraction(tmp: Path, kind: str) -> dict:
     if launches["attention_heads"] != layers:
         fail(f"extract {kind}: attention_heads launched "
              f"{launches['attention_heads']} times, expected {layers}")
-    if launches["eva_attn_block"] or launches["eva_attention"]:
-        fail(f"extract {kind}: the block or natural-layout kernel ran "
-             f"({launches})")
+    if any(launches[n] for n in ("eva_attn_block", "eva_attention")
+           + FP32_ATTENTION):
+        fail(f"extract {kind}: the block, natural-layout or an fp32 kernel "
+             f"ran ({launches})")
     t0 = time.perf_counter()
     extractor.extract(pc)              # ends in the copy to the host
     one_ms = (time.perf_counter() - t0) * 1e3
@@ -924,6 +1293,74 @@ def run_extraction(tmp: Path, kind: str) -> dict:
           f"maps on the card {fwd_ms:.1f} ms")
     print(f"extract {kind} launches: {launches}")
     return launches
+
+
+def run_extraction_fp32(kind: str) -> dict:
+    """fp32 extraction at full width and depth on the synthetic sphere: the
+    backbone from `build_backbone` with `compute_dtype="float32"`, through
+    `AttentionExtractor` (the extraction CLI has no dtype flag).  Every
+    layer's map finite with rows summing to 1, one row-9 launch a layer and
+    no other attention kernel; then one more extraction, timed."""
+    import numpy as np
+    import torch
+
+    from uni_adapter_torch.analysis.attention import AttentionExtractor
+    from uni_adapter_torch.cli.extract_attention import (WEIGHT_SEED,
+                                                         synthetic_sphere)
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.loader import build_backbone
+
+    layers, H, N = EXTRACT_PATHS[kind][1:]
+    model, n_group, group_size = build_backbone(
+        kind, ModelConfig(vlm3d=kind, compute_dtype="float32"), "cuda",
+        seed=WEIGHT_SEED)
+    extractor = AttentionExtractor(model, n_group, group_size, vlm3d=kind)
+    pc = synthetic_sphere()
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    maps = extractor.extract(pc)
+    launches = {n: c.launches for n, c in counters.items()}
+    if sorted(maps) != sorted(f"layer_{i}" for i in range(layers)):
+        fail(f"extract {kind} fp32: maps {sorted(maps)}")
+    for key, a in maps.items():
+        if a.shape != (1, H, N, N) or not np.isfinite(a).all() or \
+                np.abs(a.sum(-1) - 1).max() > 1e-5:
+            fail(f"extract {kind} fp32: {key} is {a.shape}, or not finite, "
+                 f"or its rows do not sum to 1 within 1e-5")
+    others = [n for n in BF16_ATTENTION + FP32_ATTENTION
+              if n != "attention_fp32" and launches[n]]
+    if launches["attention_fp32"] != layers or others:
+        fail(f"extract {kind} fp32: attention_fp32 launched "
+             f"{launches['attention_fp32']} times (expected {layers}), and "
+             f"{others} ran")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    extractor.extract(pc)              # ends in the copy to the host
+    one_ms = (time.perf_counter() - t0) * 1e3
+    print(f"extract {kind} fp32: {layers} maps of {(1, H, N, N)}, one "
+          f"extraction {one_ms:.1f} ms wall")
+    print(f"extract {kind} fp32 launches: {launches}")
+    return launches
+
+
+def check_float16_cli(tmp: Path) -> None:
+    """`cli.tta.main --compute-dtype float16` on the card (Uni3D at depth 1)
+    raises a ValueError naming the dtype: no kernel takes it."""
+    from uni_adapter_torch.cli import tta
+
+    root = tmp / "stream_1024x40"
+    try:
+        tta.main(["--root", str(root), "--corruption", "uniform",
+                  "--precomputed-text-features", "large", "--eva-depth", "1",
+                  "--compute-dtype", "float16", "--device", "cuda",
+                  "--output-dir", str(tmp / "out"), "--name", "smoke-fp16"])
+    except ValueError as e:
+        if "float16" not in str(e):
+            fail(f"--compute-dtype float16 raised without naming it: {e}")
+        print(f"--compute-dtype float16 on the card raises: {e}")
+        return
+    fail("--compute-dtype float16 ran on the card")
 
 
 def main() -> None:
@@ -961,18 +1398,26 @@ def main() -> None:
     kernels.append(check_attention_heads(torch, gen))
     kernels.append(check_knn_gather(torch, gen))
     kernels.append(check_fps_grid(torch, gen))
+    kernels.append(check_attention_fp32(torch, gen))
+    kernels.append(check_eva_attention_fp32(torch, gen))
+    kernels.append(check_block_fp32(torch, gen))
+    check_float16_raises(torch)
     for k in kernels:
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']} | "
               f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.5f} ms by {k['bound_by']}, library "
               f"{k['library_ms']})")
     check_features(torch, gen)
+    check_features_fp32(torch, gen)
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         for kind in PATHS:
             by_path[kind] = run_main_path(Path(tmp), kind)
+        check_float16_cli(Path(tmp))
         for kind in EXTRACT_PATHS:
             by_path[f"extract_{kind}"] = run_extraction(Path(tmp), kind)
+        for kind in EXTRACT_PATHS:
+            by_path[f"extract_{kind}_fp32"] = run_extraction_fp32(kind)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

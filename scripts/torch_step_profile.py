@@ -1,13 +1,15 @@
 """Where one MODE-DOTA step of the PyTorch/CUDA port spends its time.
 
     python3 scripts/torch_step_profile.py [--vlm3d uni3d|openshape|ulip]
-        [--npoints N] [--dataset-name NAME]
+        [--npoints N] [--dataset-name NAME] [--compute-dtype float32]
 
-On one CUDA card, one backbone at its published widths and depth in bf16
-with random weights from a seed: Uni3D-L (24 blocks, width 1024; the
-default), OpenShape PPTA-G (12 blocks, width 512) or ULIP-2 Point-BERT (12
-blocks, width 384); MODE-DOTA defaults with residual learning; random
-N-point clouds (default 1024) on a sphere of radius 0.5.  The anchors are
+On one CUDA card (its name and power limit printed first), one backbone
+at its published widths and depth in bf16 (or `--compute-dtype float32`:
+the fp32 kernels) with random weights from a seed: Uni3D-L (24 blocks,
+width 1024; the default), OpenShape PPTA-G (12 blocks, width 512) or
+ULIP-2 Point-BERT (12 blocks, width 384); MODE-DOTA defaults with
+residual learning; random N-point clouds (default 1024) on a sphere of
+radius 0.5.  The anchors are
 the shipped bank of the dataset where Uni3D has one (ModelNet40, the
 default, ScanObjectNN, ShapeNetCore), else a seeded bank with the
 dataset's number of classes (1156 for objaverse_lvis) at the backbone's
@@ -29,6 +31,7 @@ import argparse
 import collections
 import json
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -51,7 +54,8 @@ from uni_adapter_torch.ops.geometry import (group_points,  # noqa: E402
                                             sample_and_group)
 
 OURS = ("fps_kernel", "fps_grid_kernel", "knn_kernel", "knn_gather_kernel",
-        "gemm_kernel", "attn_kernel", "ballquery_kernel")
+        "gemm_kernel", "attn_kernel", "ballquery_kernel", "sgemm_f32_kernel",
+        "attn_f32_kernel")
 PROFILED_STEPS = 5
 
 
@@ -80,14 +84,22 @@ def main() -> None:
     ap.add_argument("--vlm3d", choices=sorted(BACKBONES), default="uni3d")
     ap.add_argument("--npoints", type=int, default=1024)
     ap.add_argument("--dataset-name", default="modelnet")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
     args = ap.parse_args()
     kind, npoints = args.vlm3d, args.npoints
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
     build.build_all()
     set_numerics()
     dev = torch.device("cuda")
-    cfg = Config(model=ModelConfig(vlm3d=kind),
+    cfg = Config(model=ModelConfig(vlm3d=kind,
+                                   compute_dtype=args.compute_dtype),
                  data=DataConfig(dataset_name=args.dataset_name)).resolve()
     dc = cfg.dota
     model, n_group, group_size = build_backbone(kind, cfg.model, dev, seed=0)
@@ -102,8 +114,8 @@ def main() -> None:
         text = torch.randn(len(load_labels(cfg)), feature_width(cfg.model),
                            generator=gen, device=dev)
         text = text / text.norm(dim=1, keepdim=True)
-    print(f"{kind}, {npoints} points, {args.dataset_name}: anchors "
-          f"{tuple(text.shape)}")
+    print(f"{kind}, {npoints} points, {args.dataset_name}, "
+          f"{args.compute_dtype}: anchors {tuple(text.shape)}")
     step = engine.make_step_fn(cfg, model)
     encode = engine.encode_with(kind, model)
 
@@ -194,7 +206,9 @@ def main() -> None:
         print(f"kernel {ms / PROFILED_STEPS:9.3f} ms/step "
               f"{n // PROFILED_STEPS:6d}x  {name[:90]}")
     print(json.dumps({"vlm3d": kind, "npoints": npoints,
-                      "dataset_name": args.dataset_name, "wall_ms": timings,
+                      "dataset_name": args.dataset_name,
+                      "compute_dtype": args.compute_dtype, "card": card,
+                      "wall_ms": timings,
                       "profiled_wall_ms": wall, "device_busy_ms": busy,
                       "groups_ms": groups}))
 

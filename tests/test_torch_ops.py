@@ -18,9 +18,9 @@ import uni_adapter_tpu.ops.ballquery_pallas as ballquery_pallas
 import uni_adapter_tpu.ops.fps_pallas as fps_pallas
 import uni_adapter_tpu.ops.knn_pallas as knn_pallas
 from uni_adapter_tpu.ops import geometry as jax_geometry
-from uni_adapter_torch.ops import (attention, attention_heads, ballquery,
-                                   eva_attention, fps, geometry, knn,
-                                   knn_gather)
+from uni_adapter_torch.ops import (attention, attention_fp32,
+                                   attention_heads, ballquery, eva_attention,
+                                   fps, geometry, knn, knn_gather)
 
 
 def _rand(shape, seed):
@@ -256,6 +256,13 @@ def _cpu_block_call():
         *(torch.ones(64),) * 4, w(64, 64), w(64), num_heads=1)
 
 
+def _cpu_block_fp32_call():
+    w = lambda *shape: torch.zeros(*shape)
+    return attention.eva_attn_block_fp32_cuda(
+        w(1, 5, 64), w(64, 64), w(64), w(64, 64), w(64, 64), w(64),
+        *(torch.ones(64),) * 4, w(64, 64), w(64), num_heads=1)
+
+
 @pytest.mark.parametrize("call", [
     lambda: fps.fps_cuda(torch.zeros(1, 8, 3), 4),
     lambda: knn.knn_cuda(2, torch.zeros(1, 8, 3), torch.zeros(1, 4, 3)),
@@ -270,8 +277,14 @@ def _cpu_block_call():
                                        torch.zeros(1, 4, 3),
                                        torch.zeros(1, 8, 6)),
     lambda: fps.fps_grid_cuda(torch.zeros(1, 8, 3), 4),
+    lambda: attention_fp32.attention_fp32_cuda(
+        *(torch.zeros(1, 2, 5, 64),) * 3),
+    lambda: eva_attention.eva_attention_fp32_cuda(
+        *(torch.zeros(1, 5, 64),) * 3, num_heads=1),
+    _cpu_block_fp32_call,
 ], ids=["fps", "knn", "eva_attn_block", "ballquery", "eva_attention",
-        "attention_heads", "knn_gather", "fps_grid"])
+        "attention_heads", "knn_gather", "fps_grid", "attention_fp32",
+        "eva_attention_fp32", "eva_attn_block_fp32"])
 def test_kernel_wrappers_reject_cpu_tensors_before_building(call):
     """A kernel wrapper checks its inputs before it builds or launches:
     CPU tensors raise, and nothing is compiled."""

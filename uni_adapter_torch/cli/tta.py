@@ -11,7 +11,9 @@
 or `vitl14` 768-d); the anchor bank must have the backbone's width.
 
 Runs on the GPU unless `--device cpu` is passed; asked for `cuda` on a
-host without one, it raises.  Writes `results.json` (adapted top-1 per
+host without one, it raises.  `--compute-dtype` (bfloat16, the default, or
+float32) picks the kernels on the card; any other dtype raises at the
+first kernel, naming it.  Writes `results.json` (adapted top-1 per
 corruption) and `results_zs.json` (the frozen anchors' top-1 from the
 same forwards) under `<output-dir>/<name>/`, in the JAX CLI's shape.
 Without `--checkpoint-path` (ROADMAP M12) the weights are random from
@@ -99,9 +101,9 @@ def main(argv=None) -> dict:
     log_dir = os.path.join(cfg.run.output_dir, name)
     os.makedirs(log_dir, exist_ok=True)
     setup_logging(os.path.join(log_dir, "out.log"))
-    logging.info("Running Experiment: %s on %s", name,
+    logging.info("Running Experiment: %s on %s, compute dtype %s", name,
                  torch.cuda.get_device_name(device) if device.type == "cuda"
-                 else "cpu")
+                 else "cpu", cfg.model.compute_dtype)
     logging.info("Config: %s", cfg)
 
     model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,

@@ -28,7 +28,15 @@
 //   last 64-key chunk (one key at N = 385 and 513) is masked to the real
 //   keys.  The LayerNorm variant normalises each q tile once and each key
 //   chunk as it arrives in shared memory.
+//
+// The fp32 entry (uat_eva_attention_fp32) is the same function on fp32
+//   q, k, v: the fp32 form of _eva_fused_kernel ("fp32 runs stay fp32"),
+//   the LayerNorm kept in fp32, scores, p and p . v all fp32 FFMA
+//   (attention_core_f32.cuh, no tensor cores).  At the same shapes it
+//   moves 4 x B*N*D*4 bytes = ~6.3 MB, ~1.9 us, against 0.61 and 0.81
+//   GFLOP, ~9 and 12 us at 67 TFLOP/s fp32: bound by operations.
 #include "attention_core.cuh"
+#include "attention_core_f32.cuh"
 
 // q, k, v: bf16 with unit column stride, 16-byte aligned rows (strides in
 // elements, multiples of 8); gq/bq/gk/bk: (64,) fp32 per-head LayerNorm, all
@@ -64,5 +72,44 @@ extern "C" int uat_eva_attention(
   a.eps = eps;
   const cudaError_t e = ln ? launch_attention<true>(a, B, H, stream)
                            : launch_attention<false>(a, B, H, stream);
+  return static_cast<int>(e);
+}
+
+// The fp32 entry: q, k, v fp32 with unit column stride and 16-byte aligned
+// rows (strides in elements, multiples of 4); gq/bq/gk/bk as above; out:
+// (B, N, D) fp32 contiguous.  Needs D == 64*H.  Returns cudaGetLastError()
+// after the launch (0 on success).
+extern "C" int uat_eva_attention_fp32(
+    const float* q, const float* k, const float* v, int64_t ld_q, int64_t ld_k,
+    int64_t ld_v, int64_t bs_q, int64_t bs_k, int64_t bs_v, const float* gq,
+    const float* bq, const float* gk, const float* bk, float* out, int B, int N,
+    int D, int H, float scale, float eps, cudaStream_t stream) {
+  if (D != H * f32::kLnWidth || B <= 0 || N <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool ln = gq != nullptr;
+  if (ln && (bq == nullptr || gk == nullptr || bk == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  f32::AttnArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.ld_q = ld_q;
+  a.ld_k = ld_k;
+  a.ld_v = ld_v;
+  a.bs_q = bs_q;
+  a.bs_k = bs_k;
+  a.bs_v = bs_v;
+  a.gq = gq;
+  a.bq = bq;
+  a.gk = gk;
+  a.bk = bk;
+  a.out = out;
+  a.N = N;
+  a.D = D;
+  a.scale = scale;
+  a.eps = eps;
+  a.hd = f32::kLnWidth;
+  const cudaError_t e = ln ? f32::launch_attention<true>(a, B, H, stream)
+                           : f32::launch_attention<false>(a, B, H, stream);
   return static_cast<int>(e);
 }

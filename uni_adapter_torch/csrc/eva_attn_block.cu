@@ -36,7 +36,22 @@
 //   The q/k/v and head-concat intermediates make one round trip through
 //   device memory (~8 MB at the main path), which is what a later PR with
 //   wgmma/TMA and a fused out projection would remove.
+//
+// The fp32 entry (uat_eva_attn_block_fp32) is the same span on fp32 xn and
+//   weights, the fp32 form of _eva_block_kernel: every product fp32 FFMA
+//   with fp32 accumulation, nothing rounded to a narrower type, no tensor
+//   cores.  Bound by operations: the same ~10.8 GFLOP is ~0.16 ms at
+//   67 TFLOP/s fp32, against ~25 MB of compulsory traffic (~7.5 us).  The
+//   same three launches: (a) sgemm_f32_kernel, a shared-memory-tiled fp32
+//   GEMM (64x64 tiles, K in steps of 32 prefetched into registers, 4x8
+//   outputs a thread fed by float4 shared-memory reads) of xn by
+//   [Wq|Wk|Wv], whose epilogue adds the bias and applies the per-head
+//   LayerNorm in fp32, the 8 threads of a row holding its 64 columns (three
+//   xor shuffles per statistic); (b) the fp32 attention of
+//   attention_core_f32.cuh on the q/k/v columns; (c) sgemm_f32_kernel for
+//   the out projection with its bias.
 #include "attention_core.cuh"
+#include "attention_core_f32.cuh"
 
 namespace {
 
@@ -144,6 +159,121 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs g) {
   }
 }
 
+// C[:, s*seg_n : (s+1)*seg_n] = A . W[s]^T (+ bias[s]) (-> LayerNorm[s])
+// in fp32, as GemmArgs above.  Needs K % 32 == 0 and 16-byte aligned A
+// and W rows.
+struct SgemmArgs {
+  const float* A;
+  int M, K;
+  const float* W[3];
+  const float* bias[3];     // nullptr: no bias
+  const float* ln_g[3];     // nullptr: no LayerNorm
+  const float* ln_b[3];
+  float* C;
+  int ldc, seg_n;
+  float eps;
+};
+
+constexpr int kSgemmLd = kStepK + 4;  // 36 words: 8 rows read as float4 hit 32 banks
+
+__global__ void __launch_bounds__(kThreads) sgemm_f32_kernel(SgemmArgs g) {
+  __shared__ __align__(16) float sA[kTile][kSgemmLd];
+  __shared__ __align__(16) float sB[kTile][kSgemmLd];
+
+  // thread (ty, tx) owns rows ty + 16*i and columns tx + 8*j of the tile;
+  // the 8 threads of a row are lanes of one warp
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int n0 = blockIdx.x * kTile, m0 = blockIdx.y * kTile;
+  const int seg = n0 / g.seg_n, nl = n0 - seg * g.seg_n;
+  const float* W = g.W[seg] + static_cast<size_t>(nl) * g.K;
+
+  // each thread moves 4 of the 512 float4 of each 64x32 tile
+  float4 ra[4], rb[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int chunk = tid + c * kThreads, r = chunk >> 3, col = (chunk & 7) * 4;
+      ra[c] = (m0 + r < g.M)
+                  ? *reinterpret_cast<const float4*>(
+                        g.A + static_cast<size_t>(m0 + r) * g.K + k0 + col)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      rb[c] = *reinterpret_cast<const float4*>(
+          W + static_cast<size_t>(r) * g.K + k0 + col);
+    }
+  };
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  for (int k0 = 0; k0 < g.K; k0 += kStepK) {
+    __syncthreads();  // the previous step's tiles are consumed
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int chunk = tid + c * kThreads, r = chunk >> 3, col = (chunk & 7) * 4;
+      *reinterpret_cast<float4*>(&sA[r][col]) = ra[c];
+      *reinterpret_cast<float4*>(&sB[r][col]) = rb[c];
+    }
+    __syncthreads();
+    if (k0 + kStepK < g.K) fetch(k0 + kStepK);  // in flight during the FFMAs
+#pragma unroll
+    for (int kk = 0; kk < kStepK; kk += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(&sA[ty + 16 * i][kk]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(&sB[tx + 8 * j][kk]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+        }
+      }
+    }
+  }
+
+  // epilogue: bias, then the per-head LayerNorm over the row's 64 columns
+  const float* bias = g.bias[seg];
+  const float* ln_g = g.ln_g[seg];
+  const float* ln_b = g.ln_b[seg];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float y[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      y[j] = bias != nullptr ? acc[i][j] + bias[nl + tx + 8 * j] : acc[i][j];
+    if (ln_g != nullptr) {  // block-uniform: every lane takes the shuffles
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += y[j];
+      const float mu = f32::group8_sum(sum) / kHead;
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[j] -= mu;
+        sq += y[j] * y[j];
+      }
+      const float inv = 1.f / sqrtf(f32::group8_sum(sq) / kHead + g.eps);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        y[j] = y[j] * inv * ln_g[tx + 8 * j] + ln_b[tx + 8 * j];
+    }
+    const int m = m0 + ty + 16 * i;
+    if (m < g.M) {
+      float* c = g.C + static_cast<size_t>(m) * g.ldc + n0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[tx + 8 * j] = y[j];
+    }
+  }
+}
+
 }  // namespace
 
 // xn: (B*N, D) bf16; wq/wk/wv/wo: (D, D) bf16 in (out, in) layout;
@@ -204,5 +334,67 @@ extern "C" int uat_eva_attn_block(
   p.eps = eps;
   const dim3 grid_out(D / kTile, (M + kTile - 1) / kTile);
   gemm_kernel<<<grid_out, kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 entry: xn (B*N, D), wq/wk/wv/wo (D, D) in (out, in) layout,
+// bq/bv/bo (D,), gq/bqn/gk/bkn (64,), qkv (B*N, 3D) and attn (B*N, D)
+// workspaces and out (B*N, D), all fp32, xn and the weights 16-byte
+// aligned.  Needs D == 64*H.  Returns cudaGetLastError() after the last
+// launch (0 on success).
+extern "C" int uat_eva_attn_block_fp32(
+    const float* xn, const float* wq, const float* bq, const float* wk,
+    const float* wv, const float* bv, const float* gq, const float* bqn,
+    const float* gk, const float* bkn, const float* wo, const float* bo,
+    float* qkv, float* attn, float* out, int B, int N, int D, int H,
+    float scale, float eps, cudaStream_t stream) {
+  if (D != H * kHead || B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int M = B * N;
+
+  SgemmArgs a{};
+  a.A = xn;
+  a.M = M;
+  a.K = D;
+  a.W[0] = wq; a.W[1] = wk; a.W[2] = wv;
+  a.bias[0] = bq; a.bias[1] = nullptr; a.bias[2] = bv;
+  a.ln_g[0] = gq; a.ln_b[0] = bqn;
+  a.ln_g[1] = gk; a.ln_b[1] = bkn;
+  a.ln_g[2] = nullptr; a.ln_b[2] = nullptr;
+  a.C = qkv;
+  a.ldc = 3 * D;
+  a.seg_n = D;
+  a.eps = eps;
+  const dim3 grid_qkv(3 * D / kTile, (M + kTile - 1) / kTile);
+  sgemm_f32_kernel<<<grid_qkv, kThreads, 0, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  f32::AttnArgs t{};
+  t.q = qkv;
+  t.k = qkv + D;
+  t.v = qkv + 2 * D;
+  t.ld_q = t.ld_k = t.ld_v = 3 * D;
+  t.bs_q = t.bs_k = t.bs_v = static_cast<int64_t>(N) * 3 * D;
+  t.out = attn;
+  t.N = N;
+  t.D = D;
+  t.scale = scale;
+  t.eps = eps;
+  t.hd = kHead;
+  e = f32::launch_attention<false>(t, B, H, stream);  // q/k LayerNorm'd above
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  SgemmArgs p{};
+  p.A = attn;
+  p.M = M;
+  p.K = D;
+  p.W[0] = wo;
+  p.bias[0] = bo;
+  p.C = out;
+  p.ldc = D;
+  p.seg_n = D;
+  p.eps = eps;
+  const dim3 grid_out(D / kTile, (M + kTile - 1) / kTile);
+  sgemm_f32_kernel<<<grid_out, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

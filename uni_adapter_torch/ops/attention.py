@@ -9,7 +9,9 @@ fp32 scores, p = exp((s − max)·scale), o = (p·v)/Σp with p·v on p rounded
 to the compute dtype; heads concatenated; then ·Woᵀ + bo.
 
 Weights are in PyTorch's (out, in) layout; `weights.from_jax_params`
-transposes the flax (in, out) kernels.
+transposes the flax (in, out) kernels.  On the card bf16 and fp32 each
+have their entry of the kernel; the fp32 one (`eva_attn_block_fp32_cuda`)
+rounds nothing below fp32 and uses no tensor cores.
 """
 from __future__ import annotations
 
@@ -73,11 +75,55 @@ def eva_attn_block_plain(xn: torch.Tensor, wq: torch.Tensor,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("eva_attn_block")
-    lib.uat_eva_attn_block.argtypes = (
-        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    lib.uat_eva_attn_block.restype = ctypes.c_int
+    for entry in ("uat_eva_attn_block", "uat_eva_attn_block_fp32"):
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _launch(entry: str, dtype: torch.dtype, tensors, num_heads: int,
+            scale: Optional[float], eps: float) -> torch.Tensor:
+    """Check the block's twelve tensors (activations, projection weights
+    and biases of `dtype`, fp32 LayerNorm parameters), then launch `entry`
+    of `csrc/eva_attn_block.cu`: three kernels on the current stream."""
+    xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo = tensors
+    build.require_cuda(xn, dtype, 3, "eva_attn_block xn")
+    B, N, D = xn.shape
+    if D != num_heads * HEAD_DIM:
+        raise ValueError(f"eva_attn_block: the kernel needs head dim "
+                         f"{HEAD_DIM}, got D={D} with {num_heads} heads")
+    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+        build.require_cuda(w, dtype, 2, f"eva_attn_block {name}")
+        if tuple(w.shape) != (D, D):
+            raise ValueError(f"eva_attn_block {name}: expected {(D, D)}, "
+                             f"got {tuple(w.shape)}")
+    for name, b in (("bq", bq), ("bv", bv), ("bo", bo)):
+        build.require_cuda(b, dtype, 1, f"eva_attn_block {name}")
+        if b.shape[0] != D:
+            raise ValueError(f"eva_attn_block {name}: expected ({D},)")
+    for name, p in (("gq", gq), ("bqh", bqh), ("gk", gk), ("bkh", bkh)):
+        build.require_cuda(p, torch.float32, 1, f"eva_attn_block {name}")
+        if p.shape[0] != HEAD_DIM:
+            raise ValueError(f"eva_attn_block {name}: expected ({HEAD_DIM},)")
+    if any(t.device != xn.device for t in tensors):
+        raise ValueError("eva_attn_block: tensors on different devices")
+    if any(t.data_ptr() % 16 for t in (xn, wq, wk, wv, wo)):
+        # the kernels move activations and weights in 16-byte vectors
+        raise ValueError("eva_attn_block: xn and weights must be 16-byte "
+                         "aligned")
+    scale = float(scale if scale is not None else HEAD_DIM ** -0.5)
+    qkv = torch.empty(B * N, 3 * D, dtype=dtype, device=xn.device)
+    attn = torch.empty(B * N, D, dtype=dtype, device=xn.device)
+    out = torch.empty_like(xn)
+    with torch.cuda.device(xn.device):
+        rc = getattr(_lib(), entry)(
+            *(t.data_ptr() for t in tensors), qkv.data_ptr(),
+            attn.data_ptr(), out.data_ptr(), B, N, D, num_heads, scale, eps,
+            build.stream_of(xn))
+    build.check(rc, entry)
+    return out
 
 
 def eva_attn_block_cuda(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
@@ -86,43 +132,36 @@ def eva_attn_block_cuda(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
     """Launch `csrc/eva_attn_block.cu` (three kernels on the current
     stream).  Takes bf16 activations and projection weights and fp32
     LayerNorm parameters, all contiguous on one CUDA device."""
-    build.require_cuda(xn, torch.bfloat16, 3, "eva_attn_block xn")
-    B, N, D = xn.shape
-    if D != num_heads * HEAD_DIM:
-        raise ValueError(f"eva_attn_block: the kernel needs head dim "
-                         f"{HEAD_DIM}, got D={D} with {num_heads} heads")
-    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
-        build.require_cuda(w, torch.bfloat16, 2, f"eva_attn_block {name}")
-        if tuple(w.shape) != (D, D):
-            raise ValueError(f"eva_attn_block {name}: expected {(D, D)}, "
-                             f"got {tuple(w.shape)}")
-    for name, b in (("bq", bq), ("bv", bv), ("bo", bo)):
-        build.require_cuda(b, torch.bfloat16, 1, f"eva_attn_block {name}")
-        if b.shape[0] != D:
-            raise ValueError(f"eva_attn_block {name}: expected ({D},)")
-    for name, p in (("gq", gq), ("bqh", bqh), ("gk", gk), ("bkh", bkh)):
-        build.require_cuda(p, torch.float32, 1, f"eva_attn_block {name}")
-        if p.shape[0] != HEAD_DIM:
-            raise ValueError(f"eva_attn_block {name}: expected ({HEAD_DIM},)")
-    tensors = (xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo)
-    if any(t.device != xn.device for t in tensors):
-        raise ValueError("eva_attn_block: tensors on different devices")
-    if any(t.data_ptr() % 16 for t in (xn, wq, wk, wv, wo)):
-        # the kernels move activations and weights in 16-byte vectors
-        raise ValueError("eva_attn_block: xn and weights must be 16-byte "
-                         "aligned")
-    scale = float(scale if scale is not None else HEAD_DIM ** -0.5)
-    qkv = torch.empty(B * N, 3 * D, dtype=torch.bfloat16, device=xn.device)
-    attn = torch.empty(B * N, D, dtype=torch.bfloat16, device=xn.device)
-    out = torch.empty_like(xn)
-    with torch.cuda.device(xn.device):
-        rc = _lib().uat_eva_attn_block(
-            *(t.data_ptr() for t in tensors), qkv.data_ptr(),
-            attn.data_ptr(), out.data_ptr(), B, N, D, num_heads, scale, eps,
-            build.stream_of(xn))
-    build.check(rc, "eva_attn_block")
+    out = _launch("uat_eva_attn_block", torch.bfloat16,
+                  (xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo),
+                  num_heads, scale, eps)
     eva_attn_block.launches += 3            # q/k/v GEMM, attention, out GEMM
     return out
+
+
+def eva_attn_block_fp32_cuda(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo,
+                             bo, num_heads: int,
+                             scale: Optional[float] = None,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """Launch the fp32 entry of `csrc/eva_attn_block.cu`: a hand-written
+    fp32 GEMM for the projections, the fp32 attention, no tensor cores.
+    Takes fp32 activations, weights and LayerNorm parameters, all
+    contiguous on one CUDA device."""
+    out = _launch("uat_eva_attn_block_fp32", torch.float32,
+                  (xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo),
+                  num_heads, scale, eps)
+    eva_attn_block_fp32_cuda.launches += 3  # q/k/v GEMM, attention, out GEMM
+    return out
+
+
+eva_attn_block_fp32_cuda.launches = 0
+
+
+def cuda_kernel(dtype: torch.dtype):
+    """The card's kernel for `dtype`: bf16 or fp32; any other raises."""
+    return build.kernel_for("eva_attn_block", {
+        torch.bfloat16: eva_attn_block_cuda,
+        torch.float32: eva_attn_block_fp32_cuda}, dtype)
 
 
 def eva_attn_block(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
@@ -130,12 +169,13 @@ def eva_attn_block(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
                    eps: float = 1e-5) -> torch.Tensor:
     """The EVA attention side on post-norm1 tokens xn (B, N, D).
 
-    A CUDA `xn` runs the Hopper kernel (bf16 only); a CPU `xn` runs
-    `eva_attn_block_plain` in its dtype.  Returns (B, N, D) in xn's dtype.
+    A CUDA `xn` runs the Hopper kernel of its dtype (bf16 or fp32); a CPU
+    `xn` runs `eva_attn_block_plain` in its dtype.  Returns (B, N, D) in
+    xn's dtype.
     """
     if xn.is_cuda:
         c = lambda t: t.contiguous()
-        return eva_attn_block_cuda(
+        return cuda_kernel(xn.dtype)(
             c(xn), c(wq), c(bq), c(wk), c(wv), c(bv),
             c(gq.to(torch.float32)), c(bqh.to(torch.float32)),
             c(gk.to(torch.float32)), c(bkh.to(torch.float32)),

@@ -8,7 +8,10 @@ fp32 accumulation and is divided by the fp32 Σp.  The output is
 (B, H, N, hd) in v's dtype.  The models reach it through
 `models.common.attend` wherever the JAX package calls
 `_attend(use_pallas=True)`: the attention-map extraction path
-(`return_attn`) and head dims that are not a multiple of 8.
+(`return_attn`) and head dims that are not a multiple of 8.  On the card
+bf16 tensors run this kernel and fp32 tensors `ops.attention_fp32` (the
+port of `attention_pallas`, which with fp32 operands is this function in
+fp32); on the CPU both run `attention_heads_plain`.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Optional
 import torch
 
 from uni_adapter_torch.ops import build
+from uni_adapter_torch.ops.attention_fp32 import attention_fp32_cuda
 
 #: The widest head the kernel takes.
 MAX_HEAD_DIM = 128
@@ -84,16 +88,26 @@ def attention_heads_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def cuda_kernel(dtype: torch.dtype):
+    """The card's kernel for `dtype`: this module's for bf16, the port of
+    `attention_pallas` for fp32; any other raises.  Each counts its own
+    launches (`attention_heads.launches` the bf16 ones)."""
+    return build.kernel_for("attention_heads", {
+        torch.bfloat16: attention_heads_cuda,
+        torch.float32: attention_fp32_cuda}, dtype)
+
+
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention over (B, H, N, hd) q, k, v.
 
-    CUDA tensors run the Hopper kernel (bf16, hd ≤ 128; strided inputs are
-    made contiguous first), CPU tensors `attention_heads_plain` in their
-    dtype.  Returns (B, H, N, hd) in v's dtype.
+    CUDA tensors run the Hopper kernel of their dtype (bf16 or fp32,
+    hd ≤ 128; strided inputs are made contiguous first), CPU tensors
+    `attention_heads_plain` in their dtype.  Returns (B, H, N, hd) in v's
+    dtype.
     """
     if q.is_cuda:
-        return attention_heads_cuda(q.contiguous(), k.contiguous(),
+        return cuda_kernel(q.dtype)(q.contiguous(), k.contiguous(),
                                     v.contiguous(), scale)
     return attention_heads_plain(q, k, v, scale)
 

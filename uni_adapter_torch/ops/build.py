@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uni_adapter_torch"
 SOURCES = ("fps", "knn", "eva_attn_block", "ballquery", "eva_attention",
-           "attention_heads", "knn_gather", "fps_grid")
+           "attention_heads", "knn_gather", "fps_grid", "attention_fp32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,3 +109,12 @@ def require_cuda(t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{what}: expected {ndim} dims, got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def kernel_for(what: str, kernels: dict, dtype: torch.dtype):
+    """The launcher in `kernels` ({dtype: wrapper}) for tensors of `dtype`
+    on the card; a dtype with no kernel raises, naming it."""
+    if dtype not in kernels:
+        raise ValueError(f"{what}: no CUDA kernel for {dtype} (the card's "
+                         f"kernels take {', '.join(map(str, kernels))})")
+    return kernels[dtype]
