@@ -15,10 +15,14 @@ exits non-zero before the result line:
      FPS exactly at 10,000 and 8192 points, at a tile edge, on ties and
      past the shared-memory limit, the attention block and the
      natural-layout attention within a bf16 tolerance that planted faults
-     must fail; with kernel and plain times (median of 20 runs, CUDA
-     events), the least time the card could take (bound) and, for the
-     attention, PyTorch's `scaled_dot_product_attention` on the same
-     inputs as a yardstick (the port never calls it); then the fp32
+     must fail, the bf16 attention core also at its edges (one key, one
+     whole 64-key chunk, one key past it, 2049 keys, a grid of several
+     waves); with kernel and plain times (median of 20 runs, CUDA events,
+     back to back), the least time the card could take (bound) and, for
+     the attention, PyTorch's `scaled_dot_product_attention` on the same
+     inputs as a yardstick (the port never calls it), the attention
+     kernels and the yardstick also in device time (torch.profiler, the
+     sum of the kernels' durations per call); then the fp32
      kernels (the (B, H, N, hd) attention, the natural layout with and
      without its LayerNorm, the block) within an fp32 tolerance that
      three planted faults (operands rounded to bf16, to TF32, the last
@@ -139,6 +143,32 @@ def time_ms(fn, runs: int = 20, per_run: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_run)
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 20, warmup: int = 3, attempts: int = 3) -> float:
+    """Device ms per call of fn(): the sum of the durations of the CUDA
+    kernels that torch.profiler records over `calls` back-to-back calls,
+    divided by `calls`.  What the card spends on the call, without the
+    host's share that `time_ms` may show.  A trace that records no kernel
+    at all (seen after some dozens of traces in one process) is taken
+    again, up to `attempts` times."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ev.device_time_total for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / calls
+    fail(f"torch.profiler recorded no device time in {attempts} traces")
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -298,9 +328,12 @@ def check_kernels(torch, gen) -> list[dict]:
                 "max_abs_err": err,
                 "ms": time_ms(lambda: attention.eva_attn_block_cuda(
                     *args, num_heads=H)),
+                "device_ms": device_ms(lambda: attention.eva_attn_block_cuda(
+                    *args, num_heads=H)),
                 "plain_ms": time_ms(lambda: attention.eva_attn_block_plain(
                     *args, num_heads=H)),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library_device_ms": None})
     out[0]["shapes"] = {"1024": {
         key: out[0][key] for key in ("ms", "plain_ms", "bound_ms")},
         "8192": check_fps_at_its_limit(torch)}
@@ -525,7 +558,8 @@ def check_eva_attention(torch, gen) -> dict:
     hands them over, bf16, no LayerNorm, q and k scaled by BLOCK_LN_GAMMA
     so that logits have std ≈ 5 (peaked attention).  Within the block's
     tolerance, which two planted faults must fail; the LayerNorm variant
-    once, at the OpenShape shape."""
+    once, at the OpenShape shape; then the core's edges
+    (`check_eva_attention_edges`)."""
     import torch.nn.functional as F
 
     from uni_adapter_torch.ops.eva_attention import (eva_attention_cuda,
@@ -586,20 +620,81 @@ def check_eva_attention(torch, gen) -> dict:
         shapes[path] = {
             "shape": [B, N, D, H], "max_abs_err": err,
             "ms": time_ms(lambda: eva_attention_cuda(q, k, v, num_heads=H)),
+            "device_ms": device_ms(lambda: eva_attention_cuda(
+                q, k, v, num_heads=H)),
             "plain_ms": time_ms(lambda: eva_attention_plain(q, k, v,
                                                             num_heads=H)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                *heads))}
+                *heads)),
+            "library_device_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(*heads))}
+        print_times(f"eva_attention {path}", shapes[path])
         if entry is None:              # the entry's numbers: OpenShape's
             entry = {"name": "eva_attention", "route": "cuda",
                      "source": "uni_adapter_torch/csrc/eva_attention.cu",
                      "replaces": "uni_adapter_tpu/ops/attention_pallas.py:368",
                      **{key: val for key, val in shapes[path].items()
                         if key != "shape"}}
-    entry["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
+    edge_err = check_eva_attention_edges(torch, gen)
+    entry["max_abs_err"] = max([edge_err]
+                               + [s["max_abs_err"] for s in shapes.values()])
     entry["shapes"] = shapes
     return entry
+
+
+#: The attention core's edges in the natural layout, (B, N, D, H) with
+#: head dim 64: one key, one whole 64-key chunk, one key past it, a last
+#: chunk of one key after 32 full ones, and a grid of several waves (8
+#: batches x 16 heads x 9 query tiles, 1152 blocks on 132 SMs).
+EVA_EDGE_SHAPES = ((2, 1, 128, 2), (2, 64, 128, 2), (2, 65, 128, 2),
+                   (2, 2049, 128, 2), (8, 513, 1024, 16))
+
+
+def check_eva_attention_edges(torch, gen) -> float:
+    """The natural-layout attention at EVA_EDGE_SHAPES, without and with
+    the q/k LayerNorm, peaked as in `check_eva_attention`, within the
+    block's tolerance.  Returns the largest max abs err."""
+    from uni_adapter_torch.ops.eva_attention import (eva_attention_cuda,
+                                                     eva_attention_plain)
+
+    worst = 0.0
+    for B, N, D, H in EVA_EDGE_SHAPES:
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda")
+        qkv[..., :2 * D] *= BLOCK_LN_GAMMA
+        qkv = qkv.to(torch.bfloat16)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        ln = [BLOCK_LN_GAMMA + 0.1 * torch.randn(64, generator=gen,
+                                                 device="cuda"),
+              0.1 * torch.randn(64, generator=gen, device="cuda"),
+              BLOCK_LN_GAMMA + 0.1 * torch.randn(64, generator=gen,
+                                                 device="cuda"),
+              0.1 * torch.randn(64, generator=gen, device="cuda")]
+        for variant, qq, kk, norm in (
+                ("", q, k, []),
+                (" with q/k LayerNorm", q / BLOCK_LN_GAMMA,
+                 k / BLOCK_LN_GAMMA, ln)):
+            got = eva_attention_cuda(qq, kk, v, *norm, num_heads=H).float()
+            want = eva_attention_plain(qq, kk, v, *norm, num_heads=H).float()
+            torch.cuda.synchronize()
+            err, r = (got - want).abs().max().item(), block_err(got, want)
+            print(f"eva_attention edge {(B, N, D, H)}{variant}: max abs err "
+                  f"{err}, err/tolerance {r:.3f}")
+            if r > 1 or not torch.isfinite(got).all():
+                fail(f"eva_attention edge {(B, N, D, H)}{variant}: outside "
+                     f"the tolerance")
+            worst = max(worst, err)
+    return worst
+
+
+def print_times(what: str, t: dict) -> None:
+    """One kernel's times at one shape: back to back and on the device,
+    beside its bound, its plain version and its library yardstick."""
+    lib = ("none" if t.get("library_ms") is None else
+           f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} ms")
+    print(f"  {what}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms "
+          f"(plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by "
+          f"{t['bound_by']}; SDPA {lib})")
 
 
 #: The (B, H, N, hd) attention at each extraction path's shape.
@@ -607,6 +702,12 @@ HEADS_SHAPES = {"uni3d": (1, 16, 513, 64), "openshape": (1, 8, 385, 64),
                 "ulip": (1, 6, 513, 64)}
 #: Head dims off the 64-wide path: the padded variants (16, 32 and 12 → 16).
 HEADS_GENERAL_SHAPES = ((2, 3, 70, 32), (3, 4, 77, 16), (1, 3, 77, 12))
+#: The attention core's edges, (B, H, N, hd): one key, one whole 64-key
+#: chunk, one key past it, a last chunk of one key after 32 full ones (at
+#: hd 128, the widest variant), and a grid of several waves (8 x 16 heads x
+#: 9 query tiles, 1152 blocks on 132 SMs).
+HEADS_EDGE_SHAPES = ((1, 2, 1, 128), (1, 2, 64, 128), (1, 2, 65, 128),
+                     (1, 2, 2049, 128), (8, 16, 513, 64))
 
 
 def check_attention_heads(torch, gen) -> dict:
@@ -614,7 +715,8 @@ def check_attention_heads(torch, gen) -> dict:
     so that logits have std ≈ 5 (peaked attention): at the three
     extraction paths' shapes within the block's tolerance, which two
     planted faults must fail, and with times against SDPA; then the
-    general-hd variants at three more shapes."""
+    general-hd variants at three more shapes and the core's edges
+    (HEADS_EDGE_SHAPES)."""
     import torch.nn.functional as F
 
     from uni_adapter_torch.ops.attention_heads import (attention_heads_cuda,
@@ -659,22 +761,25 @@ def check_attention_heads(torch, gen) -> dict:
         shapes[path] = {
             "shape": [B, H, N, hd], "max_abs_err": err,
             "ms": time_ms(lambda: attention_heads_cuda(q, k, v)),
+            "device_ms": device_ms(lambda: attention_heads_cuda(q, k, v)),
             "plain_ms": time_ms(lambda: attention_heads_plain(q, k, v)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v))}
-        t = shapes[path]
-        print(f"  {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
-              f"{b_ms:.5f} ms by {b_by}, SDPA {t['library_ms']:.4f} ms)")
+                q, k, v)),
+            "library_device_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v))}
+        print_times(f"attention_heads {path}", shapes[path])
         if entry is None:              # the entry's numbers: Uni3D's
             entry = {"name": "attention_heads", "route": "cuda",
                      "source": "uni_adapter_torch/csrc/attention_heads.cu",
                      "replaces": "uni_adapter_tpu/ops/attention_pallas.py:141",
                      **{key: val for key, val in shapes[path].items()
                         if key != "shape"}}
-    for shape in HEADS_GENERAL_SHAPES:
-        err, _ = check(f"general head dim {shape}", *inputs(*shape))
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    for what, shape_set in (("general head dim", HEADS_GENERAL_SHAPES),
+                            ("edge", HEADS_EDGE_SHAPES)):
+        for shape in shape_set:
+            err, _ = check(f"{what} {shape}", *inputs(*shape))
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
     entry["max_abs_err"] = max([entry["max_abs_err"]]
                                + [s["max_abs_err"] for s in shapes.values()])
     entry["shapes"] = shapes
@@ -720,10 +825,14 @@ def check_attention_fp32(torch, gen) -> dict:
         shapes[path] = {
             "shape": [B, H, N, hd], "max_abs_err": err,
             "ms": time_ms(lambda: attention_fp32_cuda(q, k, v)),
+            "device_ms": device_ms(lambda: attention_fp32_cuda(q, k, v)),
             "plain_ms": time_ms(lambda: attention_fp32_plain(q, k, v)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v))}
+                q, k, v)),
+            "library_device_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v))}
+        print_times(f"attention_fp32 {path}", shapes[path])
         if entry is None:              # the entry's numbers: Uni3D's
             entry = {"name": "attention_fp32", "route": "cuda",
                      "source": "uni_adapter_torch/csrc/attention_fp32.cu",
@@ -787,11 +896,16 @@ def check_eva_attention_fp32(torch, gen) -> dict:
             "shape": [B, N, D, H], "max_abs_err": err,
             "ms": time_ms(lambda: eva_attention_fp32_cuda(q, k, v,
                                                           num_heads=H)),
+            "device_ms": device_ms(lambda: eva_attention_fp32_cuda(
+                q, k, v, num_heads=H)),
             "plain_ms": time_ms(lambda: eva_attention_plain(q, k, v,
                                                             num_heads=H)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                *heads))}
+                *heads)),
+            "library_device_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(*heads))}
+        print_times(f"eva_attention_fp32 {path}", shapes[path])
         if entry is None:              # the entry's numbers: OpenShape's
             entry = {"name": "eva_attention_fp32", "route": "cuda",
                      "source": "uni_adapter_torch/csrc/eva_attention.cu",
@@ -845,8 +959,10 @@ def check_block_fp32(torch, gen) -> dict:
             "replaces": "uni_adapter_tpu/ops/attention_pallas.py:308",
             "max_abs_err": err,
             "ms": time_ms(lambda: kernel(*operands)),
+            "device_ms": device_ms(lambda: kernel(*operands)),
             "plain_ms": time_ms(lambda: plain(*operands)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_device_ms": None}
 
 
 def check_float16_raises(torch) -> None:
@@ -1403,10 +1519,13 @@ def main() -> None:
     kernels.append(check_block_fp32(torch, gen))
     check_float16_raises(torch)
     for k in kernels:
+        dev = ("" if k.get("device_ms") is None
+               else f", device {k['device_ms']:.4f} ms")
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']} | "
-              f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['ms']:.4f} ms{dev} (plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.5f} ms by {k['bound_by']}, library "
-              f"{k['library_ms']})")
+              f"{k['library_ms']}, library device "
+              f"{k.get('library_device_ms')})")
     check_features(torch, gen)
     check_features_fp32(torch, gen)
     by_path = {}

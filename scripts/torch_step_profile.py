@@ -22,8 +22,12 @@ width.  After warm-up it prints, per step:
     the 10-step residual loop;
   * from `torch.profiler` over 5 steps: device busy time (the sum
     of kernel times) against the unprofiled step's wall time, and device
-    time by kernel, in groups (the port's CUDA kernels, library GEMMs,
-    the rest).
+    time by kernel, in groups: the port's CUDA kernels split into the bf16
+    attention core (`attention_core.cuh`: the block's attention step, the
+    natural-layout and the (B, H, N, hd) attention), the fp32 attention
+    core, the EVA block's GEMMs and the grouping kernels (FPS, kNN, ball
+    query); library GEMMs; the rest.  Each group with its ms and launches
+    a step.
 """
 from __future__ import annotations
 
@@ -53,9 +57,17 @@ from uni_adapter_torch.ops import build  # noqa: E402
 from uni_adapter_torch.ops.geometry import (group_points,  # noqa: E402
                                             sample_and_group)
 
-OURS = ("fps_kernel", "fps_grid_kernel", "knn_kernel", "knn_gather_kernel",
-        "gemm_kernel", "attn_kernel", "ballquery_kernel", "sgemm_f32_kernel",
-        "attn_f32_kernel")
+#: The port's CUDA kernels by group: a kernel belongs to the first group
+#: one of whose names its profiler name contains (so "attn_f32_kernel"
+#: before "attn_kernel").
+PORT_GROUPS = {
+    "port: fp32 attention core": ("attn_f32_kernel",),
+    "port: bf16 attention core": ("attn_kernel",),
+    "port: EVA block GEMMs": ("gemm_kernel", "sgemm_f32_kernel"),
+    "port: grouping (FPS, kNN, ball query)": (
+        "fps_kernel", "fps_grid_kernel", "knn_kernel", "knn_gather_kernel",
+        "ballquery_kernel"),
+}
 PROFILED_STEPS = 5
 
 
@@ -72,8 +84,9 @@ def wall_ms(fn, n):
 
 
 def group_of(name: str) -> str:
-    if any(k in name for k in OURS):
-        return "port CUDA kernels"
+    for group, names in PORT_GROUPS.items():
+        if any(k in name for k in names):
+            return group
     if "gemm" in name.lower() or "cutlass" in name or "sm90_" in name:
         return "library GEMMs"
     return "other (elementwise, reductions, copies)"
@@ -197,10 +210,15 @@ def main() -> None:
           f"unprofiled wall: {100 * share:.1f}% busy, "
           f"{100 * (1 - share):.1f}% idle (profiled wall {wall:.1f} ms/step)")
     groups = collections.defaultdict(float)
-    for name, (ms, _) in by_kernel.items():
+    group_launches = collections.defaultdict(int)
+    for name, (ms, n) in by_kernel.items():
         groups[group_of(name)] += ms / PROFILED_STEPS
+        group_launches[group_of(name)] += n // PROFILED_STEPS
+    port = sum(ms for g, ms in groups.items() if g.startswith("port"))
+    print(f"group port CUDA kernels (all): {port:.3f} ms/step")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"group {g}: {ms:.3f} ms/step")
+        print(f"group {g}: {ms:.3f} ms/step, {group_launches[g]} launches "
+              f"a step")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, n) in top:
         print(f"kernel {ms / PROFILED_STEPS:9.3f} ms/step "
@@ -210,7 +228,8 @@ def main() -> None:
                       "compute_dtype": args.compute_dtype, "card": card,
                       "wall_ms": timings,
                       "profiled_wall_ms": wall, "device_busy_ms": busy,
-                      "groups_ms": groups}))
+                      "groups_ms": groups,
+                      "group_launches_per_step": group_launches}))
 
 
 if __name__ == "__main__":

@@ -79,11 +79,18 @@ def _rand(shape, seed):
     # bf16: a last-bit difference in a score can flip a bf16 rounding of p
     ("bfloat16", 2e-2, 2e-2),
 ])
-@pytest.mark.parametrize("B,H,N,hd", [(2, 3, 70, 32), (1, 2, 128, 64),
-                                      (3, 4, 77, 16)])
+@pytest.mark.parametrize("B,H,N,hd", [
+    (2, 3, 70, 32), (1, 2, 128, 64), (3, 4, 77, 16),
+    # the card's attention core at its edges: one key, one whole 64-key
+    # chunk, one key past it, a last chunk of one key after 32 full ones
+    # (hd 128, its widest variant), and several batches at 513 tokens
+    (1, 1, 1, 128), (1, 2, 64, 128), (1, 2, 65, 128), (1, 2, 2049, 128),
+    (8, 2, 513, 64)])
 def test_attention_heads_matches_pallas_kernel(B, H, N, hd, dtype, rtol,
                                                atol):
-    """The oracle shapes of tests/test_attention_pallas.py."""
+    """The oracle shapes of tests/test_attention_pallas.py, and the edge
+    shapes at which chip_smoke.py holds the card's kernel against this
+    plain version."""
     q, k, v = (_rand((B, H, N, hd), seed=N + hd + i) for i in range(3))
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     want = attention_pallas.attention_pallas_heads(

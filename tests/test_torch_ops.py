@@ -126,7 +126,9 @@ def _qkv_slices(B, N, D, seed):
     ("bfloat16", 2e-2),
 ])
 @pytest.mark.parametrize("with_ln", [False, True], ids=["no-ln", "ln"])
-@pytest.mark.parametrize("N", [37, 65])          # off the 64-key chunk
+# off the 64-key chunk; and the card's attention core at its edges (one
+# key, one whole chunk, a last chunk of one key after 32 full ones)
+@pytest.mark.parametrize("N", [37, 65, 1, 64, 2049])
 def test_eva_attention_matches_pallas_kernel(N, with_ln, dtype, tol):
     B, D, H = 2, 128, 2
     qkv, ln = _qkv_slices(B, N, D, seed=N + 7 * with_ln)

@@ -9,28 +9,33 @@
 //   with fp32 accumulation and is divided by the fp32 sum of p; the output
 //   is bf16.
 //
-// What bounds it on the H100: bytes.  At the extraction paths' shapes,
-//   (B, H, N, hd) = (1, 16, 513, 64) for Uni3D-L, (1, 8, 385, 64) for
-//   OpenShape-G and (1, 6, 513, 64) for ULIP-2, the function reads q, k, v
-//   and writes the output, 4 * B*H*N*hd * 2 bytes = 4.2, 1.6 and 1.6 MB,
-//   ~1.3, 0.5 and 0.5 us at 3.35 TB/s, against 4*B*H*N^2*hd = 1.08, 0.30
-//   and 0.40 GFLOP, ~1.1, 0.3 and 0.4 us at 989 TFLOP/s bf16.  At these
-//   sizes the grid is 144, 56 and 54 blocks of 64 queries on 132 SMs, so
-//   launch latency and the two passes over the keys of one short wave set
-//   the time, not either bound.
+// What bounds it on the H100: latency, not bytes or operations.  At the
+//   extraction paths' shapes, (B, H, N, hd) = (1, 16, 513, 64) for
+//   Uni3D-L, (1, 8, 385, 64) for OpenShape-G and (1, 6, 513, 64) for
+//   ULIP-2, the function reads q, k, v and writes the output,
+//   4 * B*H*N*hd * 2 bytes = 4.2, 1.6 and 1.6 MB, ~1.3, 0.5 and 0.5 us at
+//   3.35 TB/s, against 4*B*H*N^2*hd = 1.08, 0.30 and 0.40 GFLOP, ~1.1, 0.3
+//   and 0.4 us at 989 TFLOP/s bf16.  The grids are 144, 56 and 54 blocks of
+//   64 queries on 132 SMs, each walking its keys twice.
 //
 // What the design does about it: a contiguous (B, H, N, hd) tensor is B*H
-//   slices of N rows of hd, so the kernel is the shared attention of
+//   slices of N rows of hd, so the kernel is the bf16 attention core of
 //   attention_core.cuh launched over B*H "batches" of one head each (row
 //   stride hd, batch stride N*hd): no copy, no transpose, and the Pallas
 //   kernel's head grouping and its padding of keys to 128 lanes have no
-//   counterpart.  hd = 64, the head dim of every path, is that kernel as
-//   the block and the natural-layout attention run it.  Any other hd runs a
-//   variant whose head width in shared memory is hd rounded up to 16, 32,
-//   64 or 128, with zeros past hd (they add nothing to q.k^T) and only the
-//   hd real output columns written.  The first pass takes each row's exact
+//   counterpart.  The core keeps its fragments in registers (mma.sync),
+//   streams keys and values through a two-stage cp.async ring, and splits
+//   each block's keys among ranges of warps so that an SM holds ~16 warps
+//   in one wave: 64 queries x 4 ranges at OpenShape's 56 and ULIP's 54
+//   blocks, 80 queries x 3 ranges at Uni3D's 16 heads (112 blocks, where
+//   64-query blocks would be 144 on 132 SMs).  hd = 64,
+//   the head dim of every path, is the core as the block and the
+//   natural-layout attention run it.  Any other hd runs a variant whose
+//   head width in shared memory is hd rounded up to 16, 32, 64 or 128,
+//   with zeros past hd (they add nothing to q.k^T) and only the hd real
+//   output columns written.  The first pass takes each row's exact
 //   maximum, so bf16(p) rounds as in the reference; the last 64-key chunk
-//   (one key at N = 385 and 513) is masked to the real keys.
+//   (one key at N = 385 and 513) computes only its real keys' columns.
 #include "attention_core.cuh"
 
 // q, k, v: (B, H, N, hd) bf16 contiguous, 16-byte aligned; out: the same

@@ -10,24 +10,28 @@
 //   fp32; p.v runs on bf16(p) with fp32 accumulation and is divided by the
 //   fp32 sum of p; the output is bf16.
 //
-// What bounds it on the H100: bytes.  At OpenShape-G's (B, N, D, H) =
-//   (2, 385, 512, 8) and ULIP-2's (2, 513, 384, 6) the function reads q, k
-//   and v and writes the output, 4 x B*N*D*2 bytes = ~3.2 MB, ~0.94 us at
-//   3.35 TB/s, against 4*B*H*N^2*64 = 0.61 and 0.81 GFLOP, ~0.6-0.8 us at
-//   989 TFLOP/s bf16.  At these sizes the kernel is short enough that
-//   launch latency and the ~110 blocks, fewer than the 132 SMs, set its
-//   time.
+// What bounds it on the H100: latency, not bytes or operations.  At
+//   OpenShape-G's (B, N, D, H) = (2, 385, 512, 8) and ULIP-2's
+//   (2, 513, 384, 6) the function reads q, k and v and writes the output,
+//   4 x B*N*D*2 bytes = ~3.2 MB, ~0.94 us at 3.35 TB/s, against
+//   4*B*H*N^2*64 = 0.61 and 0.81 GFLOP, ~0.6-0.8 us at 989 TFLOP/s bf16.
+//   The grids are 112 and 108 blocks of 64 queries, fewer than the 132
+//   SMs, each walking its keys twice.
 //
-// What the design does about it: the attention kernel of the EVA block
-//   (attention_core.cuh), which already reads q, k and v as column slices
-//   of one row-strided tensor.  ViTAttention hands over the three slices of
-//   its fused (B, N, 3D) qkv product; each operand comes with its own row
-//   and batch stride, so no slice is copied, and the kernel writes a
-//   contiguous (B, N, D).  A first pass takes each row's exact maximum, a
-//   second forms p against it, so bf16(p) rounds as in the reference; the
-//   last 64-key chunk (one key at N = 385 and 513) is masked to the real
-//   keys.  The LayerNorm variant normalises each q tile once and each key
-//   chunk as it arrives in shared memory.
+// What the design does about it: the bf16 attention core of
+//   attention_core.cuh, which reads q, k and v as column slices of
+//   row-strided tensors.  ViTAttention hands over the three slices of its
+//   fused (B, N, 3D) qkv product; each operand comes with its own row and
+//   batch stride, so no slice is copied, and the kernel writes a
+//   contiguous (B, N, D).  At these grids (112 and 108 blocks of 64
+//   queries) the core splits each block's keys among four ranges of 4
+//   warps, 16 warps an SM, with fragments in
+//   registers (mma.sync) and keys and values streamed by cp.async.  A first
+//   pass takes each row's exact maximum, a second forms p against it, so
+//   bf16(p) rounds as in the reference; the last 64-key chunk (one key at
+//   N = 385 and 513) computes only its real keys' columns.  The LayerNorm
+//   variant normalises the q tile once and each key chunk once per pass
+//   as it lands in shared memory.
 //
 // The fp32 entry (uat_eva_attention_fp32) is the same function on fp32
 //   q, k, v: the fp32 form of _eva_fused_kernel ("fp32 runs stay fp32"),

@@ -25,13 +25,13 @@
 //       tiles prefetched into registers) of xn by [Wq|Wk|Wv].  A 64-wide
 //       column tile is one head, so the epilogue applies the bias and the
 //       per-head LayerNorm while the tile is still on chip;
-//   (b) attn_kernel (attention_core.cuh, shared with eva_attention.cu)
-//       on the q/k/v columns of that product: one block per (64 queries,
-//       head, batch); keys and
-//       values stream through shared memory in chunks of 64.  A first pass
-//       finds each row's exact maximum, a second forms p against it, so no
-//       running rescale is needed and the rounding of bf16(p) is the
-//       reference's;
+//   (b) attn_kernel, the bf16 attention core (attention_core.cuh, shared
+//       with eva_attention.cu and attention_heads.cu), on the q/k/v columns
+//       of that product: mma.sync fragments in registers, keys and values
+//       streamed by cp.async; at the main path's 288 blocks of 64 queries,
+//       four blocks of 4 warps an SM.  A first pass finds each row's exact
+//       maximum, a second forms p against it, so no running rescale is
+//       needed and the rounding of bf16(p) is the reference's;
 //   (c) gemm_kernel again for the out projection with its bias.
 //   The q/k/v and head-concat intermediates make one round trip through
 //   device memory (~8 MB at the main path), which is what a later PR with
@@ -50,12 +50,39 @@
 //   xor shuffles per statistic); (b) the fp32 attention of
 //   attention_core_f32.cuh on the q/k/v columns; (c) sgemm_f32_kernel for
 //   the out projection with its bias.
+#include <mma.h>
+
 #include "attention_core.cuh"
 #include "attention_core_f32.cuh"
 
 namespace {
 
+using namespace nvcuda;
+
+constexpr int kTile = 64;      // GEMM tile rows/cols
+constexpr int kThreads = 128;  // GEMM threads, 4 warps
 constexpr int kStepK = 32;     // GEMM K step
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// LayerNorm of one 64-value head row, lanes holding columns lane and
+// lane + 32: fp32 mean and variance, (x - mu) * (1 / sqrt(var + eps)) * g + b
+// with no FMA contraction, rounded to bf16.  Called by all 32 lanes.
+__device__ __forceinline__ void head_layernorm(float x0, float x1,
+                                               const float* g, const float* b,
+                                               float eps, int lane, bf16& y0,
+                                               bf16& y1) {
+  const float mu = warp_sum(x0 + x1) / kHead;
+  const float d0 = x0 - mu, d1 = x1 - mu;
+  const float var = warp_sum(d0 * d0 + d1 * d1) / kHead;
+  const float inv = 1.f / sqrtf(var + eps);
+  y0 = rn(__fadd_rn(__fmul_rn(__fmul_rn(d0, inv), g[lane]), b[lane]));
+  y1 = rn(__fadd_rn(__fmul_rn(__fmul_rn(d1, inv), g[lane + 32]), b[lane + 32]));
+}
 
 // C[:, s*seg_n : (s+1)*seg_n] = A . W[s]^T (+ bias[s]) (-> LayerNorm[s]),
 // for the segments s the column tiles cover.  W[s] is (seg_n, K) row-major,
