@@ -8,7 +8,10 @@ exits non-zero before the result line:
 
   1. the card's name and power limit (nvidia-smi);
   2. building the CUDA kernels of `uni_adapter_torch/csrc/` with one
-     `nvcc` per source, all started together;
+     `nvcc` per source, all started together (registers and spills of
+     each kernel printed), and reading the EVA block's SASS: its bf16 GEMM
+     must hold HGMMA (wgmma) instructions, its fp32 GEMM no tensor-core
+     instruction;
   3. each kernel at its main-path shapes against its plain PyTorch version
      on the card: FPS, kNN and ball-query indices exactly (ball query also
      on over-full and on empty balls), the large-cloud kNN + gather and
@@ -22,12 +25,17 @@ exits non-zero before the result line:
      the attention, PyTorch's `scaled_dot_product_attention` on the same
      inputs as a yardstick (the port never calls it), the attention
      kernels and the yardstick also in device time (torch.profiler, the
-     sum of the kernels' durations per call); then the fp32
+     sum of the kernels' durations per call), FPS, kNN, ball query and
+     the large-cloud kernels too; the block's two GEMMs each in device
+     time per launch beside their bounds and cuBLAS's time for the same
+     products (`F.linear`, a yardstick); then the fp32
      kernels (the (B, H, N, hd) attention, the natural layout with and
      without its LayerNorm, the block) within an fp32 tolerance that
      three planted faults (operands rounded to bf16, to TF32, the last
-     key dropped) must each fail by 5×, and float16 raising in every
-     attention wrapper;
+     key dropped) must each fail by 5×; both entries of the block at one
+     token, 65 tokens at width 384, the main path's shape and a 30-batch
+     grid of several waves, and the projections' last K tile skipped as a
+     planted fault of each; float16 raising in every attention wrapper;
   4. features (and attention maps) of Uni3D, OpenShape-G and ULIP-2 at
      depth 2 and full width on the card (kernels) against the CPU (plain
      versions), the same weights in bf16; Uni3D and OpenShape-G also on
@@ -73,6 +81,8 @@ from __future__ import annotations
 
 import functools
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -145,13 +155,10 @@ def time_ms(fn, runs: int = 20, per_run: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20, warmup: int = 3, attempts: int = 3) -> float:
-    """Device ms per call of fn(): the sum of the durations of the CUDA
-    kernels that torch.profiler records over `calls` back-to-back calls,
-    divided by `calls`.  What the card spends on the call, without the
-    host's share that `time_ms` may show.  A trace that records no kernel
-    at all (seen after some dozens of traces in one process) is taken
-    again, up to `attempts` times."""
+def trace_kernels(fn, calls: int, warmup: int = 3) -> list:
+    """The CUDA kernels that torch.profiler records over `calls`
+    back-to-back calls of fn() (after `warmup` untraced ones), in launch
+    order."""
     import torch
 
     for _ in range(warmup):
@@ -159,16 +166,45 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, attempts: int = 3) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted((ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda ev: ev.time_range.start)
+
+
+def device_ms(fn, calls: int = 20, attempts: int = 3) -> float:
+    """Device ms per call of fn(): the sum of the durations of the CUDA
+    kernels that torch.profiler records over `calls` back-to-back calls,
+    divided by `calls`.  What the card spends on the call, without the
+    host's share that `time_ms` may show.  A trace that records no kernel
+    at all (seen after some dozens of traces in one process) is taken
+    again, up to `attempts` times."""
     for _ in range(attempts):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(ev.device_time_total for ev in prof.events()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+        total = sum(ev.device_time_total for ev in trace_kernels(fn, calls))
         if total > 0:
             return total / 1e3 / calls
     fail(f"torch.profiler recorded no device time in {attempts} traces")
+
+
+def device_ms_by_launch(fn, n_launch: int, calls: int = 20,
+                        attempts: int = 3) -> list:
+    """(name, device ms) of each of the `n_launch` kernels that one call of
+    fn() launches, in launch order: every n_launch-th kernel of a trace of
+    `calls` calls, averaged.  A trace that does not hold n_launch kernels a
+    call is taken again, up to `attempts` times."""
+    for _ in range(attempts):
+        kern = trace_kernels(fn, calls)
+        if len(kern) == n_launch * calls:
+            return [(kern[i].name, sum(k.device_time_total
+                                       for k in kern[i::n_launch])
+                     / 1e3 / calls) for i in range(n_launch)]
+        print(f"  (a trace held {len(kern)} kernels for {calls} calls of "
+              f"{n_launch}: {sorted({k.name[:60] for k in kern})})")
+    fail(f"torch.profiler did not record {n_launch} kernels a call in "
+         f"{attempts} traces")
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -227,18 +263,30 @@ def check_f32(what: str, got, want, faults: dict) -> float:
     return err
 
 
+def skip_last_k_tile(xn):
+    """xn with its last 64 input features zeroed: what a projection GEMM
+    that skips its last K tile computes."""
+    bad = xn.clone()
+    bad[..., -64:] = 0
+    return bad
+
+
 def check_block_tolerance(torch, attention, args, want, H) -> None:
     """The block tolerance must reject planted faults of the size a broken
     kernel would make: the tail key (key 512, alone in the last 64-key
-    chunk) dropped, and the k LayerNorm's γ/β ignored."""
+    chunk) dropped, the k LayerNorm's γ/β ignored, and the projections'
+    last K tile skipped."""
     xn, T = args[0], args[0].shape[1]
     dropped = attention.eva_attn_block_plain(
         xn[:, :T - 1].contiguous(), *args[1:], num_heads=H).float()
     ones, zeros = torch.ones_like(args[8]), torch.zeros_like(args[9])
     no_k_affine = attention.eva_attn_block_plain(
         *args[:8], ones, zeros, *args[10:], num_heads=H).float()
+    short_k = attention.eva_attn_block_plain(
+        skip_last_k_tile(xn), *args[1:], num_heads=H).float()
     for fault, got, ref in (("tail key dropped", dropped, want[:, :T - 1]),
-                            ("k LayerNorm γ/β ignored", no_k_affine, want)):
+                            ("k LayerNorm γ/β ignored", no_k_affine, want),
+                            ("last K tile skipped", short_k, want)):
         r = block_err(got, ref)
         print(f"  planted fault '{fault}': err/tolerance {r:.1f}")
         if r <= 1:
@@ -267,6 +315,7 @@ def check_kernels(torch, gen) -> list[dict]:
                 "replaces": "uni_adapter_tpu/ops/fps_pallas.py:105",
                 "max_abs_err": 0,
                 "ms": time_ms(lambda: fps.fps_cuda(xyz, G)),
+                "device_ms": device_ms(lambda: fps.fps_cuda(xyz, G)),
                 "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G), per_run=1),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
@@ -283,6 +332,7 @@ def check_kernels(torch, gen) -> list[dict]:
                 "replaces": "uni_adapter_tpu/ops/knn_pallas.py:201",
                 "max_abs_err": 0,
                 "ms": time_ms(lambda: knn.knn_cuda(M, xyz, center)),
+                "device_ms": device_ms(lambda: knn.knn_cuda(M, xyz, center)),
                 "plain_ms": time_ms(lambda: knn.knn_plain(M, xyz, center)),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
@@ -333,9 +383,13 @@ def check_kernels(torch, gen) -> list[dict]:
                 "plain_ms": time_ms(lambda: attention.eva_attn_block_plain(
                     *args, num_heads=H)),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "library_device_ms": None})
+                "library_device_ms": None,
+                "gemms": block_gemm_times(
+                    torch, gen, attention.eva_attn_block_cuda, args, H,
+                    PEAK_BF16)})
     out[0]["shapes"] = {"1024": {
-        key: out[0][key] for key in ("ms", "plain_ms", "bound_ms")},
+        key: out[0][key] for key in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms")},
         "8192": check_fps_at_its_limit(torch)}
     return out
 
@@ -356,6 +410,7 @@ def check_fps_at_its_limit(torch) -> dict:
         fail(f"fps at {N} points: {(got != want).sum().item()} indices differ")
     print(f"fps {(B, N, G)}: indices equal")
     return {"ms": time_ms(lambda: fps.fps_cuda(xyz, G)),
+            "device_ms": device_ms(lambda: fps.fps_cuda(xyz, G)),
             "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G), runs=5,
                                 per_run=1),
             "bound_ms": bound(B * N * 3 * 4 + B * G * 4, B * G * N * 9,
@@ -418,6 +473,8 @@ def check_knn_gather(torch, gen) -> dict:
             shapes[name] = {
                 "shape": [B, N, S, k, C],
                 "ms": time_ms(lambda: knn_gather_cuda(k, xyz, q, vals)),
+                "device_ms": device_ms(lambda: knn_gather_cuda(k, xyz, q,
+                                                               vals)),
                 "plain_ms": time_ms(lambda: knn_gather_plain(k, xyz, q, vals)),
                 "bound_ms": b_ms, "bound_by": b_by}
     base = sphere_cloud(torch, gen, 1, 1500)
@@ -436,8 +493,8 @@ def check_knn_gather(torch, gen) -> dict:
             "source": "uni_adapter_torch/csrc/knn_gather.cu",
             "replaces": "uni_adapter_tpu/ops/knn_pallas.py:130",
             "max_abs_err": 0,
-            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by")},
+            **{key: first[key] for key in ("ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by")},
             "library_ms": None, "shapes": shapes}
 
 
@@ -478,6 +535,8 @@ def check_fps_grid(torch, gen) -> dict:
                                PEAK_FP32)
             shapes[name] = {"shape": [B, N, G],
                          "ms": time_ms(lambda: fps.fps_grid_cuda(xyz, G)),
+                         "device_ms": device_ms(
+                             lambda: fps.fps_grid_cuda(xyz, G)),
                          "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G),
                                              runs=5, per_run=1),
                          "bound_ms": b_ms, "bound_by": b_by}
@@ -486,8 +545,8 @@ def check_fps_grid(torch, gen) -> dict:
             "source": "uni_adapter_torch/csrc/fps_grid.cu",
             "replaces": "uni_adapter_tpu/ops/fps_pallas.py:133",
             "max_abs_err": 0,
-            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by")},
+            **{key: first[key] for key in ("ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by")},
             "library_ms": None, "shapes": shapes}
 
 
@@ -547,6 +606,8 @@ def check_ballquery(torch, gen) -> dict:
             "max_abs_err": 0,
             "ms": time_ms(lambda: ballquery.query_ball_cuda(r, ns, xyz,
                                                             center)),
+            "device_ms": device_ms(lambda: ballquery.query_ball_cuda(
+                r, ns, xyz, center)),
             "plain_ms": time_ms(lambda: ballquery.query_ball_plain(
                 r, ns, xyz, center)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -921,7 +982,8 @@ def check_block_fp32(torch, gen) -> dict:
     """The fp32 EVA attention block at Uni3D-L's (2, 513, 1024), 16 heads,
     fp32 weights, q/k LayerNorm γ ≈ BLOCK_LN_GAMMA (peaked attention):
     within the fp32 tolerance; xn and the four weights rounded to bf16 and
-    to TF32, and the last token dropped, each F32_FAULT_MARGIN outside."""
+    to TF32, the last token dropped and the projections' last K tile
+    skipped, each F32_FAULT_MARGIN outside; then its two GEMMs' times."""
     from uni_adapter_torch.ops import attention
 
     Bt, T, D, H = 2, 513, 1024, 16
@@ -948,6 +1010,8 @@ def check_block_fp32(torch, gen) -> dict:
         kernel, operands).items()}
     faults[f"last token {T - 1} dropped"] = (
         plain(xn[:, :T - 1].contiguous(), *operands[1:]), want[:, :T - 1])
+    faults["last K tile skipped"] = (
+        plain(skip_last_k_tile(xn), *operands[1:]), want)
     err = check_f32(f"eva_attn_block_fp32 {(Bt, T, D, H)}",
                     kernel(*operands), want, faults)
     Mt = Bt * T
@@ -962,7 +1026,178 @@ def check_block_fp32(torch, gen) -> dict:
             "device_ms": device_ms(lambda: kernel(*operands)),
             "plain_ms": time_ms(lambda: plain(*operands)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "library_device_ms": None}
+            "library_device_ms": None,
+            "gemms": block_gemm_times(
+                torch, gen, attention.eva_attn_block_fp32_cuda,
+                (xn, w[0], b[0], w[1], w[2], b[1], *ln, w[3], b[2]), H,
+                PEAK_FP32)}
+
+
+def block_gemm_times(torch, gen, kernel, args, H, peak) -> dict:
+    """The block's two GEMMs, the first and third kernels of a call: device
+    ms per launch (torch.profiler) beside each one's bound and TFLOP/s, and
+    cuBLAS's device ms for the same product (`F.linear` of xn by
+    [Wq|Wk|Wv] and of the head concat by Wo; TF32 off), a yardstick the
+    port never calls."""
+    import torch.nn.functional as F
+
+    xn, wq, wk, wv, wo = args[0], args[1], args[3], args[4], args[10]
+    B, N, D = xn.shape
+    M, size = B * N, xn.element_size()
+    per_launch = device_ms_by_launch(lambda: kernel(*args, num_heads=H), 3)
+    x2 = xn.reshape(M, D)
+    cat = torch.randn(M, D, generator=gen, device="cuda").to(xn.dtype)
+    out = {}
+    for what, (name, ms), a, w, n_bias in (
+            ("qkv", per_launch[0], x2, torch.cat([wq, wk, wv]), 2 * D),
+            ("out", per_launch[2], cat, wo, D)):
+        n = w.shape[0]
+        flops = 2 * M * D * n
+        b_ms, b_by = bound((M * D + n * D + M * n + n_bias) * size, flops,
+                           peak)
+        out[what] = {"kernel": name, "device_ms": ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "tflops": flops / ms / 1e9,
+                     "cublas_device_ms": device_ms(lambda: F.linear(a, w))}
+        print(f"  {xn.dtype} block {what} GEMM ({M} x {n} x {D}): device "
+              f"{ms:.4f} ms a launch, {out[what]['tflops']:.1f} TFLOP/s "
+              f"(bound {b_ms:.5f} ms by {b_by}; cuBLAS "
+              f"{out[what]['cublas_device_ms']:.4f} ms) [{name[:70]}]")
+    return out
+
+
+#: The block's shapes beyond the main path's checks, (B, N, D, H): one
+#: token and one head, 65 tokens at ULIP-2's width (a ragged 64-row tile,
+#: 6 heads), Uni3D-L's main path, and the 15-stream x 2 fused batch
+#: (15,390 rows, several waves of tiles).
+BLOCK_SHAPES = ((1, 1, 64, 1), (1, 65, 384, 6), (2, 513, 1024, 16),
+                (30, 513, 1024, 16))
+#: The fused batch holds 15 times the outputs the bf16 tolerance was
+#: calibrated on (the main path's).  On other draws than these, one output
+#: of 15.76 M sat at 1.08x it on an H100, for the WMMA GEMM of earlier
+#: versions as for the wgmma one, and it entered with the rounding of
+#: q/k/v (the kernel's q/k/v through the plain attention and out
+#: projection gave it too): the tail of the flips the tolerance admits.
+#: Should this check fail just past 1 after its draws change, look there
+#: first; the bitwise slice check below is what catches a grid fault.
+
+
+def block_inputs(torch, gen, shape, dtype) -> tuple:
+    """The block's twelve arguments for xn of `shape` (B, N, D) in `dtype`:
+    weights of std D^-1/2, biases of std 0.02, fp32 q/k LayerNorm γ ≈
+    BLOCK_LN_GAMMA (peaked attention) and β ≈ 0."""
+    D = shape[-1]
+
+    def rnd(*size, std=1.0, dt=dtype):
+        return (torch.randn(*size, generator=gen, device="cuda") * std).to(dt)
+
+    w = [rnd(D, D, std=D ** -0.5) for _ in range(4)]
+    b = [rnd(D, std=0.02) for _ in range(3)]
+    ln = [BLOCK_LN_GAMMA + rnd(64, std=0.1, dt=torch.float32),
+          rnd(64, std=0.1, dt=torch.float32),
+          BLOCK_LN_GAMMA + rnd(64, std=0.1, dt=torch.float32),
+          rnd(64, std=0.1, dt=torch.float32)]
+    return (rnd(*shape), w[0], b[0], w[1], w[2], b[1], *ln, w[3], b[2])
+
+
+def check_block_shapes(torch, gen) -> dict:
+    """Both entries of the block at BLOCK_SHAPES, peaked attention (q/k
+    LayerNorm γ ≈ BLOCK_LN_GAMMA), against the plain version: fp32 within
+    rtol F32_RTOL and atol F32_ATOL_RMS of the RMS, bf16 within rtol
+    BLOCK_RTOL and atol BLOCK_ATOL_RMS.  Past two batches, each 2-batch
+    slice of the output must also equal bit for bit the kernel's run on
+    that slice alone (the same rows through a grid of one wave).  Returns
+    the largest max abs err per entry."""
+    from uni_adapter_torch.ops import attention
+
+    worst = {}
+    for name, kernel, dtype, tol in (
+            ("eva_attn_block", attention.eva_attn_block_cuda,
+             torch.bfloat16, (BLOCK_RTOL, BLOCK_ATOL_RMS)),
+            ("eva_attn_block_fp32", attention.eva_attn_block_fp32_cuda,
+             torch.float32, (F32_RTOL, F32_ATOL_RMS))):
+        worst[name] = 0.0
+        for B, N, D, H in BLOCK_SHAPES:
+            args = block_inputs(torch, gen, (B, N, D), dtype)
+            got = kernel(*args, num_heads=H)
+            want = attention.eva_attn_block_plain(*args, num_heads=H).float()
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            r = block_err(got.float(), want, *tol)
+            print(f"{name} {(B, N, D, H)}: max abs err {err:.3g}, "
+                  f"err/tolerance {r:.4f} (rtol {tol[0]}, atol "
+                  f"{block_atol(want, tol[1]):.3g})")
+            if not torch.isfinite(got).all() or r > 1:
+                fail(f"{name} {(B, N, D, H)}: outside the tolerance")
+            if B > 2:
+                for i in range(0, B, 2):
+                    alone = kernel(args[0][i:i + 2].contiguous(), *args[1:],
+                                   num_heads=H)
+                    if not torch.equal(got[i:i + 2], alone):
+                        fail(f"{name} {(B, N, D, H)}: batches {i}-{i + 1} "
+                             f"differ from the kernel's run on them alone")
+                print(f"{name} {(B, N, D, H)}: every 2-batch slice equal to "
+                      f"the kernel's run on it alone")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def check_gemm_sass() -> None:
+    """The block's bf16 GEMM runs on wgmma and its fp32 GEMM on no tensor
+    core: in `cuobjdump --dump-sass` of the built library, every
+    instantiation of gemm_bf16_kernel holds HGMMA instructions and no
+    instantiation of gemm_f32_kernel holds an HMMA or HGMMA."""
+    from uni_adapter_torch.ops import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "--dump-sass", str(build.library_path("eva_attn_block"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = {"HGMMA": 0, "HMMA": 0}
+        elif func is not None:
+            for op in counts[func]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[func][op] += 1
+    bf16 = {f: c for f, c in counts.items() if "gemm_bf16_kernel" in f}
+    f32 = {f: c for f, c in counts.items() if "gemm_f32_kernel" in f}
+    for f, c in {**bf16, **f32}.items():
+        print(f"SASS {kernel_label(f)}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
+    if not bf16 or not all(c["HGMMA"] > 0 for c in bf16.values()):
+        fail("the bf16 block GEMM has no HGMMA in its SASS")
+    if not f32 or any(c["HGMMA"] + c["HMMA"] for c in f32.values()):
+        fail("the fp32 block GEMM has tensor-core instructions in its SASS, "
+             "or is missing")
+
+
+def kernel_label(mangled: str) -> str:
+    """A mangled kernel name as name<template arguments>: the
+    length-prefixed identifier that ends in `_kernel`."""
+    for m in re.finditer(r"(?=(\d{1,3}))", mangled):  # every digit run start
+        for k in range(1, len(m.group(1)) + 1):
+            start = m.start() + k
+            end = start + int(mangled[m.start():start])
+            name = mangled[start:end]
+            if name.endswith("_kernel") and name.isidentifier():
+                t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+                args = re.findall(r"\d+", t.group(1)) if t else []
+                return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_report(name: str, log: str) -> None:
+    """Registers, spills and wgmma advisories from nvcc's -Xptxas -v
+    output, each line under the kernel it is about."""
+    func = ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            func = kernel_label(m.group(1))
+        elif "registers" in line or "spill" in line or "wgmma" in line:
+            print(f"  {name}: {func}: {line.strip()}")
 
 
 def check_float16_raises(torch) -> None:
@@ -1500,9 +1735,8 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(logs)} sources "
           f"compiled)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        ptxas_report(name, log)
+    check_gemm_sass()
 
     from uni_adapter_torch.cli.tta import set_numerics
 
@@ -1517,6 +1751,10 @@ def main() -> None:
     kernels.append(check_attention_fp32(torch, gen))
     kernels.append(check_eva_attention_fp32(torch, gen))
     kernels.append(check_block_fp32(torch, gen))
+    block_errs = check_block_shapes(torch, gen)
+    for k in kernels:
+        if k["name"] in block_errs:
+            k["max_abs_err"] = max(k["max_abs_err"], block_errs[k["name"]])
     check_float16_raises(torch)
     for k in kernels:
         dev = ("" if k.get("device_ms") is None

@@ -63,7 +63,7 @@ from uni_adapter_torch.ops.geometry import (group_points,  # noqa: E402
 PORT_GROUPS = {
     "port: fp32 attention core": ("attn_f32_kernel",),
     "port: bf16 attention core": ("attn_kernel",),
-    "port: EVA block GEMMs": ("gemm_kernel", "sgemm_f32_kernel"),
+    "port: EVA block GEMMs": ("gemm_bf16_kernel", "gemm_f32_kernel"),
     "port: grouping (FPS, kNN, ball query)": (
         "fps_kernel", "fps_grid_kernel", "knn_kernel", "knn_gather_kernel",
         "ballquery_kernel"),

@@ -7,6 +7,9 @@ kernels are held to the plain versions on the card by chip_smoke.py.
 Inputs are made from numpy seeds and fed to both packages.
 """
 import functools
+import importlib.util
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +22,9 @@ import uni_adapter_tpu.ops.fps_pallas as fps_pallas
 import uni_adapter_tpu.ops.knn_pallas as knn_pallas
 from uni_adapter_tpu.ops import geometry as jax_geometry
 from uni_adapter_torch.ops import (attention, attention_fp32,
-                                   attention_heads, ballquery, eva_attention,
-                                   fps, geometry, knn, knn_gather)
+                                   attention_heads, ballquery, build,
+                                   eva_attention, fps, geometry, knn,
+                                   knn_gather)
 
 
 def _rand(shape, seed):
@@ -162,15 +166,22 @@ def _block_inputs(B, N, D, H, seed):
     return x, w, b, ln
 
 
-@pytest.mark.parametrize("dtype,tol", [
-    # fp32: the same arithmetic in another summation order
-    ("float32", 1e-5),
-    # bf16: a last-bit difference upstream can flip a bf16 rounding; the
-    # tolerance tests/test_attention_pallas.py allows the Pallas kernel
-    ("bfloat16", 2e-2),
-])
-def test_eva_attn_block_matches_pallas_kernel(dtype, tol):
-    B, N, D, H = 2, 37, 128, 4
+# fp32: the same arithmetic in another summation order.  bf16: a last-bit
+# difference upstream can flip a bf16 rounding; the tolerance
+# tests/test_attention_pallas.py allows the Pallas kernel.  Beside
+# (2, 37, 128, 4), the edges the card's GEMMs are checked at: one token
+# and one head, and 65 tokens at ULIP-2's width (a ragged tile, 6 heads).
+_BLOCK_CASES = [
+    pytest.param(dtype, tol, shape,
+                 id=f"{dtype}-{tol}" + ("" if shape == (2, 37, 128, 4) else
+                                        "-" + "x".join(map(str, shape))))
+    for shape in ((2, 37, 128, 4), (1, 1, 64, 1), (1, 65, 384, 6))
+    for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2))]
+
+
+@pytest.mark.parametrize("dtype,tol,shape", _BLOCK_CASES)
+def test_eva_attn_block_matches_pallas_kernel(dtype, tol, shape):
+    B, N, D, H = shape
     x, w, b, ln = _block_inputs(B, N, D, H, seed=5)
     jdt = jnp.dtype(dtype)
     tdt = getattr(torch, dtype)
@@ -294,3 +305,34 @@ def test_kernel_wrappers_reject_cpu_tensors_before_building(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
     assert build.load.cache_info().currsize == 0
+
+
+def _global_kernels() -> set:
+    """Every __global__ function name in uni_adapter_torch/csrc: the last
+    identifier called before the body (after any __launch_bounds__)."""
+    names = set()
+    for path in sorted(build.CSRC.glob("*.cu*")):
+        text = path.read_text()
+        for m in re.finditer(r"__global__", text):
+            head = text[m.end():text.index("{", m.end())]
+            names.add(re.findall(r"(\w+)\s*\(", head)[-1])
+    return names
+
+
+def test_step_profile_groups_every_port_kernel():
+    """scripts/torch_step_profile.py files every kernel of the port under
+    its own group (a text check: a renamed kernel whose name holds "gemm"
+    would otherwise count as a library GEMM)."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "torch_step_profile.py"
+    spec = importlib.util.spec_from_file_location("torch_step_profile", path)
+    profile = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile)
+    kernels = _global_kernels()
+    assert {"gemm_bf16_kernel", "gemm_f32_kernel", "attn_kernel",
+            "attn_f32_kernel", "fps_kernel"} <= kernels
+    for name in sorted(kernels):
+        # as the profiler names a templated kernel in an anonymous namespace
+        group = profile.group_of(f"void (anonymous namespace)::{name}<2, 128>"
+                                 f"((anonymous namespace)::Args)")
+        assert name in profile.PORT_GROUPS.get(group, ()), (name, group)

@@ -72,15 +72,19 @@ def eva_attn_block_plain(xn: torch.Tensor, wq: torch.Tensor,
     return out + bo.to(dt)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("eva_attn_block")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of a built `csrc/eva_attn_block.cu`."""
     for entry in ("uat_eva_attn_block", "uat_eva_attn_block_fp32"):
         fn = getattr(lib, entry)
         fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind(build.load("eva_attn_block"))
 
 
 def _launch(entry: str, dtype: torch.dtype, tensors, num_heads: int,
