@@ -14,13 +14,20 @@ exits non-zero before the result line:
      instruction;
   3. each kernel at its main-path shapes against its plain PyTorch version
      on the card: FPS, kNN and ball-query indices exactly (ball query also
-     on over-full and on empty balls), the large-cloud kNN + gather and
-     FPS exactly at 10,000 and 8192 points, at a tile edge, on ties and
-     past the shared-memory limit, the attention block and the
-     natural-layout attention within a bf16 tolerance that planted faults
-     must fail, the bf16 attention core also at its edges (one key, one
-     whole 64-key chunk, one key past it, 2049 keys, a grid of several
-     waves); with kernel and plain times (median of 20 runs, CUDA events,
+     on over-full and on empty balls), the large-cloud kNN + gather
+     exactly at 10,000 and 8192 points, at a tile edge and on ties; FPS
+     exactly through `farthest_point_sample` (the cloud's size picks the
+     kernel) from 1 to 20,000 points (both sides of a warp, of fps.cu's
+     1024-point class and of its 4096-point limit, 8192 and 8193, npoint
+     = N, 30-cloud batches of 1024 and 10,000 points), every case launched
+     several times, on three tie clouds (every point twice, every point equal, a
+     lattice) at 1024 and 10,000 points and on both sides of the largest
+     cloud a cluster holds in registers, from both FPS kernels wherever
+     both take N, each fps_grid launch's cluster printed; the attention
+     block and the natural-layout attention within a bf16 tolerance that
+     planted faults must fail, the bf16 attention core also at its edges
+     (one key, one whole 64-key chunk, one key past it, 2049 keys, a grid
+     of several waves); with kernel and plain times (median of 20 runs, CUDA events,
      back to back), the least time the card could take (bound) and, for
      the attention, PyTorch's `scaled_dot_product_attention` on the same
      inputs as a yardstick (the port never calls it), the attention
@@ -54,7 +61,7 @@ exits non-zero before the result line:
      stream of 10,000-point clouds with a seeded (1156, 1024) bank
      (`fps_grid` and `knn_gather`, never `fps` or `knn`), and ULIP-2 on a
      ScanObjectNN stream at `--npoints 8192` with a seeded (15, 512) bank
-     (`fps` at its limit and `knn_gather`, never `knn`); then the three
+     (the same two kernels, never `fps` or `knn`); then the three
      1024-point paths with `--compute-dtype float32` (the fp32 kernels,
      no bf16 attention kernel), and `--compute-dtype float16` raising;
   6. the attention-map extraction path of each backbone at full width and
@@ -308,16 +315,15 @@ def check_kernels(torch, gen) -> list[dict]:
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail(f"fps: {(got != want).sum().item()} indices differ")
-    # bounds count indices as int32, as the TPU kernels return them
-    b_ms, b_by = bound(B * N * 3 * 4 + B * G * 4, B * G * N * 9, PEAK_FP32)
+    times = fps_times(torch, fps.fps_cuda, xyz, G)
     out.append({"name": "fps", "route": "cuda",
                 "source": "uni_adapter_torch/csrc/fps.cu",
                 "replaces": "uni_adapter_tpu/ops/fps_pallas.py:105",
                 "max_abs_err": 0,
-                "ms": time_ms(lambda: fps.fps_cuda(xyz, G)),
-                "device_ms": device_ms(lambda: fps.fps_cuda(xyz, G)),
-                "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G), per_run=1),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                **{key: times[key] for key in ("ms", "device_ms", "ns_round",
+                                               "plain_ms", "bound_ms",
+                                               "bound_by")},
+                "library_ms": None})
 
     center = index_points(xyz, got)
     got = knn.knn_cuda(M, xyz, center)
@@ -387,17 +393,15 @@ def check_kernels(torch, gen) -> list[dict]:
                 "gemms": block_gemm_times(
                     torch, gen, attention.eva_attn_block_cuda, args, H,
                     PEAK_BF16)})
-    out[0]["shapes"] = {"1024": {
-        key: out[0][key] for key in ("ms", "device_ms", "plain_ms",
-                                     "bound_ms")},
-        "8192": check_fps_at_its_limit(torch)}
+    out[0]["shapes"] = {"1024": times,
+                        str(fps.MAX_POINTS): check_fps_at_its_limit(torch)}
     return out
 
 
 def check_fps_at_its_limit(torch) -> dict:
-    """fps.cu at the largest cloud it takes, ULIP-2's (2, 8192) → 512 on
-    the ScanObjectNN path: indices equal to the plain version's, and its
-    times (own generator, so the other checks' inputs do not move)."""
+    """fps.cu at the largest cloud it takes, (2, MAX_POINTS) → 512:
+    indices equal to the plain version's, and its times (own generator,
+    so the other checks' inputs do not move)."""
     from uni_adapter_torch.ops import fps
 
     B, N, G = 2, fps.MAX_POINTS, 512
@@ -409,12 +413,7 @@ def check_fps_at_its_limit(torch) -> dict:
     if not torch.equal(got, want):
         fail(f"fps at {N} points: {(got != want).sum().item()} indices differ")
     print(f"fps {(B, N, G)}: indices equal")
-    return {"ms": time_ms(lambda: fps.fps_cuda(xyz, G)),
-            "device_ms": device_ms(lambda: fps.fps_cuda(xyz, G)),
-            "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G), runs=5,
-                                per_run=1),
-            "bound_ms": bound(B * N * 3 * 4 + B * G * 4, B * G * N * 9,
-                              PEAK_FP32)[0]}
+    return fps_times(torch, fps.fps_cuda, xyz, G)
 
 
 def sphere_cloud(torch, gen, B, N):
@@ -498,28 +497,127 @@ def check_knn_gather(torch, gen) -> dict:
             "library_ms": None, "shapes": shapes}
 
 
-#: fps_grid's checks: (B, N, npoint).  The 10,000-point path's (in shared
-#: memory; the entry's numbers) and one past the shared-memory branch, both
-#: timed, and a cloud that fps.cu also takes.
+#: fps_grid's timed shapes, (B, N, npoint): the 10,000-point path's (the
+#: entry's numbers), the 8192-point path's and a 20,000-point cloud, all
+#: in a cluster's registers.  `check_fps_grid` adds the device-memory
+#: branch.
 FPS_GRID_SHAPES = {"uni3d_lvis10k": (2, 10000, 512),
-                   "device memory": (1, 20000, 512),
-                   "fps.cu's": (2, 1024, 512)}
+                   "ulip_scanobjectnn8192": (2, 8192, 512),
+                   "20,000 points": (1, 20000, 512)}
+
+#: The FPS contract's shapes, (B, N, npoint), through
+#: `farthest_point_sample` (the cloud's size picks the kernel): one point,
+#: both sides of a warp, of fps.cu's 1024-point class and of its limit
+#: (4096), the large-cloud paths and 8193, npoint = N, and the fused
+#: 15-stream × 2 batch of ROADMAP M6a at 1024 and 10,000 points (240
+#: blocks: many clusters at once).
+FPS_CONTRACT_SHAPES = ((1, 1, 1), (2, 31, 31), (2, 32, 16), (2, 33, 33),
+                       (2, 1024, 512), (2, 1025, 512), (2, 4096, 512),
+                       (2, 4097, 512), (2, 8192, 512), (2, 8193, 512),
+                       (2, 10000, 512), (1, 20000, 512), (30, 1024, 512),
+                       (30, 10000, 512))
+#: Launches of each kernel on each contract case: fps_grid's exchange has
+#: no barrier, so a race would show as one launch that differs.
+FPS_REPEATS = 5
+#: Sizes of the tie clouds.
+FPS_TIE_POINTS = (1024, 10000)
+
+
+def tie_clouds(torch, gen, N: int) -> dict:
+    """(1, N, 3) clouds on which FPS meets exact ties every round: every
+    point twice (the copies N/2 apart), every point equal, and a lattice
+    of integer coordinates scaled by 1/16 (exact in fp32, so equal
+    distances are equal bits)."""
+    half = sphere_cloud(torch, gen, 1, N // 2)
+    a = round(N ** (1 / 3))
+    while a ** 3 < N:
+        a += 1
+    i = torch.arange(N, device="cuda")
+    lattice = torch.stack([i % a, i // a % a, i // (a * a)], -1) / 16
+    return {"every point twice": torch.cat([half, half], 1),
+            "every point equal": sphere_cloud(torch, gen, 1, 1).expand(
+                1, N, 3).contiguous(),
+            "lattice": lattice[None].float().contiguous()}
+
+
+def fps_plan_text(fps, N: int) -> str:
+    C, T, P = fps.fps_grid_plan(N)
+    held = f"{P} points a thread" if P else "running minimum in device memory"
+    return f"cluster of {C} blocks × {T} threads, {held}"
+
+
+def check_fps_contract(torch, gen) -> None:
+    """FPS indices equal to the plain version's at FPS_CONTRACT_SHAPES, on
+    the tie clouds at FPS_TIE_POINTS, and at both sides of the largest
+    cloud a cluster holds in registers: through `farthest_point_sample`
+    (the cloud's size picks the kernel), and from both kernels wherever
+    both take N, FPS_REPEATS launches each.  Prints each fps_grid launch's
+    cluster; fails unless the 10,000-point cloud runs on more than one
+    block."""
+    from uni_adapter_torch.ops import fps
+
+    limit = fps.fps_grid_register_points()
+    print(f"fps_grid: a cluster holds up to {limit} points in registers, "
+          f"device memory above")
+    cases = [(f"{(B, N, G)}", sphere_cloud(torch, gen, B, N), G)
+             for B, N, G in FPS_CONTRACT_SHAPES]
+    for N in FPS_TIE_POINTS:
+        cases += [(f"{name}, (1, {N}, 512)", xyz, 512)
+                  for name, xyz in tie_clouds(torch, gen, N).items()]
+    cases += [(f"(1, {N}, 512)", sphere_cloud(torch, gen, 1, N), 512)
+              for N in (limit, limit + 1)]
+    for what, xyz, G in cases:
+        N = xyz.shape[1]
+        want = fps.fps_plain(xyz, G)
+        kernels = {"farthest_point_sample": fps.farthest_point_sample,
+                   "fps_grid": fps.fps_grid_cuda}
+        if N <= fps.MAX_POINTS:
+            kernels["fps.cu"] = fps.fps_cuda
+        for name, run in kernels.items():
+            for _ in range(FPS_REPEATS):
+                got = run(xyz, G)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"fps {what}: {(got != want).sum().item()} indices "
+                         f"from {name} differ from the plain version's")
+        route = "fps.cu" if N <= fps.MAX_POINTS else "fps_grid"
+        print(f"fps {what}: indices equal from {', '.join(kernels)}, "
+              f"{FPS_REPEATS} launches each (picks {route}); fps_grid: "
+              f"{fps_plan_text(fps, N)}")
+    if fps.fps_grid_plan(10000)[0] < 2:
+        fail("fps_grid: the 10,000-point cloud does not run on a cluster of "
+             "more than one block")
+    if fps.fps_grid_plan(limit)[2] == 0 or \
+            fps.fps_grid_plan(limit + 1)[2] != 0:
+        fail(f"fps_grid: the checks do not cover both branches (limit "
+             f"{limit})")
+
+
+def fps_times(torch, fn, xyz, G) -> dict:
+    """Times of one FPS call: back to back, device, plain, bound and device
+    ns a round (device ms / npoint; FPS is bound by its dependent rounds)."""
+    from uni_adapter_torch.ops import fps
+
+    B, N, _ = xyz.shape
+    # bounds count indices as int32, as the TPU kernels return them
+    b_ms, b_by = bound(B * N * 3 * 4 + B * G * 4, B * G * N * 9, PEAK_FP32)
+    dev_ms = device_ms(lambda: fn(xyz, G))
+    return {"shape": [B, N, G], "ms": time_ms(lambda: fn(xyz, G)),
+            "device_ms": dev_ms, "ns_round": dev_ms * 1e6 / G,
+            "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G), runs=5,
+                                per_run=1),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_fps_grid(torch, gen) -> dict:
-    """Indices equal to the plain version's at FPS_GRID_SHAPES, and to
-    fps.cu's at N = 1024."""
+    """fps_grid at FPS_GRID_SHAPES and on the device-memory branch: indices
+    equal to the plain version's, and its times."""
     from uni_adapter_torch.ops import fps
 
-    limit = fps.fps_grid_shared_points(torch.device("cuda"))
-    print(f"fps_grid: xyz and running minimum in shared memory up to "
-          f"{limit} points, in device memory above")
-    if not (FPS_GRID_SHAPES["uni3d_lvis10k"][1] <= limit
-            < FPS_GRID_SHAPES["device memory"][1]):
-        fail(f"fps_grid: the checks do not cover both branches (limit "
-             f"{limit})")
+    N_mem = fps.fps_grid_register_points() + 1
     shapes = {}
-    for name, (B, N, G) in FPS_GRID_SHAPES.items():
+    for name, (B, N, G) in {**FPS_GRID_SHAPES,
+                            "device memory": (1, N_mem, 512)}.items():
         xyz = sphere_cloud(torch, gen, B, N)
         got = fps.fps_grid_cuda(xyz, G)
         want = fps.fps_plain(xyz, G)
@@ -527,26 +625,17 @@ def check_fps_grid(torch, gen) -> dict:
         if not torch.equal(got, want):
             fail(f"fps_grid {(B, N, G)}: {(got != want).sum().item()} "
                  f"indices differ")
-        if N <= fps.MAX_POINTS and not torch.equal(got, fps.fps_cuda(xyz, G)):
-            fail(f"fps_grid {(B, N, G)}: indices differ from fps.cu's")
-        print(f"fps_grid {(B, N, G)}: indices equal")
-        if N > fps.MAX_POINTS:
-            b_ms, b_by = bound(B * N * 3 * 4 + B * G * 4, B * G * N * 9,
-                               PEAK_FP32)
-            shapes[name] = {"shape": [B, N, G],
-                         "ms": time_ms(lambda: fps.fps_grid_cuda(xyz, G)),
-                         "device_ms": device_ms(
-                             lambda: fps.fps_grid_cuda(xyz, G)),
-                         "plain_ms": time_ms(lambda: fps.fps_plain(xyz, G),
-                                             runs=5, per_run=1),
-                         "bound_ms": b_ms, "bound_by": b_by}
+        shapes[name] = {**fps_times(torch, fps.fps_grid_cuda, xyz, G),
+                        "plan": fps_plan_text(fps, N)}
+        print(f"fps_grid {(B, N, G)}: indices equal; {shapes[name]}")
     first = shapes["uni3d_lvis10k"]
     return {"name": "fps_grid", "route": "cuda",
             "source": "uni_adapter_torch/csrc/fps_grid.cu",
             "replaces": "uni_adapter_tpu/ops/fps_pallas.py:133",
             "max_abs_err": 0,
-            **{key: first[key] for key in ("ms", "device_ms", "plain_ms",
-                                           "bound_ms", "bound_by")},
+            **{key: first[key] for key in ("ms", "device_ms", "ns_round",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by")},
             "library_ms": None, "shapes": shapes}
 
 
@@ -1456,7 +1545,7 @@ def launch_counters() -> dict:
 #: reach per kernel (the block's wrappers launch three kernels a block);
 #: and the kernels that must not run.  The first three are the 1024-point
 #: ModelNet40 paths, the next two the clouds above the register kernels'
-#: limits (fps.cu: 8192 points, knn.cu: 2048), the last three the
+#: limits (fps.cu: 4096 points, knn.cu: 2048), the last three the
 #: 1024-point paths again with `--compute-dtype float32`: the fp32
 #: kernels, and no bf16 attention kernel.
 PATHS = {
@@ -1477,8 +1566,9 @@ PATHS = {
     "ulip_scanobjectnn8192": (["--vlm3d", "ulip", "--dataset-name",
                                "scanobjectnn", "--npoints", "8192"],
                               (8192, 15), (15, 512),
-                              {"fps": 1, "knn_gather": 1, "eva_attention": 12},
-                              ("knn", "fps_grid") + FP32_ATTENTION),
+                              {"fps_grid": 1, "knn_gather": 1,
+                               "eva_attention": 12},
+                              ("fps", "knn") + FP32_ATTENTION),
     "uni3d_fp32": (["--compute-dtype", "float32"], (1024, 40), "large",
                    {"fps": 1, "knn": 1, "eva_attn_block_fp32": 24 * 3},
                    ("fps_grid", "knn_gather", "eva_attention_fp32",
@@ -1748,6 +1838,7 @@ def main() -> None:
     kernels.append(check_attention_heads(torch, gen))
     kernels.append(check_knn_gather(torch, gen))
     kernels.append(check_fps_grid(torch, gen))
+    check_fps_contract(torch, gen)
     kernels.append(check_attention_fp32(torch, gen))
     kernels.append(check_eva_attention_fp32(torch, gen))
     kernels.append(check_block_fp32(torch, gen))

@@ -1,5 +1,5 @@
 """Clouds above the register limits of the port's kNN (2048 points) and FPS
-(8192) kernels, on the CPU, against the JAX package: `knn_gather` against
+(4096) kernels, on the CPU, against the JAX package: `knn_gather` against
 `knn_gather_pallas`, `fps_plain` against `fps_pallas`, `group_points`
 against both of the JAX package's kNN routes, and small fp32 Uni3D and
 Point-BERT models on 2500-point clouds, where the port's grouping takes
@@ -111,6 +111,19 @@ def test_fps_matches_the_grid_pallas_kernel(B, N, npoint):
     got = fps.farthest_point_sample(torch.from_numpy(pts), npoint)
     assert got.dtype == torch.int64 and got.shape == (B, npoint)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B,N,npoint", [(1, 1, 1), (2, 40, 40)],
+                         ids=["one point", "npoint = N"])
+def test_fps_edge_sizes_match_both_pallas_kernels(B, N, npoint):
+    """A one-point cloud and npoint = N (the last round takes the last
+    unvisited point): exact indices against both Pallas kernels."""
+    pts = _rand((B, N, 3), seed=N + 7)
+    got = fps.farthest_point_sample(torch.from_numpy(pts), npoint).numpy()
+    for pallas in (fps_pallas.fps_pallas_batched, fps_pallas.fps_pallas):
+        want = np.asarray(pallas(jnp.asarray(pts), npoint, interpret=True))
+        np.testing.assert_array_equal(got, want)
+    assert sorted(got[0]) == list(range(N))
 
 
 @pytest.mark.parametrize("with_color", [True, False],

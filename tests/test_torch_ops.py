@@ -43,6 +43,31 @@ def test_fps_matches_pallas_kernel(B, N, npoint):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _tie_cloud(kind):
+    """(1, N, 3) clouds on which FPS meets exact ties every round."""
+    if kind == "every point twice":
+        base = _rand((1, 64, 3), seed=5)
+        return np.concatenate([base, base], axis=1)
+    if kind == "every point equal":
+        return np.repeat(_rand((1, 1, 3), seed=6), 128, axis=1)
+    g = np.arange(5, dtype=np.float32)          # a 5³ lattice, exact in fp32
+    return np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(
+        1, 125, 3) / 16
+
+
+@pytest.mark.parametrize("npoint", [16, 64])
+@pytest.mark.parametrize("kind", ["every point twice", "every point equal",
+                                  "lattice"])
+def test_fps_ties_match_both_pallas_kernels(kind, npoint):
+    """On exact ties the plain version (the CUDA kernels' reference) takes
+    the lowest index, as both Pallas kernels do: exact index equality."""
+    pts = _tie_cloud(kind)
+    got = fps.farthest_point_sample(torch.from_numpy(pts), npoint).numpy()
+    for pallas in (fps_pallas.fps_pallas_batched, fps_pallas.fps_pallas):
+        want = np.asarray(pallas(jnp.asarray(pts), npoint, interpret=True))
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("B,S,N,k", [(2, 16, 128, 4), (3, 40, 200, 8)])
 def test_knn_matches_pallas_kernel(B, S, N, k):
     """Exact index sequences (tolerance 0): ascending distance."""

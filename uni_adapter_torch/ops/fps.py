@@ -1,8 +1,9 @@
-"""Farthest point sampling: the Hopper kernel `csrc/fps.cu` and its plain
-PyTorch version.
+"""Farthest point sampling: the Hopper kernels `csrc/fps.cu` (a block
+per cloud, up to MAX_POINTS points) and `csrc/fps_grid.cu` (a cluster of
+blocks per cloud, any N), and their plain PyTorch version.
 
-Replaces `uni_adapter_tpu/ops/fps_pallas.py::fps_pallas_batched`.  The
-contract is the Pallas kernel's, not the XLA twin's
+Replaces `uni_adapter_tpu/ops/fps_pallas.py::fps_pallas_batched` and
+`fps_pallas`.  The contract is the Pallas kernels', not the XLA twin's
 (`geometry.farthest_point_sample`): the first centre is index 0, the
 running minimum distance uses the direct form (x−cx)² + (y−cy)² + (z−cz)²
 summed left to right, and the next centre is the first index attaining
@@ -18,9 +19,11 @@ import torch
 
 from uni_adapter_torch.ops import build
 
-#: Largest cloud `csrc/fps.cu` takes: 256 threads × 32 points in
-#: registers.  Larger clouds go to `csrc/fps_grid.cu`.
-MAX_POINTS = 8192
+#: Largest cloud `csrc/fps.cu` takes (its largest size class: one block
+#: of 8 warps × 16 points in registers, and a 16-byte-a-point copy of the
+#: cloud in shared memory).  Larger clouds go to `csrc/fps_grid.cu`, as
+#: fast or faster there (`scripts/fps_configs.py`).
+MAX_POINTS = 4096
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -42,13 +45,17 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("fps")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of a built `csrc/fps.cu`."""
     lib.uat_fps.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.uat_fps.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind(build.load("fps"))
 
 
 def fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -68,23 +75,39 @@ def fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-@functools.cache
-def _grid_lib() -> ctypes.CDLL:
-    lib = build.load("fps_grid")
+def _bind_grid(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of a built `csrc/fps_grid.cu`."""
     lib.uat_fps_grid.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_void_p]
     lib.uat_fps_grid.restype = ctypes.c_int
-    lib.uat_fps_grid_shared_points.argtypes = []
-    lib.uat_fps_grid_shared_points.restype = ctypes.c_int
+    lib.uat_fps_grid_register_points.argtypes = []
+    lib.uat_fps_grid_register_points.restype = ctypes.c_int
+    lib.uat_fps_grid_plan.argtypes = [ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    lib.uat_fps_grid_plan.restype = ctypes.c_int
     return lib
 
 
-def fps_grid_shared_points(device: torch.device) -> int:
-    """Largest N that `csrc/fps_grid.cu` holds in shared memory on
-    `device`; above it the running minimum lives in device memory."""
-    with torch.cuda.device(device):
-        return _grid_lib().uat_fps_grid_shared_points()
+@functools.cache
+def _grid_lib() -> ctypes.CDLL:
+    return _bind_grid(build.load("fps_grid"))
+
+
+def fps_grid_register_points() -> int:
+    """Largest N that `csrc/fps_grid.cu` holds in a cluster's registers;
+    above it the running minimum lives in device memory."""
+    return _grid_lib().uat_fps_grid_register_points()
+
+
+def fps_grid_plan(N: int) -> tuple[int, int, int]:
+    """The launch `csrc/fps_grid.cu` makes for an N-point cloud: (blocks in
+    a cloud's cluster, threads a block, points a thread in registers, 0
+    for the device-memory branch)."""
+    got = [ctypes.c_int() for _ in range(3)]
+    rc = _grid_lib().uat_fps_grid_plan(N, *map(ctypes.byref, got))
+    build.check(rc, "fps_grid plan")
+    return tuple(v.value for v in got)
 
 
 def fps_grid_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -97,8 +120,8 @@ def fps_grid_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
                          f"{npoint} (needs C=3, npoint ≤ N)")
     out = torch.empty(B, npoint, dtype=torch.int64, device=xyz.device)
     scratch = None
-    if N > fps_grid_shared_points(xyz.device):
-        scratch = torch.empty(B, N, dtype=torch.float32, device=xyz.device)
+    if N > fps_grid_register_points():
+        scratch = torch.empty(B, N, dtype=torch.int32, device=xyz.device)
     with torch.cuda.device(xyz.device):
         rc = _grid_lib().uat_fps_grid(
             xyz.data_ptr(), None if scratch is None else scratch.data_ptr(),
