@@ -11,7 +11,7 @@ exits non-zero before the result line:
      `nvcc` per source, all started together (registers and spills of
      each kernel printed), and reading the EVA block's SASS: its bf16 GEMM
      must hold HGMMA (wgmma) instructions, its fp32 GEMM no tensor-core
-     instruction;
+     instruction, its fp32 attention step (attn_f32_tc_kernel) HMMA;
   3. each kernel at its main-path shapes against its plain PyTorch version
      on the card: FPS, kNN and ball-query indices exactly (ball query also
      on over-full and on empty balls), the large-cloud kNN + gather
@@ -42,7 +42,13 @@ exits non-zero before the result line:
      key dropped) must each fail by 5×; both entries of the block at one
      token, 65 tokens at width 384, the main path's shape and a 30-batch
      grid of several waves, and the projections' last K tile skipped as a
-     planted fault of each; float16 raising in every attention wrapper;
+     planted fault of each; the block's attention step in device time
+     beside its bounds and SDPA's; the split-TF32 fp32 attention kernel
+     (attn_f32_tc_kernel, every fp32 main path's) at its edges (1 to 2049
+     keys, each of its block shapes, B·H up to 480) and at the block's
+     step, with the same tolerance and faults, and which fp32 kernel each
+     entry runs read from the profiler's trace; float16 raising in every
+     attention wrapper;
   4. features (and attention maps) of Uni3D, OpenShape-G and ULIP-2 at
      depth 2 and full width on the card (kernels) against the CPU (plain
      versions), the same weights in bf16; Uni3D and OpenShape-G also on
@@ -97,9 +103,10 @@ import tempfile
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
-# the tensor cores, HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores,
+# fp32 outside the tensor cores, HBM3 bandwidth.
 PEAK_BF16 = 989e12
+PEAK_TF32 = 494.7e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -116,11 +123,15 @@ BLOCK_RTOL, BLOCK_ATOL_RMS = 2e-2, 2e-2
 # the (B, H, N, hd) attention) against their plain versions: the same
 # form, rtol 1e-4 and atol 1e-4 of the output's RMS.  Both sides compute
 # in fp32 (TF32 off for the plain version's products), so they differ only
-# in summation order and, in the kernels' online softmax, in when exp()
-# takes its max: a few fp32 ulps in each score and in q and k after the
-# block's K = 1024 products, which peaked logits (std ≈ 5) carry into the
-# output as ~1e-6 of its RMS, a hundredth of atol.  What the tolerance is
-# for, a kernel that does not keep fp32, fails it by far more than
+# in summation order, in the kernels' online softmax, in when exp() takes
+# its max, and, in the split-TF32 attention (attn_f32_tc_kernel), in the
+# ~2⁻²¹ of each product that its three TF32 products leave out: a few fp32
+# ulps in each score and in q and k after the block's K = 1024 products,
+# which peaked logits (std ≈ 5) carry into the output as ~1e-6 of its
+# RMS (FFMA) and, on an H100, 2e-5 to 7e-5 of it (split TF32, more with
+# more keys; its numerics are modelled on the CPU by
+# tests/test_torch_fp32.py).  What the tolerance is for, a kernel that
+# does not keep fp32, fails it by far more than
 # F32_FAULT_MARGIN: operands rounded to TF32 (2⁻¹¹ relative) move logits
 # by ~2e-3 and outputs by ~1e-3 of their RMS, to bf16 eight times that
 # (`check_f32`'s planted faults; on the CPU's plain versions 45× and 335×
@@ -218,6 +229,16 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tc_bounds(n_bytes: float, n_ops: float) -> dict:
+    """The bounds of an fp32 attention that runs attn_f32_tc_kernel:
+    `bound_ms` by its own route, three TF32 products per fp32 product at
+    PEAK_TF32 (the bound its share is taken against: the kernel may beat
+    the other), and `bound_ffma_ms`, the fp32 products at PEAK_FP32."""
+    b_ms, b_by = bound(n_bytes, 3 * n_ops, PEAK_TF32)
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_ffma_ms": bound(n_bytes, n_ops, PEAK_FP32)[0]}
 
 
 def block_atol(want, atol_rms: float = BLOCK_ATOL_RMS) -> float:
@@ -390,7 +411,7 @@ def check_kernels(torch, gen) -> list[dict]:
                     *args, num_heads=H)),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "library_device_ms": None,
-                "gemms": block_gemm_times(
+                "per_launch": block_launch_times(
                     torch, gen, attention.eva_attn_block_cuda, args, H,
                     PEAK_BF16)})
     out[0]["shapes"] = {"1024": times,
@@ -842,9 +863,11 @@ def print_times(what: str, t: dict) -> None:
     beside its bound, its plain version and its library yardstick."""
     lib = ("none" if t.get("library_ms") is None else
            f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} ms")
+    ffma = ("" if t.get("bound_ffma_ms") is None else
+            f", FFMA bound {t['bound_ffma_ms']:.5f} ms")
     print(f"  {what}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms "
           f"(plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by "
-          f"{t['bound_by']}; SDPA {lib})")
+          f"{t['bound_by']}{ffma}; SDPA {lib})")
 
 
 #: The (B, H, N, hd) attention at each extraction path's shape.
@@ -970,14 +993,12 @@ def check_attention_fp32(torch, gen) -> dict:
             q, k[:, :, :N - 1], v[:, :, :N - 1]), want)
         err = check_f32(f"attention_fp32 {path} {(B, H, N, hd)}",
                         attention_fp32_cuda(q, k, v), want, faults)
-        b_ms, b_by = bound(4 * B * H * N * hd * 4, 4 * B * H * N * N * hd,
-                           PEAK_FP32)
         shapes[path] = {
             "shape": [B, H, N, hd], "max_abs_err": err,
             "ms": time_ms(lambda: attention_fp32_cuda(q, k, v)),
             "device_ms": device_ms(lambda: attention_fp32_cuda(q, k, v)),
             "plain_ms": time_ms(lambda: attention_fp32_plain(q, k, v)),
-            "bound_ms": b_ms, "bound_by": b_by,
+            **tc_bounds(4 * B * H * N * hd * 4, 4 * B * H * N * N * hd),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v)),
             "library_device_ms": device_ms(
@@ -1040,8 +1061,6 @@ def check_eva_attention_fp32(torch, gen) -> dict:
                 kernel(q, k, v), want, faults))
         q, k = qkv[..., :D], qkv[..., D:2 * D]   # the paths' slices, no LN
         heads = [t.unflatten(-1, (H, 64)).transpose(1, 2) for t in (q, k, v)]
-        b_ms, b_by = bound(4 * B * N * D * 4, 4 * B * H * N * N * 64,
-                           PEAK_FP32)
         shapes[path] = {
             "shape": [B, N, D, H], "max_abs_err": err,
             "ms": time_ms(lambda: eva_attention_fp32_cuda(q, k, v,
@@ -1050,7 +1069,7 @@ def check_eva_attention_fp32(torch, gen) -> dict:
                 q, k, v, num_heads=H)),
             "plain_ms": time_ms(lambda: eva_attention_plain(q, k, v,
                                                             num_heads=H)),
-            "bound_ms": b_ms, "bound_by": b_by,
+            **tc_bounds(4 * B * N * D * 4, 4 * B * H * N * N * 64),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 *heads)),
             "library_device_ms": device_ms(
@@ -1067,12 +1086,151 @@ def check_eva_attention_fp32(torch, gen) -> dict:
     return entry
 
 
+#: attn_f32_tc_kernel's edges through the (B, H, N, hd) entry (row 9's
+#: three shapes are checked with it), each of its block shapes with ragged
+#: tails: one key (three idle key ranges), a key short of two 32-key
+#: chunks, exactly two, one key past them; 385 keys at 64 rows x 4 ranges,
+#: at 80 x 3 (20 heads at 385, 100 at 65) and at 64 x 2 (the block's 288
+#: blocks, and the 15-stream x 2 batch x 16 heads, B·H = 480); 2049 keys
+#: at 64 x 4 and 64 x 2; a head of 48 padded to 64.
+TC_EDGE_SHAPES = ((1, 2, 1, 64), (1, 2, 63, 64), (1, 2, 64, 64),
+                  (1, 2, 65, 64), (2, 8, 385, 64), (1, 20, 385, 64),
+                  (1, 100, 65, 64), (2, 16, 513, 64), (30, 16, 513, 64),
+                  (1, 2, 2049, 64), (2, 16, 2049, 64), (1, 3, 77, 48))
+
+
+def check_attention_f32_tc(torch, gen) -> dict:
+    """attn_f32_tc_kernel, the split-TF32 fp32 attention behind every fp32
+    main path: at TC_EDGE_SHAPES through `attention_fp32_cuda` against
+    `attention_fp32_plain`, peaked attention, within the fp32 tolerance,
+    with the three planted faults each F32_FAULT_MARGIN outside it (at one
+    key there is no key to drop, and a one-key softmax is v itself, which
+    no rounding of q or k can move: that case is held to the tolerance
+    alone); then at the fp32 block's attention step, (B, N, D, H) = (2,
+    513, 1024, 16) on the q/k/v column slices of one (B, N, 3D) tensor as
+    the block hands them over, checked the same way and timed (the kernels
+    line's numbers) against its bounds, the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from uni_adapter_torch.ops.attention_fp32 import (attention_fp32_cuda,
+                                                      attention_fp32_plain)
+    from uni_adapter_torch.ops.eva_attention import (eva_attention_fp32_cuda,
+                                                     eva_attention_plain)
+
+    worst = 0.0
+    for B, H, N, hd in TC_EDGE_SHAPES:
+        qkv = torch.randn(3, B, H, N, hd, generator=gen, device="cuda")
+        qkv[:2] *= BLOCK_LN_GAMMA
+        q, k, v = qkv.unbind(0)
+        want = attention_fp32_plain(q, k, v)
+        faults = {}
+        if N > 1:
+            faults = {name: (got, want) for name, got in rounded_faults(
+                attention_fp32_cuda, (q, k, v)).items()}
+            faults[f"last key {N - 1} dropped"] = (attention_fp32_plain(
+                q, k[:, :, :N - 1], v[:, :, :N - 1]), want)
+        worst = max(worst, check_f32(
+            f"attn_f32_tc_kernel {(B, H, N, hd)}",
+            attention_fp32_cuda(q, k, v), want, faults))
+
+    B, N, D, H = 2, 513, 1024, 16
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda")
+    qkv[..., :2 * D] *= BLOCK_LN_GAMMA
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+
+    def kernel(q, k, v):
+        return eva_attention_fp32_cuda(q, k, v, num_heads=H)
+
+    def plain(q, k, v):
+        return eva_attention_plain(q, k, v, num_heads=H)
+
+    want = plain(q, k, v)
+    faults = {name: (got, want) for name, got in rounded_faults(
+        kernel, (q, k, v)).items()}
+    faults[f"last key {N - 1} dropped"] = (
+        plain(q, k[:, :N - 1], v[:, :N - 1]), want)
+    err = check_f32(f"attn_f32_tc_kernel block step {(B, N, D, H)}",
+                    kernel(q, k, v), want, faults)
+    heads = [t.unflatten(-1, (H, 64)).transpose(1, 2) for t in (q, k, v)]
+    entry = {"name": "attn_f32_tc", "route": "cuda",
+             "source": "uni_adapter_torch/csrc/attention_core_f32_tc.cuh",
+             "replaces": "uni_adapter_tpu/ops/attention_pallas.py:56",
+             "max_abs_err": max(err, worst), "shape": [B, N, D, H],
+             "ms": time_ms(lambda: kernel(q, k, v)),
+             "device_ms": device_ms(lambda: kernel(q, k, v)),
+             "plain_ms": time_ms(lambda: plain(q, k, v)),
+             **tc_bounds(4 * B * N * D * 4, 4 * B * H * N * N * 64),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 *heads)),
+             "library_device_ms": device_ms(
+                 lambda: F.scaled_dot_product_attention(*heads))}
+    print_times(f"attn_f32_tc_kernel block step {(B, N, D, H)}", entry)
+    return entry
+
+
+def check_f32_routes(torch, gen) -> None:
+    """Which fp32 attention kernel each call runs, from the profiler's
+    trace: attn_f32_tc_kernel for every fp32 launch of the main paths (the
+    block's attention step, the natural layout without its LayerNorm, the
+    (B, H, N, hd) attention at hd 64) and at hd 48; attn_f32_kernel for
+    the LayerNorm variant and head dims 32, 16 and 128.  The launch that
+    each call's C entry reports (the attn_f32_tc counter) must agree."""
+    from uni_adapter_torch.ops import attention, build
+    from uni_adapter_torch.ops.attention_fp32 import attention_fp32_cuda
+    from uni_adapter_torch.ops.eva_attention import eva_attention_fp32_cuda
+
+    def heads(B, H, N, hd):
+        return torch.randn(3, B, H, N, hd, generator=gen,
+                           device="cuda").unbind(0)
+
+    def natural(ln):
+        B, N, D, H = 2, 385, 512, 8
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda")
+        norm = [torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"),
+                torch.ones(64, device="cuda"),
+                torch.zeros(64, device="cuda")] if ln else []
+        return lambda: eva_attention_fp32_cuda(
+            qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], *norm,
+            num_heads=H)
+
+    block = block_inputs(torch, gen, (2, 513, 1024), torch.float32)
+    calls = {
+        "block attention step": (lambda: attention.eva_attn_block_fp32_cuda(
+            *block, num_heads=16), "attn_f32_tc_kernel"),
+        "natural layout": (natural(False), "attn_f32_tc_kernel"),
+        "natural layout with q/k LayerNorm": (natural(True),
+                                              "attn_f32_kernel")}
+    for shape, want in (((1, 16, 513, 64), "attn_f32_tc_kernel"),
+                        ((1, 3, 77, 48), "attn_f32_tc_kernel"),
+                        ((2, 3, 70, 32), "attn_f32_kernel"),
+                        ((3, 4, 77, 16), "attn_f32_kernel"),
+                        ((1, 2, 65, 128), "attn_f32_kernel")):
+        calls[f"(B, H, N, hd) {shape}"] = (
+            functools.partial(attention_fp32_cuda, *heads(*shape)), want)
+    for what, (fn, want) in calls.items():
+        for _ in range(3):          # a trace may record nothing: retake it
+            ran = [k.name for k in trace_kernels(fn, calls=1, warmup=1)]
+            if ran:
+                break
+        attn = [n for n in ran if "attn_f32" in n]
+        if len(attn) != 1 or want not in attn[0]:
+            fail(f"fp32 {what}: the trace holds {ran}, expected one {want}")
+        before = build.attn_f32_tc.launches
+        fn()
+        reported = build.attn_f32_tc.launches - before
+        if reported != (want == "attn_f32_tc_kernel"):
+            fail(f"fp32 {what}: the entry reported {reported} "
+                 f"attn_f32_tc_kernel launches, the trace {attn[0][:90]}")
+        print(f"fp32 {what}: runs {attn[0][:90]} (reported {reported})")
+
+
 def check_block_fp32(torch, gen) -> dict:
     """The fp32 EVA attention block at Uni3D-L's (2, 513, 1024), 16 heads,
     fp32 weights, q/k LayerNorm γ ≈ BLOCK_LN_GAMMA (peaked attention):
     within the fp32 tolerance; xn and the four weights rounded to bf16 and
     to TF32, the last token dropped and the projections' last K tile
-    skipped, each F32_FAULT_MARGIN outside; then its two GEMMs' times."""
+    skipped, each F32_FAULT_MARGIN outside; then the times of its three
+    launches."""
     from uni_adapter_torch.ops import attention
 
     Bt, T, D, H = 2, 513, 1024, 16
@@ -1116,18 +1274,20 @@ def check_block_fp32(torch, gen) -> dict:
             "plain_ms": time_ms(lambda: plain(*operands)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library_device_ms": None,
-            "gemms": block_gemm_times(
+            "per_launch": block_launch_times(
                 torch, gen, attention.eva_attn_block_fp32_cuda,
                 (xn, w[0], b[0], w[1], w[2], b[1], *ln, w[3], b[2]), H,
                 PEAK_FP32)}
 
 
-def block_gemm_times(torch, gen, kernel, args, H, peak) -> dict:
-    """The block's two GEMMs, the first and third kernels of a call: device
-    ms per launch (torch.profiler) beside each one's bound and TFLOP/s, and
-    cuBLAS's device ms for the same product (`F.linear` of xn by
-    [Wq|Wk|Wv] and of the head concat by Wo; TF32 off), a yardstick the
-    port never calls."""
+def block_launch_times(torch, gen, kernel, args, H, peak) -> dict:
+    """The block's three launches in device ms each (torch.profiler): the
+    two GEMMs (the first and third kernels of a call) beside each one's
+    bound and TFLOP/s and cuBLAS's device ms for the same product
+    (`F.linear` of xn by [Wq|Wk|Wv] and of the head concat by Wo; TF32
+    off), and the attention step (the second) beside its bounds (fp32:
+    `tc_bounds`) and SDPA's device ms on (B, H, N, 64) heads of the same
+    dtype; cuBLAS and SDPA are yardsticks the port never calls."""
     import torch.nn.functional as F
 
     xn, wq, wk, wv, wo = args[0], args[1], args[3], args[4], args[10]
@@ -1151,6 +1311,24 @@ def block_gemm_times(torch, gen, kernel, args, H, peak) -> dict:
               f"{ms:.4f} ms a launch, {out[what]['tflops']:.1f} TFLOP/s "
               f"(bound {b_ms:.5f} ms by {b_by}; cuBLAS "
               f"{out[what]['cublas_device_ms']:.4f} ms) [{name[:70]}]")
+    name, ms = per_launch[1]
+    n_bytes, n_ops = 4 * M * D * size, 4 * B * H * N * N * (D // H)
+    if xn.dtype == torch.float32:
+        bounds = tc_bounds(n_bytes, n_ops)
+    else:
+        b_ms, b_by = bound(n_bytes, n_ops, peak)
+        bounds = {"bound_ms": b_ms, "bound_by": b_by}
+    heads = torch.randn(3, B, H, N, D // H, generator=gen,
+                        device="cuda").to(xn.dtype).unbind(0)
+    out["attention"] = {"kernel": name, "device_ms": ms, **bounds,
+                        "sdpa_device_ms": device_ms(
+                            lambda: F.scaled_dot_product_attention(*heads))}
+    ffma = ("" if "bound_ffma_ms" not in bounds else
+            f", FFMA bound {bounds['bound_ffma_ms']:.5f} ms")
+    print(f"  {xn.dtype} block attention step ({B}, {H}, {N}, {D // H}): "
+          f"device {ms:.4f} ms a launch (bound {bounds['bound_ms']:.5f} ms "
+          f"by {bounds['bound_by']}{ffma}; SDPA "
+          f"{out['attention']['sdpa_device_ms']:.4f} ms) [{name[:70]}]")
     return out
 
 
@@ -1231,10 +1409,12 @@ def check_block_shapes(torch, gen) -> dict:
 
 
 def check_gemm_sass() -> None:
-    """The block's bf16 GEMM runs on wgmma and its fp32 GEMM on no tensor
-    core: in `cuobjdump --dump-sass` of the built library, every
-    instantiation of gemm_bf16_kernel holds HGMMA instructions and no
-    instantiation of gemm_f32_kernel holds an HMMA or HGMMA."""
+    """The block's bf16 GEMM runs on wgmma, its fp32 GEMM on no tensor
+    core, its fp32 attention step on the tensor cores: in `cuobjdump
+    --dump-sass` of the built library, every instantiation of
+    gemm_bf16_kernel holds HGMMA instructions, no instantiation of
+    gemm_f32_kernel holds an HMMA or HGMMA, and every attn_f32_tc_kernel
+    holds HMMA (mma.sync, TF32)."""
     from uni_adapter_torch.ops import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1253,13 +1433,16 @@ def check_gemm_sass() -> None:
                     counts[func][op] += 1
     bf16 = {f: c for f, c in counts.items() if "gemm_bf16_kernel" in f}
     f32 = {f: c for f, c in counts.items() if "gemm_f32_kernel" in f}
-    for f, c in {**bf16, **f32}.items():
+    tc = {f: c for f, c in counts.items() if "attn_f32_tc_kernel" in f}
+    for f, c in {**bf16, **f32, **tc}.items():
         print(f"SASS {kernel_label(f)}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
     if not bf16 or not all(c["HGMMA"] > 0 for c in bf16.values()):
         fail("the bf16 block GEMM has no HGMMA in its SASS")
     if not f32 or any(c["HGMMA"] + c["HMMA"] for c in f32.values()):
         fail("the fp32 block GEMM has tensor-core instructions in its SASS, "
              "or is missing")
+    if not tc or not all(c["HMMA"] > 0 for c in tc.values()):
+        fail("the fp32 block's attention step has no HMMA in its SASS")
 
 
 def kernel_label(mangled: str) -> str:
@@ -1454,10 +1637,12 @@ F32_FEATURE_1MCOS, F32_MAP_ATOL = 1e-4, 1e-5
 FP32_FORWARD_KERNEL = {"uni3d": "eva_attn_block_fp32",
                        "openshape": "eva_attention_fp32",
                        "ulip": "eva_attention_fp32"}
-#: The attention kernels, by dtype.
+#: The attention kernels, by dtype; FP32_KERNELS adds the split-TF32
+#: kernel, whose launches the three fp32 wrappers share.
 BF16_ATTENTION = ("eva_attn_block", "eva_attention", "attention_heads")
 FP32_ATTENTION = ("eva_attn_block_fp32", "eva_attention_fp32",
                   "attention_fp32")
+FP32_KERNELS = FP32_ATTENTION + ("attn_f32_tc",)
 
 
 def check_features_fp32(torch, gen) -> None:
@@ -1519,12 +1704,21 @@ def check_features_fp32(torch, gen) -> None:
             if ran != [n]:
                 fail(f"{kind} fp32 forward (return_attn={maps}) ran the "
                      f"attention kernels {ran}, expected [{n!r}]")
+            # one attention a call (the block's wrapper counts 3 launches)
+            calls = launches[maps][n] // (3 if n == "eva_attn_block_fp32"
+                                          else 1)
+            if launches[maps]["attn_f32_tc"] != calls:
+                fail(f"{kind} fp32 forward (return_attn={maps}): "
+                     f"attn_f32_tc_kernel ran {launches[maps]['attn_f32_tc']} "
+                     f"times for {calls} attention calls")
 
 
 def launch_counters() -> dict:
-    """Each kernel's launch counter: the wrapper that owns it."""
+    """Each kernel's launch counter: the wrapper that owns it (the
+    split-TF32 core's, which the three fp32 wrappers share, adds the
+    launches that their C entries report ran it)."""
     from uni_adapter_torch.ops import attention, attention_fp32
-    from uni_adapter_torch.ops import attention_heads, ballquery
+    from uni_adapter_torch.ops import attention_heads, ballquery, build
     from uni_adapter_torch.ops import eva_attention, fps, knn, knn_gather
 
     return {"fps": fps.farthest_point_sample, "knn": knn.knn,
@@ -1536,7 +1730,8 @@ def launch_counters() -> dict:
             "fps_grid": fps.fps_grid_cuda,
             "attention_fp32": attention_fp32.attention_fp32,
             "eva_attention_fp32": eva_attention.eva_attention_fp32_cuda,
-            "eva_attn_block_fp32": attention.eva_attn_block_fp32_cuda}
+            "eva_attn_block_fp32": attention.eva_attn_block_fp32_cuda,
+            "attn_f32_tc": build.attn_f32_tc}
 
 
 #: The main paths: extra CLI flags; the stream's points a cloud and
@@ -1551,36 +1746,39 @@ def launch_counters() -> dict:
 PATHS = {
     "uni3d": ([], (1024, 40), "large",
               {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
-              ("fps_grid", "knn_gather") + FP32_ATTENTION),
+              ("fps_grid", "knn_gather") + FP32_KERNELS),
     "openshape": (["--vlm3d", "openshape"], (1024, 40), (40, 1280),
                   {"fps": 1, "ballquery": 1, "eva_attention": 12},
-                  ("fps_grid", "knn_gather") + FP32_ATTENTION),
+                  ("fps_grid", "knn_gather") + FP32_KERNELS),
     "ulip": (["--vlm3d", "ulip"], (1024, 40), (40, 512),
              {"fps": 1, "knn": 1, "eva_attention": 12},
-             ("fps_grid", "knn_gather") + FP32_ATTENTION),
+             ("fps_grid", "knn_gather") + FP32_KERNELS),
     "uni3d_lvis10k": (["--dataset-name", "objaverse_lvis", "--npoints",
                        "10000"], (10000, 1156), (1156, 1024),
                       {"fps_grid": 1, "knn_gather": 1,
                        "eva_attn_block": 24 * 3},
-                      ("fps", "knn") + FP32_ATTENTION),
+                      ("fps", "knn") + FP32_KERNELS),
     "ulip_scanobjectnn8192": (["--vlm3d", "ulip", "--dataset-name",
                                "scanobjectnn", "--npoints", "8192"],
                               (8192, 15), (15, 512),
                               {"fps_grid": 1, "knn_gather": 1,
                                "eva_attention": 12},
-                              ("fps", "knn") + FP32_ATTENTION),
+                              ("fps", "knn") + FP32_KERNELS),
     "uni3d_fp32": (["--compute-dtype", "float32"], (1024, 40), "large",
-                   {"fps": 1, "knn": 1, "eva_attn_block_fp32": 24 * 3},
+                   {"fps": 1, "knn": 1, "eva_attn_block_fp32": 24 * 3,
+                    "attn_f32_tc": 24},
                    ("fps_grid", "knn_gather", "eva_attention_fp32",
                     "attention_fp32") + BF16_ATTENTION),
     "openshape_fp32": (["--vlm3d", "openshape", "--compute-dtype", "float32"],
                        (1024, 40), (40, 1280),
-                       {"fps": 1, "ballquery": 1, "eva_attention_fp32": 12},
+                       {"fps": 1, "ballquery": 1, "eva_attention_fp32": 12,
+                        "attn_f32_tc": 12},
                        ("fps_grid", "knn_gather", "eva_attn_block_fp32",
                         "attention_fp32") + BF16_ATTENTION),
     "ulip_fp32": (["--vlm3d", "ulip", "--compute-dtype", "float32"],
                   (1024, 40), (40, 512),
-                  {"fps": 1, "knn": 1, "eva_attention_fp32": 12},
+                  {"fps": 1, "knn": 1, "eva_attention_fp32": 12,
+                   "attn_f32_tc": 12},
                   ("fps_grid", "knn_gather", "eva_attn_block_fp32",
                    "attention_fp32") + BF16_ATTENTION),
 }
@@ -1712,7 +1910,7 @@ def run_extraction(tmp: Path, kind: str) -> dict:
         fail(f"extract {kind}: attention_heads launched "
              f"{launches['attention_heads']} times, expected {layers}")
     if any(launches[n] for n in ("eva_attn_block", "eva_attention")
-           + FP32_ATTENTION):
+           + FP32_KERNELS):
         fail(f"extract {kind}: the block, natural-layout or an fp32 kernel "
              f"ran ({launches})")
     t0 = time.perf_counter()
@@ -1771,10 +1969,12 @@ def run_extraction_fp32(kind: str) -> dict:
                  f"or its rows do not sum to 1 within 1e-5")
     others = [n for n in BF16_ATTENTION + FP32_ATTENTION
               if n != "attention_fp32" and launches[n]]
-    if launches["attention_fp32"] != layers or others:
+    if launches["attention_fp32"] != layers or others or \
+            launches["attn_f32_tc"] != layers:
         fail(f"extract {kind} fp32: attention_fp32 launched "
-             f"{launches['attention_fp32']} times (expected {layers}), and "
-             f"{others} ran")
+             f"{launches['attention_fp32']} times (expected {layers}; "
+             f"attn_f32_tc_kernel {launches['attn_f32_tc']}), and {others} "
+             f"ran")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     extractor.extract(pc)              # ends in the copy to the host
@@ -1842,6 +2042,8 @@ def main() -> None:
     kernels.append(check_attention_fp32(torch, gen))
     kernels.append(check_eva_attention_fp32(torch, gen))
     kernels.append(check_block_fp32(torch, gen))
+    kernels.append(check_attention_f32_tc(torch, gen))
+    check_f32_routes(torch, gen)
     block_errs = check_block_shapes(torch, gen)
     for k in kernels:
         if k["name"] in block_errs:

@@ -20,7 +20,6 @@ rounds, and a JSON object of all of them last.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
 import subprocess
@@ -67,29 +66,18 @@ def largest_class(config: str) -> int:
 
 def build_variants() -> dict:
     """{(kernel, configuration): library}, every build started at once."""
-    out_dir = build.BUILD_DIR / "fps_configs"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    rows = [("fps", c, f"#define UAT_FPS_CLASSES {c}\n")
-            for c in FPS_CLASSES]
-    rows += [("fps_grid", tile, f"#define UAT_FPS_GRID_TILE {tile}\n")
-             for tile in GRID_TILES]
-    jobs = []
-    for i, (name, config, macros) in enumerate(rows):
-        so = out_dir / f"lib{name}-{i}.so"
-        src = out_dir / f"{name}-{i}.cu"
-        src.write_text(macros + f'#include "{build.CSRC / (name + ".cu")}"\n')
-        jobs.append((name, config, so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    rows = {("fps", c): ("fps", f"#define UAT_FPS_CLASSES {c}\n")
+            for c in FPS_CLASSES}
+    rows.update({("fps_grid", tile):
+                 ("fps_grid", f"#define UAT_FPS_GRID_TILE {tile}\n")
+                 for tile in GRID_TILES})
     libs = {}
-    for name, config, so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            sys.exit(f"fps_configs: nvcc failed for {so.name}:\n{log}")
+    for (name, config), (lib, log) in build.build_variants(
+            rows, "fps_configs").items():
         print(f"{name} ({config}):")
         smoke.ptxas_report(name, log)
         bind = fps._bind if name == "fps" else fps._bind_grid
-        libs[(name, config)] = bind(ctypes.CDLL(str(so)))
+        libs[(name, config)] = bind(lib)
     return libs
 
 

@@ -17,7 +17,6 @@ median over rounds, and a JSON object of all of them last.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
 import subprocess
@@ -53,25 +52,11 @@ SHAPE = (2, 513, 1024, 16)
 
 def build_variants() -> list:
     """One library a row of CANDIDATES, argument types declared."""
-    out_dir = build.BUILD_DIR / "tiles"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for i, row in enumerate(CANDIDATES):
-        so = out_dir / f"libeva_attn_block-tiles{i}.so"
-        src = out_dir / f"eva_attn_block-tiles{i}.cu"
-        src.write_text("".join(f"#define {MACROS[k]} {v}\n"
-                               for k, v in row.items())
-                       + f'#include "{build.CSRC / "eva_attn_block.cu"}"\n')
-        jobs.append((so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = []
-    for so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            sys.exit(f"gemm_tiles: nvcc failed for {so.name}:\n{log}")
-        libs.append(attention._bind(ctypes.CDLL(str(so))))
-    return libs
+    libs = build.build_variants(
+        {i: ("eva_attn_block",
+             "".join(f"#define {MACROS[k]} {v}\n" for k, v in row.items()))
+         for i, row in enumerate(CANDIDATES)}, "tiles")
+    return [attention._bind(lib) for lib, _ in libs.values()]
 
 
 def main() -> None:

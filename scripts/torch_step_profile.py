@@ -25,9 +25,9 @@ width.  After warm-up it prints, per step:
     time by kernel, in groups: the port's CUDA kernels split into the bf16
     attention core (`attention_core.cuh`: the block's attention step, the
     natural-layout and the (B, H, N, hd) attention), the fp32 attention
-    core, the EVA block's GEMMs and the grouping kernels (FPS, kNN, ball
-    query); library GEMMs; the rest.  Each group with its ms and launches
-    a step.
+    core (its split-TF32 and FFMA kernels), the EVA block's GEMMs and the
+    grouping kernels (FPS, kNN, ball query); library GEMMs; the rest.  Each
+    group with its ms and launches a step.
 """
 from __future__ import annotations
 
@@ -59,9 +59,10 @@ from uni_adapter_torch.ops.geometry import (group_points,  # noqa: E402
 
 #: The port's CUDA kernels by group: a kernel belongs to the first group
 #: one of whose names its profiler name contains (so "attn_f32_kernel"
-#: before "attn_kernel").
+#: before "attn_kernel").  The fp32 core is two kernels: split TF32
+#: (`attn_f32_tc_kernel`, every main path's launch) and FFMA.
 PORT_GROUPS = {
-    "port: fp32 attention core": ("attn_f32_kernel",),
+    "port: fp32 attention core": ("attn_f32_tc_kernel", "attn_f32_kernel"),
     "port: bf16 attention core": ("attn_kernel",),
     "port: EVA block GEMMs": ("gemm_bf16_kernel", "gemm_f32_kernel"),
     "port: grouping (FPS, kNN, ball query)": (

@@ -92,3 +92,78 @@ def test_card_route_picks_the_kernel_by_dtype(module, bf16, fp32):
     with pytest.raises(ValueError, match="float16"):
         module.cuda_kernel(torch.float16)
     assert build.load.cache_info().currsize == 0
+
+
+def _round_tf32_rna(t):
+    """fp32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero: `cvt.rna.tf32.f32`."""
+    b = t.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -8192).view(torch.float32)
+
+
+def _split(t):
+    hi = _round_tf32_rna(t)
+    return hi, _round_tf32_rna(t - hi)
+
+
+def _mma_product(a, b, passes):
+    """a @ b as `attn_f32_tc_kernel` forms it: 8-deep k-steps
+    (mma.sync.m16n8k8) accumulated in fp32, each step the three TF32
+    products lo·hi, hi·lo, hi·hi (passes=3, split TF32) or hi·hi alone
+    (passes=1, operands rounded once to TF32)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    out = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            out = out + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
+    return out
+
+
+def _split_tf32_attention(q, k, v, passes, chunk=32):
+    """A plain model of the kernel's arithmetic: q scaled by scale·log2(e),
+    scores in log2 units, one pass over `chunk`-key chunks with a running
+    maximum (p = 2^(s − m), the partial sums and outputs rescaled when m
+    grows), both products as `_mma_product` makes them."""
+    c = q.shape[-1] ** -0.5 * 1.4426950408889634
+    s_all = _mma_product(q * c, k.transpose(-1, -2), passes)
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(q)
+    for k0 in range(0, k.shape[-2], chunk):
+        s = s_all[..., k0:k0 + chunk]
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - mx)
+        p = torch.exp2(s - mx)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + _mma_product(p, v[..., k0:k0 + chunk, :], passes)
+        m = mx
+    return o / l
+
+
+#: The attention steps of the main paths at hd 64 with no q/k LayerNorm,
+#: (B, H, N, hd): the fp32 block's (Uni3D-L, two fused clouds), row 9's
+#: Uni3D-L extraction, and OpenShape-G's and ULIP-2's natural layout.
+TC_SHAPES = {"block step": (2, 16, 513, 64), "row 9 uni3d": (1, 16, 513, 64),
+             "row 4f openshape": (2, 8, 385, 64),
+             "row 4f ulip": (2, 6, 513, 64)}
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES.values(), ids=TC_SHAPES.keys())
+def test_split_tf32_arithmetic_keeps_the_fp32_tolerance(shape):
+    """The split-TF32 design of `attn_f32_tc_kernel`, modelled in plain
+    PyTorch, at peaked logits: within chip_smoke.py's fp32 tolerance of
+    `attention_fp32_plain` (rtol 1e-4 + 1e-4 of the output's RMS), while
+    one TF32 pass (operands rounded once, the fault the tolerance is there
+    to catch) lies at least 5× outside it."""
+    q, k, v = map(torch.from_numpy, _qkv(shape, seed=sum(shape),
+                                         gamma=PEAKED))
+    want = attention_fp32.attention_fp32_plain(q, k, v)
+    tol = 1e-4 * want.pow(2).mean().sqrt() + 1e-4 * want.abs()
+
+    def err(got):
+        return ((got - want).abs() / tol).max().item()
+
+    assert err(_split_tf32_attention(q, k, v, passes=3)) <= 1
+    assert err(_split_tf32_attention(q, k, v, passes=1)) >= 5

@@ -7,9 +7,16 @@
 // row; the output is a contiguous (B, N, D) fp32, head h at the same
 // columns.
 //
-// Numerics: every product is an fp32 FFMA with fp32 accumulation; nothing
-// is rounded to a narrower type, and no tensor-core instruction is used
-// (no TF32, no bf16).  Scores are t = (q . k) * scale; p = exp(t - max);
+// Two kernels.  launch_attention<false, 64>, every fp32 launch of the main
+// paths (no q/k LayerNorm, head width 64), runs attn_f32_tc_kernel of
+// attention_core_f32_tc.cuh: split TF32 on the tensor cores, three TF32
+// products per fp32 product, to a few fp32 ulps.  Every other
+// instantiation (the LayerNorm variant, head widths 16, 32 and 128) runs
+// attn_f32_kernel below.
+//
+// attn_f32_kernel's numerics: every product is an fp32 FFMA with fp32
+// accumulation; nothing is rounded to a narrower type, and no tensor-core
+// instruction is used.  Scores are t = (q . k) * scale; p = exp(t - max);
 // o = (p . v) / sum(p).  With kLN, q and k first go through a per-head
 // LayerNorm (fp32 statistics over the 64 values, one gamma/beta shared by
 // all heads), kept in fp32.
@@ -297,20 +304,36 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
   }
 }
 
-// One launch of attn_f32_kernel over (query tiles, H heads, B batches) on
-// `stream`; returns cudaGetLastError() after it.
+// attention_core_f32_tc.cuh, included at the end of this header.
+inline cudaError_t launch_attention_tc(const AttnArgs& a, int B, int H,
+                                       cudaStream_t stream);
+
+// One launch of the fp32 attention over (H heads, B batches, query tiles)
+// on `stream`: attn_f32_tc_kernel without the LayerNorm at head width 64,
+// attn_f32_kernel otherwise.  *ran_tc is set to 1 when the launch ran
+// attn_f32_tc_kernel, else 0, so that the wrapper counts that kernel's
+// launches from the launch itself.  Returns cudaGetLastError() after it.
 template <bool kLN, int kHd = 64>
 cudaError_t launch_attention(const AttnArgs& a, int B, int H,
-                             cudaStream_t stream) {
-  constexpr size_t kBytes = Smem<kHd>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_f32_kernel<kLN, kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBytes));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.N + kRows - 1) / kRows, H, B);
-  attn_f32_kernel<kLN, kHd><<<grid, kThreads, kBytes, stream>>>(a);
-  return cudaGetLastError();
+                             cudaStream_t stream, int* ran_tc) {
+  if constexpr (!kLN && kHd == 64) {
+    const cudaError_t e = launch_attention_tc(a, B, H, stream);
+    *ran_tc = e == cudaSuccess;
+    return e;
+  } else {
+    *ran_tc = 0;
+    constexpr size_t kBytes = Smem<kHd>::kBytes;
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_f32_kernel<kLN, kHd>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kBytes));
+    if (e != cudaSuccess) return e;
+    const dim3 grid((a.N + kRows - 1) / kRows, H, B);
+    attn_f32_kernel<kLN, kHd><<<grid, kThreads, kBytes, stream>>>(a);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace f32
 }  // namespace
+
+#include "attention_core_f32_tc.cuh"

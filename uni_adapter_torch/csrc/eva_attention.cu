@@ -35,10 +35,12 @@
 //
 // The fp32 entry (uat_eva_attention_fp32) is the same function on fp32
 //   q, k, v: the fp32 form of _eva_fused_kernel ("fp32 runs stay fp32"),
-//   the LayerNorm kept in fp32, scores, p and p . v all fp32 FFMA
-//   (attention_core_f32.cuh, no tensor cores).  At the same shapes it
-//   moves 4 x B*N*D*4 bytes = ~6.3 MB, ~1.9 us, against 0.61 and 0.81
-//   GFLOP, ~9 and 12 us at 67 TFLOP/s fp32: bound by operations.
+//   the LayerNorm kept in fp32, scores, p and p . v in fp32: split TF32 on
+//   the tensor cores without the LayerNorm (attention_core_f32_tc.cuh, the
+//   main paths' variant), FFMA with it (attention_core_f32.cuh).  At the
+//   same shapes it moves 4 x B*N*D*4 bytes = ~6.3 MB, ~1.9 us, against
+//   0.61 and 0.81 GFLOP, ~9 and 12 us at 67 TFLOP/s fp32 (3.7 and 4.9 us
+//   for the split's three TF32 products at 494.7): bound by operations.
 #include "attention_core.cuh"
 #include "attention_core_f32.cuh"
 
@@ -81,13 +83,14 @@ extern "C" int uat_eva_attention(
 
 // The fp32 entry: q, k, v fp32 with unit column stride and 16-byte aligned
 // rows (strides in elements, multiples of 4); gq/bq/gk/bk as above; out:
-// (B, N, D) fp32 contiguous.  Needs D == 64*H.  Returns cudaGetLastError()
-// after the launch (0 on success).
+// (B, N, D) fp32 contiguous.  Needs D == 64*H.  *ran_tc is set to 1 when
+// the launch ran attn_f32_tc_kernel (no LayerNorm), else 0.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int uat_eva_attention_fp32(
     const float* q, const float* k, const float* v, int64_t ld_q, int64_t ld_k,
     int64_t ld_v, int64_t bs_q, int64_t bs_k, int64_t bs_v, const float* gq,
     const float* bq, const float* gk, const float* bk, float* out, int B, int N,
-    int D, int H, float scale, float eps, cudaStream_t stream) {
+    int D, int H, float scale, float eps, cudaStream_t stream, int* ran_tc) {
   if (D != H * f32::kLnWidth || B <= 0 || N <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool ln = gq != nullptr;
@@ -113,7 +116,8 @@ extern "C" int uat_eva_attention_fp32(
   a.scale = scale;
   a.eps = eps;
   a.hd = f32::kLnWidth;
-  const cudaError_t e = ln ? f32::launch_attention<true>(a, B, H, stream)
-                           : f32::launch_attention<false>(a, B, H, stream);
+  const cudaError_t e =
+      ln ? f32::launch_attention<true>(a, B, H, stream, ran_tc)
+         : f32::launch_attention<false>(a, B, H, stream, ran_tc);
   return static_cast<int>(e);
 }

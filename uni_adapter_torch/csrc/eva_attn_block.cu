@@ -11,7 +11,9 @@
 //   with no FMA contraction, and rounds to bf16; the attention step rounds
 //   as attention_core.cuh says; heads are concatenated in bf16; the out
 //   projection rounds like the others.  The fp32 entry rounds nothing below
-//   fp32 and runs no tensor-core instruction (no TF32).
+//   fp32: its GEMMs are FFMA, with no tensor-core instruction, and its
+//   attention step is split TF32 on the tensor cores, three TF32 products
+//   per fp32 product (attention_core_f32_tc.cuh), to a few fp32 ulps.
 //
 // The TPU kernel keeps all four 1024^2 weights resident in VMEM (8 MB); a
 //   227 KB SM cannot, so the span is three launches on one stream: (a) a
@@ -725,14 +727,15 @@ extern "C" int uat_eva_attn_block(
 // The fp32 entry: xn (B*N, D), wq/wk/wv/wo (D, D) in (out, in) layout,
 // bq/bv/bo (D,), gq/bqn/gk/bkn (64,), qkv (B*N, 3D) and attn (B*N, D)
 // workspaces and out (B*N, D), all fp32, xn and the weights 16-byte
-// aligned.  Needs D == 64*H.  Returns cudaGetLastError() after the last
-// launch (0 on success).
+// aligned.  Needs D == 64*H.  *ran_tc is set to 1 when the attention
+// step ran attn_f32_tc_kernel, else 0.  Returns cudaGetLastError() after
+// the last launch (0 on success).
 extern "C" int uat_eva_attn_block_fp32(
     const float* xn, const float* wq, const float* bq, const float* wk,
     const float* wv, const float* bv, const float* gq, const float* bqn,
     const float* gk, const float* bkn, const float* wo, const float* bo,
     float* qkv, float* attn, float* out, int B, int N, int D, int H,
-    float scale, float eps, cudaStream_t stream) {
+    float scale, float eps, cudaStream_t stream, int* ran_tc) {
   if (D != H * kHead || B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int M = B * N;
   cudaError_t e = sg::launch<UAT_F32_QKV_TILE>(
@@ -741,7 +744,8 @@ extern "C" int uat_eva_attn_block_fp32(
   if (e != cudaSuccess) return static_cast<int>(e);
   auto t = attn_args<f32::AttnArgs>(qkv, attn, N, D, scale, eps);
   t.hd = kHead;
-  e = f32::launch_attention<false>(t, B, H, stream);  // q/k LayerNorm'd above
+  // q/k LayerNorm'd above
+  e = f32::launch_attention<false>(t, B, H, stream, ran_tc);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(sg::launch<UAT_F32_OUT_TILE>(
       out_args(attn, wo, bo, out, M, D), stream));

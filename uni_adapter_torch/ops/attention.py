@@ -11,7 +11,9 @@ to the compute dtype; heads concatenated; then ·Woᵀ + bo.
 Weights are in PyTorch's (out, in) layout; `weights.from_jax_params`
 transposes the flax (in, out) kernels.  On the card bf16 and fp32 each
 have their entry of the kernel; the fp32 one (`eva_attn_block_fp32_cuda`)
-rounds nothing below fp32 and uses no tensor cores.
+rounds nothing below fp32: FFMA projections, and the attention step on
+the tensor cores in split TF32 (three TF32 products per fp32 product, a
+few fp32 ulps).
 """
 from __future__ import annotations
 
@@ -74,11 +76,14 @@ def eva_attn_block_plain(xn: torch.Tensor, wq: torch.Tensor,
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument types of a built `csrc/eva_attn_block.cu`."""
-    for entry in ("uat_eva_attn_block", "uat_eva_attn_block_fp32"):
-        fn = getattr(lib, entry)
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    args = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    lib.uat_eva_attn_block.argtypes = args
+    # the fp32 entry also reports the kernel its attention step ran
+    lib.uat_eva_attn_block_fp32.argtypes = [*args,
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.uat_eva_attn_block.restype = lib.uat_eva_attn_block_fp32.restype = \
+        ctypes.c_int
     return lib
 
 
@@ -88,10 +93,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(entry: str, dtype: torch.dtype, tensors, num_heads: int,
-            scale: Optional[float], eps: float) -> torch.Tensor:
+            scale: Optional[float], eps: float, *report) -> torch.Tensor:
     """Check the block's twelve tensors (activations, projection weights
     and biases of `dtype`, fp32 LayerNorm parameters), then launch `entry`
-    of `csrc/eva_attn_block.cu`: three kernels on the current stream."""
+    of `csrc/eva_attn_block.cu`: three kernels on the current stream;
+    `report` (the fp32 entry's out-parameter) is passed last."""
     xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo = tensors
     build.require_cuda(xn, dtype, 3, "eva_attn_block xn")
     B, N, D = xn.shape
@@ -125,7 +131,7 @@ def _launch(entry: str, dtype: torch.dtype, tensors, num_heads: int,
         rc = getattr(_lib(), entry)(
             *(t.data_ptr() for t in tensors), qkv.data_ptr(),
             attn.data_ptr(), out.data_ptr(), B, N, D, num_heads, scale, eps,
-            build.stream_of(xn))
+            build.stream_of(xn), *report)
     build.check(rc, entry)
     return out
 
@@ -148,13 +154,15 @@ def eva_attn_block_fp32_cuda(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo,
                              scale: Optional[float] = None,
                              eps: float = 1e-5) -> torch.Tensor:
     """Launch the fp32 entry of `csrc/eva_attn_block.cu`: a hand-written
-    fp32 GEMM for the projections, the fp32 attention, no tensor cores.
+    FFMA GEMM for the projections, the fp32 attention in split TF32.
     Takes fp32 activations, weights and LayerNorm parameters, all
     contiguous on one CUDA device."""
+    ran_tc = ctypes.c_int(0)
     out = _launch("uat_eva_attn_block_fp32", torch.float32,
                   (xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo),
-                  num_heads, scale, eps)
+                  num_heads, scale, eps, ctypes.byref(ran_tc))
     eva_attn_block_fp32_cuda.launches += 3  # q/k/v GEMM, attention, out GEMM
+    build.attn_f32_tc.launches += ran_tc.value
     return out
 
 

@@ -40,14 +40,19 @@ def attention_fp32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.to(dt).to(f32), v.to(f32)).to(dt)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("attention_fp32")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of `csrc/attention_fp32.cu`) with its entry's
+    argument types declared."""
     lib.uat_attention_fp32.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     lib.uat_attention_fp32.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind(build.load("attention_fp32"))
 
 
 def attention_fp32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,12 +78,14 @@ def attention_fp32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"65535")
     scale = float(scale if scale is not None else hd ** -0.5)
     out = torch.empty_like(q)
+    ran_tc = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         rc = _lib().uat_attention_fp32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N,
-            hd, scale, build.stream_of(q))
+            hd, scale, build.stream_of(q), ctypes.byref(ran_tc))
     build.check(rc, "attention_fp32")
     attention_fp32.launches += 1
+    build.attn_f32_tc.launches += ran_tc.value
     return out
 
 

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 import torch
@@ -26,6 +27,11 @@ SOURCES = ("fps", "knn", "eva_attn_block", "ballquery", "eva_attention",
            "attention_heads", "knn_gather", "fps_grid", "attention_fp32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Launches of `attn_f32_tc_kernel` (`csrc/attention_core_f32_tc.cuh`),
+#: the split-TF32 kernel behind the three fp32 attention entries: each
+#: entry reports whether its launch ran it, and its wrapper adds that here.
+attn_f32_tc = types.SimpleNamespace(launches=0)
 
 
 def _nvcc() -> str:
@@ -46,6 +52,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _nvcc_job(src: Path, out: Path) -> subprocess.Popen:
+    """Start `nvcc` on `src` into the library `out`; its output piped."""
+    return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
 def _start_build(name: str):
     """Start `nvcc` for one source; returns (process, tmp path, final path)
     or None when the library is already built."""
@@ -54,10 +67,7 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return _nvcc_job(CSRC / f"{name}.cu", tmp), tmp, out
 
 
 def _finish_build(name: str, job) -> str:
@@ -75,6 +85,28 @@ def build_all(names=SOURCES) -> dict[str, str]:
     jobs = {n: _start_build(n) for n in names}
     return {n: _finish_build(n, job) for n, job in jobs.items()
             if job is not None}
+
+
+def build_variants(variants: dict, subdir: str) -> dict:
+    """Build sources of `csrc/` with extra `#define`s, for the scripts that
+    time candidate configurations.  `variants` maps a key to (source name,
+    defines); each is a file under BUILD_DIR / `subdir` that holds the
+    defines and includes `csrc/<name>.cu`, every `nvcc` started at once.
+    Returns {key: (loaded library, nvcc's output)}; a failed build raises
+    with its output once every build has ended."""
+    out_dir = BUILD_DIR / subdir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (key, (name, defines)) in enumerate(variants.items()):
+        src, out = out_dir / f"{name}-{i}.cu", out_dir / f"lib{name}-{i}.so"
+        src.write_text(defines + f'#include "{CSRC / name}.cu"\n')
+        jobs[key] = out, _nvcc_job(src, out)
+    logs = {key: proc.communicate()[0] for key, (_, proc) in jobs.items()}
+    for key, (out, proc) in jobs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {out.name}:\n{logs[key]}")
+    return {key: (ctypes.CDLL(str(out)), logs[key])
+            for key, (out, _) in jobs.items()}
 
 
 @functools.cache

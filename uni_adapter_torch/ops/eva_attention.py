@@ -62,23 +62,31 @@ def eva_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(1, 2).reshape(B, N, D).to(dt)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("eva_attention")
-    for entry in ("uat_eva_attention", "uat_eva_attention_fp32"):
-        fn = getattr(lib, entry)
-        fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of `csrc/eva_attention.cu`) with its entries'
+    argument types declared."""
+    args = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
             + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    lib.uat_eva_attention.argtypes = args
+    # the fp32 entry also reports the kernel it ran
+    lib.uat_eva_attention_fp32.argtypes = [*args,
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.uat_eva_attention.restype = lib.uat_eva_attention_fp32.restype = \
+        ctypes.c_int
     return lib
 
 
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind(build.load("eva_attention"))
+
+
 def _launch(entry: str, dtype: torch.dtype, q, k, v, ln, num_heads: int,
-            scale: Optional[float], eps: float) -> torch.Tensor:
+            scale: Optional[float], eps: float, *report) -> torch.Tensor:
     """Check q, k, v (of `dtype`) and the LayerNorm parameters `ln`, then
-    launch `entry` of `csrc/eva_attention.cu`."""
+    launch `entry` of `csrc/eva_attention.cu`, passing `report` (the fp32
+    entry's out-parameter) last."""
     per_vector = 16 // (torch.finfo(dtype).bits // 8)   # elements
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.require_cuda(t, dtype, 3, f"eva_attention {name}",
@@ -112,7 +120,7 @@ def _launch(entry: str, dtype: torch.dtype, q, k, v, ln, num_heads: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
             k.stride(1), v.stride(1), q.stride(0), k.stride(0), v.stride(0),
             *ptrs, out.data_ptr(), B, N, D, num_heads, scale, eps,
-            build.stream_of(q))
+            build.stream_of(q), *report)
     build.check(rc, entry)
     return out
 
@@ -143,11 +151,15 @@ def eva_attention_fp32_cuda(q: torch.Tensor, k: torch.Tensor,
                             num_heads: int, scale: Optional[float] = None,
                             eps: float = 1e-5) -> torch.Tensor:
     """Launch the fp32 entry of `csrc/eva_attention.cu` (fp32 throughout,
-    no tensor cores).  Takes fp32 q, k, v laid out as `eva_attention_cuda`
+    split TF32 without the LayerNorm, FFMA with it).  Takes fp32 q, k, v
+    laid out as `eva_attention_cuda`
     takes bf16 ones, and fp32 LayerNorm parameters or none."""
+    ran_tc = ctypes.c_int(0)
     out = _launch("uat_eva_attention_fp32", torch.float32, q, k, v,
-                  (gq, bq, gk, bk), num_heads, scale, eps)
+                  (gq, bq, gk, bk), num_heads, scale, eps,
+                  ctypes.byref(ran_tc))
     eva_attention_fp32_cuda.launches += 1
+    build.attn_f32_tc.launches += ran_tc.value
     return out
 
 
