@@ -14,8 +14,15 @@ exits non-zero before the result line:
      instruction, its fp32 attention step (attn_f32_tc_kernel) HMMA;
   3. each kernel at its main-path shapes against its plain PyTorch version
      on the card: FPS, kNN and ball-query indices exactly (ball query also
-     on over-full and on empty balls), the large-cloud kNN + gather
-     exactly at 10,000 and 8192 points, at a tile edge and on ties; FPS
+     on over-full and on empty balls); both kNN kernels (knn.cu, and the
+     large-cloud kNN + gather, values bitwise) exactly, ten launches each,
+     with FPS centres as queries from 1 to 10,000 points (k = 1, k = N,
+     k = 128, N = 33, both sides of knn.cu's 2048-point limit and of a
+     second tile edge) and on four hard clouds at 1024, 3000 and 10,000
+     points (every point twice, every point with a near copy, all points
+     equal, points ever nearer the queries), timed beside the
+     reference's own route (a dense distance matrix and `torch.topk`) as
+     a yardstick; FPS
      exactly through `farthest_point_sample` (the cloud's size picks the
      kernel) from 1 to 20,000 points (both sides of a warp, of fps.cu's
      1024-point class and of its 4096-point limit, 8192 and 8193, npoint
@@ -354,13 +361,14 @@ def check_kernels(torch, gen) -> list[dict]:
         fail(f"knn: {(got != want).sum().item()} indices differ")
     b_ms, b_by = bound((B * N * 3 + B * G * 3) * 4 + B * G * M * 4,
                        B * G * N * 8, PEAK_FP32)
+    # knn.cu has no carried set: its work does not depend on the order
+    knn_t = knn_times(torch, lambda: knn.knn_cuda(M, xyz, center),
+                      lambda: knn.knn_plain(M, xyz, center), xyz, center, M)
+    print(f"knn {(B, N, G, M)}: {knn_t}")
     out.append({"name": "knn", "route": "cuda",
                 "source": "uni_adapter_torch/csrc/knn.cu",
                 "replaces": "uni_adapter_tpu/ops/knn_pallas.py:201",
-                "max_abs_err": 0,
-                "ms": time_ms(lambda: knn.knn_cuda(M, xyz, center)),
-                "device_ms": device_ms(lambda: knn.knn_cuda(M, xyz, center)),
-                "plain_ms": time_ms(lambda: knn.knn_plain(M, xyz, center)),
+                "max_abs_err": 0, **knn_t,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
     Bt, T, D, H = 2, 513, 1024, 16
@@ -443,72 +451,183 @@ def sphere_cloud(torch, gen, B, N):
     return 0.5 * xyz / xyz.norm(dim=-1, keepdim=True)
 
 
-#: knn_gather's checks: (B, N, S, k, C) with FPS centres as the queries.
-#: The two main paths' shapes (timed; the first gives the entry's
-#: numbers), a cloud that knn.cu also takes, and one point past the first
-#: 2048-point tile.
+#: knn_gather's timed shapes, (B, N, S, k, C) with FPS centres as the
+#: queries: the two main paths' (the first gives the entry's numbers).
 KNN_GATHER_SHAPES = {"uni3d_lvis10k": (2, 10000, 512, 64, 6),
-                     "ulip_scanobjectnn8192": (2, 8192, 512, 32, 3),
-                     "knn.cu's": (2, 1024, 512, 64, 6),
-                     "tile edge": (2, 2049, 512, 64, 0)}
+                     "ulip_scanobjectnn8192": (2, 8192, 512, 32, 3)}
+#: The kNN contract's shapes, (B, N, S, k, C), FPS centres as the queries,
+#: each through both kNN kernels where they take it (knn.cu: N ≤ 2048;
+#: knn_gather.cu: k ≤ 128): the main paths', knn.cu's (Uni3D's and
+#: ULIP-2's 1024 points), one point, N = 33 (not a multiple of 32) with
+#: k = N and k = 1, k = N at 64 and 128 (knn_gather's most) and at 1024
+#: (knn.cu alone), knn.cu's limit and one past it (a second tile), both
+#: sides of a third tile, and k = 128 on three tiles.
+KNN_CONTRACT_SHAPES = ((2, 10000, 512, 64, 6), (2, 8192, 512, 32, 3),
+                       (2, 1024, 512, 64, 6), (2, 1024, 512, 32, 3),
+                       (1, 1, 1, 1, 3), (2, 33, 33, 33, 2),
+                       (2, 33, 16, 1, 1), (2, 64, 32, 64, 1),
+                       (1, 128, 128, 128, 8), (1, 1024, 64, 1024, 0),
+                       (2, 2048, 512, 64, 6), (2, 2049, 512, 64, 0),
+                       (2, 4096, 512, 64, 3), (2, 4097, 512, 64, 3),
+                       (1, 4097, 256, 128, 8))
+#: Sizes of the hard clouds (`knn_hard_clouds`): one tile; two tiles
+#: (every point's copy 1500 indices later); the LVIS path's five.
+KNN_HARD_POINTS = (1024, 3000, 10000)
+#: Launches of each kernel on each case, every one equal to the plain
+#: version's output.
+KNN_REPEATS = 10
+
+
+def fps_queries(torch, xyz, S):
+    """The main paths' queries: the cloud's S FPS centres (cloud points:
+    a query's own distance is +0 exactly, its nearest neighbour's
+    tiny)."""
+    from uni_adapter_torch.ops import fps
+    from uni_adapter_torch.ops.geometry import index_points
+
+    return index_points(xyz, fps.farthest_point_sample(xyz, S)).contiguous()
+
+
+def knn_hard_clouds(torch, gen, N: int, S: int = 64) -> dict:
+    """(1, N, 3) clouds that test the selection's edges, each with S
+    queries: every point twice (copies N/2 apart, across tile edges; the
+    first S points as queries), every point with a near copy N/2 apart
+    (moved by ~1e-5, so the fp32 expansion gives many distances a hair
+    below 0; the first S points as queries), every point equal (queries
+    the first S), and points whose distance from the origin falls with
+    their index (radius 1 down to 0.001) with the FPS centres of the
+    innermost N/8 as queries: each tile lies nearer the queries than the
+    tiles before, so every tile improves the carried set (knn_gather's
+    worst case)."""
+    half = sphere_cloud(torch, gen, 1, N // 2)
+    twice = torch.cat([half, half], 1).contiguous()
+    near = torch.cat([half, half + 1e-5 * torch.randn(
+        half.shape, generator=gen, device="cuda")], 1).contiguous()
+    equal = sphere_cloud(torch, gen, 1, 1).expand(1, N, 3).contiguous()
+    radius = torch.linspace(1.0, 0.001, N, device="cuda")
+    falling = (2 * sphere_cloud(torch, gen, 1, N)
+               * radius[None, :, None]).contiguous()
+    return {"every point twice": (twice, twice[:, :S].contiguous()),
+            "near copies": (near, near[:, :S].contiguous()),
+            "every point equal": (equal, equal[:, :S].contiguous()),
+            "decreasing distance": (falling, fps_queries(
+                torch, falling[:, -(N // 8):].contiguous(), S))}
+
+
+def knn_cases(torch, gen) -> list:
+    """(what, xyz, queries, k, values) of every kNN check: the
+    KNN_CONTRACT_SHAPES on clouds of the streams' kind (xyz on a sphere,
+    values its xyz and a colour) and the hard clouds at KNN_HARD_POINTS
+    with k 64 and C 1 (values = the index)."""
+    cases = []
+    for B, N, S, k, C in KNN_CONTRACT_SHAPES:
+        pc = cloud(torch, gen, B, N)
+        xyz = pc[..., :3].contiguous()
+        cases.append((f"{(B, N, S, k, C)}", xyz, fps_queries(torch, xyz, S),
+                      k, pc[..., :C].contiguous()))
+    for N in KNN_HARD_POINTS:
+        index = torch.arange(N, dtype=torch.float32, device="cuda")
+        for name, (xyz, q) in knn_hard_clouds(torch, gen, N).items():
+            cases.append((f"{name}, (1, {N}, 64, 64, 1)", xyz, q, 64,
+                          index[None, :, None].contiguous()))
+    return cases
+
+
+def check_knn_contract(torch, gen) -> None:
+    """Both kNN kernels on every case of `knn_cases` where they take it,
+    and `knn.knn` (the cloud's size picks the kernel): indices, and
+    knn_gather's gathered values, bitwise equal to the plain version's in
+    each of KNN_REPEATS launches.  On the hard clouds also: a query's own
+    point and its copy are its first two neighbours, lower index first,
+    and on the all-equal cloud the neighbours are 0..k-1."""
+    from uni_adapter_torch.ops import knn
+    from uni_adapter_torch.ops.knn_gather import (MAX_K, knn_gather_cuda,
+                                                  knn_gather_plain)
+
+    for what, xyz, q, k, vals in knn_cases(torch, gen):
+        N = xyz.shape[1]
+        want_idx, want_vals = knn_gather_plain(k, xyz, q, vals)
+        runs = {"knn.knn": lambda: (knn.knn(k, xyz, q), None)}
+        if N <= knn.MAX_POINTS:
+            runs["knn.cu"] = lambda: (knn.knn_cuda(k, xyz, q), None)
+        if k <= MAX_K:
+            runs["knn_gather.cu"] = lambda: knn_gather_cuda(k, xyz, q, vals)
+        for name, run in runs.items():
+            for _ in range(KNN_REPEATS):
+                idx, got = run()
+                torch.cuda.synchronize()
+                if not torch.equal(idx, want_idx):
+                    fail(f"knn {what}: {(idx != want_idx).sum().item()} "
+                         f"indices from {name} differ from the plain "
+                         f"version's")
+                if got is not None and not torch.equal(got, want_vals):
+                    fail(f"knn {what}: {(got != want_vals).sum().item()} "
+                         f"values from {name} differ from the plain "
+                         f"version's")
+        if what.startswith("every point twice"):
+            pair = torch.stack([torch.arange(64, device="cuda")] * 2, 1)
+            if not torch.equal(want_idx[0, :, :2], pair + torch.tensor(
+                    [0, N // 2], device="cuda")):
+                fail(f"knn {what}: a query's own point and its copy are not "
+                     f"its first two neighbours, lower index first")
+        if what.startswith("near copies") and not (
+                knn.sqdist(xyz, q) < 0).any():
+            fail(f"knn {what}: no distance below 0")
+        if what.startswith("every point equal") and not torch.equal(
+                want_idx[0], torch.arange(k, device="cuda").expand(64, k)):
+            fail(f"knn {what}: the neighbours are not 0..k-1")
+        print(f"knn {what}: indices and values equal from "
+              f"{', '.join(runs)}, {KNN_REPEATS} launches each")
+
+
+def knn_times(torch, run, plain, xyz, q, k) -> dict:
+    """Times of one kNN call: back to back, device, plain, and as a
+    yardstick (the port never calls it) the reference's own route, the
+    dense (B, S, N) distance matrix and `torch.topk`, in device time."""
+    from uni_adapter_torch.ops import knn
+
+    return {"ms": time_ms(run), "device_ms": device_ms(run),
+            "plain_ms": time_ms(plain),
+            "dense_topk_device_ms": device_ms(lambda: torch.topk(
+                knn.sqdist(xyz, q), k, dim=-1, largest=False))}
 
 
 def check_knn_gather(torch, gen) -> dict:
-    """Indices equal to the plain version's and gathered values bitwise
-    equal, at KNN_GATHER_SHAPES and on a cloud whose every point appears
-    twice (ties, the copies 1500 indices apart, across a tile edge); at
-    N = 1024 also equal to knn.cu + index_points."""
-    from uni_adapter_torch.ops import fps, knn
-    from uni_adapter_torch.ops.geometry import index_points
+    """knn_gather at KNN_GATHER_SHAPES and on the decreasing-distance cloud
+    at 10,000 points with 1024 queries, as many as the LVIS path's (its
+    worst case): indices and values equal to the plain version's, and its
+    times."""
     from uni_adapter_torch.ops.knn_gather import (knn_gather_cuda,
                                                   knn_gather_plain)
 
-    def check(what, xyz, q, k, vals):
+    shapes = {}
+    worst = knn_hard_clouds(torch, gen, 10000, 1024)["decreasing distance"]
+    for name, (B, N, S, k, C) in {**KNN_GATHER_SHAPES,
+                                  "decreasing distance":
+                                      (1, 10000, 1024, 64, 6)}.items():
+        if name == "decreasing distance":
+            xyz, q = worst
+            vals = torch.cat([xyz, xyz], -1).contiguous()
+        else:
+            pc = cloud(torch, gen, B, N)
+            xyz = pc[..., :3].contiguous()
+            vals = pc[..., :C].contiguous()
+            q = fps_queries(torch, xyz, S)
         got = knn_gather_cuda(k, xyz, q, vals)
         want = knn_gather_plain(k, xyz, q, vals)
         torch.cuda.synchronize()
-        for name, g, w in zip(("indices", "values"), got, want):
-            if not torch.equal(g, w):
-                fail(f"knn_gather {what}: {(g != w).sum().item()} {name} "
-                     f"differ from the plain version's")
-        print(f"knn_gather {what}: indices and values equal")
-        return got
-
-    shapes = {}
-    for name, (B, N, S, k, C) in KNN_GATHER_SHAPES.items():
-        pc = cloud(torch, gen, B, N)
-        xyz = pc[..., :3].contiguous()
-        vals = pc[..., :C].contiguous()
-        q = index_points(xyz, fps.fps_grid_cuda(xyz, S))
-        idx, _ = check(f"{(B, N, S, k, C)}", xyz, q, k, vals)
-        if N <= knn.MAX_POINTS:
-            if not torch.equal(idx, knn.knn_cuda(k, xyz, q)):
-                fail(f"knn_gather {(B, N, S, k, C)}: indices differ from "
-                     f"knn.cu's")
-            print(f"knn_gather {(B, N, S, k, C)}: equal to knn.cu")
-        if name in PATHS:
-            b_ms, b_by = bound(
-                (B * N * 3 + B * S * 3 + B * N * C) * 4
-                + B * S * k * (4 + 4 * C), B * S * N * 8, PEAK_FP32)
-            shapes[name] = {
-                "shape": [B, N, S, k, C],
-                "ms": time_ms(lambda: knn_gather_cuda(k, xyz, q, vals)),
-                "device_ms": device_ms(lambda: knn_gather_cuda(k, xyz, q,
-                                                               vals)),
-                "plain_ms": time_ms(lambda: knn_gather_plain(k, xyz, q, vals)),
-                "bound_ms": b_ms, "bound_by": b_by}
-    base = sphere_cloud(torch, gen, 1, 1500)
-    xyz = torch.cat([base, base], dim=1).contiguous()
-    vals = torch.arange(3000, dtype=torch.float32, device="cuda")[None, :,
-                                                                  None]
-    idx, _ = check("(1, 3000 with every point twice, 64, 16, 1)", xyz,
-                   base[:, :64].contiguous(), 16, vals)
-    if not torch.equal(idx[0, :, :2], torch.stack(
-            [torch.arange(64, device="cuda")] * 2, 1)
-            + torch.tensor([0, 1500], device="cuda")):
-        fail("knn_gather: a query's own point and its copy are not its "
-             "first two neighbours, lower index first")
-    first = next(iter(shapes.values()))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"knn_gather {name} {(B, N, S, k, C)}: differs from the "
+                 f"plain version")
+        b_ms, b_by = bound(
+            (B * N * 3 + B * S * 3 + B * N * C) * 4
+            + B * S * k * (4 + 4 * C), B * S * N * 8, PEAK_FP32)
+        shapes[name] = {"shape": [B, N, S, k, C], **knn_times(
+            torch, lambda: knn_gather_cuda(k, xyz, q, vals),
+            lambda: knn_gather_plain(k, xyz, q, vals), xyz, q, k),
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"knn_gather {name}: {shapes[name]}")
+    first = shapes["uni3d_lvis10k"]
     return {"name": "knn_gather", "route": "cuda",
             "source": "uni_adapter_torch/csrc/knn_gather.cu",
             "replaces": "uni_adapter_tpu/ops/knn_pallas.py:130",
@@ -2037,6 +2156,7 @@ def main() -> None:
     kernels.append(check_eva_attention(torch, gen))
     kernels.append(check_attention_heads(torch, gen))
     kernels.append(check_knn_gather(torch, gen))
+    check_knn_contract(torch, gen)
     kernels.append(check_fps_grid(torch, gen))
     check_fps_contract(torch, gen)
     kernels.append(check_attention_fp32(torch, gen))

@@ -12,63 +12,61 @@
 //   of a 10,000-point cloud ((B, N, S, k, C) = (2, 10000, 512, 64, 6)) it
 //   reads 0.5 MB, writes 1.8 MB and needs 10 M distances of 8 fp32
 //   operations: a few microseconds at the card's peaks.  The time is the
-//   dependent selection rounds of each query.
+//   selection's chains of dependent steps, at the 8 warps an SM that 1024
+//   queries give.
 //
-// What the design does about it: one warp per query, eight queries a
-//   block, as in knn.cu, but the cloud is streamed in index order in tiles
-//   of 2048 points (xyz and |x|^2 in 32 KB of shared memory), so N has no
-//   limit below int32 indexing.  Each lane keeps 64 of a tile's distances
-//   in registers, and the best k so far travel from tile to tile in
-//   registers too: ceil(k/32) (distance, index) pairs a lane, entry r in
-//   lane r % 32.  A tile takes k rounds; each round is one shuffle argmin
-//   on (distance, index) over the carried pairs and the tile together, and
-//   its winner becomes entry r of the new carried set.  The order is a
-//   total order on (distance, index), so the k winners do not depend on
-//   where the tiles end, and ties go to the lowest index.  The distance
-//   and the argmin come from knn_core.cuh, shared with knn.cu.  After the
-//   last tile each lane writes its entries' indices and copies their C
-//   values from the (B, N, C) array.
+// What the design does about it: one warp a query, a block of
+//   kWarpsPerBlock queries streaming the cloud in index order in tiles of
+//   kTile points ((x, y, z, |x|^2) in shared memory, loads issued before
+//   the barrier), so N has no limit below int32 indexing; each lane keeps
+//   its kTile/32 keys of a tile as uint32 in registers (UAT_KNN_GATHER_TILE:
+//   warps a block, tile; chosen by scripts/knn_configs.py: 4, 2048).  A
+//   warp carries the k least entries so far, sorted, in shared memory, and
+//   their keys in registers.  A tile key at or above the carried k-th key
+//   cannot enter (a tile's indices exceed every carried index, so the
+//   carried entry wins a tie): the keys below it are masked and counted
+//   (one __reduce_add_sync), and a tile with none costs only its
+//   distances.  Up to kCap survivors are listed at once from the masks;
+//   more (the first tile, or a cloud that nears the query tile by tile)
+//   first bring the bound down by search_kth until at most kList remain,
+//   or to the exact k-th key of carried and tile together, whose ties are
+//   then listed lowest index first.  merge_candidates places every carried
+//   and listed entry at its rank.  No step runs k dependent rounds,
+//   neither a query nor a tile.  The k least (distance, index) pairs are
+//   one total order's, so they do not depend on where the tiles end.
+//   After the last tile the warp writes the indices and copies their C
+//   values, 32 consecutive floats at a time.  The arithmetic is
+//   knn_core.cuh's, shared with knn.cu.
 #include <cuda_runtime.h>
-#include <math_constants.h>
-#include <climits>
 #include <cstdint>
 
 #include "knn_core.cuh"
 
+#ifndef UAT_KNN_GATHER_TILE
+#define UAT_KNN_GATHER_TILE 4, 2048
+#endif
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kPPL = 64;            // a tile's distances per lane
-constexpr int kTile = 32 * kPPL;    // points per tile
+constexpr int kConfig[] = {UAT_KNN_GATHER_TILE};
+constexpr int kWarpsPerBlock = kConfig[0];
+constexpr int kTile = kConfig[1];
+constexpr int kPPL = kTile / 32;  // a tile's keys a lane
+static_assert(kPPL >= 1 && kPPL * 32 == kTile,
+              "UAT_KNN_GATHER_TILE: warps a block, tile (a multiple of 32)");
 
-using knn_core::before;
+using knn_core::kEmpty;
+using knn_core::kFull;
+using knn_core::kPadKey;
 
-// This lane's least candidate (lv, li) and where it sits (loc): tile
-// register t (loc = t, point j0 + 32 t) or carried slot c (loc = kPPL + c).
+// Shared memory: the tile's points (x, y, z, |x|^2), then for each warp
+// its list (32 KPL entries) and candidates (kCap = 64 KPL), then each
+// warp's rank histogram (32 KPL + 1 ints).
 template <int KPL>
-__device__ __forceinline__ void least(const float (&d)[kPPL],
-                                      const float (&cv)[KPL],
-                                      const int (&ci)[KPL], int j0, float& lv,
-                                      int& li, int& loc) {
-  lv = CUDART_INF_F;
-  li = INT_MAX;
-  loc = -1;
-#pragma unroll
-  for (int t = 0; t < kPPL; ++t) {
-    if (before(d[t], j0 + 32 * t, lv, li)) {
-      lv = d[t];
-      li = j0 + 32 * t;
-      loc = t;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < KPL; ++c) {
-    if (before(cv[c], ci[c], lv, li)) {
-      lv = cv[c];
-      li = ci[c];
-      loc = kPPL + c;
-    }
-  }
+constexpr size_t smem_bytes() {
+  return kTile * sizeof(float4) +
+         static_cast<size_t>(kWarpsPerBlock) * 96 * KPL * 8 +
+         static_cast<size_t>(kWarpsPerBlock) * (32 * KPL + 1) * sizeof(int);
 }
 
 template <int KPL>
@@ -77,117 +75,116 @@ knn_gather_kernel(const float* __restrict__ xyz,
                   const float* __restrict__ query,
                   const float* __restrict__ values, int64_t* __restrict__ out,
                   float* __restrict__ gathered, int N, int S, int k, int C) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile], sw[kTile];
+  constexpr int kList = 32 * KPL, kCap = 64 * KPL;
+  constexpr int kThreads = kWarpsPerBlock * 32;
+  constexpr int kLoads = (kTile + kThreads - 1) / kThreads;
+  extern __shared__ float4 tile[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned long long* lists =
+      reinterpret_cast<unsigned long long*>(tile + kTile);
+  unsigned long long* list = lists + warp * (kList + kCap);
+  unsigned long long* cand = list + kList;
+  int* hist = reinterpret_cast<int*>(lists + kWarpsPerBlock * (kList + kCap)) +
+              warp * (kList + 1);
+
   const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int s = blockIdx.x * kWarpsPerBlock + warp;
   // warps past the last query still load tiles and meet the barriers
   const bool active = s < S;
   const float* p = xyz + static_cast<size_t>(b) * N * 3;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
+  float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
   if (active) {
     const float* qp = query + (static_cast<size_t>(b) * S + s) * 3;
-    qx = qp[0];
-    qy = qp[1];
-    qz = qp[2];
+    q = make_float4(qp[0], qp[1], qp[2], knn_core::norm2(qp[0], qp[1], qp[2]));
   }
-  const float q2 = knn_core::norm2(qx, qy, qz);
 
-  // the best k so far: entry r in lane r % 32, slot r / 32; empty slots
-  // hold (inf, INT_MAX) and never win, since every tile and the carried
-  // set together hold at least k real points (k <= N, the first tile holds
-  // min(N, 2048) >= k points)
-  float cv[KPL];
-  int ci[KPL];
 #pragma unroll
-  for (int c = 0; c < KPL; ++c) {
-    cv[c] = CUDART_INF_F;
-    ci[c] = INT_MAX;
-  }
+  for (int i = 0; i < KPL; ++i) list[lane + 32 * i] = kEmpty;
+  unsigned ck[KPL];  // the listed keys: entry lane + 32 i
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) ck[i] = kPadKey;
+  unsigned kth_key = kPadKey;  // the k-th listed key (a pad until k are)
 
+  const auto key_at = [&](int t) {
+    return knn_core::point_key(q, tile[lane + 32 * t]);
+  };
   for (int base = 0; base < N; base += kTile) {
     const int n = min(kTile, N - base);
+    float x[kLoads], y[kLoads], z[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {  // issued before the barrier
+      const int j = threadIdx.x + i * kThreads;
+      if (j < n) {
+        const float* pj = p + 3 * static_cast<size_t>(base + j);
+        x[i] = pj[0];
+        y[i] = pj[1];
+        z[i] = pj[2];
+      }
+    }
     __syncthreads();  // every warp is done with the previous tile
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const float* pj = p + 3 * static_cast<size_t>(base + j);
-      const float x = pj[0], y = pj[1], z = pj[2];
-      sx[j] = x;
-      sy[j] = y;
-      sz[j] = z;
-      sw[j] = knn_core::norm2(x, y, z);
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int j = threadIdx.x + i * kThreads;
+      if (j < n) {
+        tile[j] = make_float4(x[i], y[i], z[i],
+                              knn_core::norm2(x[i], y[i], z[i]));
+      }
     }
     __syncthreads();
     if (!active) continue;
 
-    float d[kPPL];
+    unsigned u[kPPL];  // past the tile's end: stale points, then pads
 #pragma unroll
-    for (int t = 0; t < kPPL; ++t) {
-      const int j = lane + 32 * t;
-      d[t] = j < n ? knn_core::sqdist(qx, qy, qz, q2, sx[j], sy[j], sz[j],
-                                      sw[j])
-                   : CUDART_INF_F;  // pads lose to every real point
-    }
-    float nv[KPL];
-    int ni[KPL];
+    for (int t = 0; t < kPPL; ++t) u[t] = key_at(t);
+    if (n < kTile) {
 #pragma unroll
-    for (int c = 0; c < KPL; ++c) {
-      nv[c] = CUDART_INF_F;
-      ni[c] = INT_MAX;
-    }
-
-    float lv;
-    int li, loc;
-    least(d, cv, ci, base + lane, lv, li, loc);
-
-    for (int r = 0; r < k; ++r) {
-      float bv = lv;
-      int bi = li;
-      knn_core::warp_argmin(bv, bi);
-      if (lane == (r & 31)) {
-#pragma unroll
-        for (int c = 0; c < KPL; ++c) {
-          if (c == (r >> 5)) {
-            nv[c] = bv;
-            ni[c] = bi;
-          }
-        }
-      }
-      // the winner is a real point, and real indices are unique among the
-      // candidates: exactly one lane holds it
-      if (li == bi) {
-#pragma unroll
-        for (int t = 0; t < kPPL; ++t) {
-          if (t == loc) d[t] = CUDART_INF_F;
-        }
-#pragma unroll
-        for (int c = 0; c < KPL; ++c) {
-          if (kPPL + c == loc) {
-            cv[c] = CUDART_INF_F;
-            ci[c] = INT_MAX;
-          }
-        }
-        least(d, cv, ci, base + lane, lv, li, loc);
+      for (int t = 0; t < kPPL; ++t) {
+        if (lane + 32 * t >= n) u[t] = kPadKey;
       }
     }
+    // only keys below the carried k-th key can enter
+    unsigned hi = kth_key;
+    unsigned m[4];
+    int below = static_cast<int>(
+        __reduce_add_sync(kFull, knn_core::mask_below(u, hi, m)));
+    if (below == 0) continue;
+    int count = 0;
+    if (below > kCap) {
+      // Too many to list: bring hi down until at most kList lie below it,
+      // or to the k-th key exactly; if it is tied, list the keys below it
+      // and then its ties, lowest index first.
+      unsigned kth = 0;
+      const bool tied = knn_core::search_kth(u, ck, k, kList, hi, below, kth);
+      knn_core::mask_below(u, tied ? kth : hi, m);
+      count = knn_core::list_masked(m, base + lane, key_at, cand, 0);
+      if (tied) {
+        count = knn_core::compact_equal(u, base + lane, kth, cand, count,
+                                        kCap);
+      }
+    } else {
+      count = knn_core::list_masked(m, base + lane, key_at, cand, 0);
+    }
+    __syncwarp();
+    knn_core::merge_candidates<KPL, 2 * KPL>(list, k, cand, count, hist);
+    kth_key = knn_core::entry_key(list[k - 1]);
 #pragma unroll
-    for (int c = 0; c < KPL; ++c) {
-      cv[c] = nv[c];
-      ci[c] = ni[c];
+    for (int i = 0; i < KPL; ++i) {
+      const int r = lane + 32 * i;
+      ck[i] = r < k ? knn_core::entry_key(list[r]) : kPadKey;
     }
   }
   if (!active) return;
 
   const size_t row = static_cast<size_t>(b) * S + s;
+  for (int r = lane; r < k; r += 32) {
+    out[row * k + r] = knn_core::entry_index(list[r]);
+  }
   const float* vb = values + static_cast<size_t>(b) * N * C;
-#pragma unroll
-  for (int c = 0; c < KPL; ++c) {
-    const int r = 32 * c + lane;
-    if (r < k) {
-      out[row * k + r] = ci[c];
-      const float* src = vb + static_cast<size_t>(ci[c]) * C;
-      float* dst = gathered + (row * k + r) * C;
-      for (int ch = 0; ch < C; ++ch) dst[ch] = src[ch];
-    }
+  float* g = gathered + row * k * C;
+  for (int e = lane; e < k * C; e += 32) {
+    const int r = e / C;
+    g[e] = vb[static_cast<size_t>(knn_core::entry_index(list[r])) * C +
+              (e - r * C)];
   }
 }
 
@@ -195,8 +192,15 @@ template <int KPL>
 cudaError_t launch(const float* xyz, const float* query, const float* values,
                    int64_t* out, float* gathered, int B, int N, int S, int k,
                    int C, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<KPL>();
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        knn_gather_kernel<KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   const dim3 grid((S + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-  knn_gather_kernel<KPL><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+  knn_gather_kernel<KPL><<<grid, kWarpsPerBlock * 32, smem, stream>>>(
       xyz, query, values, out, gathered, N, S, k, C);
   return cudaGetLastError();
 }

@@ -41,14 +41,18 @@ def knn_plain(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     return torch.sort(sqdist(xyz, new_xyz), dim=-1, stable=True).indices[..., :k]
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("knn")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a library built from `csrc/knn.cu`."""
     lib.uat_knn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_void_p]
     lib.uat_knn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind(build.load("knn"))
 
 
 def knn_cuda(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:

@@ -46,15 +46,19 @@ def knn_gather_plain(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
     return idx, torch.gather(values, 1, flat).reshape(B, S, k, C)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("knn_gather")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a library built from `csrc/knn_gather.cu`."""
     lib.uat_knn_gather.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.uat_knn_gather.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind(build.load("knn_gather"))
 
 
 def knn_gather_cuda(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
