@@ -650,12 +650,16 @@ FPS_GRID_SHAPES = {"uni3d_lvis10k": (2, 10000, 512),
 #: both sides of a warp, of fps.cu's 1024-point class and of its limit
 #: (4096), the large-cloud paths and 8193, npoint = N, and the fused
 #: 15-stream × 2 batch of ROADMAP M6a at 1024 and 10,000 points (240
-#: blocks: many clusters at once).
+#: blocks: many clusters at once); and where static and dynamic shared
+#: memory together first pass 48 KB (fps.cu from 3065 points, fps_grid
+#: at 24 points a thread: 23,553 to 24,576), which needs the opt-in.
 FPS_CONTRACT_SHAPES = ((1, 1, 1), (2, 31, 31), (2, 32, 16), (2, 33, 33),
                        (2, 1024, 512), (2, 1025, 512), (2, 4096, 512),
                        (2, 4097, 512), (2, 8192, 512), (2, 8193, 512),
                        (2, 10000, 512), (1, 20000, 512), (30, 1024, 512),
-                       (30, 10000, 512))
+                       (30, 10000, 512), (2, 3064, 512), (2, 3065, 512),
+                       (2, 3072, 512), (1, 23552, 512), (1, 23553, 512),
+                       (1, 24576, 512))
 #: Launches of each kernel on each contract case: fps_grid's exchange has
 #: no barrier, so a race would show as one launch that differs.
 FPS_REPEATS = 5
@@ -795,51 +799,179 @@ def query_ball_distances(torch, xyz, new_xyz, r, ns) -> int:
     return int(need.sum().item())
 
 
-def check_ballquery(torch, gen) -> dict:
-    """OpenShape-G's set-abstraction ball query, (2, 1024) points → (2, 384)
-    FPS centres, r 0.2, 64 samples, on main-path-like clouds (points on a
-    sphere of radius 0.5); then every ball over-full (the cloud shrunk 20×)
-    and mostly empty balls (random queries, r 0.02).  Indices must equal
-    the plain version's."""
-    from uni_adapter_torch.ops import ballquery, fps
-    from uni_adapter_torch.ops.geometry import index_points
+#: The ball query's timed shapes, (B, N, S, nsample) at r 0.2 with the
+#: FPS centres of sphere clouds as the queries: OpenShape-G's set
+#: abstraction on the main paths' 1024 points (the entry's numbers), where
+#: no ball is full, and on OpenShape's own 10,000-point clouds (Objaverse;
+#: LARGE_CLOUD_KERNELS), where every ball is.
+BALLQUERY_SHAPES = {"openshape1024": (2, 1024, 384, 64),
+                    "openshape10k": (2, 10000, 384, 64)}
+#: The contract's shapes, (B, N, S, nsample) at r 0.2 with FPS centres: the
+#: two above, one point, both sides of a warp with nsample = N, N = 1023
+#: (a batch's rows not 16-byte aligned), both sides of each tile size that
+#: scripts/ballquery_configs.py tries, and 20,000 points (past every tile).
+BALLQUERY_CONTRACT_SHAPES = (
+    (2, 1024, 384, 64), (2, 10000, 384, 64), (1, 1, 1, 1), (2, 31, 31, 31),
+    (2, 33, 33, 33), (2, 511, 384, 64), (2, 512, 384, 64),
+    (2, 513, 384, 64), (2, 1023, 384, 64), (2, 1025, 384, 64),
+    (2, 2047, 384, 64), (2, 2048, 384, 64), (2, 2049, 384, 64),
+    (1, 20000, 384, 64))
+#: Launches of the kernel on each case, every one equal to the plain
+#: version's output.
+BALLQUERY_REPEATS = 10
 
-    B, N, S, ns, r = 2, 1024, 384, 64, 0.2
-    xyz = torch.randn(B, N, 3, generator=gen, device="cuda")
-    xyz = 0.5 * xyz / xyz.norm(dim=-1, keepdim=True)
-    center = index_points(xyz, fps.fps_cuda(xyz, S))
-    queries = 2 * torch.rand(B, S, 3, generator=gen, device="cuda") - 1
-    cases = (("main-path", xyz, center, r), ("over-full", xyz * 0.05,
-                                              center * 0.05, r),
-             ("empty", xyz, queries, 0.02))
-    for name, pts, q, rad in cases:
-        got = ballquery.query_ball_cuda(rad, ns, pts, q)
-        want = ballquery.query_ball_plain(rad, ns, pts, q)
+
+def ballquery_hard_clouds(torch, gen) -> dict:
+    """(xyz, queries, r, nsample) clouds that test the selection's edges:
+    every point in every ball (nsample = N at 300 points, 64 at 10,000);
+    points at exactly d = r² from the origin (on the axes at ±0.25, half
+    of them one ulp further out; the origin first among the queries);
+    every point twice, N/2 apart; in every four queries a full ball, a
+    partial one, an empty one and a full one centred on a cloud point
+    (r 0.3); every ball over-full (a cloud shrunk 20×); and mostly empty
+    balls (random queries, r 0.02)."""
+    def sphere(B, N):
+        return sphere_cloud(torch, gen, B, N)
+
+    x = torch.tensor(0.25, device="cuda")
+    out = torch.rand(1, 3000, generator=gen, device="cuda") < 0.5
+    mag = torch.where(out, torch.nextafter(x, torch.ones_like(x)), x)
+    sign = torch.where(torch.rand(1, 3000, generator=gen, device="cuda")
+                       < 0.5, -1.0, 1.0)
+    axis = torch.randint(0, 3, (1, 3000), generator=gen, device="cuda")
+    axes = torch.nn.functional.one_hot(axis, 3).float()
+    boundary = (axes * (sign * mag)[..., None]).contiguous()
+    half = sphere(1, 5000)
+    twice = torch.cat([half, half], 1).contiguous()
+    dense, sparse = 0.05 * sphere(1, 1500), sphere(1, 1500) + 1.0
+    mixed = torch.cat([sparse[:, :750], dense, sparse[:, 750:]],
+                      1).contiguous()
+    per_block = torch.tensor([[0.0, 0.0, 0.0], [1.75, 1.0, 1.0],
+                              [9.0, 9.0, 9.0], [0.0, 0.0, 0.0]],
+                             device="cuda").repeat(96, 1)[None]
+    per_block[0, 3::4] = mixed[0, 750]
+    main = sphere(2, 1024)
+    small, large = sphere(2, 300), sphere(2, 10000)
+    return {
+        "every point in the ball, nsample = N": (
+            small, sphere(2, 64).contiguous(), 2.0, 300),
+        "every point in the ball": (large, fps_queries(torch, large, 384),
+                                    2.0, 64),
+        "d = r² exactly": (boundary, torch.cat(
+            [torch.zeros(1, 1, 3, device="cuda"), sphere(1, 63)],
+            1).contiguous(), 0.25, 1024),
+        "every point twice": (twice, fps_queries(torch, twice, 384), 0.2,
+                              64),
+        "full, partial and empty in a block": (mixed, per_block.contiguous(),
+                                               0.3, 64),
+        "over-full": ((0.05 * main).contiguous(),
+                      (0.05 * fps_queries(torch, main, 384)).contiguous(),
+                      0.2, 64),
+        "empty": (main, (2 * torch.rand(2, 384, 3, generator=gen,
+                                        device="cuda") - 1), 0.02, 64)}
+
+
+def ballquery_cases(torch, gen) -> list:
+    """(what, xyz, queries, r, nsample) of every ball-query check: the
+    BALLQUERY_CONTRACT_SHAPES on sphere clouds with FPS centres, r 0.2,
+    then the hard clouds."""
+    cases = []
+    for B, N, S, ns in BALLQUERY_CONTRACT_SHAPES:
+        xyz = sphere_cloud(torch, gen, B, N)
+        cases.append((f"{(B, N, S, ns)}", xyz, fps_queries(torch, xyz, S),
+                      0.2, ns))
+    for what, (xyz, q, r, ns) in ballquery_hard_clouds(torch, gen).items():
+        cases.append((f"{what}, {tuple(xyz.shape[:2])} {q.shape[1]} "
+                      f"{ns}", xyz, q, r, ns))
+    return cases
+
+
+def ball_counts(xyz, q, r, ns) -> tuple:
+    """(full, partial, empty) balls of a case."""
+    hits = in_ball(xyz, q, r).sum(dim=-1)
+    return (int((hits >= ns).sum()), int(((hits > 0) & (hits < ns)).sum()),
+            int((hits == 0).sum()))
+
+
+def check_ballquery_contract(torch, gen) -> None:
+    """The ball query on every case of `ballquery_cases`: indices bitwise
+    equal to the plain version's in each of BALLQUERY_REPEATS launches.
+    The hard clouds must hold what they are for: balls full at every
+    point, points at exactly d = r², a full, a partial and an empty ball
+    in every four queries, an empty ball."""
+    from uni_adapter_torch.ops import ballquery, knn
+
+    for what, xyz, q, r, ns in ballquery_cases(torch, gen):
+        want = ballquery.query_ball_plain(r, ns, xyz, q)
+        for _ in range(BALLQUERY_REPEATS):
+            got = ballquery.query_ball_cuda(r, ns, xyz, q)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"ballquery {what}: {(got != want).sum().item()} "
+                     f"indices differ from the plain version's")
+        full, partial, empty = ball_counts(xyz, q, r, ns)
+        hits = in_ball(xyz, q, r).sum(dim=-1)
+        if what.startswith("every point in") and not bool(
+                (hits == xyz.shape[1]).all()):
+            fail(f"ballquery {what}: a point lies outside a ball")
+        if what.startswith("d = r") and not bool(
+                (knn.sqdist(xyz, q)[0, 0]
+                 == ballquery.squared_radius(r)).sum() > 1000):
+            fail(f"ballquery {what}: too few points at exactly r²")
+        if what.startswith("full, partial") and not (
+                bool((hits[0, 0::4] >= ns).all())
+                and bool(((hits[0, 1::4] > 0) & (hits[0, 1::4] < ns)).all())
+                and bool((hits[0, 2::4] == 0).all())):
+            fail(f"ballquery {what}: the balls are not full, partial and "
+                 f"empty in turn")
+        if what.startswith("empty") and not empty:
+            fail("ballquery: the empty-ball case has no empty ball")
+        print(f"ballquery {what}: indices equal, {BALLQUERY_REPEATS} "
+              f"launches; balls full {full}, partial {partial}, empty "
+              f"{empty}")
+
+
+def check_ballquery(torch, gen) -> dict:
+    """The ball query at BALLQUERY_SHAPES: indices equal to the plain
+    version's, and its times: back to back, device, the plain version's
+    back to back and, as a yardstick, in device time (the reference's own
+    route: the dense (B, S, N) distances and a sort)."""
+    from uni_adapter_torch.ops import ballquery
+
+    shapes = {}
+    for name, (B, N, S, ns) in BALLQUERY_SHAPES.items():
+        r = 0.2
+        xyz = sphere_cloud(torch, gen, B, N)
+        center = fps_queries(torch, xyz, S)
+        run = functools.partial(ballquery.query_ball_cuda, r, ns, xyz,
+                                center)
+        plain = functools.partial(ballquery.query_ball_plain, r, ns, xyz,
+                                  center)
+        got, want = run(), plain()
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            fail(f"ballquery ({name}): {(got != want).sum().item()} indices "
+            fail(f"ballquery {name}: {(got != want).sum().item()} indices "
                  f"differ")
-        hits = in_ball(pts, q, rad).sum(dim=-1)
-        print(f"ballquery {name}: indices equal; balls full "
-              f"{(hits >= ns).sum().item()}, partial "
-              f"{((hits > 0) & (hits < ns)).sum().item()}, empty "
-              f"{(hits == 0).sum().item()} of {B * S}")
-        if name == "empty" and not (hits == 0).any():
-            fail("ballquery: the empty-ball case has no empty ball")
-    n_dist = query_ball_distances(torch, xyz, center, r, ns)
-    b_ms, b_by = bound((B * N * 3 + B * S * 3) * 4 + B * S * ns * 4,
-                       n_dist * 8, PEAK_FP32)
+        n_dist = query_ball_distances(torch, xyz, center, r, ns)
+        b_ms, b_by = bound((B * N * 3 + B * S * 3) * 4 + B * S * ns * 4,
+                           n_dist * 8, PEAK_FP32)
+        shapes[name] = {"shape": [B, N, S, ns], "r": r,
+                        "balls_full_partial_empty": ball_counts(
+                            xyz, center, r, ns),
+                        "distances": n_dist, "ms": time_ms(run),
+                        "device_ms": device_ms(run),
+                        "plain_ms": time_ms(plain),
+                        "plain_device_ms": device_ms(plain),
+                        "bound_ms": b_ms, "bound_by": b_by}
+        print(f"ballquery {name}: {shapes[name]}")
+    first = shapes["openshape1024"]
     return {"name": "ballquery", "route": "cuda",
             "source": "uni_adapter_torch/csrc/ballquery.cu",
             "replaces": "uni_adapter_tpu/ops/ballquery_pallas.py:60",
             "max_abs_err": 0,
-            "ms": time_ms(lambda: ballquery.query_ball_cuda(r, ns, xyz,
-                                                            center)),
-            "device_ms": device_ms(lambda: ballquery.query_ball_cuda(
-                r, ns, xyz, center)),
-            "plain_ms": time_ms(lambda: ballquery.query_ball_plain(
-                r, ns, xyz, center)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            **{key: first[key] for key in ("ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by")},
+            "library_ms": None, "shapes": shapes}
 
 
 def check_eva_attention(torch, gen) -> dict:
@@ -2153,6 +2285,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = check_kernels(torch, gen)
     kernels.append(check_ballquery(torch, gen))
+    check_ballquery_contract(torch, gen)
     kernels.append(check_eva_attention(torch, gen))
     kernels.append(check_attention_heads(torch, gen))
     kernels.append(check_knn_gather(torch, gen))

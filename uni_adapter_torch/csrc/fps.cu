@@ -125,7 +125,10 @@ template <int W, int P>
 cudaError_t launch(const float* xyz, int64_t* out, int B, int N, int npoint,
                    cudaStream_t stream) {
   const size_t smem = 16 * static_cast<size_t>(N);
-  if (smem > 48 * 1024) {
+  // the opt-in is needed once static (the slots) and dynamic shared memory
+  // together pass 48 KB: from N = 3065 with 8 warps
+  constexpr size_t kSlots = 2 * (W > 1 ? W : 2) * sizeof(uint2);
+  if (smem + kSlots > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fps_kernel<W, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

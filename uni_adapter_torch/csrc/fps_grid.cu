@@ -282,7 +282,9 @@ cudaError_t launch(const float* xyz, unsigned* scratch, int64_t* out, int B,
   const int slice = P > 0 ? kThreads * P : (N + C - 1) / C;
   const int smem = P > 0 ? kThreads * P * 16 : 0;
   cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024)
+  // the opt-in is needed once static (the exchange) and dynamic shared
+  // memory together pass 48 KB: at 24 points a thread
+  if (smem + sizeof(Exchange) > 48 * 1024)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (e != cudaSuccess) return e;

@@ -20,8 +20,10 @@ from uni_adapter_torch.ops import build
 from uni_adapter_torch.ops.knn import sqdist
 
 
+@functools.cache
 def squared_radius(radius: float) -> float:
-    """r² in fp32, as the Pallas kernel holds it."""
+    """r² in fp32, as the Pallas kernel holds it (kept per radius: the
+    wrapper asks for it at every launch)."""
     return torch.tensor(float(radius) * float(radius),
                         dtype=torch.float32).item()
 
@@ -38,15 +40,19 @@ def query_ball_plain(radius: float, nsample: int, xyz: torch.Tensor,
     return torch.clamp(idx, max=N - 1)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("ballquery")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a library built from `csrc/ballquery.cu`."""
     lib.uat_ballquery.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p]
     lib.uat_ballquery.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind(build.load("ballquery"))
 
 
 def query_ball_cuda(radius: float, nsample: int, xyz: torch.Tensor,

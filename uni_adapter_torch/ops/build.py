@@ -89,17 +89,22 @@ def build_all(names=SOURCES) -> dict[str, str]:
 
 def build_variants(variants: dict, subdir: str) -> dict:
     """Build sources of `csrc/` with extra `#define`s, for the scripts that
-    time candidate configurations.  `variants` maps a key to (source name,
-    defines); each is a file under BUILD_DIR / `subdir` that holds the
-    defines and includes `csrc/<name>.cu`, every `nvcc` started at once.
-    Returns {key: (loaded library, nvcc's output)}; a failed build raises
-    with its output once every build has ended."""
+    time candidate configurations.  `variants` maps a key to (source,
+    defines), the source a name under `csrc/` or the Path of a .cu file
+    elsewhere (another checkout's, to time it in the same run); each is a
+    file under BUILD_DIR / `subdir` that holds the defines and includes
+    the source, every `nvcc` started at once.  Returns {key: (loaded
+    library, nvcc's output)}; a failed build raises with its output once
+    every build has ended."""
     out_dir = BUILD_DIR / subdir
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for i, (key, (name, defines)) in enumerate(variants.items()):
+    for i, (key, (source, defines)) in enumerate(variants.items()):
+        path = (source.resolve() if isinstance(source, Path)
+                else CSRC / f"{source}.cu")
+        name = path.stem
         src, out = out_dir / f"{name}-{i}.cu", out_dir / f"lib{name}-{i}.so"
-        src.write_text(defines + f'#include "{CSRC / name}.cu"\n')
+        src.write_text(defines + f'#include "{path}"\n')
         jobs[key] = out, _nvcc_job(src, out)
     logs = {key: proc.communicate()[0] for key, (_, proc) in jobs.items()}
     for key, (out, proc) in jobs.items():
