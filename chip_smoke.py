@@ -55,7 +55,10 @@ exits non-zero before the result line:
      keys, each of its block shapes, B·H up to 480) and at the block's
      step, with the same tolerance and faults, and which fp32 kernel each
      entry runs read from the profiler's trace; float16 raising in every
-     attention wrapper;
+     attention wrapper; then kNN (k 64 and 32), the ball query and the
+     natural-layout attention at the 15-corruption sweep's batch of 30
+     clouds (indices exactly in ten launches each, the attention within
+     the bf16 tolerance that its two planted faults must fail), timed;
   4. features (and attention maps) of Uni3D, OpenShape-G and ULIP-2 at
      depth 2 and full width on the card (kernels) against the CPU (plain
      versions), the same weights in bf16; Uni3D and OpenShape-G also on
@@ -77,7 +80,20 @@ exits non-zero before the result line:
      (the same two kernels, never `fps` or `knn`); then the three
      1024-point paths with `--compute-dtype float32` (the fp32 kernels,
      no bf16 attention kernel), and `--compute-dtype float16` raising;
-  6. the attention-map extraction path of each backbone at full width and
+  6. the three MODE-DOTA headline sweeps of bench.py (Uni3D-L, ULIP-2,
+     OpenShape-G at published widths and depth, bf16) through
+     `cli.tta.main --corruption all --vmap-corruptions true` on 15
+     synthetic 16-cloud streams, one a corruption: the 15 streams' 2·15
+     clouds through the encoder in one forward a step; every kernel of
+     the path launched at least as often as 16 batch-1 steps launch it,
+     none of the others; 15 keys in the result files; finite logits; ms
+     a step and pc/s printed beside the batch-1 path's of phase 5.  Then
+     `engine.run_streams` against the same 3 streams run one by one
+     (`engine.run_stream`), the same noise to both, Uni3D at width 1024
+     and depth 2 in fp32, with residual learning off (4 steps) and on (2
+     steps); and `--continual true` (Uni3D-L) through the 15 streams,
+     each corruption's step counter starting where the one before ended;
+  7. the attention-map extraction path of each backbone at full width and
      depth through `uni_adapter_torch.cli.extract_attention` on the
      synthetic sphere (the whole `main` where matplotlib imports, its
      device half `extract` otherwise): 24 / 12 / 12 maps in
@@ -1065,6 +1081,115 @@ def check_eva_attention(torch, gen) -> dict:
     return entry
 
 
+#: The sweep's batch: the 15 corruption streams' clean and noisy clouds
+#: of one step go through the encoder together (phase 6).
+SWEEP_BATCH = 30
+#: The grouping and attention kernels at the sweep's batch: kNN (B, N, S,
+#: k) for Uni3D and ULIP-2, the ball query (B, N, S, nsample) at r 0.2
+#: for OpenShape-G, the natural-layout attention (B, N, D, H) for
+#: OpenShape-G and ULIP-2.  (FPS and the block at this batch: phase 3's
+#: other checks.)
+SWEEP_KNN_SHAPES = {"uni3d": (SWEEP_BATCH, 1024, 512, 64),
+                    "ulip": (SWEEP_BATCH, 1024, 512, 32)}
+SWEEP_BALLQUERY_SHAPE = (SWEEP_BATCH, 1024, 384, 64)
+SWEEP_ATTENTION_SHAPES = {"openshape": (SWEEP_BATCH, 385, 512, 8),
+                          "ulip": (SWEEP_BATCH, 513, 384, 6)}
+
+
+def check_sweep_batch(torch, gen, kernels: list) -> None:
+    """kNN, the ball query and the natural-layout attention at the sweep's
+    batch: indices bitwise equal to the plain version's in each of
+    KNN_REPEATS launches, the attention within the block's bf16 tolerance,
+    which its two planted faults must fail; each kernel's times at the
+    shape added to its entry's `shapes`."""
+    from uni_adapter_torch.ops import ballquery, knn
+    from uni_adapter_torch.ops.eva_attention import (eva_attention_cuda,
+                                                     eva_attention_plain)
+
+    entry = {k["name"]: k for k in kernels}
+    for path, (B, N, S, k) in SWEEP_KNN_SHAPES.items():
+        xyz = sphere_cloud(torch, gen, B, N)
+        q = fps_queries(torch, xyz, S)
+        want = knn.knn_plain(k, xyz, q)
+        for _ in range(KNN_REPEATS):
+            got = knn.knn_cuda(k, xyz, q)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"knn {path} sweep {(B, N, S, k)}: "
+                     f"{(got != want).sum().item()} indices differ")
+        b_ms, b_by = bound((B * N * 3 + B * S * 3) * 4 + B * S * k * 4,
+                           B * S * N * 8, PEAK_FP32)
+        t = {"shape": [B, N, S, k], **knn_times(
+            torch, lambda: knn.knn_cuda(k, xyz, q),
+            lambda: knn.knn_plain(k, xyz, q), xyz, q, k),
+            "bound_ms": b_ms, "bound_by": b_by}
+        entry["knn"].setdefault("shapes", {})[f"sweep_{path}"] = t
+        print(f"knn {path} sweep {(B, N, S, k)}: indices equal, "
+              f"{KNN_REPEATS} launches; {t}")
+
+    B, N, S, ns = SWEEP_BALLQUERY_SHAPE
+    r = 0.2
+    xyz = sphere_cloud(torch, gen, B, N)
+    q = fps_queries(torch, xyz, S)
+    run = functools.partial(ballquery.query_ball_cuda, r, ns, xyz, q)
+    plain = functools.partial(ballquery.query_ball_plain, r, ns, xyz, q)
+    want = plain()
+    for _ in range(KNN_REPEATS):
+        got = run()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"ballquery sweep {(B, N, S, ns)}: "
+                 f"{(got != want).sum().item()} indices differ")
+    b_ms, b_by = bound((B * N * 3 + B * S * 3) * 4 + B * S * ns * 4,
+                       query_ball_distances(torch, xyz, q, r, ns) * 8,
+                       PEAK_FP32)
+    t = {"shape": [B, N, S, ns], "r": r,
+         "balls_full_partial_empty": ball_counts(xyz, q, r, ns),
+         "ms": time_ms(run), "device_ms": device_ms(run),
+         "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by}
+    entry["ballquery"]["shapes"]["sweep_openshape"] = t
+    print(f"ballquery sweep {(B, N, S, ns)}: indices equal, {KNN_REPEATS} "
+          f"launches; {t}")
+
+    for path, (B, N, D, H) in SWEEP_ATTENTION_SHAPES.items():
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda")
+        qkv[..., :2 * D] *= BLOCK_LN_GAMMA
+        qkv = qkv.to(torch.bfloat16)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        got = eva_attention_cuda(q, k, v, num_heads=H).float()
+        want = eva_attention_plain(q, k, v, num_heads=H).float()
+        torch.cuda.synchronize()
+        err, r_tol = (got - want).abs().max().item(), block_err(got, want)
+        if not torch.isfinite(got).all() or r_tol > 1:
+            fail(f"eva_attention {path} sweep {(B, N, D, H)}: err/tolerance "
+                 f"{r_tol:.3f}, or not finite")
+        neighbour = want.clone()
+        neighbour[..., :64] = want[..., 64:128]
+        faults = {f"tail key {N - 1} dropped": eva_attention_plain(
+                      q, k[:, :N - 1], v[:, :N - 1], num_heads=H).float(),
+                  "head 0 from head 1": neighbour}
+        rf = {f: block_err(bad, want) for f, bad in faults.items()}
+        if min(rf.values()) <= 1:
+            fail(f"eva_attention {path} sweep: the tolerance passes a "
+                 f"planted fault ({rf})")
+        b_ms, b_by = bound(4 * B * N * D * 2, 4 * B * H * N * N * 64,
+                           PEAK_BF16)
+        t = {"shape": [B, N, D, H], "max_abs_err": err,
+             "ms": time_ms(lambda: eva_attention_cuda(q, k, v, num_heads=H)),
+             "device_ms": device_ms(lambda: eva_attention_cuda(
+                 q, k, v, num_heads=H)),
+             "plain_ms": time_ms(lambda: eva_attention_plain(
+                 q, k, v, num_heads=H)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        entry["eva_attention"]["shapes"][f"sweep_{path}"] = t
+        entry["eva_attention"]["max_abs_err"] = max(
+            entry["eva_attention"]["max_abs_err"], err)
+        print(f"eva_attention {path} sweep {(B, N, D, H)}: err/tolerance "
+              f"{r_tol:.3f}, planted faults "
+              f"{ {f: round(x, 1) for f, x in rf.items()} }")
+        print_times(f"eva_attention {path} sweep", {**t, "library_ms": None})
+
+
 #: The attention core's edges in the natural layout, (B, N, D, H) with
 #: head dim 64: one key, one whole 64-key chunk, one key past it, a last
 #: chunk of one key after 32 full ones, and a grid of several waves (8
@@ -2036,18 +2161,20 @@ PATHS = {
 
 
 def write_stream(root: Path, n_points: int, n_classes: int,
-                 n_clouds: int = 16) -> None:
-    """A synthetic corruption stream: clouds on spheres of radius 0.5-0.9,
-    written at their full size (no resampling duplicates points)."""
+                 n_clouds: int = 16, corruptions=("uniform",)) -> None:
+    """Synthetic corruption streams, one file a corruption with one label
+    file: clouds on spheres of radius 0.5-0.9, written at their full size
+    (no resampling duplicates points)."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     labels = rng.integers(0, n_classes, n_clouds)
-    pts = rng.standard_normal((n_clouds, n_points, 3)).astype(np.float32)
-    pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
-    pts *= (0.5 + 0.1 * (labels % 5))[:, None, None].astype(np.float32)
     root.mkdir(parents=True, exist_ok=True)
-    np.save(root / "data_uniform_5.npy", pts)
+    for corr in corruptions:
+        pts = rng.standard_normal((n_clouds, n_points, 3)).astype(np.float32)
+        pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
+        pts *= (0.5 + 0.1 * (labels % 5))[:, None, None].astype(np.float32)
+        np.save(root / f"data_{corr}_5.npy", pts)
     np.save(root / "label.npy", labels.astype(np.int64))
 
 
@@ -2060,20 +2187,49 @@ def write_bank(path: Path, n_classes: int, width: int) -> None:
     np.save(path, bank.astype(np.float32))
 
 
-def run_main_path(tmp: Path, kind: str, n_clouds: int = 16) -> dict:
+def bank_arg(tmp: Path, bank) -> str:
+    """`--precomputed-text-features` of a path: 'large', or a seeded bank
+    of the (K, width) it names, written under tmp."""
+    if bank == "large":
+        return bank
+    path = tmp / f"bank_{bank[0]}x{bank[1]}.npy"
+    if not path.exists():
+        write_bank(path, *bank)
+    return str(path)
+
+
+def zeroed_counters() -> dict:
+    """The launch counters, each set to 0."""
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def check_launches(what: str, launches: dict, need: dict, idle) -> None:
+    """At least need[name] launches of each kernel of a run, none of the
+    idle ones."""
+    for name, n in need.items():
+        if launches[name] < n:
+            fail(f"{name} launched {launches[name]} times on {what}, "
+                 f"expected at least {n}")
+    for name in idle:
+        if launches[name]:
+            fail(f"{name} launched {launches[name]} times on {what}, "
+                 f"expected none")
+
+
+def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
+    """One main path through `cli.tta.main`: its launches and its steady
+    ms a step (median of steps 2-16)."""
     from uni_adapter_torch.cli import tta
 
     flags, (n_points, n_classes), bank, per_step, idle = PATHS[kind]
     root = tmp / f"stream_{n_points}x{n_classes}"
     if not root.exists():
         write_stream(root, n_points, n_classes, n_clouds)
-    if bank != "large":
-        path = tmp / f"bank_{bank[0]}x{bank[1]}.npy"
-        write_bank(path, *bank)
-        bank = str(path)
-    counters = launch_counters()
-    for c in counters.values():
-        c.launches = 0
+    bank = bank_arg(tmp, bank)
+    counters = zeroed_counters()
     summary = tta.main(["--root", str(root), "--corruption", "uniform",
                         "--precomputed-text-features", bank, *flags,
                         "--device", "cuda", "--output-dir", str(tmp / "out"),
@@ -2091,20 +2247,183 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16) -> dict:
           f"{summary['finite']['uniform']}")
     if len(step_ms) != n_clouds:
         fail(f"{kind}: {len(step_ms)} steps, expected {n_clouds}")
-    for name, n in per_step.items():
-        if launches[name] < n * n_clouds:
-            fail(f"{name} launched {launches[name]} times on the {kind} main "
-                 f"path, expected at least {n * n_clouds}")
-    for name in idle:
-        if launches[name]:
-            fail(f"{name} launched {launches[name]} times on the {kind} main "
-                 f"path, expected none")
+    check_launches(f"the {kind} main path", launches,
+                   {n: k * n_clouds for n, k in per_step.items()}, idle)
     if not summary["finite"]["uniform"]:
         fail(f"{kind}: non-finite final logits")
     for f in ("results.json", "results_zs.json"):
         res = json.loads((Path(summary["log_dir"]) / f).read_text())
         if set(res) != {"uniform"}:
             fail(f"{kind} {f}: unexpected content {res}")
+    return launches, steady
+
+
+#: The three MODE-DOTA headline sweeps of bench.py (its metric names,
+#: bench.py's `_metric_name`; protocol: 15 corruption streams x 16
+#: steps, batch 1 a stream, 1024 points, K = 40): the 1024-point bf16
+#: main paths of PATHS, run with `--corruption all --vmap-corruptions
+#: true`.
+SWEEPS = {"uni3d": "mode_dota_tta_throughput_uni3d_large_15corruption_sweep",
+          "ulip": "mode_dota_tta_throughput_ulip_15corruption_sweep",
+          "openshape":
+              "mode_dota_tta_throughput_openshape_15corruption_sweep"}
+
+
+def run_sweep(tmp: Path, kind: str, batch1_ms: float, card: str,
+              n_steps: int = 16) -> tuple:
+    """A 15-corruption sweep through `cli.tta.main --vmap-corruptions
+    true` on 15 synthetic streams of n_steps clouds: every kernel of the
+    path launched at least as often as the batch-1 path launches it in
+    n_steps steps, none of the others; 15 keys in both result files,
+    finite logits.  Prints its ms a step and pc/s beside the batch-1
+    path's of this call.  Returns its launches and numbers."""
+    from uni_adapter_torch.cli import tta
+    from uni_adapter_torch.config import CORRUPTIONS
+
+    flags, (n_points, n_classes), bank, per_step, idle = PATHS[kind]
+    root = tmp / f"sweep_{n_points}x{n_classes}"
+    if not root.exists():
+        write_stream(root, n_points, n_classes, n_steps, CORRUPTIONS)
+    counters = zeroed_counters()
+    summary = tta.main(["--root", str(root), "--corruption", "all",
+                        "--vmap-corruptions", "true",
+                        "--precomputed-text-features", bank_arg(tmp, bank),
+                        *flags, "--device", "cuda", "--output-dir",
+                        str(tmp / "out"), "--name", f"smoke-sweep-{kind}"])
+    launches = {n: c.launches for n, c in counters.items()}
+    what = f"the {kind} sweep"
+    step_ms = summary["step_ms"][CORRUPTIONS[0]]
+    if len(step_ms) != n_steps:
+        fail(f"{what}: {len(step_ms)} steps, expected {n_steps}")
+    check_launches(what, launches,
+                   {n: k * n_steps for n, k in per_step.items()}, idle)
+    if not all(summary["finite"].values()):
+        fail(f"{what}: non-finite final logits ({summary['finite']})")
+    for f in ("results.json", "results_zs.json"):
+        res = json.loads((Path(summary["log_dir"]) / f).read_text())
+        if list(res) != list(CORRUPTIONS):
+            fail(f"{what} {f}: keys {list(res)}")
+    steady = step_ms[1:]
+    out = {"metric": SWEEPS[kind], "streams": len(CORRUPTIONS),
+           "steps": n_steps, "first_step_ms": step_ms[0],
+           "median_ms": statistics.median(steady),
+           "pc_s": len(CORRUPTIONS) * len(steady) / sum(steady) * 1e3,
+           "batch1_median_ms": batch1_ms, "batch1_pc_s": 1e3 / batch1_ms,
+           "card": card}
+    print(f"sweep {kind} ({out['metric']}'s protocol, {card}): "
+          f"{len(CORRUPTIONS)} streams x {n_steps} steps, first step "
+          f"{step_ms[0]:.1f} ms, then median {out['median_ms']:.2f} ms/step, "
+          f"{out['pc_s']:.1f} pc/s over the steady steps; the batch-1 path "
+          f"of this call {batch1_ms:.2f} ms/step, {1e3 / batch1_ms:.2f} pc/s")
+    print(f"sweep {kind} launches: {launches}")
+    return launches, out
+
+
+def fed(step, noises, outputs: list):
+    """The step with its noise taken from `noises` in turn and its outputs
+    appended to `outputs`."""
+    it = iter(noises)
+
+    def run(text, state, batch):
+        state, out = step(text, state, batch, noise=next(it))
+        outputs.append(out)
+        return state, out
+
+    return run
+
+
+def check_streams_equal_sequential(torch) -> None:
+    """`engine.run_streams` on the card against the same streams run one by
+    one (`engine.run_stream`, seeds 42 + c), the same noise handed to
+    both: Uni3D at width 1024 and depth 2, fp32, 3 streams.  Without
+    residual learning over 4 steps, with it over 2 (step 1 runs the Adam
+    loop): final logits within atol 1e-3 every step, identical correct
+    counts; the residuals held in distribution (median < 1e-6, 90th
+    percentile < 2e-4: Adam's first steps move an element whose gradient
+    is near zero by ±lr on a last-bit difference)."""
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.config import Config, DotaConfig, ModelConfig
+    from uni_adapter_torch.models.loader import build_backbone
+
+    S, T = 3, 4
+    mc = ModelConfig(eva_depth=2, compute_dtype="float32")
+    model, _, _ = build_backbone("uni3d", mc, "cuda", seed=0)
+    text = load_precomputed("large", "modelnet").cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pcs = sphere_cloud(torch, gen, S * T, 1024).reshape(S, T, 1, 1024, 3)
+    rgbs = torch.ones_like(pcs)
+    targets = torch.randint(0, 40, (S, T, 1), generator=gen, device="cuda")
+    noise = torch.randn(T, S, 1, 1024, 3, generator=gen, device="cuda")
+    for res_learning, n in ((False, T), (True, 2)):
+        cfg = Config(model=mc, dota=DotaConfig(res_learning=res_learning))
+        step = engine.make_step_fn(cfg, model)
+        outs = []
+        res = engine.run_streams(cfg, model, text, pcs[:, :n], rgbs[:, :n],
+                                 targets[:, :n], step_fn=fed(
+                                     step, noise[:n], outs))
+        err, residuals = 0.0, []
+        for c in range(S):
+            seq = []
+            one = engine.run_stream(
+                cfg, model, text, zip(pcs[c, :n], rgbs[c, :n],
+                                      targets[c, :n]),
+                seed=42 + c, step_fn=fed(step, noise[:n, c], seq))
+            for t, (o, w) in enumerate(zip(outs, seq, strict=True)):
+                err = max(err, (o.final_logits[c] - w.final_logits)
+                          .abs().max().item())
+                if not (torch.equal(o.correct[c], w.correct)
+                        and torch.equal(o.zs_correct[c], w.zs_correct)):
+                    fail(f"streams vs sequential (residuals "
+                         f"{res_learning}): stream {c} step {t} correct "
+                         f"counts differ")
+            if res_learning:
+                residuals.append(one["state"].res_state.residuals)
+        if err > 1e-3:
+            fail(f"streams vs sequential (residuals {res_learning}): final "
+                 f"logits differ by {err}")
+        line = (f"streams vs sequential on the card, Uni3D width 1024 depth "
+                f"2 fp32, {S} streams x {n} steps, residual learning "
+                f"{res_learning}: final logits max abs err {err:.3g} (atol "
+                f"1e-3), correct counts identical")
+        if res_learning:
+            d = (res["state"].res_state.residuals
+                 - torch.stack(residuals)).abs().flatten()
+            med, p90 = d.median().item(), d.quantile(0.9).item()
+            if not (med < 1e-6 and p90 < 2e-4):
+                fail(f"streams vs sequential: residuals |d| median {med}, "
+                     f"90th percentile {p90}")
+            line += f"; residuals |d| median {med:.3g}, 90th pct {p90:.3g}"
+        print(line)
+
+
+def run_continual(tmp: Path, n_steps: int = 16) -> dict:
+    """`cli.tta.main --corruption all --continual true` (Uni3D-L, bf16) on
+    the sweep's 15 streams: each corruption starts from the one before's
+    carry, its step counter running 16·i → 16·(i + 1)."""
+    from uni_adapter_torch.cli import tta
+    from uni_adapter_torch.config import CORRUPTIONS
+
+    counters = zeroed_counters()
+    summary = tta.main(["--root", str(tmp / "sweep_1024x40"), "--corruption",
+                        "all", "--continual", "true",
+                        "--precomputed-text-features", "large", "--device",
+                        "cuda", "--output-dir", str(tmp / "out"), "--name",
+                        "smoke-continual"])
+    launches = {n: c.launches for n, c in counters.items()}
+    steps = [summary["steps"][c] for c in CORRUPTIONS]
+    want = [[n_steps * i, n_steps * (i + 1)] for i in range(len(CORRUPTIONS))]
+    if steps != want:
+        fail(f"--continual: step counters {steps}, expected {want}")
+    if not all(summary["finite"].values()):
+        fail("--continual: non-finite final logits")
+    _, _, _, per_step, idle = PATHS["uni3d"]
+    check_launches("the --continual path", launches,
+                   {n: k * n_steps * len(CORRUPTIONS)
+                    for n, k in per_step.items()}, idle)
+    print(f"--continual: {CORRUPTIONS[0]} steps {steps[0]}, {CORRUPTIONS[1]} "
+          f"steps {steps[1]} (from the first's carry), ..., {CORRUPTIONS[-1]}"
+          f" steps {steps[-1]}; launches {launches}")
     return launches
 
 
@@ -2302,6 +2621,7 @@ def main() -> None:
         if k["name"] in block_errs:
             k["max_abs_err"] = max(k["max_abs_err"], block_errs[k["name"]])
     check_float16_raises(torch)
+    check_sweep_batch(torch, gen, kernels)
     for k in kernels:
         dev = ("" if k.get("device_ms") is None
                else f", device {k['device_ms']:.4f} ms")
@@ -2312,11 +2632,16 @@ def main() -> None:
               f"{k.get('library_device_ms')})")
     check_features(torch, gen)
     check_features_fp32(torch, gen)
-    by_path = {}
+    by_path, batch1_ms, sweeps = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for kind in PATHS:
-            by_path[kind] = run_main_path(Path(tmp), kind)
+            by_path[kind], batch1_ms[kind] = run_main_path(Path(tmp), kind)
         check_float16_cli(Path(tmp))
+        for kind in SWEEPS:
+            by_path[f"sweep_{kind}"], sweeps[kind] = run_sweep(
+                Path(tmp), kind, batch1_ms[kind], card)
+        check_streams_equal_sequential(torch)
+        by_path["continual_uni3d"] = run_continual(Path(tmp))
         for kind in EXTRACT_PATHS:
             by_path[f"extract_{kind}"] = run_extraction(Path(tmp), kind)
         for kind in EXTRACT_PATHS:
@@ -2324,6 +2649,7 @@ def main() -> None:
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+    print(json.dumps({"sweeps": sweeps}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 
     python3 scripts/torch_step_profile.py [--vlm3d uni3d|openshape|ulip]
         [--npoints N] [--dataset-name NAME] [--compute-dtype float32]
+        [--streams S]
 
 On one CUDA card (its name and power limit printed first), one backbone
 at its published widths and depth in bf16 (or `--compute-dtype float32`:
@@ -9,7 +10,10 @@ the fp32 kernels) with random weights from a seed: Uni3D-L (24 blocks,
 width 1024; the default), OpenShape PPTA-G (12 blocks, width 512) or
 ULIP-2 Point-BERT (12 blocks, width 384); MODE-DOTA defaults with
 residual learning; random N-point clouds (default 1024) on a sphere of
-radius 0.5.  The anchors are
+radius 0.5.  `--streams S` (default 1) profiles the step of S streams
+together (`engine.init_states_streams`, the 15-corruption sweep's step at
+S = 15): every phase below then takes the S streams' clouds, and the
+stream loop is `engine.run_streams`.  The anchors are
 the shipped bank of the dataset where Uni3D has one (ModelNet40, the
 default, ScanObjectNN, ShapeNetCore), else a seeded bank with the
 dataset's number of classes (1156 for objaverse_lvis) at the backbone's
@@ -40,6 +44,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -100,8 +105,10 @@ def main() -> None:
     ap.add_argument("--dataset-name", default="modelnet")
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
+    ap.add_argument("--streams", type=int, default=1)
     args = ap.parse_args()
-    kind, npoints = args.vlm3d, args.npoints
+    kind, npoints, S = args.vlm3d, args.npoints, args.streams
+    lead = (S,) if S > 1 else ()   # the stream axis of every tensor
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: needs a CUDA device")
     card = subprocess.run(
@@ -129,7 +136,8 @@ def main() -> None:
                            generator=gen, device=dev)
         text = text / text.norm(dim=1, keepdim=True)
     print(f"{kind}, {npoints} points, {args.dataset_name}, "
-          f"{args.compute_dtype}: anchors {tuple(text.shape)}")
+          f"{args.compute_dtype}: anchors {tuple(text.shape)}"
+          + (f", {S} streams" if lead else ""))
     step = engine.make_step_fn(cfg, model)
     encode = engine.encode_with(kind, model)
 
@@ -138,16 +146,22 @@ def main() -> None:
         return 0.5 * x / x.norm(dim=-1, keepdim=True)
 
     def batch():
-        pc = sphere(1, npoints)
-        return pc, torch.ones_like(pc), torch.zeros(1, dtype=torch.int64,
+        pc = sphere(*lead, 1, npoints)
+        return pc, torch.ones_like(pc), torch.zeros(*lead, 1,
+                                                    dtype=torch.int64,
                                                     device=dev)
 
-    state = engine.init_state(cfg, text)
+    state = (engine.init_states_streams(cfg, text, S) if lead
+             else engine.init_state(cfg, text))
     for _ in range(3):                       # warm-up; step > 0 after this
         state, _ = step(text, state, batch())
     pc, rgb, tgt = batch()
+    # the encoder's 2·S clouds: every stream's clean cloud, then its noisy
+    two_b = "2SB" if lead else "2B"
+    xyz2 = torch.cat([pc.reshape(-1, npoints, 3)] * 2)
+    rgb2 = torch.ones_like(xyz2)
     with torch.no_grad():
-        feat = encode(torch.cat([pc, pc]), torch.cat([rgb, rgb]))[:1]
+        feat = encode(xyz2, rgb2)[:S].reshape(*lead, 1, -1)
     clip_w = residual.adapted_text_weights(state.res_state, text)
     logits, _, prob, _ = engine.clip_logits_from(feat, clip_w)
 
@@ -157,9 +171,8 @@ def main() -> None:
         ms = mode_dota.fit(ms, feat, prob, dc.epsilon)
         ms = mode_dota.fit(ms, feat, prob, dc.epsilon)
         fusion.fuse_mode_dota(logits, d, fusion.dota_fusion_weight(
-            dc.rho, dc.eta, ms.c.mean(), 1.0))
+            dc.rho, dc.eta, ms.c.mean(dim=(-2, -1)), 1.0))
 
-    xyz2, rgb2 = torch.cat([pc, pc]), torch.cat([rgb, rgb])
     if kind == "openshape":
         sa = model.ppat.sa
         grouping = lambda: sample_and_group(            # noqa: E731
@@ -170,8 +183,9 @@ def main() -> None:
             xyz2, rgb2 if kind == "uni3d" else None, n_group, group_size)
     phases = {
         "step": lambda: step(text, state, (pc, rgb, tgt)),
-        "encoder forward (2B)": lambda: torch.no_grad()(encode)(xyz2, rgb2),
-        "grouping (2B)": grouping,
+        f"encoder forward ({two_b})": lambda: torch.no_grad()(encode)(
+            xyz2, rgb2),
+        f"grouping ({two_b})": grouping,
         "predict + 2 fits + fusion": torch.no_grad()(adapt),
         "residual loop (10 Adam steps)": lambda: residual.optimize_residuals(
             state.res_state, text, state.method_state, dc.residual_lr,
@@ -180,11 +194,19 @@ def main() -> None:
     timings = {k: wall_ms(f, 10) for k, f in phases.items()}
     # the same step as the stream loop runs it: fresh clouds from the host
     # each step, state carried over
-    clouds = sphere(12, 1, npoints).cpu()
-    res = engine.run_stream(cfg, model, text, (
-        (c.numpy(), torch.ones_like(c).numpy(), [0]) for c in clouds),
-        step_fn=step)
-    timings["run_stream step (median of steps 2-11)"] = statistics.median(
+    if lead:
+        clouds = sphere(S, 12, 1, npoints).cpu().numpy()
+        res = engine.run_streams(cfg, model, text, clouds,
+                                 np.ones_like(clouds),
+                                 np.zeros((S, 12, 1), np.int64), step_fn=step)
+        loop = "run_streams"
+    else:
+        clouds = sphere(12, 1, npoints).cpu()
+        res = engine.run_stream(cfg, model, text, (
+            (c.numpy(), torch.ones_like(c).numpy(), [0]) for c in clouds),
+            step_fn=step)
+        loop = "run_stream"
+    timings[f"{loop} step (median of steps 2-11)"] = statistics.median(
         res["step_ms"][2:])
     for k, v in timings.items():
         print(f"wall {k}: {v:.3f} ms")
@@ -224,7 +246,7 @@ def main() -> None:
     for name, (ms, n) in top:
         print(f"kernel {ms / PROFILED_STEPS:9.3f} ms/step "
               f"{n // PROFILED_STEPS:6d}x  {name[:90]}")
-    print(json.dumps({"vlm3d": kind, "npoints": npoints,
+    print(json.dumps({"vlm3d": kind, "npoints": npoints, "streams": S,
                       "dataset_name": args.dataset_name,
                       "compute_dtype": args.compute_dtype, "card": card,
                       "wall_ms": timings,

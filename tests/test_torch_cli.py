@@ -61,8 +61,8 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 @pytest.mark.parametrize("flags,item", [
     (["--dota-use-mode-dota", "false", "--dota-use-dota", "true"], "M8"),
     (["--dota-use-mode-dota", "false"], "M7"),
-    (["--vmap-corruptions", "true"], "M6"),
-    (["--continual", "true"], "M6"),
+    (["--vmap-corruptions", "true", "--dist-mode", "sharded"], "M16"),
+    (["--continual", "true", "--dist-mode", "ep"], "M16"),
     (["--dist-mode", "psum"], "M16"),
     (["--trunk-parallel", "tp"], "M16"),
     (["--checkpoint-path", "ckpt.npz"], "M12"),

@@ -8,7 +8,9 @@ from uni_adapter_torch.utils.math import softmax_entropy
 
 def dota_fusion_weight(rho: float, eta: float, c_mean: torch.Tensor,
                        batch: float) -> torch.Tensor:
-    """w = min(ρ·mean(c)/B, η); `batch` is the batch the fit consumed."""
+    """w = min(ρ·mean(c)/B, η); `batch` is the batch the fit consumed.
+    S streams: `c_mean` is (S,), each stream's own mean over (K, M), and
+    `batch` each stream's own B (not S·B)."""
     return torch.clamp(rho * c_mean / batch, max=eta)
 
 
@@ -20,9 +22,10 @@ def fuse_mode_dota(clip_logits: torch.Tensor, dota_logits: torch.Tensor,
     By default the reference's double normalisation is kept: w_clip is
     normalised first and w_dota then divides by the already-normalised
     w_clip, so the two weights do not sum to 1.  `fix_normalization`
-    takes the convex combination instead.
+    takes the convex combination instead.  Logits are ([S,] B, K), and
+    `weight` is () or S streams' (S,).
     """
-    scaled_dota = weight * dota_logits
+    scaled_dota = weight[..., None, None] * dota_logits
     w_clip = 1.0 / (softmax_entropy(clip_logits) + 1e-3)
     w_dota = 1.0 / (softmax_entropy(scaled_dota) + 1e-3)
     if fix_normalization:
@@ -31,4 +34,4 @@ def fuse_mode_dota(clip_logits: torch.Tensor, dota_logits: torch.Tensor,
     else:
         w_clip = w_clip / (w_clip + w_dota)
         w_dota = w_dota / (w_clip + w_dota)
-    return w_clip[:, None] * clip_logits + w_dota[:, None] * scaled_dota
+    return w_clip[..., None] * clip_logits + w_dota[..., None] * scaled_dota

@@ -3,6 +3,12 @@
 
 Every contraction is fp32 without TF32 (the JAX package runs them at
 `Precision.HIGHEST`); the entry points turn TF32 off for the process.
+
+Every function but `init` also takes S independent streams at once (the
+JAX package's `jax.vmap` over the state): a leading stream axis on every
+tensor of the state and on `x` and `gamma_class`, written out as batched
+`torch.matmul` products.  S streams' `init` is S single-stream ones
+stacked (`engine.init_states_streams`): the init draws no randomness.
 """
 from __future__ import annotations
 
@@ -14,12 +20,14 @@ _VAR_FLOOR = 1e-8
 
 
 class ModeDotaState(NamedTuple):
-    mu: torch.Tensor            # (K, M, D) mode means
-    var: torch.Tensor           # (K, M, D) diagonal variances
-    pi: torch.Tensor            # (K, M) mixture weights
-    c: torch.Tensor             # (K, M) soft counts
-    class_counts: torch.Tensor  # (K,)
-    t: int                      # samples seen
+    """One stream's mixture; S streams' carry a leading (S,) axis on each
+    tensor."""
+    mu: torch.Tensor            # ([S,] K, M, D) mode means
+    var: torch.Tensor           # ([S,] K, M, D) diagonal variances
+    pi: torch.Tensor            # ([S,] K, M) mixture weights
+    c: torch.Tensor             # ([S,] K, M) soft counts
+    class_counts: torch.Tensor  # ([S,] K)
+    t: int                      # samples seen (each stream)
 
 
 def resolve_sigma_init(sigma_cfg: float, input_dim: int) -> float:
@@ -70,20 +78,21 @@ def log_likelihood(x: torch.Tensor, mu: torch.Tensor,
         Σ_d (x−μ)²/v = Σ_d x²·(1/v) − 2·Σ_d x·(μ/v) + Σ_d μ²/v.
 
     Args:
-      x: (B, D); mu, var: (K, M, D).
+      x: ([S,] B, D); mu, var: ([S,] K, M, D).
     Returns:
-      (B, K, M).
+      ([S,] B, K, M).
     """
-    K, M, D = mu.shape
+    *lead, K, M, D = mu.shape
     x = x.to(torch.float32)
-    inv_v = (1.0 / var).reshape(K * M, D)
-    mu_over_v = (mu / var).reshape(K * M, D)
-    quad_const = torch.sum(mu * mu / var, dim=-1)                # (K, M)
-    log_det = torch.sum(torch.log(var), dim=-1)                  # (K, M)
-    x_sq_term = torch.matmul(x * x, inv_v.T)                     # (B, KM)
-    cross_term = torch.matmul(x, mu_over_v.T)
-    maha = (x_sq_term - 2.0 * cross_term).reshape(-1, K, M) + quad_const
-    return -0.5 * (log_det[None] + maha)
+    inv_v = (1.0 / var).reshape(*lead, K * M, D)
+    mu_over_v = (mu / var).reshape(*lead, K * M, D)
+    quad_const = torch.sum(mu * mu / var, dim=-1)                # ([S,] K, M)
+    log_det = torch.sum(torch.log(var), dim=-1)
+    x_sq_term = torch.matmul(x * x, inv_v.transpose(-1, -2))     # (.., B, KM)
+    cross_term = torch.matmul(x, mu_over_v.transpose(-1, -2))
+    maha = ((x_sq_term - 2.0 * cross_term).reshape(*x_sq_term.shape[:-1], K, M)
+            + quad_const[..., None, :, :])
+    return -0.5 * (log_det[..., None, :, :] + maha)
 
 
 def fit(state: ModeDotaState, x: torch.Tensor, gamma_class: torch.Tensor,
@@ -91,22 +100,23 @@ def fit(state: ModeDotaState, x: torch.Tensor, gamma_class: torch.Tensor,
     """One streaming EM step.
 
     Args:
-      x: (B, D) L2-normalised features; gamma_class: (B, K) zero-shot
-        class probabilities.
+      x: ([S,] B, D) L2-normalised features; gamma_class: ([S,] B, K)
+        zero-shot class probabilities.
     """
     x = x.to(torch.float32)
     gamma_class = gamma_class.to(torch.float32)
+    *lead, K, M, D = state.mu.shape
     # E-step
     log_lik = log_likelihood(x, state.mu, regularized_var(state, epsilon))
-    log_joint = torch.log(state.pi + 1e-10)[None] + log_lik      # (B, K, M)
-    log_r = log_joint - torch.logsumexp(log_joint, dim=2, keepdim=True)
-    gamma = gamma_class[:, :, None] * torch.exp(log_r)
+    log_joint = torch.log(state.pi + 1e-10)[..., None, :, :] + log_lik
+    log_r = log_joint - torch.logsumexp(log_joint, dim=-1, keepdim=True)
+    gamma = gamma_class[..., None] * torch.exp(log_r)            # (.., B, K, M)
     # sufficient statistics
-    sum_gamma = gamma.sum(dim=0)                                 # (K, M)
-    gamma_perm = gamma.permute(1, 2, 0)                          # (K, M, B)
-    weighted_x = torch.matmul(gamma_perm, x)                     # (K, M, D)
-    weighted_x_sq = torch.matmul(gamma_perm, x * x)
-    class_sum = gamma_class.sum(dim=0)
+    sum_gamma = gamma.sum(dim=-3)                                # ([S,] K, M)
+    gamma_perm = gamma.movedim(-3, -1).reshape(*lead, K * M, -1)  # (.., KM, B)
+    weighted_x = torch.matmul(gamma_perm, x).reshape(*lead, K, M, D)
+    weighted_x_sq = torch.matmul(gamma_perm, x * x).reshape(*lead, K, M, D)
+    class_sum = gamma_class.sum(dim=-2)
     # streaming M-step
     c_new = state.c + sum_gamma
     mu_new = (state.c[..., None] * state.mu + weighted_x) / (
@@ -116,14 +126,15 @@ def fit(state: ModeDotaState, x: torch.Tensor, gamma_class: torch.Tensor,
            + sum_gamma[..., None] * state.mu ** 2)
     var = torch.clamp((state.c[..., None] * state.var + wsq)
                       / (c_new[..., None] + 1e-10), min=_VAR_FLOOR)
-    pi_new = c_new / (c_new.sum(dim=1, keepdim=True) + 1e-10)
+    pi_new = c_new / (c_new.sum(dim=-1, keepdim=True) + 1e-10)
     return ModeDotaState(mu=mu_new, var=var, pi=pi_new, c=c_new,
                          class_counts=state.class_counts + class_sum,
-                         t=state.t + x.shape[0])
+                         t=state.t + x.shape[-2])
 
 
 def predict(state: ModeDotaState, x: torch.Tensor,
             epsilon: float) -> torch.Tensor:
-    """Class scores log P(x|k) = logsumexp_m[log π + log lik], (B, K)."""
+    """Class scores log P(x|k) = logsumexp_m[log π + log lik], ([S,] B, K)."""
     log_lik = log_likelihood(x, state.mu, regularized_var(state, epsilon))
-    return torch.logsumexp(torch.log(state.pi + 1e-10)[None] + log_lik, dim=2)
+    return torch.logsumexp(torch.log(state.pi + 1e-10)[..., None, :, :]
+                           + log_lik, dim=-1)

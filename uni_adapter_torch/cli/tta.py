@@ -6,6 +6,9 @@
     python -m uni_adapter_torch.cli.tta --vlm3d openshape|ulip ... \
         --precomputed-text-features BANK.npy
 
+    python -m uni_adapter_torch.cli.tta --corruption all \
+        --vmap-corruptions true ...
+
 `--vlm3d` picks the backbone: uni3d (Uni3D-L, the default), ulip
 (ULIP-2 Point-BERT, 512-d features) or openshape (PPTA, `vitg14` 1280-d
 or `vitl14` 768-d); the anchor bank must have the backbone's width.
@@ -16,6 +19,11 @@ float32) picks the kernels on the card; any other dtype raises at the
 first kernel, naming it.  Writes `results.json` (adapted top-1 per
 corruption) and `results_zs.json` (the frozen anchors' top-1 from the
 same forwards) under `<output-dir>/<name>/`, in the JAX CLI's shape.
+`--corruption all` runs the 15 corruption streams one after the other,
+each from a fresh state; with `--continual true` one adaptation
+trajectory runs through them all, and with `--vmap-corruptions true` the
+15 streams run together, one step of each at a time (the encoder takes
+their 2·15 clouds in one forward), truncated to the shortest.
 Without `--checkpoint-path` (ROADMAP M12) the weights are random from
 `--seed`, so the accuracies only show that the pipeline ran.
 """
@@ -84,10 +92,59 @@ def setup_logging(log_file: str) -> None:
         logger.addHandler(h)
 
 
+def finish(summary: dict) -> dict:
+    """Log the per-corruption top-1 and write results.json and
+    results_zs.json into the run's log_dir."""
+    logging.info("Summary of Results: %s", summary["acc1"])
+    logging.info("Average Top-1: %.3f",
+                 float(np.mean(list(summary["acc1"].values()))))
+    for name, key in (("results.json", "acc1"), ("results_zs.json",
+                                                  "zs_acc1")):
+        with open(os.path.join(summary["log_dir"], name), "w") as f:
+            json.dump(summary[key], f, indent=2)
+    return summary
+
+
+def run_all_vmapped(cfg, model, text, corruptions, log_dir,
+                    step_fn) -> dict:
+    """All corruption streams together (`engine.run_streams`), each
+    truncated to the shortest; the JAX CLI's `run_all_vmapped`."""
+    stacks = []
+    for corr in corruptions:
+        c = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, corruption=corr))
+        stacks.append(load_tta_dataset(c).as_arrays(
+            cfg.data.batch_size, npoints=cfg.data.npoints, seed=cfg.run.seed))
+    T = min(s[0].shape[0] for s in stacks)
+    pcs, rgbs, tgts = (np.stack([s[i][:T] for s in stacks])
+                       for i in range(3))
+    logging.info("vmapped sweep: %d streams × %d steps", len(stacks), T)
+    t0 = time.perf_counter()
+    res = engine.run_streams(cfg, model, text, pcs, rgbs, tgts,
+                             seed=cfg.run.seed, step_fn=step_fn)
+    per_stream = engine.summarize_streams(res["outputs"],
+                                          T * cfg.data.batch_size)
+    dt = time.perf_counter() - t0
+    summary = {
+        "acc1": {c: s["acc1"] for c, s in zip(corruptions, per_stream)},
+        "zs_acc1": {c: s["zs_acc1"] for c, s in zip(corruptions, per_stream)},
+        "step_ms": dict.fromkeys(corruptions, res["step_ms"]),
+        "finite": dict(zip(corruptions, res["finite"])),
+        "steps": dict.fromkeys(corruptions, [0, res["state"].step]),
+        "log_dir": log_dir}
+    total = pcs.shape[0] * pcs.shape[1] * pcs.shape[2]
+    logging.info("Zero-shot baseline (same run): %s", summary["zs_acc1"])
+    logging.info("Total time: %.1f ms (%.1f pc/s over %d samples)",
+                 dt * 1e3, total / dt, total)
+    return finish(summary)
+
+
 def main(argv=None) -> dict:
     """Run the evaluation; returns per-corruption `acc1`, `zs_acc1`,
-    `step_ms` (wall time of each step, device-synchronised), `finite`
-    (every final logit finite) and the run's `log_dir`."""
+    `step_ms` (wall time of each step, device-synchronised; under
+    `--vmap-corruptions` the sweep's steps, shared by all), `finite`
+    (every final logit finite), `steps` (the state's step counter at the
+    stream's start and end) and the run's `log_dir`."""
     cfg = parse_args(argv)
     missing = unported_paths(cfg)
     if not cfg.data.precomputed_text_features:
@@ -121,8 +178,14 @@ def main(argv=None) -> dict:
 
     corruptions = (list(CORRUPTIONS) if cfg.data.corruption == "all"
                    else [cfg.data.corruption])
+    if cfg.run.vmap_corruptions and len(corruptions) > 1:
+        return run_all_vmapped(cfg, model, text, corruptions, log_dir,
+                               step_fn)
     summary = {"acc1": {}, "zs_acc1": {}, "step_ms": {}, "finite": {},
-               "log_dir": log_dir}
+               "steps": {}, "log_dir": log_dir}
+    # --continual: one trajectory through the whole corruption sequence,
+    # the carry surviving the loop instead of a fresh state per corruption
+    carry_state = None
     for corr in corruptions:
         c = dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data, corruption=corr))
@@ -133,7 +196,7 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         res = engine.run_stream(c, model, text, zip(pcs, rgbs, targets),
                                 seed=c.run.seed, print_freq=c.run.print_freq,
-                                step_fn=step_fn)
+                                step_fn=step_fn, initial_state=carry_state)
         dt = time.perf_counter() - t0
         logging.info("Final Results: Acc@1 %.3f Acc@3 %.3f Acc@5 %.3f",
                      res["acc1"], res["acc3"], res["acc5"])
@@ -146,15 +209,11 @@ def main(argv=None) -> dict:
         summary["zs_acc1"][corr] = float(res["zs_acc1"])
         summary["step_ms"][corr] = res["step_ms"]
         summary["finite"][corr] = res["finite"]
-
-    logging.info("Summary of Results: %s", summary["acc1"])
-    logging.info("Average Top-1: %.3f",
-                 float(np.mean(list(summary["acc1"].values()))))
-    with open(os.path.join(log_dir, "results.json"), "w") as f:
-        json.dump(summary["acc1"], f, indent=2)
-    with open(os.path.join(log_dir, "results_zs.json"), "w") as f:
-        json.dump(summary["zs_acc1"], f, indent=2)
-    return summary
+        summary["steps"][corr] = [carry_state.step if carry_state else 0,
+                                  res["state"].step]
+        if cfg.run.continual:
+            carry_state = res["state"]
+    return finish(summary)
 
 
 def cli() -> int:

@@ -14,7 +14,8 @@ differences by design:
 
 Flags that select a path this package does not have yet parse as in the
 JAX package and raise `NotImplementedError` naming their ROADMAP item
-(`unported_paths`).
+(`unported_paths`).  The combinations of `--vmap-corruptions` and
+`--continual` that the JAX parser rejects raise its `ValueError` here.
 """
 from __future__ import annotations
 
@@ -174,14 +175,10 @@ def unported_paths(cfg: Config) -> list[str]:
             out.append("the prototype cache path (ROADMAP M7)")
     if m.checkpoint_path is not None:
         out.append("--checkpoint-path (ROADMAP M12)")
-    if r.vmap_corruptions:
-        out.append("--vmap-corruptions (ROADMAP M6)")
     if r.dist_mode != "replicated":
         out.append(f"--dist-mode {r.dist_mode} (ROADMAP M16)")
     if r.trunk_parallel != "none":
         out.append(f"--trunk-parallel {r.trunk_parallel} (ROADMAP M16)")
-    if r.continual:
-        out.append("--continual (ROADMAP M6)")
     return out
 
 
@@ -232,4 +229,22 @@ def parse_args(argv=None) -> Config:
     )
     if cfg.run.device not in ("cuda", "cpu"):
         raise ValueError(f"--device {cfg.run.device!r}: expected cuda or cpu")
+    # the JAX parser's checks of --vmap-corruptions and --continual
+    r = cfg.run
+    if r.trunk_parallel != "none" and r.vmap_corruptions:
+        raise ValueError("--trunk-parallel does not compose with "
+                         "--vmap-corruptions (vmap over the trunk's "
+                         "shard_map); run corruptions sequentially")
+    if r.continual:
+        if r.vmap_corruptions:
+            raise ValueError(
+                "--continual carries one adaptation trajectory through the "
+                "corruption SEQUENCE; --vmap-corruptions runs the streams "
+                "in parallel — the two are mutually exclusive")
+        if r.dist_mode not in ("replicated", "ep"):
+            raise ValueError(
+                "--continual requires --dist-mode replicated or ep from "
+                "the CLI (sharded/psum modes change the adaptation order "
+                "and re-build their mesh state per stream; chain them via "
+                "the library API if needed)")
     return cfg.resolve()

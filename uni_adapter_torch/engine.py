@@ -9,13 +9,22 @@ inside a step: the residual-learning gate `step > 0` is a host integer.
 The MODE-DOTA noise comes from a `torch.Generator` carried in the state;
 `step(..., noise=...)` takes it from the caller instead, which is how the
 tests feed both packages the same draw.
+
+S independent streams (the JAX package's `run_streams_vmapped`, the
+15-corruption sweep) run as one: the state from `init_states_streams`
+carries a leading stream axis and one generator a stream, and the same
+step takes (S, B, ...) batches.  `torch.func.vmap` cannot wrap the
+residual loop's `torch.autograd.grad` or the kernels' launches, so the
+axis is written out: the encoder takes one forward of the 2·S·B clouds,
+the adaptation batched products, the residual loop one gradient of the
+summed per-stream losses.
 """
 from __future__ import annotations
 
 import logging
 import time
 from dataclasses import dataclass
-from typing import Callable, Iterable, NamedTuple, Optional
+from typing import Callable, Iterable, NamedTuple, Optional, Union
 
 import torch
 
@@ -27,18 +36,19 @@ from uni_adapter_torch.utils.metrics import topk_correct
 
 @dataclass
 class EngineState:
-    """The adaptation carry."""
+    """The adaptation carry: one stream's, or S streams' with a leading
+    (S,) axis on every tensor and one generator a stream."""
     method_state: mode_dota.ModeDotaState
     res_state: Optional[residual.ResidualState]
     step: int
-    generator: torch.Generator
+    generator: Union[torch.Generator, tuple[torch.Generator, ...]]
 
 
 class StepOutput(NamedTuple):
-    final_logits: torch.Tensor        # (B, K)
-    clip_logits: torch.Tensor         # (B, K)
-    correct: torch.Tensor             # (3,) top-1/3/5 correct counts
-    zs_correct: torch.Tensor          # (3,) the frozen anchors' counts
+    final_logits: torch.Tensor        # ([S,] B, K)
+    clip_logits: torch.Tensor         # ([S,] B, K)
+    correct: torch.Tensor             # ([S,] 3) top-1/3/5 correct counts
+    zs_correct: torch.Tensor          # ([S,] 3) the frozen anchors' counts
 
 
 def encode_with(kind: str, model: Callable) -> Callable:
@@ -62,11 +72,11 @@ def encode_with(kind: str, model: Callable) -> Callable:
 def clip_logits_from(feat: torch.Tensor, clip_weights: torch.Tensor,
                      scale: float = 100.0):
     """logits = scale·f@W in fp32, plus entropy, probabilities and the
-    sample-0 prediction."""
+    sample-0 prediction; feat ([S,] B, D), clip_weights ([S,] D, K)."""
     logits = scale * torch.matmul(feat.to(torch.float32), clip_weights)
     ent = softmax_entropy(logits)
-    prob_map = torch.softmax(logits, dim=1)
-    pred = torch.argmax(logits[0])
+    prob_map = torch.softmax(logits, dim=-1)
+    pred = torch.argmax(logits[..., 0, :], dim=-1)
     return logits, ent, prob_map, pred
 
 
@@ -83,9 +93,41 @@ def init_state(cfg: Config, text_features_initial: torch.Tensor,
     return EngineState(ms, rs, 0, gen)
 
 
+def _stack(states):
+    """Single-stream NamedTuple states as one with a leading stream axis;
+    their int fields (sample and Adam counts) must agree."""
+    fields = []
+    for vals in zip(*states):
+        if isinstance(vals[0], torch.Tensor):
+            fields.append(torch.stack(vals))
+        elif len(set(vals)) == 1:
+            fields.append(vals[0])
+        else:
+            raise ValueError(f"streams disagree on a count: {vals}")
+    return type(states[0])(*fields)
+
+
+def init_states_streams(cfg: Config, text_features_initial: torch.Tensor,
+                        n_streams: int, seed: int = 42) -> EngineState:
+    """S streams' carry: the single-stream init stacked (MODE-DOTA's init
+    draws nothing), stream i's generator seeded seed + i (the JAX
+    package's `init_states_vmapped`, the reference's seed+rank)."""
+    states = [init_state(cfg, text_features_initial, seed + i)
+              for i in range(n_streams)]
+    return EngineState(
+        _stack([s.method_state for s in states]),
+        (_stack([s.res_state for s in states]) if cfg.dota.res_learning
+         else None),
+        0, tuple(s.generator for s in states))
+
+
 def make_step_fn(cfg: Config, model: Callable) -> Callable:
     """step(text_init, state, batch, noise=None) -> (state, StepOutput),
-    with batch = (pc (B, N, 3), rgb (B, N, 3), target (B,))."""
+    with batch = (pc ([S,] B, N, 3), rgb ([S,] B, N, 3), target ([S,] B))
+    and noise, if given, of pc's shape.  With a leading stream axis the
+    state is `init_states_streams`'s; the encoder then takes the clean
+    clouds of streams 0..S−1 and then their noisy ones as one 2·S·B
+    batch, and each stream's noise comes from its own generator."""
     encode = encode_with(cfg.model.vlm3d, model)
     dc = cfg.dota
     if not dc.use_mode_dota:
@@ -94,7 +136,7 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
     use_res = dc.res_learning
 
     def predict_input(f):
-        m = f.mean(dim=0, keepdim=True)
+        m = f.mean(dim=-2, keepdim=True)
         if dc.fp16_predict_input:
             m = m.to(torch.float16).to(torch.float32)
         return m
@@ -110,15 +152,22 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
         else:
             clip_weights = text_init.T
 
-        # clean and noise-augmented clouds in one 2B forward
-        B = pc.shape[0]
+        # clean and noise-augmented clouds of every stream in one forward
+        *lead, B, N, _ = pc.shape
         if noise is None:
-            noise = torch.randn(pc.shape, generator=state.generator,
-                                device=pc.device, dtype=pc.dtype)
+            def draw(gen, shape):
+                return torch.randn(shape, generator=gen, device=pc.device,
+                                   dtype=pc.dtype)
+            noise = (torch.stack([draw(g, pc.shape[1:])
+                                  for g in state.generator]) if lead
+                     else draw(state.generator, pc.shape))
         pc_aug = pc + dc.noise_std * noise
-        feat_both = encode(torch.cat([pc, pc_aug], dim=0),
-                           torch.cat([rgb, rgb], dim=0))
-        feat, feat_aug = feat_both[:B], feat_both[B:]
+        feat_both = encode(
+            torch.cat([pc.reshape(-1, N, 3), pc_aug.reshape(-1, N, 3)]),
+            torch.cat([rgb.reshape(-1, N, 3)] * 2))
+        n = feat_both.shape[0] // 2
+        feat = feat_both[:n].reshape(*lead, B, -1)
+        feat_aug = feat_both[n:].reshape(*lead, B, -1)
         clip_logits, _, prob_map, _ = clip_logits_from(
             feat, clip_weights, scale=cfg.model.logit_scale)
 
@@ -134,7 +183,8 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
                 res_state, text_init, ms, dc.residual_lr, dc.epsilon,
                 num_steps=dc.residual_steps)
 
-        w = fusion.dota_fusion_weight(dc.rho, dc.eta, ms.c.mean(), float(B))
+        w = fusion.dota_fusion_weight(dc.rho, dc.eta,
+                                      ms.c.mean(dim=(-2, -1)), float(B))
         final = fusion.fuse_mode_dota(
             clip_logits, dota_logits, w,
             fix_normalization=dc.fix_fusion_normalization)
@@ -161,12 +211,16 @@ def run_stream(cfg: Config, model: Callable,
                text_features_initial: torch.Tensor,
                batches: Iterable, seed: int = 42,
                print_freq: Optional[int] = None,
-               step_fn: Optional[Callable] = None) -> dict:
+               step_fn: Optional[Callable] = None,
+               initial_state: Optional[EngineState] = None) -> dict:
     """Run one stream step by step.
 
     Args:
       batches: iterable of (pc, rgb, target) numpy arrays or tensors;
         each is moved to the anchors' device.
+      initial_state: resume the adaptation trajectory from this carry
+        instead of a fresh init (continual TTA: streams chained without a
+        reset; the reference re-inits per corruption).
     Returns:
       dict with acc1/acc3/acc5 and zs_acc1 (percent), per-step wall times
       in ms (each step ends in a device synchronise), `finite` (every
@@ -174,7 +228,8 @@ def run_stream(cfg: Config, model: Callable,
     """
     dev = text_features_initial.device
     step = step_fn if step_fn is not None else make_step_fn(cfg, model)
-    state = init_state(cfg, text_features_initial, seed)
+    state = (initial_state if initial_state is not None
+             else init_state(cfg, text_features_initial, seed))
     totals = torch.zeros(3, device=dev)
     zs_totals = torch.zeros(3, device=dev)
     finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -198,6 +253,53 @@ def run_stream(cfg: Config, model: Callable,
             "zs_acc1": 100.0 * float(zs_totals[0]) / max(n, 1),
             "n": n, "step_ms": step_ms, "finite": bool(finite),
             "state": state}
+
+
+def run_streams(cfg: Config, model: Callable,
+                text_features_initial: torch.Tensor, pcs, rgbs, targets,
+                seed: int = 42, step_fn: Optional[Callable] = None) -> dict:
+    """Run S independent streams together, step by step (the JAX package's
+    `run_streams_vmapped`): each step one forward of the 2·S·B clouds.
+
+    Args:
+      pcs, rgbs: (S, T, B, N, 3); targets: (S, T, B); numpy arrays or
+        tensors, each step's slice moved to the anchors' device.
+    Returns:
+      dict with the final `state` (leading S axis), the per-step
+      `outputs` (StepOutputs with a leading S axis; `summarize_streams`
+      reads them), per-step wall times `step_ms` (each step ends in a
+      device synchronise) and `finite`, per stream: every final logit was
+      finite.
+    """
+    dev = text_features_initial.device
+    step = step_fn if step_fn is not None else make_step_fn(cfg, model)
+    state = init_states_streams(cfg, text_features_initial, len(pcs), seed)
+    outputs, step_ms = [], []
+    finite = torch.ones(len(pcs), dtype=torch.bool, device=dev)
+    for t in range(pcs.shape[1]):
+        batch = tuple(torch.as_tensor(a[:, t]).to(dev).contiguous()
+                      for a in (pcs, rgbs, targets))
+        t0 = time.perf_counter()
+        state, out = step(text_features_initial, state, batch)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outputs.append(out)
+        finite &= torch.isfinite(out.final_logits).flatten(1).all(dim=1)
+    return {"state": state, "outputs": outputs, "step_ms": step_ms,
+            "finite": finite.tolist()}
+
+
+def summarize_streams(outputs: list[StepOutput],
+                      n_per_stream: int) -> list[dict]:
+    """Per-stream percent accuracies from `run_streams`'s outputs (the JAX
+    package's `summarize_vmapped`)."""
+    correct = torch.stack([o.correct for o in outputs]).sum(0).tolist()
+    zs = torch.stack([o.zs_correct for o in outputs]).sum(0).tolist()
+    return [{"acc1": 100.0 * c[0] / n_per_stream,
+             "acc3": 100.0 * c[1] / n_per_stream,
+             "acc5": 100.0 * c[2] / n_per_stream,
+             "zs_acc1": 100.0 * z[0] / n_per_stream}
+            for c, z in zip(correct, zs)]
 
 
 def summarize(outputs: list[StepOutput], n_samples: int) -> dict:

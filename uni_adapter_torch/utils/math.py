@@ -5,6 +5,6 @@ import torch
 
 
 def softmax_entropy(x: torch.Tensor) -> torch.Tensor:
-    """Shannon entropy of softmax(x) rows, in nats: (B, K) -> (B,)."""
-    probs = torch.softmax(x, dim=1)
-    return -(probs * torch.log(probs + 1e-10)).sum(dim=1)
+    """Shannon entropy of softmax(x) rows, in nats: (..., K) -> (...,)."""
+    probs = torch.softmax(x, dim=-1)
+    return -(probs * torch.log(probs + 1e-10)).sum(dim=-1)

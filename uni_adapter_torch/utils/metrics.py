@@ -11,15 +11,15 @@ def topk_correct(logits: torch.Tensor, target: torch.Tensor,
     """Per-k correct counts for one batch.
 
     Args:
-      logits: (B, K); target: (B,) int.
+      logits: ([S,] B, K); target: ([S,] B) int.
     Returns:
-      (len(topk),) float32 — samples whose target is within the top-k.
+      ([S,] len(topk)) float32 — samples whose target is within the top-k.
       Equal logits rank by lower index, as `jax.lax.top_k` does (a stable
       descending sort; `torch.topk` promises no tie order).
     """
     maxk = min(max(topk), logits.shape[-1])
     pred = torch.sort(logits, dim=-1, descending=True,
-                      stable=True).indices[:, :maxk]
-    correct = pred == target.to(pred.device)[:, None].long()
-    return torch.stack([correct[:, :min(k, maxk)].any(dim=1).sum()
-                        .to(torch.float32) for k in topk])
+                      stable=True).indices[..., :maxk]
+    correct = pred == target.to(pred.device)[..., None].long()
+    return torch.stack([correct[..., :min(k, maxk)].any(dim=-1).sum(dim=-1)
+                        .to(torch.float32) for k in topk], dim=-1)
