@@ -79,20 +79,35 @@ exits non-zero before the result line:
      ScanObjectNN stream at `--npoints 8192` with a seeded (15, 512) bank
      (the same two kernels, never `fps` or `knn`); then the three
      1024-point paths with `--compute-dtype float32` (the fp32 kernels,
-     no bf16 attention kernel), and `--compute-dtype float16` raising;
-  6. the three MODE-DOTA headline sweeps of bench.py (Uni3D-L, ULIP-2,
-     OpenShape-G at published widths and depth, bf16) through
+     no bf16 attention kernel); then Uni3D-L on the prototype cache
+     path (`--dota-use-mode-dota false`: one forward of the batch-1
+     cloud a step) on ModelNet40 (the dense graph, the CG) and on
+     ShapeNetCore-C (55 classes, the explicit solve), the CG's
+     iterations printed; and `--compute-dtype float16` raising;
+  6. bench.py's eight configurations as 15-corruption sweeps (Uni3D-L,
+     ULIP-2, OpenShape-G at published widths and depth, bf16) through
      `cli.tta.main --corruption all --vmap-corruptions true` on 15
-     synthetic 16-cloud streams, one a corruption: the 15 streams' 2·15
-     clouds through the encoder in one forward a step; every kernel of
-     the path launched at least as often as 16 batch-1 steps launch it,
-     none of the others; 15 keys in the result files; finite logits; ms
-     a step and pc/s printed beside the batch-1 path's of phase 5.  Then
-     `engine.run_streams` against the same 3 streams run one by one
-     (`engine.run_stream`), the same noise to both, Uni3D at width 1024
-     and depth 2 in fp32, with residual learning off (4 steps) and on (2
-     steps); and `--continual true` (Uni3D-L) through the 15 streams,
-     each corruption's step counter starting where the one before ended;
+     synthetic 16-cloud streams, one a corruption: the three MODE-DOTA
+     headline sweeps (the 15 streams' 2·15 clouds through the encoder in
+     one forward a step), the Uni3D-L cache sweep (15 clouds a step),
+     and at Objaverse-LVIS's 1156 classes (a seeded bank, 1024 points)
+     the cache at shot capacity 8 (the prototype graph) and MODE-DOTA at
+     each residual precision tier; every kernel of the path launched at
+     least as often as 16 batch-1 steps launch it, none of the others;
+     15 keys in the result files; finite logits; ms a step and pc/s
+     printed (beside the batch-1 path's of phase 5 where the stream is
+     the same), and the cache's CG iterations.  Then `engine.run_streams`
+     against the same 3 streams run one by one (`engine.run_stream`),
+     Uni3D at width 1024 and depth 2 in fp32: MODE-DOTA (the same noise
+     to both) with residual learning off (4 steps) and on (2 steps), and
+     the cache (8 steps, each stream's CG iterations equal to its own
+     run's); the cache's functions on the card against the CPU on a
+     seeded feature sequence at K 40 / C 2 (dense) and K 1156 / C 8
+     (prototype), with three planted faults that must fail the
+     tolerance; the 'default' tier's product checked and the three
+     tiers' products timed; and `--continual true` (Uni3D-L) through the
+     15 streams, each corruption's step counter starting where the one
+     before ended;
   7. the attention-map extraction path of each backbone at full width and
      depth through `uni_adapter_torch.cli.extract_attention` on the
      synthetic sphere (the whole `main` where matplotlib imports, its
@@ -231,11 +246,12 @@ def device_ms(fn, calls: int = 20, attempts: int = 3) -> float:
 
 
 def device_ms_by_launch(fn, n_launch: int, calls: int = 20,
-                        attempts: int = 3) -> list:
+                        attempts: int = 10) -> list:
     """(name, device ms) of each of the `n_launch` kernels that one call of
     fn() launches, in launch order: every n_launch-th kernel of a trace of
     `calls` calls, averaged.  A trace that does not hold n_launch kernels a
-    call is taken again, up to `attempts` times."""
+    call is taken again, up to `attempts` times (on an H100, three traces
+    in a row once held 19 to 50 of 60 kernels)."""
     for _ in range(attempts):
         kern = trace_kernels(fn, calls)
         if len(kern) == n_launch * calls:
@@ -477,7 +493,8 @@ KNN_GATHER_SHAPES = {"uni3d_lvis10k": (2, 10000, 512, 64, 6),
 #: ULIP-2's 1024 points), one point, N = 33 (not a multiple of 32) with
 #: k = N and k = 1, k = N at 64 and 128 (knn_gather's most) and at 1024
 #: (knn.cu alone), knn.cu's limit and one past it (a second tile), both
-#: sides of a third tile, and k = 128 on three tiles.
+#: sides of a third tile, k = 128 on three tiles, and the cache paths'
+#: batches (one cloud; 15 streams' one each).
 KNN_CONTRACT_SHAPES = ((2, 10000, 512, 64, 6), (2, 8192, 512, 32, 3),
                        (2, 1024, 512, 64, 6), (2, 1024, 512, 32, 3),
                        (1, 1, 1, 1, 3), (2, 33, 33, 33, 2),
@@ -485,7 +502,8 @@ KNN_CONTRACT_SHAPES = ((2, 10000, 512, 64, 6), (2, 8192, 512, 32, 3),
                        (1, 128, 128, 128, 8), (1, 1024, 64, 1024, 0),
                        (2, 2048, 512, 64, 6), (2, 2049, 512, 64, 0),
                        (2, 4096, 512, 64, 3), (2, 4097, 512, 64, 3),
-                       (1, 4097, 256, 128, 8))
+                       (1, 4097, 256, 128, 8), (1, 1024, 512, 64, 6),
+                       (15, 1024, 512, 64, 6))
 #: Sizes of the hard clouds (`knn_hard_clouds`): one tile; two tiles
 #: (every point's copy 1500 indices later); the LVIS path's five.
 KNN_HARD_POINTS = (1024, 3000, 10000)
@@ -668,14 +686,15 @@ FPS_GRID_SHAPES = {"uni3d_lvis10k": (2, 10000, 512),
 #: 15-stream × 2 batch of ROADMAP M6a at 1024 and 10,000 points (240
 #: blocks: many clusters at once); and where static and dynamic shared
 #: memory together first pass 48 KB (fps.cu from 3065 points, fps_grid
-#: at 24 points a thread: 23,553 to 24,576), which needs the opt-in.
+#: at 24 points a thread: 23,553 to 24,576), which needs the opt-in; and
+#: the cache paths' batches, one cloud and 15 streams' one each.
 FPS_CONTRACT_SHAPES = ((1, 1, 1), (2, 31, 31), (2, 32, 16), (2, 33, 33),
                        (2, 1024, 512), (2, 1025, 512), (2, 4096, 512),
                        (2, 4097, 512), (2, 8192, 512), (2, 8193, 512),
                        (2, 10000, 512), (1, 20000, 512), (30, 1024, 512),
                        (30, 10000, 512), (2, 3064, 512), (2, 3065, 512),
                        (2, 3072, 512), (1, 23552, 512), (1, 23553, 512),
-                       (1, 24576, 512))
+                       (1, 24576, 512), (1, 1024, 512), (15, 1024, 512))
 #: Launches of each kernel on each contract case: fps_grid's exchange has
 #: no barrier, so a race would show as one launch that differs.
 FPS_REPEATS = 5
@@ -1710,10 +1729,12 @@ def block_launch_times(torch, gen, kernel, args, H, peak) -> dict:
 
 #: The block's shapes beyond the main path's checks, (B, N, D, H): one
 #: token and one head, 65 tokens at ULIP-2's width (a ragged 64-row tile,
-#: 6 heads), Uni3D-L's main path, and the 15-stream x 2 fused batch
-#: (15,390 rows, several waves of tiles).
+#: 6 heads), Uni3D-L's main path, the 15-stream x 2 fused batch (15,390
+#: rows, several waves of tiles), and the cache paths' one cloud a step
+#: and 15 streams' one cloud each.
 BLOCK_SHAPES = ((1, 1, 64, 1), (1, 65, 384, 6), (2, 513, 1024, 16),
-                (30, 513, 1024, 16))
+                (30, 513, 1024, 16), (1, 513, 1024, 16),
+                (15, 513, 1024, 16))
 #: The fused batch holds 15 times the outputs the bf16 tolerance was
 #: calibrated on (the main path's).  On other draws than these, one output
 #: of 15.76 M sat at 1.08x it on an H100, for the WMMA GEMM of earlier
@@ -1747,8 +1768,13 @@ def check_block_shapes(torch, gen) -> dict:
     LayerNorm γ ≈ BLOCK_LN_GAMMA), against the plain version: fp32 within
     rtol F32_RTOL and atol F32_ATOL_RMS of the RMS, bf16 within rtol
     BLOCK_RTOL and atol BLOCK_ATOL_RMS.  Past two batches, each 2-batch
-    slice of the output must also equal bit for bit the kernel's run on
-    that slice alone (the same rows through a grid of one wave).  Returns
+    slice of the output (for an odd B the last overlaps the one before)
+    must also equal bit for bit the kernel's run on that slice alone (the
+    same rows through a grid of one wave).  Slices of one batch are not
+    compared: the attention step picks its block shape from the grid
+    (`attention_core.cuh::launch_attention`), and Uni3D-L's one cloud
+    takes 80-row blocks with 3 key ranges where two or more clouds take
+    64-row blocks with one, so its sums run in another order.  Returns
     the largest max abs err per entry."""
     from uni_adapter_torch.ops import attention
 
@@ -1772,7 +1798,7 @@ def check_block_shapes(torch, gen) -> dict:
             if not torch.isfinite(got).all() or r > 1:
                 fail(f"{name} {(B, N, D, H)}: outside the tolerance")
             if B > 2:
-                for i in range(0, B, 2):
+                for i in sorted({min(i, B - 2) for i in range(0, B, 2)}):
                     alone = kernel(args[0][i:i + 2].contiguous(), *args[1:],
                                    num_heads=H)
                     if not torch.equal(got[i:i + 2], alone):
@@ -2019,6 +2045,9 @@ BF16_ATTENTION = ("eva_attn_block", "eva_attention", "attention_heads")
 FP32_ATTENTION = ("eva_attn_block_fp32", "eva_attention_fp32",
                   "attention_fp32")
 FP32_KERNELS = FP32_ATTENTION + ("attn_f32_tc",)
+#: The kernels a 1024-point bf16 Uni3D path must not run.
+UNI3D_IDLE = ("fps_grid", "knn_gather", "ballquery", "eva_attention",
+              "attention_heads") + FP32_KERNELS
 
 
 def check_features_fp32(torch, gen) -> None:
@@ -2118,7 +2147,11 @@ def launch_counters() -> dict:
 #: ModelNet40 paths, the next two the clouds above the register kernels'
 #: limits (fps.cu: 4096 points, knn.cu: 2048), the last three the
 #: 1024-point paths again with `--compute-dtype float32`: the fp32
-#: kernels, and no bf16 attention kernel.
+#: kernels, and no bf16 attention kernel; then Uni3D-L on the prototype
+#: cache path (`--dota-use-mode-dota false`: one forward of the batch-1
+#: cloud a step), on ModelNet40 (the dense graph, K·C = 1200, the CG) and
+#: on ShapeNetCore-C (55 classes, the shipped bank, the explicit solve of
+#: the dataset's table).
 PATHS = {
     "uni3d": ([], (1024, 40), "large",
               {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
@@ -2157,6 +2190,14 @@ PATHS = {
                    "attn_f32_tc": 12},
                   ("fps_grid", "knn_gather", "eva_attn_block_fp32",
                    "attention_fp32") + BF16_ATTENTION),
+    "uni3d_cache": (["--dota-use-mode-dota", "false"], (1024, 40), "large",
+                    {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
+                    UNI3D_IDLE),
+    "uni3d_cache_shapenet": (["--dota-use-mode-dota", "false",
+                              "--dataset-name", "shapenetcore"],
+                             (1024, 55), "large",
+                             {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
+                             UNI3D_IDLE),
 }
 
 
@@ -2245,6 +2286,9 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
     print(f"main path {kind} launches: {launches}")
     print(f"main path {kind} final logits finite: "
           f"{summary['finite']['uniform']}")
+    if summary["cg_iters"]["uniform"] is not None:
+        print(f"main path {kind} CG iterations a step: "
+              f"{summary['cg_iters']['uniform']}")
     if len(step_ms) != n_clouds:
         fail(f"{kind}: {len(step_ms)} steps, expected {n_clouds}")
     check_launches(f"the {kind} main path", launches,
@@ -2258,29 +2302,55 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
     return launches, steady
 
 
-#: The three MODE-DOTA headline sweeps of bench.py (its metric names,
-#: bench.py's `_metric_name`; protocol: 15 corruption streams x 16
-#: steps, batch 1 a stream, 1024 points, K = 40): the 1024-point bf16
-#: main paths of PATHS, run with `--corruption all --vmap-corruptions
-#: true`.
-SWEEPS = {"uni3d": "mode_dota_tta_throughput_uni3d_large_15corruption_sweep",
-          "ulip": "mode_dota_tta_throughput_ulip_15corruption_sweep",
-          "openshape":
-              "mode_dota_tta_throughput_openshape_15corruption_sweep"}
+#: bench.py's eight configurations as 15-corruption sweeps (its metric
+#: names, `_metric_name` and its LVIS keys; protocol: 15 corruption
+#: streams x 16 steps, batch 1 a stream, 1024 points): the metric; the
+#: PATHS entry whose flags, kernels and launches a step the sweep shares;
+#: flags added to it; and, where the stream is not the path's, its
+#: (points, classes) and bank.  First the three MODE-DOTA headline
+#: sweeps and the cache's (K = 40), then the Objaverse-LVIS ones (K =
+#: 1156, a seeded (1156, 1024) bank): the cache at shot capacity 8, as
+#: bench.py sets it above 256 classes (K·C = 9248: the prototype graph),
+#: and MODE-DOTA at each residual precision tier.
+LVIS_SWEEP = ["--dataset-name", "objaverse_lvis", "--npoints", "1024"]
+SWEEPS = {
+    "uni3d": ("mode_dota_tta_throughput_uni3d_large_15corruption_sweep",
+              "uni3d", [], None),
+    "ulip": ("mode_dota_tta_throughput_ulip_15corruption_sweep", "ulip", [],
+             None),
+    "openshape": ("mode_dota_tta_throughput_openshape_15corruption_sweep",
+                  "openshape", [], None),
+    "uni3d_cache": ("cache_tta_throughput_uni3d_large_15corruption_sweep",
+                    "uni3d_cache", [], None),
+    "uni3d_cache_lvis1156": (
+        "cache_tta_throughput_uni3d_large_lvis1156", "uni3d_cache",
+        LVIS_SWEEP + ["--cache-shot-capacity", "8"], ((1024, 1156),
+                                                       (1156, 1024))),
+    **{f"uni3d_lvis1156_res_{tier}": (
+        f"mode_dota_tta_throughput_uni3d_large_lvis1156_res_{tier}", "uni3d",
+        LVIS_SWEEP + ["--dota-residual-precision", tier],
+        ((1024, 1156), (1156, 1024))) for tier in ("highest", "high",
+                                                    "default")},
+}
 
 
-def run_sweep(tmp: Path, kind: str, batch1_ms: float, card: str,
+def run_sweep(tmp: Path, name: str, batch1_ms, card: str,
               n_steps: int = 16) -> tuple:
     """A 15-corruption sweep through `cli.tta.main --vmap-corruptions
     true` on 15 synthetic streams of n_steps clouds: every kernel of the
     path launched at least as often as the batch-1 path launches it in
     n_steps steps, none of the others; 15 keys in both result files,
-    finite logits.  Prints its ms a step and pc/s beside the batch-1
-    path's of this call.  Returns its launches and numbers."""
+    finite logits.  Prints its ms a step and pc/s (beside the batch-1
+    path's of this call, where that runs the same stream: `batch1_ms`)
+    and, on the cache path, the CG's iterations a step.  Returns its
+    launches and numbers."""
     from uni_adapter_torch.cli import tta
     from uni_adapter_torch.config import CORRUPTIONS
 
-    flags, (n_points, n_classes), bank, per_step, idle = PATHS[kind]
+    metric, path, extra, stream = SWEEPS[name]
+    flags, (n_points, n_classes), bank, per_step, idle = PATHS[path]
+    if stream is not None:
+        (n_points, n_classes), bank = stream
     root = tmp / f"sweep_{n_points}x{n_classes}"
     if not root.exists():
         write_stream(root, n_points, n_classes, n_steps, CORRUPTIONS)
@@ -2288,10 +2358,10 @@ def run_sweep(tmp: Path, kind: str, batch1_ms: float, card: str,
     summary = tta.main(["--root", str(root), "--corruption", "all",
                         "--vmap-corruptions", "true",
                         "--precomputed-text-features", bank_arg(tmp, bank),
-                        *flags, "--device", "cuda", "--output-dir",
-                        str(tmp / "out"), "--name", f"smoke-sweep-{kind}"])
+                        *flags, *extra, "--device", "cuda", "--output-dir",
+                        str(tmp / "out"), "--name", f"smoke-sweep-{name}"])
     launches = {n: c.launches for n, c in counters.items()}
-    what = f"the {kind} sweep"
+    what = f"the {name} sweep"
     step_ms = summary["step_ms"][CORRUPTIONS[0]]
     if len(step_ms) != n_steps:
         fail(f"{what}: {len(step_ms)} steps, expected {n_steps}")
@@ -2304,18 +2374,27 @@ def run_sweep(tmp: Path, kind: str, batch1_ms: float, card: str,
         if list(res) != list(CORRUPTIONS):
             fail(f"{what} {f}: keys {list(res)}")
     steady = step_ms[1:]
-    out = {"metric": SWEEPS[kind], "streams": len(CORRUPTIONS),
-           "steps": n_steps, "first_step_ms": step_ms[0],
+    iters = summary["cg_iters"][CORRUPTIONS[0]]
+    out = {"metric": metric, "streams": len(CORRUPTIONS), "steps": n_steps,
+           "first_step_ms": step_ms[0],
            "median_ms": statistics.median(steady),
            "pc_s": len(CORRUPTIONS) * len(steady) / sum(steady) * 1e3,
-           "batch1_median_ms": batch1_ms, "batch1_pc_s": 1e3 / batch1_ms,
-           "card": card}
-    print(f"sweep {kind} ({out['metric']}'s protocol, {card}): "
+           "batch1_median_ms": batch1_ms,
+           "batch1_pc_s": None if batch1_ms is None else 1e3 / batch1_ms,
+           "card": card,
+           "cg_iters": summary["cg_iters"] if iters is not None else None}
+    beside = ("" if batch1_ms is None else
+              f"; the batch-1 path of this call {batch1_ms:.2f} ms/step, "
+              f"{1e3 / batch1_ms:.2f} pc/s")
+    print(f"sweep {name} ({metric}'s protocol, {card}): "
           f"{len(CORRUPTIONS)} streams x {n_steps} steps, first step "
           f"{step_ms[0]:.1f} ms, then median {out['median_ms']:.2f} ms/step, "
-          f"{out['pc_s']:.1f} pc/s over the steady steps; the batch-1 path "
-          f"of this call {batch1_ms:.2f} ms/step, {1e3 / batch1_ms:.2f} pc/s")
-    print(f"sweep {kind} launches: {launches}")
+          f"{out['pc_s']:.1f} pc/s over the steady steps{beside}")
+    if iters is not None:
+        per_step_iters = list(zip(*summary["cg_iters"].values()))
+        print(f"sweep {name} CG iterations a step (min-max over the 15 "
+              f"streams): {[(min(i), max(i)) for i in per_step_iters]}")
+    print(f"sweep {name} launches: {launches}")
     return launches, out
 
 
@@ -2395,6 +2474,318 @@ def check_streams_equal_sequential(torch) -> None:
                      f"90th percentile {p90}")
             line += f"; residuals |d| median {med:.3g}, 90th pct {p90:.3g}"
         print(line)
+
+
+#: The card-vs-CPU check of the cache's functions: (classes K, shot
+#: capacity C, steps, classes the features come from).  K = 40 at C = 2:
+#: the dense graph (80 nodes), every class of 12 filled and merged into;
+#: K = 1156 at C = 8: the prototype graph (K·C = 9248 > 4096), 12 classes
+#: of about 10 samples each.
+CACHE_CASES = ((40, 2, 120, 12), (1156, 8, 120, 12))
+#: The card's cache against the CPU's: both compute in fp32 (TF32 off) and
+#: differ by summation order, which the CG carries into its solution
+#: scaled by the condition number of L + 2λI (≤ (2 + 2λ) / 2λ ≈ 11).
+#: Tolerances (max abs) on the final state's features, confidences and
+#: probabilities, on every step's refined labels, and (relative to the
+#: largest) on every step's fused logits; counts, slots and insert/merge
+#: decisions must be identical.
+CACHE_TOL = {"feats": 1e-5, "conf": 1e-5, "probs": 1e-5, "refined": 1e-5,
+             "logits": 1e-5}
+
+
+def cache_sequence(K: int, n_steps: int, n_cls: int, D: int = 1024):
+    """A seeded (K, D) anchor bank and n_steps unit features, each 0.5·g
+    (a direction that all share) plus 0.6·(w·a + (1 − w)·b) (w in
+    0.5-0.7, plus noise), a mix of two anchors drawn from n_cls of the
+    classes: the predictions stay on those classes (which fill and take
+    merges), the probabilities are not one-hot, and g connects the
+    graph's nodes (without it the prototype graph's nodes are isolated
+    and its CG takes one iteration)."""
+    import numpy as np
+
+    rng = np.random.default_rng(K)
+    text = rng.standard_normal((K, D)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=1, keepdims=True)
+    classes = rng.choice(K, n_cls, replace=False)
+    pairs = rng.choice(classes, (n_steps, 2))
+    w = rng.uniform(0.5, 0.7, (n_steps, 1)).astype(np.float32)
+    g = rng.standard_normal(D).astype(np.float32)
+    feats = (0.5 * g / np.linalg.norm(g)
+             + 0.6 * (w * text[pairs[:, 0]] + (1 - w) * text[pairs[:, 1]])
+             + 0.01 * rng.standard_normal((n_steps, D)).astype(np.float32))
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    return text, feats[:, None, :]
+
+
+def run_cache_sequence(torch, device: str, text, feats, C: int) -> dict:
+    """The cache step's functions on `device`, as the engine calls them,
+    one feature a step: clip logits, `update_cache`, `compute_cache_logits`
+    (graph 'auto', CG), `fuse_cache`; and, each step, the refined labels
+    of the graph's valid nodes (`online_value_refinement_new`, which
+    `compute_cache_logits` reads only through their argmax).  Returns the
+    insert/merge decisions, CG iterations, fused logits and refined labels
+    of every step, and the final state."""
+    from uni_adapter_torch.adapt import cache, fusion
+    from uni_adapter_torch.config import CacheConfig
+    from uni_adapter_torch.engine import clip_logits_from
+    from uni_adapter_torch.utils import math as umath
+
+    cc = CacheConfig()
+    K, D = text.shape
+    w = torch.as_tensor(text, device=device).T
+    state = cache.init(K, C, D, device=device)
+    out = {"inserted": [], "iters": [], "logits": [], "refined": []}
+    for f in torch.as_tensor(feats, device=device):
+        clip, ent, prob, pred = clip_logits_from(f, w, 100.0)
+        state, ins = cache.update_cache(
+            state, pred, f, umath.normalized_entropy(ent[..., 0], K), prob,
+            w, beta=cc.beta, logit_scale=100.0)
+        cl, it = cache.compute_cache_logits(f, state, cc.threshold,
+                                            cc.lambda_reg, graph_mode="auto")
+        nodes, probs, valid = cache.graph_nodes(state, "auto")
+        refined, _ = umath.online_value_refinement_new(
+            nodes, probs, valid, cc.threshold, cc.lambda_reg, cc.cg_max_iter)
+        for key, v in (("inserted", ins), ("iters", it), ("refined",
+                                                          refined[valid]),
+                       ("logits", fusion.fuse_cache(clip, cl, 100.0))):
+            out[key].append(v.cpu())
+    out = {k: (v if k == "refined" else torch.stack(v))
+           for k, v in out.items()}
+    out["state"] = state._replace(**{n: t.cpu() for n, t in
+                                     state._asdict().items()})
+    return out
+
+
+def cg_per_column_freeze(A, b, max_iter: int = 100, tol: float = 1e-5):
+    """A planted fault: the CG with each column stopped on its own (the
+    reference stops a system only when all its columns have converged)."""
+    import torch
+
+    x = torch.zeros_like(b)
+    r = b.clone()
+    p = r
+    rz = (r * r).sum(-2)
+    live = torch.ones_like(rz, dtype=torch.bool)
+    for _ in range(max_iter):
+        Ap = torch.matmul(A, p)
+        alpha = (rz / ((p * Ap).sum(-2) + 1e-8)).unsqueeze(-2)
+        keep = live.unsqueeze(-2)
+        x = torch.where(keep, x + alpha * p, x)
+        r_new = r - alpha * Ap
+        rz_new = (r_new * r_new).sum(-2)
+        p = torch.where(keep, r_new + (rz_new / (rz + 1e-8)).unsqueeze(-2)
+                        * p, p)
+        r = torch.where(keep, r_new, r)
+        rz = torch.where(live, rz_new, rz)
+        live = live & ~(rz_new < tol)
+        if not bool(live.any()):
+            break
+    return x, torch.zeros(b.shape[:-2], dtype=torch.int32, device=b.device)
+
+
+def cache_errors(got: dict, want: dict) -> tuple:
+    """Each CACHE_TOL quantity's error of `got` against `want`, as a
+    multiple of its tolerance, and whether the decisions, counts and
+    slots are identical."""
+    import torch
+
+    errs = {n: (getattr(got["state"], n) - getattr(want["state"], n))
+            .abs().max().item() for n in ("feats", "conf", "probs")}
+    errs["refined"] = max((g - w).abs().max().item() if g.shape == w.shape
+                          else float("inf")
+                          for g, w in zip(got["refined"], want["refined"]))
+    errs["logits"] = ((got["logits"] - want["logits"]).abs().max()
+                      / want["logits"].abs().max()).item()
+    same = torch.equal(got["inserted"], want["inserted"]) and all(
+        torch.equal(getattr(got["state"], n), getattr(want["state"], n))
+        for n in ("counts", "valid"))
+    return {n: e / CACHE_TOL[n] for n, e in errs.items()}, same
+
+
+def check_cache_card_vs_cpu(torch) -> None:
+    """The port's cache functions on the card against the same functions on
+    the CPU, fed one seeded sequence of unit features (CACHE_CASES):
+    identical insert/merge decisions, counts and occupied slots (so
+    identical merged slots), the CG's iterations printed side by side,
+    and the state, every step's refined labels and fused logits within
+    CACHE_TOL.  Three planted faults on the card side must
+    each fail it: TF32 on for the products, a per-column CG stop, a merge
+    into the wrong slot."""
+    from uni_adapter_torch.adapt import cache
+    from uni_adapter_torch.utils import math as umath
+
+    def tf32(run):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return run()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def patched(module, name, fn):
+        def wrap(run):
+            saved = getattr(module, name)
+            setattr(module, name, fn)
+            try:
+                return run()
+            finally:
+                setattr(module, name, saved)
+        return wrap
+
+    faults = {
+        "TF32 products": tf32,
+        "per-column CG stop": patched(umath, "conjugate_gradient",
+                                      cg_per_column_freeze),
+        "merge into the wrong slot": patched(
+            cache, "merge_slot",
+            lambda sims: (torch.argmax(sims, -1) + 1) % sims.shape[-1]),
+    }
+    for K, C, n_steps, n_cls in CACHE_CASES:
+        text, feats = cache_sequence(K, n_steps, n_cls)
+        t0 = time.perf_counter()
+        want = run_cache_sequence(torch, "cpu", text, feats, C)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = run_cache_sequence(torch, "cuda", text, feats, C)
+        card_s = time.perf_counter() - t0
+        ratios, same = cache_errors(got, want)
+        merges = int((~want["inserted"]).sum())
+        print(f"cache card vs cpu, K {K}, C {C}, {n_steps} steps "
+              f"({merges} merges, {int(want['state'].valid.sum())} slots "
+              f"filled; card {card_s:.1f} s, cpu {cpu_s:.1f} s): "
+              f"decisions, counts and slots identical: {same}; "
+              f"err/tolerance {ratios}")
+        print(f"cache card vs cpu, K {K}: CG iterations card "
+              f"{got['iters'].tolist()}")
+        print(f"cache card vs cpu, K {K}: CG iterations cpu  "
+              f"{want['iters'].tolist()}")
+        if not same or max(ratios.values()) > 1 or merges == 0:
+            fail(f"cache on the card disagrees with the CPU at K {K}: "
+                 f"identical {same}, err/tolerance {ratios}, {merges} "
+                 f"merges")
+        for what, plant in faults.items():
+            bad = plant(lambda: run_cache_sequence(torch, "cuda", text, feats,
+                                                   C))
+            r, same = cache_errors(bad, want)
+            print(f"cache planted fault at K {K}, {what}: identical {same}, "
+                  f"err/tolerance {r}")
+            if same and max(r.values()) <= 1:
+                fail(f"the cache check at K {K} passes with a planted "
+                     f"fault: {what}")
+
+
+def check_cache_streams_equal_sequential(torch) -> None:
+    """`engine.run_streams` on the cache path on the card against the same
+    streams run one by one (`engine.run_stream`): Uni3D at width 1024
+    and depth 2, fp32, 3 streams x 8 steps, shot capacity 2 (classes fill
+    and merge); clouds at scales 0.25-2 so that predictions differ.  Final
+    logits within atol 1e-3 every step, correct counts identical, and
+    each stream's CG iterations equal its own run's, step by step."""
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.config import (CacheConfig, Config, DotaConfig,
+                                          ModelConfig)
+    from uni_adapter_torch.models.loader import build_backbone
+
+    S, T = 3, 8
+    mc = ModelConfig(eva_depth=2, compute_dtype="float32")
+    model, _, _ = build_backbone("uni3d", mc, "cuda", seed=0)
+    text = load_precomputed("large", "modelnet").cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    scale = torch.exp(torch.empty(S * T, 1, 1, device="cuda").uniform_(
+        -1.4, 0.7, generator=gen))
+    pcs = (scale * sphere_cloud(torch, gen, S * T, 1024)).reshape(
+        S, T, 1, 1024, 3)
+    rgbs = torch.ones_like(pcs)
+    targets = torch.randint(0, 40, (S, T, 1), generator=gen, device="cuda")
+    cfg = Config(model=mc, dota=DotaConfig(use_mode_dota=False),
+                 cache=CacheConfig(shot_capacity=2))
+    res = engine.run_streams(cfg, model, text, pcs, rgbs, targets)
+    err, seq_iters = 0.0, []
+    for c in range(S):
+        seq = []
+        one = engine.run_stream(cfg, model, text,
+                                zip(pcs[c], rgbs[c], targets[c]),
+                                seed=42 + c, step_fn=fed_outputs(
+                                    engine.make_step_fn(cfg, model), seq))
+        for t, (o, w) in enumerate(zip(res["outputs"], seq, strict=True)):
+            err = max(err, (o.final_logits[c] - w.final_logits)
+                      .abs().max().item())
+            if not torch.equal(o.correct[c], w.correct):
+                fail(f"cache streams vs sequential: stream {c} step {t} "
+                     f"correct counts differ")
+        seq_iters.append(one["cg_iters"])
+    iters = torch.stack([o.cg_iters for o in res["outputs"]]).T.tolist()
+    print(f"cache streams vs sequential on the card, Uni3D width 1024 depth "
+          f"2 fp32, {S} streams x {T} steps: final logits max abs err "
+          f"{err:.3g} (atol 1e-3), correct counts identical; CG iterations "
+          f"a step, streams run {iters}, one by one {seq_iters}")
+    if err > 1e-3 or iters != seq_iters:
+        fail("cache streams vs sequential: logits or CG iterations differ")
+
+
+def fed_outputs(step, outputs: list):
+    """The step with its outputs appended to `outputs`."""
+    def run(text, state, batch):
+        state, out = step(text, state, batch)
+        outputs.append(out)
+        return state, out
+    return run
+
+
+#: The residual loop's products at the LVIS sweep's shape: 15 streams'
+#: (K, 2D) · (2D, K) at K = 1156, D = 1024, one of the M = 4 a step.
+TIER_PRODUCT = (15, 1156, 2048)
+
+
+def check_residual_tiers(torch, gen) -> dict:
+    """The 'default' tier's product on the card (`tier_product`: bf16
+    operands, fp32 sums and result) and its input gradient (g @ P, the
+    JAX custom VJP's backward at the tier), each against the same
+    bf16-rounded operands multiplied in fp32 with TF32 off (the CPU's
+    route): within 1e-5 of the result's largest value; a bf16-rounded
+    result (a product that returns bf16) and, for the gradient, an fp32
+    backward (g @ P unrounded) at least 10× further.  Then each tier's
+    product timed at TIER_PRODUCT (device ms, CUDA events)."""
+    from uni_adapter_torch.adapt import residual
+
+    def bf16(t):
+        return t.bfloat16().float()
+
+    S, K, D2 = TIER_PRODUCT
+    X = torch.randn(S, K, D2, generator=gen, device="cuda")
+    P = torch.randn(S, K, D2, generator=gen, device="cuda")
+    G = torch.randn(S, K, K, generator=gen, device="cuda")
+    x = X.clone().requires_grad_(True)
+    got = residual.tier_product(x, P, "default")
+    (got_g,) = torch.autograd.grad(got, x, G)
+    Pt = P.transpose(-1, -2)
+    for what, out, want, wrong in (
+            ("product", got, torch.matmul(bf16(X), bf16(Pt)),
+             {"a bf16 result": torch.matmul(X.bfloat16(),
+                                            Pt.bfloat16()).float()}),
+            ("gradient", got_g, torch.matmul(bf16(G), bf16(P)),
+             {"a bf16 result": torch.matmul(G.bfloat16(),
+                                            P.bfloat16()).float(),
+              "an fp32 backward": torch.matmul(G, P)})):
+        scale = want.abs().max().item()
+        err = (out - want).abs().max().item() / scale
+        errs = {w: (t - want).abs().max().item() / scale
+                for w, t in wrong.items()}
+        print(f"residual tier 'default' {what} at {TIER_PRODUCT}: relative "
+              f"err {err:.3g} against fp32 sums of the bf16 operands (gate "
+              f"1e-5); " + ", ".join(f"{w} {e:.3g}" for w, e in errs.items()))
+        if out.dtype != torch.float32 or err > 1e-5 or \
+                min(errs.values()) < 10 * err:
+            fail(f"the 'default' tier's {what} is not bf16 operands with "
+                 f"fp32 sums and result")
+    times = {}
+    for tier in residual.PRECISIONS:
+        times[tier] = time_ms(lambda: residual.tier_product(X, P, tier))
+    flops = 2 * S * K * K * D2
+    print(f"residual tier products at {TIER_PRODUCT}, ms (TFLOP/s): "
+          + ", ".join(f"{t} {ms:.3f} ({flops / ms / 1e9:.0f})"
+                      for t, ms in times.items()))
+    return times
 
 
 def run_continual(tmp: Path, n_steps: int = 16) -> dict:
@@ -2637,10 +3028,13 @@ def main() -> None:
         for kind in PATHS:
             by_path[kind], batch1_ms[kind] = run_main_path(Path(tmp), kind)
         check_float16_cli(Path(tmp))
-        for kind in SWEEPS:
-            by_path[f"sweep_{kind}"], sweeps[kind] = run_sweep(
-                Path(tmp), kind, batch1_ms[kind], card)
+        for name, (_, path, extra, _) in SWEEPS.items():
+            by_path[f"sweep_{name}"], sweeps[name] = run_sweep(
+                Path(tmp), name, None if extra else batch1_ms[path], card)
         check_streams_equal_sequential(torch)
+        check_cache_streams_equal_sequential(torch)
+        check_cache_card_vs_cpu(torch)
+        tier_ms = check_residual_tiers(torch, gen)
         by_path["continual_uni3d"] = run_continual(Path(tmp))
         for kind in EXTRACT_PATHS:
             by_path[f"extract_{kind}"] = run_extraction(Path(tmp), kind)
@@ -2649,7 +3043,7 @@ def main() -> None:
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-    print(json.dumps({"sweeps": sweeps}))
+    print(json.dumps({"sweeps": sweeps, "residual_tier_product_ms": tier_ms}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Where one MODE-DOTA step of the PyTorch/CUDA port spends its time.
+"""Where one step of the PyTorch/CUDA port spends its time.
 
     python3 scripts/torch_step_profile.py [--vlm3d uni3d|openshape|ulip]
         [--npoints N] [--dataset-name NAME] [--compute-dtype float32]
-        [--streams S]
+        [--streams S] [--method mode_dota|cache]
+        [--residual-precision highest|high|default]
 
 On one CUDA card (its name and power limit printed first), one backbone
 at its published widths and depth in bf16 (or `--compute-dtype float32`:
@@ -23,7 +24,20 @@ width.  After warm-up it prints, per step:
     step and of its phases run alone: the fused 2B encoder forward, its
     grouping (FPS + kNN or ball query on the 2B clouds; the kernels the
     cloud's size picks), the MODE-DOTA predict + two fits + fusion, and
-    the 10-step residual loop;
+    the 10-step residual loop (its products at `--residual-precision`);
+    with `--method cache`, the prototype-cache step instead (shot
+    capacity 8 above 256 classes, as bench.py sets it), on a populated
+    cache: K·C samples of a seeded feature stream over all K classes
+    (`populated_cache`) go in before the 16 warm-up steps, so the graph
+    holds many classes' nodes and the CG runs as many iterations as such
+    a graph takes (random weights alone send every cloud to one class).
+    Its phases: the encoder forward of the B (S·B) clouds, its grouping,
+    `update_cache`, the graph's nodes (the class prototypes on the
+    prototype graph), its Laplacian, the CG (its iterations printed;
+    timed as the step runs it, reading its stop flags every iteration,
+    and with a local copy that reads them every 2 and 4; and at its cap,
+    tol 0, reading every 1 and every 4: an iteration's cost and a read's)
+    or the explicit solve, and the readout + fusion;
   * from `torch.profiler` over 5 steps: device busy time (the sum
     of kernel times) against the unprofiled step's wall time, and device
     time by kernel, in groups: the port's CUDA kernels split into the bf16
@@ -37,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -51,16 +66,19 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from uni_adapter_torch import engine  # noqa: E402
-from uni_adapter_torch.adapt import fusion, mode_dota, residual  # noqa: E402
+from uni_adapter_torch.adapt import (cache, fusion, mode_dota,  # noqa: E402
+                                     residual)
 from uni_adapter_torch.anchors import load_precomputed  # noqa: E402
 from uni_adapter_torch.cli.tta import feature_width, set_numerics  # noqa: E402
-from uni_adapter_torch.config import (Config, DataConfig,  # noqa: E402
-                                     ModelConfig, load_labels)
+from uni_adapter_torch.config import (CacheConfig, Config,  # noqa: E402
+                                     DataConfig, DotaConfig, ModelConfig,
+                                     load_labels)
 from uni_adapter_torch.models.loader import (BACKBONES,  # noqa: E402
                                              build_backbone)
 from uni_adapter_torch.ops import build  # noqa: E402
 from uni_adapter_torch.ops.geometry import (group_points,  # noqa: E402
                                             sample_and_group)
+from uni_adapter_torch.utils import math as umath  # noqa: E402
 
 #: The port's CUDA kernels by group: a kernel belongs to the first group
 #: one of whose names its profiler name contains (so "attn_f32_kernel"
@@ -98,6 +116,141 @@ def group_of(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
+def mode_dota_phases(cfg, state, feat, text) -> dict:
+    """The MODE-DOTA step's adaptation phases on the features `feat`."""
+    dc = cfg.dota
+    clip_w = residual.adapted_text_weights(state.res_state, text)
+    logits, _, prob, _ = engine.clip_logits_from(feat, clip_w)
+
+    def adapt():
+        ms = state.method_state
+        d = mode_dota.predict(ms, feat, dc.epsilon)
+        ms = mode_dota.fit(ms, feat, prob, dc.epsilon)
+        ms = mode_dota.fit(ms, feat, prob, dc.epsilon)
+        fusion.fuse_mode_dota(logits, d, fusion.dota_fusion_weight(
+            dc.rho, dc.eta, ms.c.mean(dim=(-2, -1)), 1.0))
+
+    return {
+        "predict + 2 fits + fusion": torch.no_grad()(adapt),
+        "residual loop (10 Adam steps)": lambda: residual.optimize_residuals(
+            state.res_state, text, state.method_state, dc.residual_lr,
+            dc.epsilon, dc.residual_steps, precision=dc.residual_precision),
+    }
+
+
+def populated_cache(cfg, cs, text, lead, gen):
+    """`cs` after K·C samples, one a stream a step, through
+    `update_cache` as the step calls it: each a unit feature
+    0.5·g + 0.6·(w·a + (1 − w)·b) + noise (g a direction all share, a and
+    b the anchors of two random classes of the K, w in 0.5-0.7), so the
+    predictions spread over the K classes, classes fill and merge, and
+    the shared g connects the graph's nodes across classes (chip_smoke's
+    `cache_sequence` over all classes).  Prints the occupancy."""
+    cc, scale = cfg.cache, cfg.model.logit_scale
+    K, D = text.shape
+    n = K * cc.shot_capacity
+    dev = text.device
+    g = torch.randn(D, generator=gen, device=dev)
+    g = g / g.norm()
+    pairs = torch.randint(0, K, (n, *lead, 2), generator=gen, device=dev)
+    w = 0.5 + 0.2 * torch.rand(n, *lead, 1, generator=gen, device=dev)
+    noise = torch.randn(n, *lead, D, generator=gen, device=dev)
+    for t in range(n):
+        f = (0.5 * g + 0.6 * (w[t] * text[pairs[t, ..., 0]]
+                              + (1 - w[t]) * text[pairs[t, ..., 1]])
+             + 0.01 * noise[t])
+        f = (f / f.norm(dim=-1, keepdim=True))[..., None, :]
+        _, ent, prob, pred = engine.clip_logits_from(f, text.T, scale)
+        cs, _ = cache.update_cache(
+            cs, pred, f, umath.normalized_entropy(ent[..., 0], K), prob,
+            text.T, beta=cc.beta, logit_scale=scale)
+    slots = cs.valid.sum(dim=(-2, -1))
+    classes = cs.valid.any(dim=-1).sum(dim=-1)
+    print(f"populated cache: {n} samples a stream; slots filled "
+          f"{slots.tolist()} of {K * cc.shot_capacity}, classes held "
+          f"{classes.tolist()} of {K}")
+    return cs
+
+
+def cg_read_every(A, b, every: int, max_iter: int = 100, tol: float = 1e-5):
+    """`utils/math.conjugate_gradient` with the host reading the stop flags
+    only every `every` iterations (the step reads them every iteration):
+    the same result, since stopped systems are frozen, with fewer waits
+    for the device and up to every − 1 dead iterations."""
+    x = torch.zeros_like(b)
+    r, p = b, b
+    rz = torch.sum(r * r, dim=-2)
+    done = torch.zeros(rz.shape[:-1], dtype=torch.bool, device=b.device)
+    for i in range(max_iter):
+        Ap = torch.matmul(A, p)
+        alpha = (rz / (torch.sum(p * Ap, dim=-2) + 1e-8)).unsqueeze(-2)
+        keep = (~done)[..., None, None]
+        x = torch.where(keep, x + alpha * p, x)
+        r_new = r - alpha * Ap
+        rz_new = torch.sum(r_new * r_new, dim=-2)
+        p = torch.where(keep, r_new + (rz_new / (rz + 1e-8)).unsqueeze(-2)
+                        * p, p)
+        r = torch.where(keep, r_new, r)
+        rz = torch.where((~done)[..., None], rz_new, rz)
+        done = done | torch.all(rz < tol, dim=-1)
+        if (i + 1) % every == 0 and bool(done.all()):
+            break
+    return x
+
+
+def cache_phases(cfg, cs, feat, text) -> dict:
+    """The cache step's phases after the encoder, each on the outputs of
+    the one before, as `compute_cache_logits` runs them; prints the CG's
+    iterations."""
+    cc, scale = cfg.cache, cfg.model.logit_scale
+    K, C = text.shape[0], cc.shot_capacity
+    logits, ent, prob, pred = engine.clip_logits_from(feat, text.T, scale)
+
+    def update():
+        return cache.update_cache(
+            cs, pred, feat[..., :1, :],
+            umath.normalized_entropy(ent[..., 0], K), prob[..., :1, :],
+            text.T, beta=cc.beta, logit_scale=scale)[0]
+
+    cs2 = update()
+    nodes, probs, valid = cache.graph_nodes(cs2, cc.graph_mode)
+    mode = "dense" if nodes.shape[-2] == K * C else "prototype"
+    graph = lambda: umath._masked_laplacian(              # noqa: E731
+        nodes, valid, cc.threshold, cc.lambda_reg)
+    L = graph()
+    b = 2.0 * cc.lambda_reg * probs * valid[..., None]
+    phases = {"update_cache": update,
+              f"graph nodes ({mode})": lambda: cache.graph_nodes(
+                  cs2, cc.graph_mode),
+              f"graph Laplacian ({mode})": graph}
+    if cc.use_new_approximation:
+        sol, iters = umath.conjugate_gradient(L, b, max_iter=cc.cg_max_iter)
+        print(f"CG iterations: {iters.tolist()} (max {cc.cg_max_iter}); "
+              f"{mode} graph of {nodes.shape[-2]} nodes, "
+              f"{valid.sum(dim=-1).tolist()} valid")
+        phases["CG (the step's: stop flags read every iteration)"] = (
+            lambda: umath.conjugate_gradient(L, b, max_iter=cc.cg_max_iter))
+        for every in (2, 4):
+            phases[f"CG, stop flags read every {every}"] = (
+                lambda every=every: cg_read_every(L, b, every,
+                                                  cc.cg_max_iter))
+        # at its cap (tol 0: no system stops): the cost of an iteration,
+        # and of the host's read of the flags (every one against every 4)
+        cap = cc.cg_max_iter
+        phases[f"CG at its cap ({cap} iterations), flags read every 1"] = (
+            lambda: umath.conjugate_gradient(L, b, max_iter=cap, tol=0.0))
+        phases[f"CG at its cap ({cap} iterations), flags read every 4"] = (
+            lambda: cg_read_every(L, b, 4, cap, tol=0.0))
+    else:
+        sol = torch.linalg.solve(L, b)
+        phases["explicit solve"] = lambda: torch.linalg.solve(L, b)
+    refined = sol / (sol.sum(dim=-1, keepdim=True) + 1e-12)
+    refined = refined * valid[..., None]
+    phases["readout + fusion"] = lambda: fusion.fuse_cache(
+        logits, cache._graph_readout(feat, nodes, valid, refined, K), scale)
+    return phases
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--vlm3d", choices=sorted(BACKBONES), default="uni3d")
@@ -106,6 +259,10 @@ def main() -> None:
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--streams", type=int, default=1)
+    ap.add_argument("--method", choices=["mode_dota", "cache"],
+                    default="mode_dota")
+    ap.add_argument("--residual-precision", default="highest",
+                    choices=list(residual.PRECISIONS))
     args = ap.parse_args()
     kind, npoints, S = args.vlm3d, args.npoints, args.streams
     lead = (S,) if S > 1 else ()   # the stream axis of every tensor
@@ -119,8 +276,11 @@ def main() -> None:
     build.build_all()
     set_numerics()
     dev = torch.device("cuda")
+    use_cache = args.method == "cache"
     cfg = Config(model=ModelConfig(vlm3d=kind,
                                    compute_dtype=args.compute_dtype),
+                 dota=DotaConfig(use_mode_dota=not use_cache,
+                                 residual_precision=args.residual_precision),
                  data=DataConfig(dataset_name=args.dataset_name)).resolve()
     dc = cfg.dota
     model, n_group, group_size = build_backbone(kind, cfg.model, dev, seed=0)
@@ -135,9 +295,15 @@ def main() -> None:
         text = torch.randn(len(load_labels(cfg)), feature_width(cfg.model),
                            generator=gen, device=dev)
         text = text / text.norm(dim=1, keepdim=True)
+    K = text.shape[0]
+    if use_cache and K > 256:               # bench.py's LVIS cache
+        cfg = dataclasses.replace(cfg, cache=dataclasses.replace(
+            cfg.cache, shot_capacity=8))
     print(f"{kind}, {npoints} points, {args.dataset_name}, "
           f"{args.compute_dtype}: anchors {tuple(text.shape)}"
-          + (f", {S} streams" if lead else ""))
+          + (f", {S} streams" if lead else "")
+          + (f"; the cache: {cfg.cache}" if use_cache
+             else f"; residual precision {dc.residual_precision}"))
     step = engine.make_step_fn(cfg, model)
     encode = engine.encode_with(kind, model)
 
@@ -153,26 +319,23 @@ def main() -> None:
 
     state = (engine.init_states_streams(cfg, text, S) if lead
              else engine.init_state(cfg, text))
-    for _ in range(3):                       # warm-up; step > 0 after this
+    if use_cache:
+        state = dataclasses.replace(state, method_state=populated_cache(
+            cfg, state.method_state, text, lead, gen))
+    for _ in range(16 if use_cache else 3):  # warm-up; step > 0 after it
         state, _ = step(text, state, batch())
     pc, rgb, tgt = batch()
-    # the encoder's 2·S clouds: every stream's clean cloud, then its noisy
-    two_b = "2SB" if lead else "2B"
-    xyz2 = torch.cat([pc.reshape(-1, npoints, 3)] * 2)
+    if use_cache:                           # one forward of the S·B clouds
+        two_b = "SB" if lead else "B"
+        xyz2 = pc.reshape(-1, npoints, 3)
+    else:
+        # the encoder's 2·S clouds: every stream's clean cloud, then its
+        # noisy
+        two_b = "2SB" if lead else "2B"
+        xyz2 = torch.cat([pc.reshape(-1, npoints, 3)] * 2)
     rgb2 = torch.ones_like(xyz2)
     with torch.no_grad():
         feat = encode(xyz2, rgb2)[:S].reshape(*lead, 1, -1)
-    clip_w = residual.adapted_text_weights(state.res_state, text)
-    logits, _, prob, _ = engine.clip_logits_from(feat, clip_w)
-
-    def adapt():
-        ms = state.method_state
-        d = mode_dota.predict(ms, feat, dc.epsilon)
-        ms = mode_dota.fit(ms, feat, prob, dc.epsilon)
-        ms = mode_dota.fit(ms, feat, prob, dc.epsilon)
-        fusion.fuse_mode_dota(logits, d, fusion.dota_fusion_weight(
-            dc.rho, dc.eta, ms.c.mean(dim=(-2, -1)), 1.0))
-
     if kind == "openshape":
         sa = model.ppat.sa
         grouping = lambda: sample_and_group(            # noqa: E731
@@ -186,11 +349,11 @@ def main() -> None:
         f"encoder forward ({two_b})": lambda: torch.no_grad()(encode)(
             xyz2, rgb2),
         f"grouping ({two_b})": grouping,
-        "predict + 2 fits + fusion": torch.no_grad()(adapt),
-        "residual loop (10 Adam steps)": lambda: residual.optimize_residuals(
-            state.res_state, text, state.method_state, dc.residual_lr,
-            dc.epsilon, dc.residual_steps),
     }
+    if use_cache:
+        phases.update(cache_phases(cfg, state.method_state, feat, text))
+    else:
+        phases.update(mode_dota_phases(cfg, state, feat, text))
     timings = {k: wall_ms(f, 10) for k, f in phases.items()}
     # the same step as the stream loop runs it: fresh clouds from the host
     # each step, state carried over
@@ -247,6 +410,8 @@ def main() -> None:
         print(f"kernel {ms / PROFILED_STEPS:9.3f} ms/step "
               f"{n // PROFILED_STEPS:6d}x  {name[:90]}")
     print(json.dumps({"vlm3d": kind, "npoints": npoints, "streams": S,
+                      "method": args.method,
+                      "residual_precision": dc.residual_precision,
                       "dataset_name": args.dataset_name,
                       "compute_dtype": args.compute_dtype, "card": card,
                       "wall_ms": timings,

@@ -50,6 +50,31 @@ def test_cli_on_cpu_writes_both_result_files(stream_dir, tmp_path):
     assert summary["finite"]["uniform"]
 
 
+def test_cli_cache_path_on_cpu_writes_both_result_files(stream_dir,
+                                                        tmp_path):
+    """`--dota-use-mode-dota false` runs the prototype cache path."""
+    summary = tta.main(["--device", "cpu", "--root", str(stream_dir),
+                        "--corruption", "uniform", "--output-dir",
+                        str(tmp_path / "out"), "--name", "cache",
+                        "--dota-use-mode-dota", "false", *SMALL_ARGS])
+    log_dir = tmp_path / "out" / "cache"
+    for name in ("results.json", "results_zs.json"):
+        res = json.loads((log_dir / name).read_text())
+        assert set(res) == {"uniform"} and 0.0 <= res["uniform"] <= 100.0
+    assert len(summary["step_ms"]["uniform"]) == 8
+    assert summary["finite"]["uniform"]
+    assert summary["steps"]["uniform"] == [0, 8]
+
+
+def test_cli_cache_path_with_batch_above_one_raises(stream_dir, tmp_path):
+    """The cache path is batch 1 (the JAX engine's ValueError)."""
+    with pytest.raises(ValueError, match="batch_size=1"):
+        tta.main(["--device", "cpu", "--root", str(stream_dir),
+                  "--corruption", "uniform", "--output-dir",
+                  str(tmp_path / "out"), "--dota-use-mode-dota", "false",
+                  "--batch-size", "2", *SMALL_ARGS])
+
+
 def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
@@ -60,7 +85,6 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 
 @pytest.mark.parametrize("flags,item", [
     (["--dota-use-mode-dota", "false", "--dota-use-dota", "true"], "M8"),
-    (["--dota-use-mode-dota", "false"], "M7"),
     (["--vmap-corruptions", "true", "--dist-mode", "sharded"], "M16"),
     (["--continual", "true", "--dist-mode", "ep"], "M16"),
     (["--dist-mode", "psum"], "M16"),
@@ -155,6 +179,7 @@ def test_anchor_bank_from_npz_and_missing_paths_as_in_jax(tmp_path,
 def test_config_copy_keeps_the_jax_defaults():
     for pc, jc in ((pcfg.ModelConfig, jcfg.ModelConfig),
                    (pcfg.DotaConfig, jcfg.DotaConfig),
+                   (pcfg.CacheConfig, jcfg.CacheConfig),
                    (pcfg.DataConfig, jcfg.DataConfig),
                    (pcfg.RunConfig, jcfg.RunConfig)):
         jdefaults = {f.name: f.default for f in dataclasses.fields(jc)}
@@ -171,6 +196,24 @@ def test_config_copy_keeps_the_jax_defaults():
             assert f.default == jdefaults[f.name], (pc.__name__, f.name)
     cfg = pcfg.parse_args(["--eva-depth", "2", "--dota-mode-M", "3"])
     assert cfg.model.eva_depth == 2 and cfg.dota.mode_M == 3
+    assert {f.name for f in dataclasses.fields(pcfg.CacheConfig)} == {
+        f.name for f in dataclasses.fields(jcfg.CacheConfig)}
     assert not any(f.name.startswith("use_pallas") or f.name in
                    ("approx_knn", "quantize_int8")
                    for f in dataclasses.fields(pcfg.ModelConfig))
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--dataset-name", "scanobjectnn"], ["--dataset-name", "shapenetcore"],
+    ["--dataset-name", "objaverse_lvis"],
+    ["--dataset-name", "shapenetcore", "--cache-lambda-reg", "0.3",
+     "--cache-use-new-approximation", "true", "--cache-shot-capacity", "8",
+     "--cache-graph-mode", "prototype", "--cache-cg-tol", "1e-3"],
+])
+def test_cache_table_and_flags_as_in_jax(argv):
+    """The per-dataset cache table, explicit --cache-* flags beating it,
+    and `get_hyperparams`, as the JAX parser gives them."""
+    got, want = pcfg.parse_args(argv).cache, jcfg.parse_args(argv).cache
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    name = dict(zip(argv[::2], argv[1::2])).get("--dataset-name", "modelnet")
+    assert pcfg.get_hyperparams(name) == jcfg.get_hyperparams(name)

@@ -1,9 +1,10 @@
-"""MODE-DOTA logit fusion (mirror of `uni_adapter_tpu/adapt/fusion.py`)."""
+"""Logit fusion of MODE-DOTA and of the prototype cache (mirror of
+`uni_adapter_tpu/adapt/fusion.py`)."""
 from __future__ import annotations
 
 import torch
 
-from uni_adapter_torch.utils.math import softmax_entropy
+from uni_adapter_torch.utils.math import entropy, softmax_entropy
 
 
 def dota_fusion_weight(rho: float, eta: float, c_mean: torch.Tensor,
@@ -35,3 +36,14 @@ def fuse_mode_dota(clip_logits: torch.Tensor, dota_logits: torch.Tensor,
         w_clip = w_clip / (w_clip + w_dota)
         w_dota = w_dota / (w_clip + w_dota)
     return w_clip[..., None] * clip_logits + w_dota[..., None] * scaled_dota
+
+
+def fuse_cache(clip_logits: torch.Tensor, cache_logits: torch.Tensor,
+               logit_scale: float = 100.0) -> torch.Tensor:
+    """Cache-path fusion: (1/H₁)·softmax(clip/scale) + (1/H₂)·softmax(cache),
+    each H the entropy of its softmaxed distribution (no epsilon).  The
+    divisor undoes the scale that produced `clip_logits`.  ([S,] B, K)."""
+    prob1 = torch.softmax(clip_logits / logit_scale, dim=-1)
+    prob2 = torch.softmax(cache_logits, dim=-1)
+    return ((1.0 / entropy(prob1))[..., None] * prob1
+            + (1.0 / entropy(prob2))[..., None] * prob2)

@@ -6,7 +6,15 @@ alignment loss over the (K, K) class-embedding log-likelihood matrix
 under the current mixture.  Plain autograd gives the gradient (the JAX
 `custom_vjp` is a TPU layout device, not part of the function), and Adam
 is written out as optax's `adam(lr)` computes it, so one step agrees with
-the JAX package to rounding.  Contractions are fp32 without TF32.
+the JAX package to rounding.
+
+The loop's log-likelihood products, forward and backward, run at one of
+the JAX package's three precision tiers (`DotaConfig.residual_precision`),
+each mapped to what the card has: 'highest' (the TPU's fp32-exact 6-pass)
+is fp32 with TF32 off; 'high' (the TPU's 3-pass bf16 split) is TF32,
+turned on for the loop alone; 'default' (the TPU's single bf16 pass) is
+bf16 operands with fp32 sums and an fp32 result (`bf16_matmul`).  Every
+other contraction is fp32 without TF32.
 
 S independent streams run at once with a leading stream axis on the
 mixture, the residuals and their Adam moments (the JAX package's
@@ -17,6 +25,7 @@ The Adam count is shared: every stream takes the same steps.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
@@ -24,6 +33,7 @@ import torch
 from uni_adapter_torch.adapt import mode_dota
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+PRECISIONS = ("highest", "high", "default")
 
 
 class ResidualState(NamedTuple):
@@ -69,11 +79,81 @@ def frozen_mixture_terms(state: mode_dota.ModeDotaState,
     return FrozenMixtureTerms(proj.contiguous(), base.contiguous())
 
 
-def _log_marginal(X: torch.Tensor, terms: FrozenMixtureTerms) -> torch.Tensor:
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands rounded to bf16 and the products summed in
+    fp32, fp32 out: one bf16 tensor-core product on the card
+    (`out_dtype=torch.float32`); on the CPU the same sum of exact products
+    (a bf16 product fits in fp32) as an fp32 product of the rounded
+    operands."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if not a.is_cuda:
+        return torch.matmul(a16.to(torch.float32), b16.to(torch.float32))
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    if not lead:
+        return torch.mm(a16, b16, out_dtype=torch.float32)
+    a3 = a16.expand(*lead, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b16.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    out = torch.bmm(a3, b3, out_dtype=torch.float32)
+    return out.reshape(*lead, *out.shape[-2:])
+
+
+class _Bf16Projection(torch.autograd.Function):
+    """X @ Pᵀ at the 'default' tier, its input gradient (g @ P) too, as
+    the JAX package's custom VJP runs both products at the tier; P is a
+    constant of the loop."""
+
+    @staticmethod
+    def forward(ctx, X, P):
+        ctx.save_for_backward(P)
+        return bf16_matmul(X, P.transpose(-1, -2))
+
+    @staticmethod
+    def backward(ctx, g):
+        (P,) = ctx.saved_tensors
+        return bf16_matmul(g, P), None
+
+
+def _projection(X: torch.Tensor, P: torch.Tensor,
+                precision: str) -> torch.Tensor:
+    if precision == "default":
+        return _Bf16Projection.apply(X, P)
+    return torch.matmul(X, P.transpose(-1, -2))
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown residual_precision {precision!r} "
+                         f"(expected 'highest', 'high', or 'default')")
+
+
+@contextmanager
+def _tier(precision: str):
+    """TF32 on for the products of the 'high' tier, restored after."""
+    check_precision(precision)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision == "high"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def tier_product(X: torch.Tensor, P: torch.Tensor,
+                 precision: str) -> torch.Tensor:
+    """X @ Pᵀ as the residual loop computes it at the `precision` tier.
+    At 'default' its gradient is the tier's too (g @ P on bf16 operands);
+    at 'high' a gradient taken after the call runs at the caller's TF32
+    setting."""
+    with _tier(precision):
+        return _projection(X, P, precision)
+
+
+def _log_marginal(X: torch.Tensor, terms: FrozenMixtureTerms,
+                  precision: str = "highest") -> torch.Tensor:
     """([S,] B, 2D) → ([S,] B, K): logsumexp over modes of the per-mode
     joints."""
     ljs = [terms.base[..., m, None, :]
-           - 0.5 * torch.matmul(X, terms.proj[..., m, :, :].transpose(-1, -2))
+           - 0.5 * _projection(X, terms.proj[..., m, :, :], precision)
            for m in range(terms.base.shape[-2])]
     mx = ljs[0]
     for lj in ljs[1:]:
@@ -92,18 +172,24 @@ def _loss_tail(lm: torch.Tensor) -> torch.Tensor:
 
 
 def _loss_from_terms(class_embeddings: torch.Tensor,
-                     terms: FrozenMixtureTerms) -> torch.Tensor:
+                     terms: FrozenMixtureTerms,
+                     precision: str = "highest") -> torch.Tensor:
     x = class_embeddings.to(torch.float32)
-    return _loss_tail(_log_marginal(torch.cat([x * x, x], dim=-1), terms))
+    return _loss_tail(_log_marginal(torch.cat([x * x, x], dim=-1), terms,
+                                    precision))
 
 
 def alignment_loss(class_embeddings: torch.Tensor,
-                   state: mode_dota.ModeDotaState,
-                   epsilon: float) -> torch.Tensor:
+                   state: mode_dota.ModeDotaState, epsilon: float,
+                   precision: str = "highest") -> torch.Tensor:
     """Alignment loss over L[i, k] = log P(e_i | class k); ([S,]) for
-    ([S,] K, D) embeddings."""
-    return _loss_from_terms(class_embeddings,
-                            frozen_mixture_terms(state, epsilon))
+    ([S,] K, D) embeddings.  At 'high' only the forward products run in
+    TF32 here: a gradient taken after the call runs at the caller's
+    setting (`optimize_residuals` takes it inside the tier)."""
+    with _tier(precision):
+        return _loss_from_terms(class_embeddings,
+                                frozen_mixture_terms(state, epsilon),
+                                precision)
 
 
 def _normalize_rows(t: torch.Tensor) -> torch.Tensor:
@@ -113,17 +199,19 @@ def _normalize_rows(t: torch.Tensor) -> torch.Tensor:
 def optimize_residuals(res_state: ResidualState,
                        text_features_initial: torch.Tensor,
                        mixture: mode_dota.ModeDotaState, lr: float,
-                       epsilon: float, num_steps: int = 10) -> ResidualState:
+                       epsilon: float, num_steps: int = 10,
+                       precision: str = "highest") -> ResidualState:
     """`num_steps` Adam updates of the residuals against the frozen mixture:
     each renormalises (initial + residuals) per class row and steps on the
     alignment loss's gradient (S streams: on the sum of their losses,
-    each stream's gradient its own)."""
+    each stream's gradient its own), the log-likelihood products at the
+    `precision` tier."""
     terms = frozen_mixture_terms(mixture, epsilon)
-    with torch.enable_grad():
+    with torch.enable_grad(), _tier(precision):
         for _ in range(num_steps):
             r = res_state.residuals.detach().requires_grad_(True)
             loss = _loss_from_terms(_normalize_rows(text_features_initial + r),
-                                    terms)
+                                    terms, precision)
             (grads,) = torch.autograd.grad(loss.sum(), r)
             res_state = adam_step(res_state._replace(residuals=r.detach()),
                                   grads, lr)

@@ -24,8 +24,13 @@ each from a fresh state; with `--continual true` one adaptation
 trajectory runs through them all, and with `--vmap-corruptions true` the
 15 streams run together, one step of each at a time (the encoder takes
 their 2·15 clouds in one forward), truncated to the shortest.
-Without `--checkpoint-path` (ROADMAP M12) the weights are random from
-`--seed`, so the accuracies only show that the pipeline ran.
+`--dota-use-mode-dota false` (with the other DOTA variants off, as by
+default) runs the prototype cache instead of MODE-DOTA: one forward of the
+batch-1 clouds a step, the cache updated, its graph refined by CG (or the
+explicit solve, ShapeNetCore's table), and the two fused; `--cache-*`
+flags beat the per-dataset table.  Without `--checkpoint-path` (ROADMAP
+M12) the weights are random from `--seed`, so the accuracies only show
+that the pipeline ran.
 """
 from __future__ import annotations
 
@@ -125,12 +130,15 @@ def run_all_vmapped(cfg, model, text, corruptions, log_dir,
     per_stream = engine.summarize_streams(res["outputs"],
                                           T * cfg.data.batch_size)
     dt = time.perf_counter() - t0
+    iters = ([None] * len(corruptions) if res["outputs"][0].cg_iters is None
+             else torch.stack([o.cg_iters for o in res["outputs"]]).T.tolist())
     summary = {
         "acc1": {c: s["acc1"] for c, s in zip(corruptions, per_stream)},
         "zs_acc1": {c: s["zs_acc1"] for c, s in zip(corruptions, per_stream)},
         "step_ms": dict.fromkeys(corruptions, res["step_ms"]),
         "finite": dict(zip(corruptions, res["finite"])),
         "steps": dict.fromkeys(corruptions, [0, res["state"].step]),
+        "cg_iters": dict(zip(corruptions, iters)),
         "log_dir": log_dir}
     total = pcs.shape[0] * pcs.shape[1] * pcs.shape[2]
     logging.info("Zero-shot baseline (same run): %s", summary["zs_acc1"])
@@ -144,7 +152,8 @@ def main(argv=None) -> dict:
     `step_ms` (wall time of each step, device-synchronised; under
     `--vmap-corruptions` the sweep's steps, shared by all), `finite`
     (every final logit finite), `steps` (the state's step counter at the
-    stream's start and end) and the run's `log_dir`."""
+    stream's start and end), `cg_iters` (the cache path's CG iterations a
+    step, None on MODE-DOTA) and the run's `log_dir`."""
     cfg = parse_args(argv)
     missing = unported_paths(cfg)
     if not cfg.data.precomputed_text_features:
@@ -182,7 +191,7 @@ def main(argv=None) -> dict:
         return run_all_vmapped(cfg, model, text, corruptions, log_dir,
                                step_fn)
     summary = {"acc1": {}, "zs_acc1": {}, "step_ms": {}, "finite": {},
-               "steps": {}, "log_dir": log_dir}
+               "steps": {}, "cg_iters": {}, "log_dir": log_dir}
     # --continual: one trajectory through the whole corruption sequence,
     # the carry surviving the loop instead of a fresh state per corruption
     carry_state = None
@@ -209,6 +218,7 @@ def main(argv=None) -> dict:
         summary["zs_acc1"][corr] = float(res["zs_acc1"])
         summary["step_ms"][corr] = res["step_ms"]
         summary["finite"][corr] = res["finite"]
+        summary["cg_iters"][corr] = res["cg_iters"]
         summary["steps"][corr] = [carry_state.step if carry_state else 0,
                                   res["state"].step]
         if cfg.run.continual:

@@ -1,5 +1,5 @@
-"""Configuration of the port: the fields its MODE-DOTA paths read, for the
-three backbones (Uni3D, ULIP-2, OpenShape).
+"""Configuration of the port: the fields its paths read (MODE-DOTA and the
+prototype cache, for the three backbones Uni3D, ULIP-2 and OpenShape).
 
 A copy, not an import, of the dataclasses in `uni_adapter_tpu/config.py`,
 with the same names and defaults, cut to what this package runs.  Two
@@ -78,6 +78,31 @@ class DotaConfig:
     residual_steps: int = 10
     fp16_predict_input: bool = False
     fix_fusion_normalization: bool = False
+    # precision of the residual loop's products, forward and backward:
+    # 'highest' fp32 (TF32 off), 'high' TF32, 'default' bf16 operands
+    # with fp32 sums (adapt/residual.py)
+    residual_precision: str = "highest"
+    # parsed for the JAX package's flag: it only reshapes XLA's program,
+    # and the port's eager loop is the same for both values
+    residual_unroll: bool = False
+
+
+@dataclass
+class CacheConfig:
+    """Uni-Adapter cache hyperparameters; `Config.resolve` applies the
+    reference's per-dataset table."""
+    shot_capacity: int = 30
+    beta: float = 150.0
+    threshold: float = 0.5
+    lambda_reg: float = 0.11
+    use_new_approximation: bool = True
+    cg_max_iter: int = 100
+    # parsed, but never passed to the CG, as in the JAX engine: the CG
+    # runs at its default tolerance 1e-5
+    cg_tol: float = 1e-5
+    # 'dense' (the K·C slots are the nodes), 'prototype' (one node a
+    # class), 'auto': dense while K·shot_capacity ≤ 4096
+    graph_mode: str = "auto"
 
 
 @dataclass
@@ -112,23 +137,42 @@ class RunConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     dota: DotaConfig = field(default_factory=DotaConfig)
+    cache: CacheConfig = field(default_factory=CacheConfig)
     data: DataConfig = field(default_factory=DataConfig)
     run: RunConfig = field(default_factory=RunConfig)
 
     def resolve(self) -> "Config":
-        """Infer the labels.json key from the dataset name when it is not
-        set; families it cannot infer (OmniObject3D) keep None, and
-        `load_labels` raises only if their labels are needed.  (The JAX
-        `resolve` also sets the cache path's hyperparameters, ROADMAP M7.)"""
+        """Apply the reference's per-dataset cache hyperparameters and infer
+        the labels.json key from the dataset name when it is not set;
+        families it cannot infer (OmniObject3D) keep None, and
+        `load_labels` raises only if their labels are needed."""
+        name = self.data.dataset_name.lower()
+        c = dataclasses.replace(self.cache)
+        if "modelnet" in name:
+            c.lambda_reg, c.threshold = 0.11, 0.5
+        elif "scanobject" in name:
+            c.lambda_reg, c.threshold = 0.20, 0.5
+        elif "shapenet" in name:
+            c.lambda_reg, c.threshold = 0.07, 0.45
+            c.use_new_approximation = False
         d = self.data
-        if d.validate_dataset_name is not None:
-            return self
-        try:
-            key = labels_key_for(d.dataset_name)
-        except ValueError:
-            return self
-        return dataclasses.replace(
-            self, data=dataclasses.replace(d, validate_dataset_name=key))
+        if d.validate_dataset_name is None:
+            try:
+                d = dataclasses.replace(
+                    d, validate_dataset_name=labels_key_for(d.dataset_name))
+            except ValueError:
+                pass
+        return dataclasses.replace(self, cache=c, data=d)
+
+
+def get_hyperparams(dataset_name: str) -> dict:
+    """The cache hyperparameters of a dataset family, as a dict."""
+    cfg = Config(data=DataConfig(dataset_name=dataset_name)).resolve()
+    return {"shot_capacity": cfg.cache.shot_capacity,
+            "beta": cfg.cache.beta,
+            "threshold": cfg.cache.threshold,
+            "lambda_reg": cfg.cache.lambda_reg,
+            "use_new_approximation": cfg.cache.use_new_approximation}
 
 
 def labels_key_for(dataset_name: str) -> str:
@@ -171,8 +215,6 @@ def unported_paths(cfg: Config) -> list[str]:
             out.append("GMM-DOTA, --dota-use-gmm-dota (ROADMAP M8)")
         elif d.use_adaptive_dota:
             out.append("adaptive DOTA, --dota-use-adaptive-dota (ROADMAP M8)")
-        else:
-            out.append("the prototype cache path (ROADMAP M7)")
     if m.checkpoint_path is not None:
         out.append("--checkpoint-path (ROADMAP M12)")
     if r.dist_mode != "replicated":
@@ -207,7 +249,9 @@ def _add_fields(parser: argparse.ArgumentParser, prefix: str, dc) -> None:
 
 def parse_args(argv=None) -> Config:
     """The evaluation CLI's flags, spelled as in the JAX package
-    (`--eva-depth`, `--dota-mode-M`, ...).  Defaults, then explicit flags."""
+    (`--eva-depth`, `--dota-mode-M`, `--cache-shot-capacity`, ...).
+    Defaults, then the per-dataset cache table (`Config.resolve`), then
+    explicit flags: an explicit cache flag beats the table."""
     cfg = Config()
     parser = argparse.ArgumentParser(
         description="Uni-Adapter on PyTorch/CUDA: online TTA for 3D VLMs")
@@ -215,15 +259,18 @@ def parse_args(argv=None) -> Config:
     _add_fields(parser, "", cfg.data)
     _add_fields(parser, "", cfg.model)
     _add_fields(parser, "dota-", cfg.dota)
+    _add_fields(parser, "cache-", cfg.cache)
     ns = parser.parse_args(argv)
 
     def explicit(dc, prefix=""):
         return {f.name: getattr(ns, prefix + f.name)
                 for f in dataclasses.fields(dc) if hasattr(ns, prefix + f.name)}
 
+    cache_explicit = explicit(cfg.cache, "cache_")
     cfg = Config(
         model=dataclasses.replace(cfg.model, **explicit(cfg.model)),
         dota=dataclasses.replace(cfg.dota, **explicit(cfg.dota, "dota_")),
+        cache=dataclasses.replace(cfg.cache, **cache_explicit),
         data=dataclasses.replace(cfg.data, **explicit(cfg.data)),
         run=dataclasses.replace(cfg.run, **explicit(cfg.run)),
     )
@@ -247,4 +294,6 @@ def parse_args(argv=None) -> Config:
                 "the CLI (sharded/psum modes change the adaptation order "
                 "and re-build their mesh state per stream; chain them via "
                 "the library API if needed)")
-    return cfg.resolve()
+    cfg = cfg.resolve()
+    return dataclasses.replace(
+        cfg, cache=dataclasses.replace(cfg.cache, **cache_explicit))

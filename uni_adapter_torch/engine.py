@@ -1,10 +1,13 @@
-"""TTA engine: the online MODE-DOTA adaptation loop for the three
-backbones (mirror of `uni_adapter_tpu/engine.py`, its MODE-DOTA branch).
+"""TTA engine: the online adaptation loop for the three backbones, by
+MODE-DOTA or by the prototype cache (mirror of `uni_adapter_tpu/engine.py`,
+its MODE-DOTA and cache branches).
 
 The JAX package jit-compiles one pure step and scans it over the stream;
 here the step runs eagerly and `run_stream` is a Python loop.  The state
-stays on the device between steps and nothing is read back to the host
-inside a step: the residual-learning gate `step > 0` is a host integer.
+stays on the device between steps.  A MODE-DOTA step reads nothing back
+to the host (the residual-learning gate `step > 0` is a host integer); a
+cache step reads only the CG's stop flags, once an iteration
+(`utils/math.conjugate_gradient`).
 
 The MODE-DOTA noise comes from a `torch.Generator` carried in the state;
 `step(..., noise=...)` takes it from the caller instead, which is how the
@@ -28,17 +31,18 @@ from typing import Callable, Iterable, NamedTuple, Optional, Union
 
 import torch
 
-from uni_adapter_torch.adapt import fusion, mode_dota, residual
+from uni_adapter_torch.adapt import cache, fusion, mode_dota, residual
 from uni_adapter_torch.config import Config
-from uni_adapter_torch.utils.math import softmax_entropy
+from uni_adapter_torch.utils.math import normalized_entropy, softmax_entropy
 from uni_adapter_torch.utils.metrics import topk_correct
 
 
 @dataclass
 class EngineState:
     """The adaptation carry: one stream's, or S streams' with a leading
-    (S,) axis on every tensor and one generator a stream."""
-    method_state: mode_dota.ModeDotaState
+    (S,) axis on every tensor and one generator a stream (the cache path
+    draws nothing from it)."""
+    method_state: Union[mode_dota.ModeDotaState, cache.CacheState]
     res_state: Optional[residual.ResidualState]
     step: int
     generator: Union[torch.Generator, tuple[torch.Generator, ...]]
@@ -49,6 +53,7 @@ class StepOutput(NamedTuple):
     clip_logits: torch.Tensor         # ([S,] B, K)
     correct: torch.Tensor             # ([S,] 3) top-1/3/5 correct counts
     zs_correct: torch.Tensor          # ([S,] 3) the frozen anchors' counts
+    cg_iters: Optional[torch.Tensor] = None   # ([S,]) the cache's CG
 
 
 def encode_with(kind: str, model: Callable) -> Callable:
@@ -80,14 +85,29 @@ def clip_logits_from(feat: torch.Tensor, clip_weights: torch.Tensor,
     return logits, ent, prob_map, pred
 
 
+def uses_cache(cfg: Config) -> bool:
+    """The JAX engine's dispatch: the prototype cache runs when none of the
+    DOTA family is asked for."""
+    d = cfg.dota
+    return not (d.use_dota or d.use_mode_dota or d.use_gmm_dota
+                or d.use_adaptive_dota)
+
+
 def init_state(cfg: Config, text_features_initial: torch.Tensor,
                seed: int = 42) -> EngineState:
-    """The MODE-DOTA carry: mixture from the anchors, zero residuals."""
+    """The carry: MODE-DOTA's mixture from the anchors and zero residuals,
+    or an empty prototype cache."""
     K, D = text_features_initial.shape
     dc = cfg.dota
-    ms = mode_dota.init(dc.epsilon, dc.sigma, D, K,
-                        text_features_initial.T, num_modes=dc.mode_M)
-    rs = residual.init(text_features_initial) if dc.res_learning else None
+    rs = None
+    if uses_cache(cfg):
+        ms = cache.init(K, cfg.cache.shot_capacity, D,
+                        device=text_features_initial.device)
+    else:
+        ms = mode_dota.init(dc.epsilon, dc.sigma, D, K,
+                            text_features_initial.T, num_modes=dc.mode_M)
+        if dc.res_learning:
+            rs = residual.init(text_features_initial)
     gen = torch.Generator(device=text_features_initial.device)
     gen.manual_seed(seed)
     return EngineState(ms, rs, 0, gen)
@@ -116,8 +136,8 @@ def init_states_streams(cfg: Config, text_features_initial: torch.Tensor,
               for i in range(n_streams)]
     return EngineState(
         _stack([s.method_state for s in states]),
-        (_stack([s.res_state for s in states]) if cfg.dota.res_learning
-         else None),
+        (None if states[0].res_state is None
+         else _stack([s.res_state for s in states])),
         0, tuple(s.generator for s in states))
 
 
@@ -127,13 +147,18 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
     and noise, if given, of pc's shape.  With a leading stream axis the
     state is `init_states_streams`'s; the encoder then takes the clean
     clouds of streams 0..S−1 and then their noisy ones as one 2·S·B
-    batch, and each stream's noise comes from its own generator."""
+    batch, and each stream's noise comes from its own generator.  The
+    cache path's step takes no noise (`make_cache_step_fn`)."""
     encode = encode_with(cfg.model.vlm3d, model)
     dc = cfg.dota
+    if uses_cache(cfg):
+        return make_cache_step_fn(cfg, encode)
     if not dc.use_mode_dota:
-        raise NotImplementedError("only the MODE-DOTA path is ported "
-                                  "(ROADMAP M7/M8)")
+        raise NotImplementedError("plain, GMM and adaptive DOTA are not "
+                                  "ported (ROADMAP M8)")
     use_res = dc.res_learning
+    if use_res:
+        residual.check_precision(dc.residual_precision)
 
     def predict_input(f):
         m = f.mean(dim=-2, keepdim=True)
@@ -181,7 +206,8 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
         if use_res and state.step > 0:
             res_state = residual.optimize_residuals(
                 res_state, text_init, ms, dc.residual_lr, dc.epsilon,
-                num_steps=dc.residual_steps)
+                num_steps=dc.residual_steps,
+                precision=dc.residual_precision)
 
         w = fusion.dota_fusion_weight(dc.rho, dc.eta,
                                       ms.c.mean(dim=(-2, -1)), float(B))
@@ -198,6 +224,51 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
                          topk_correct(zs_logits, target, (1, 3, 5)))
         return EngineState(ms, res_state, state.step + 1,
                            state.generator), out
+
+    return step
+
+
+def make_cache_step_fn(cfg: Config, encode: Callable) -> Callable:
+    """The prototype-cache step, step(text_init, state, batch) ->
+    (state, StepOutput): one encoder forward of the clouds (S of them
+    with a stream axis), the sample inserted into or merged with its
+    predicted class's prototypes, then the cache logits read from the
+    cache that already holds it, fused with the clip logits.  Batch 1 a
+    stream: with B > 1 only sample 0 would enter the cache while all B
+    were scored against it, so B > 1 raises, as in the JAX engine."""
+    cc, scale = cfg.cache, cfg.model.logit_scale
+
+    @torch.no_grad()
+    def step(text_init: torch.Tensor, state: EngineState, batch):
+        pc, rgb, target = batch
+        *lead, B, N, _ = pc.shape
+        if B != 1:
+            raise ValueError(
+                f"the prototype-cache path requires batch_size=1 (got {B}): "
+                f"one sample a step enters the cache")
+        text_init = text_init.to(torch.float32)
+        clip_weights = text_init.T
+        feat = encode(pc.reshape(-1, N, 3),
+                      rgb.reshape(-1, N, 3)).reshape(*lead, B, -1)
+        clip_logits, ent, prob_map, pred = clip_logits_from(
+            feat, clip_weights, scale=scale)
+        cs, _ = cache.update_cache(
+            state.method_state, pred, feat[..., :1, :],
+            normalized_entropy(ent[..., 0], text_init.shape[0]),
+            prob_map[..., :1, :], clip_weights, beta=cc.beta,
+            logit_scale=scale)
+        # cc.cg_tol is not passed: the JAX engine runs the CG at its
+        # default tolerance
+        cache_logits, iters = cache.compute_cache_logits(
+            feat, cs, cc.threshold, cc.lambda_reg,
+            use_new_approximation=cc.use_new_approximation,
+            cg_max_iter=cc.cg_max_iter, graph_mode=cc.graph_mode)
+        final = fusion.fuse_cache(clip_logits, cache_logits,
+                                  logit_scale=scale)
+        out = StepOutput(final, clip_logits,
+                         topk_correct(final, target, (1, 3, 5)),
+                         topk_correct(clip_logits, target, (1, 3, 5)), iters)
+        return EngineState(cs, None, state.step + 1, state.generator), out
 
     return step
 
@@ -224,7 +295,8 @@ def run_stream(cfg: Config, model: Callable,
     Returns:
       dict with acc1/acc3/acc5 and zs_acc1 (percent), per-step wall times
       in ms (each step ends in a device synchronise), `finite` (every
-      final logit was finite) and the final `state`.
+      final logit was finite), the cache's CG iterations a step
+      (`cg_iters`, None on the other paths) and the final `state`.
     """
     dev = text_features_initial.device
     step = step_fn if step_fn is not None else make_step_fn(cfg, model)
@@ -234,7 +306,7 @@ def run_stream(cfg: Config, model: Callable,
     zs_totals = torch.zeros(3, device=dev)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     n = 0
-    step_ms = []
+    step_ms, cg_iters = [], []
     for i, (pc, rgb, target) in enumerate(batches):
         batch = tuple(torch.as_tensor(a).to(dev) for a in (pc, rgb, target))
         t0 = time.perf_counter()
@@ -244,6 +316,8 @@ def run_stream(cfg: Config, model: Callable,
         totals += out.correct
         zs_totals += out.zs_correct
         finite &= torch.isfinite(out.final_logits).all()
+        if out.cg_iters is not None:
+            cg_iters.append(out.cg_iters)
         n += int(batch[0].shape[0])
         if print_freq and i % print_freq == 0:
             logging.info("step %d: acc1=%.3f%%", i,
@@ -252,6 +326,7 @@ def run_stream(cfg: Config, model: Callable,
     return {"acc1": accs[0], "acc3": accs[1], "acc5": accs[2],
             "zs_acc1": 100.0 * float(zs_totals[0]) / max(n, 1),
             "n": n, "step_ms": step_ms, "finite": bool(finite),
+            "cg_iters": torch.stack(cg_iters).tolist() if cg_iters else None,
             "state": state}
 
 
