@@ -72,7 +72,11 @@ exits non-zero before the result line:
      seeded (40, 1280) bank and ULIP-2 Point-BERT (12 blocks, width 384)
      on a seeded (40, 512) bank, both written as .npy files.  The kernels'
      launch counters are zeroed just before each path and read just after,
-     and every kernel of the path must have run; then two paths on clouds
+     and the path runs under a torch.profiler trace of the device: its
+     launches are the port's kernels in the trace (a wrapper counts a
+     launch that a CUDA graph's capture records, and no replay), every
+     kernel of the path must have run and no kernel or wrapper of
+     another; then two paths on clouds
      above the register kernels' limits: Uni3D-L on an Objaverse-LVIS
      stream of 10,000-point clouds with a seeded (1156, 1024) bank
      (`fps_grid` and `knn_gather`, never `fps` or `knn`), and ULIP-2 on a
@@ -83,7 +87,11 @@ exits non-zero before the result line:
      path (`--dota-use-mode-dota false`: one forward of the batch-1
      cloud a step) on ModelNet40 (the dense graph, the CG) and on
      ShapeNetCore-C (55 classes, the explicit solve), the CG's
-     iterations printed; and `--compute-dtype float16` raising;
+     iterations printed; then Uni3D-L's MODE-DOTA and cache paths again
+     with `--use-scan false` (the eager step loop: every path above runs
+     the CLI's default, the stream's scan, whose step is captured as a
+     CUDA graph and replayed; here the trace's launches must equal the
+     wrappers' counts); and `--compute-dtype float16` raising;
   6. bench.py's eight configurations as 15-corruption sweeps (Uni3D-L,
      ULIP-2, OpenShape-G at published widths and depth, bf16) through
      `cli.tta.main --corruption all --vmap-corruptions true` on 15
@@ -92,8 +100,9 @@ exits non-zero before the result line:
      one forward a step), the Uni3D-L cache sweep (15 clouds a step),
      and at Objaverse-LVIS's 1156 classes (a seeded bank, 1024 points)
      the cache at shot capacity 8 (the prototype graph) and MODE-DOTA at
-     each residual precision tier; every kernel of the path launched at
-     least as often as 16 batch-1 steps launch it, none of the others;
+     each residual precision tier, each traced as in phase 5; every
+     kernel of the path launched at least as often as 16 batch-1 steps
+     launch it, none of the others;
      15 keys in the result files; finite logits; ms a step and pc/s
      printed (beside the batch-1 path's of phase 5 where the stream is
      the same), and the cache's CG iterations.  Then `engine.run_streams`
@@ -105,9 +114,22 @@ exits non-zero before the result line:
      seeded feature sequence at K 40 / C 2 (dense) and K 1156 / C 8
      (prototype), with three planted faults that must fail the
      tolerance; the 'default' tier's product checked and the three
-     tiers' products timed; and `--continual true` (Uni3D-L) through the
-     15 streams, each corruption's step counter starting where the one
-     before ended;
+     tiers' products timed; the captured step against the eager loop
+     (`engine.run_stream_scan`, `run_streams_scan`; ms a step of each):
+     two generators' draws in four replays equal to their eager draws,
+     `fps_grid`'s cluster launch captured at 10,000 and 24,576 points
+     equal to an eager launch, Uni3D width 1024 depth 2 fp32 with
+     residuals off (8 steps, logits within 1e-4) and on at 'highest' and
+     'high' (2 steps: logits within 1e-3, residuals in the streams
+     check's envelope, the Adam count 10), Uni3D-L bf16 MODE-DOTA
+     with residuals at batch 1 (16 steps), on the cache (ModelNet40's CG,
+     ShapeNetCore's explicit solve; 8 steps: CG iterations identical, the
+     final caches' refined labels equal) and ULIP-2's 15-stream sweep (4
+     steps), each full-size path's replays traced with torch.profiler:
+     two replayed steps must launch each port kernel exactly as often as
+     two eager steps; and `--continual true` (Uni3D-L, traced) through
+     15 streams of 4 clouds, each corruption's step counter starting
+     where the one before ended;
   7. the attention-map extraction path of each backbone at full width and
      depth through `uni_adapter_torch.cli.extract_attention` on the
      synthetic sphere (the whole `main` where matplotlib imports, its
@@ -130,6 +152,7 @@ result.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import re
@@ -2121,7 +2144,8 @@ def check_features_fp32(torch, gen) -> None:
 def launch_counters() -> dict:
     """Each kernel's launch counter: the wrapper that owns it (the
     split-TF32 core's, which the three fp32 wrappers share, adds the
-    launches that their C entries report ran it)."""
+    launches that their C entries report ran it).  A wrapper counts each
+    launch it issues, also one that a CUDA graph's capture records."""
     from uni_adapter_torch.ops import attention, attention_fp32
     from uni_adapter_torch.ops import attention_heads, ballquery, build
     from uni_adapter_torch.ops import eva_attention, fps, knn, knn_gather
@@ -2198,6 +2222,14 @@ PATHS = {
                              (1024, 55), "large",
                              {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
                              UNI3D_IDLE),
+    # the eager step loop of each method (every path above runs the scan)
+    "uni3d_eager": (["--use-scan", "false"], (1024, 40), "large",
+                    {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
+                    UNI3D_IDLE),
+    "uni3d_cache_eager": (["--dota-use-mode-dota", "false", "--use-scan",
+                           "false"], (1024, 40), "large",
+                          {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
+                          UNI3D_IDLE),
 }
 
 
@@ -2247,6 +2279,83 @@ def zeroed_counters() -> dict:
     return counters
 
 
+#: The port's kernels as a profiler trace names them, by the counter whose
+#: wrapper launches them: a block's wrapper launches two GEMMs and an
+#: attention step a call and counts three; an fp32 wrapper's attention
+#: step is the FFMA or the split-TF32 kernel, the latter also counted as
+#: `attn_f32_tc`.  Counters that share a kernel never run on one path.
+COUNTER_KERNELS = {
+    "fps": ("fps_kernel",), "knn": ("knn_kernel",),
+    "eva_attn_block": ("gemm_bf16_kernel", "attn_kernel"),
+    "ballquery": ("ballquery_kernel",),
+    "eva_attention": ("attn_kernel",),
+    "attention_heads": ("attn_kernel",),
+    "knn_gather": ("knn_gather_kernel",),
+    "fps_grid": ("fps_grid_kernel",),
+    "attention_fp32": ("attn_f32_kernel", "attn_f32_tc_kernel"),
+    "eva_attention_fp32": ("attn_f32_kernel", "attn_f32_tc_kernel"),
+    "eva_attn_block_fp32": ("gemm_f32_kernel", "attn_f32_kernel",
+                            "attn_f32_tc_kernel"),
+    "attn_f32_tc": ("attn_f32_tc_kernel",),
+}
+PORT_KERNELS = sorted({k for ks in COUNTER_KERNELS.values() for k in ks})
+
+
+def kernel_counts(names) -> dict:
+    """How often each of PORT_KERNELS ran among a trace's kernel names."""
+    by_name = collections.Counter(names)
+    return {k: sum(n for name, n in by_name.items()
+                   if re.search(rf"\b{k}\b", name)) for k in PORT_KERNELS}
+
+
+def device_kernel_names(torch, prof) -> list:
+    """The names of the device events of a finished trace, read from the
+    profiler's raw events (building its FunctionEvents takes seconds for
+    a whole run's)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:
+        return [ev.name for ev in prof.events() if ev.device_type == cuda]
+    return [ev.name() for ev in events if ev.device_type() == cuda]
+
+
+def by_counter(counts: dict, on_path) -> dict:
+    """Kernel counts as launches of the counters `on_path` (0 for the
+    others)."""
+    return {c: (sum(counts[k] for k in ks) if c in on_path else 0)
+            for c, ks in COUNTER_KERNELS.items()}
+
+
+def traced_run(torch, what: str, run, on_path) -> tuple:
+    """Drive a main path, run(), with every launch counter at 0 and the
+    device traced.  Returns its result, its launches by counter as the
+    trace counts them (what ran on the card: the eager steps and a
+    captured step's replays; a wrapper counts a launch that a capture
+    records, and no replay) and the wrappers' counts.  Fails if the
+    trace holds none of the port's kernels, or one that the counters
+    `on_path` do not launch, if a wrapper off the path counted anything
+    or one on it nothing."""
+    counters = zeroed_counters()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    counts = kernel_counts(device_kernel_names(torch, prof))
+    wrapper = {n: c.launches for n, c in counters.items()}
+    owned = {k for c in on_path for k in COUNTER_KERNELS[c]}
+    stray = {k: n for k, n in counts.items() if n and k not in owned}
+    off = {c: n for c, n in wrapper.items() if n and c not in on_path}
+    silent = [c for c in on_path if not wrapper[c]]
+    if not any(counts.values()):
+        fail(f"torch.profiler recorded none of the port's kernels on {what}")
+    if stray or off or silent:
+        fail(f"{what}: kernels in the trace that its counters do not launch "
+             f"{stray}, wrappers off the path that counted {off}, wrappers "
+             f"on it that counted nothing {silent}")
+    return result, by_counter(counts, on_path), wrapper
+
+
 def check_launches(what: str, launches: dict, need: dict, idle) -> None:
     """At least need[name] launches of each kernel of a run, none of the
     idle ones."""
@@ -2261,8 +2370,12 @@ def check_launches(what: str, launches: dict, need: dict, idle) -> None:
 
 
 def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
-    """One main path through `cli.tta.main`: its launches and its steady
-    ms a step (median of steps 2-16)."""
+    """One main path through `cli.tta.main`, traced (`traced_run`): its
+    launches and its steady ms a step (median of steps 2-16, under the
+    trace).  On an eager path the trace's launches must equal the
+    wrappers' counts."""
+    import torch
+
     from uni_adapter_torch.cli import tta
 
     flags, (n_points, n_classes), bank, per_step, idle = PATHS[kind]
@@ -2270,12 +2383,16 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
     if not root.exists():
         write_stream(root, n_points, n_classes, n_clouds)
     bank = bank_arg(tmp, bank)
-    counters = zeroed_counters()
-    summary = tta.main(["--root", str(root), "--corruption", "uniform",
-                        "--precomputed-text-features", bank, *flags,
-                        "--device", "cuda", "--output-dir", str(tmp / "out"),
-                        "--name", f"smoke-{kind}"])
-    launches = {n: c.launches for n, c in counters.items()}
+    what = f"the {kind} main path"
+    summary, launches, wrapper = traced_run(torch, what, lambda: tta.main(
+        ["--root", str(root), "--corruption", "uniform",
+         "--precomputed-text-features", bank, *flags, "--device", "cuda",
+         "--output-dir", str(tmp / "out"), "--name", f"smoke-{kind}"]),
+        per_step)
+    if "--use-scan" in flags and launches != wrapper:
+        # the eager loop: every launch a wrapper counts runs, once
+        fail(f"{what}: the trace's launches {launches} differ from the "
+             f"wrappers' {wrapper}")
 
     step_ms = summary["step_ms"]["uniform"]
     steady = statistics.median(step_ms[1:])
@@ -2283,7 +2400,8 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
           f"ms, then median {steady:.2f} ms/step ({1e3 / steady:.2f} pc/s), "
           f"mean {statistics.mean(step_ms[1:]):.2f}, "
           f"max {max(step_ms[1:]):.2f}")
-    print(f"main path {kind} launches: {launches}")
+    print(f"main path {kind} launches (traced): {launches}; the wrappers "
+          f"counted {wrapper}")
     print(f"main path {kind} final logits finite: "
           f"{summary['finite']['uniform']}")
     if summary["cg_iters"]["uniform"] is not None:
@@ -2291,7 +2409,7 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
               f"{summary['cg_iters']['uniform']}")
     if len(step_ms) != n_clouds:
         fail(f"{kind}: {len(step_ms)} steps, expected {n_clouds}")
-    check_launches(f"the {kind} main path", launches,
+    check_launches(what, launches,
                    {n: k * n_clouds for n, k in per_step.items()}, idle)
     if not summary["finite"]["uniform"]:
         fail(f"{kind}: non-finite final logits")
@@ -2337,13 +2455,15 @@ SWEEPS = {
 def run_sweep(tmp: Path, name: str, batch1_ms, card: str,
               n_steps: int = 16) -> tuple:
     """A 15-corruption sweep through `cli.tta.main --vmap-corruptions
-    true` on 15 synthetic streams of n_steps clouds: every kernel of the
-    path launched at least as often as the batch-1 path launches it in
-    n_steps steps, none of the others; 15 keys in both result files,
-    finite logits.  Prints its ms a step and pc/s (beside the batch-1
-    path's of this call, where that runs the same stream: `batch1_ms`)
-    and, on the cache path, the CG's iterations a step.  Returns its
-    launches and numbers."""
+    true` on 15 synthetic streams of n_steps clouds, traced
+    (`traced_run`): every kernel of the path launched at least as often
+    as the batch-1 path launches it in n_steps steps, none of the others;
+    15 keys in both result files, finite logits.  Prints its ms a step
+    and pc/s under the trace (beside the batch-1 path's of this call,
+    where that runs the same stream: `batch1_ms`) and, on the cache path,
+    the CG's iterations a step.  Returns its launches and numbers."""
+    import torch
+
     from uni_adapter_torch.cli import tta
     from uni_adapter_torch.config import CORRUPTIONS
 
@@ -2354,14 +2474,14 @@ def run_sweep(tmp: Path, name: str, batch1_ms, card: str,
     root = tmp / f"sweep_{n_points}x{n_classes}"
     if not root.exists():
         write_stream(root, n_points, n_classes, n_steps, CORRUPTIONS)
-    counters = zeroed_counters()
-    summary = tta.main(["--root", str(root), "--corruption", "all",
-                        "--vmap-corruptions", "true",
-                        "--precomputed-text-features", bank_arg(tmp, bank),
-                        *flags, *extra, "--device", "cuda", "--output-dir",
-                        str(tmp / "out"), "--name", f"smoke-sweep-{name}"])
-    launches = {n: c.launches for n, c in counters.items()}
+    torch.cuda.reset_peak_memory_stats()
     what = f"the {name} sweep"
+    summary, launches, wrapper = traced_run(torch, what, lambda: tta.main(
+        ["--root", str(root), "--corruption", "all", "--vmap-corruptions",
+         "true", "--precomputed-text-features", bank_arg(tmp, bank), *flags,
+         *extra, "--device", "cuda", "--output-dir", str(tmp / "out"),
+         "--name", f"smoke-sweep-{name}"]), per_step)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     step_ms = summary["step_ms"][CORRUPTIONS[0]]
     if len(step_ms) != n_steps:
         fail(f"{what}: {len(step_ms)} steps, expected {n_steps}")
@@ -2381,7 +2501,7 @@ def run_sweep(tmp: Path, name: str, batch1_ms, card: str,
            "pc_s": len(CORRUPTIONS) * len(steady) / sum(steady) * 1e3,
            "batch1_median_ms": batch1_ms,
            "batch1_pc_s": None if batch1_ms is None else 1e3 / batch1_ms,
-           "card": card,
+           "card": card, "peak_memory_gib": peak_gib,
            "cg_iters": summary["cg_iters"] if iters is not None else None}
     beside = ("" if batch1_ms is None else
               f"; the batch-1 path of this call {batch1_ms:.2f} ms/step, "
@@ -2389,12 +2509,14 @@ def run_sweep(tmp: Path, name: str, batch1_ms, card: str,
     print(f"sweep {name} ({metric}'s protocol, {card}): "
           f"{len(CORRUPTIONS)} streams x {n_steps} steps, first step "
           f"{step_ms[0]:.1f} ms, then median {out['median_ms']:.2f} ms/step, "
-          f"{out['pc_s']:.1f} pc/s over the steady steps{beside}")
+          f"{out['pc_s']:.1f} pc/s over the steady steps{beside}; peak "
+          f"memory {peak_gib:.2f} GiB")
     if iters is not None:
         per_step_iters = list(zip(*summary["cg_iters"].values()))
         print(f"sweep {name} CG iterations a step (min-max over the 15 "
               f"streams): {[(min(i), max(i)) for i in per_step_iters]}")
-    print(f"sweep {name} launches: {launches}")
+    print(f"sweep {name} launches (traced): {launches}; the wrappers "
+          f"counted {wrapper}")
     return launches, out
 
 
@@ -2518,13 +2640,15 @@ def cache_sequence(K: int, n_steps: int, n_cls: int, D: int = 1024):
 
 
 def run_cache_sequence(torch, device: str, text, feats, C: int) -> dict:
-    """The cache step's functions on `device`, as the engine calls them,
-    one feature a step: clip logits, `update_cache`, `compute_cache_logits`
-    (graph 'auto', CG), `fuse_cache`; and, each step, the refined labels
-    of the graph's valid nodes (`online_value_refinement_new`, which
-    `compute_cache_logits` reads only through their argmax).  Returns the
-    insert/merge decisions, CG iterations, fused logits and refined labels
-    of every step, and the final state."""
+    """The cache step's functions on `device`, as the engine's cache step
+    calls them, one feature a step: clip logits, `update_cache`, the
+    refinement's parts (graph 'auto', CG: `start_refinement`,
+    `refinement_iteration` until every system has stopped,
+    `graph_readout`), `fuse_cache`; and, each step, the refined labels of
+    the graph's valid nodes from the same solution (the readout reads
+    them only through their argmax).  Returns the insert/merge
+    decisions, CG iterations, fused logits and refined labels of every
+    step, and the final state."""
     from uni_adapter_torch.adapt import cache, fusion
     from uni_adapter_torch.config import CacheConfig
     from uni_adapter_torch.engine import clip_logits_from
@@ -2540,13 +2664,14 @@ def run_cache_sequence(torch, device: str, text, feats, C: int) -> dict:
         state, ins = cache.update_cache(
             state, pred, f, umath.normalized_entropy(ent[..., 0], K), prob,
             w, beta=cc.beta, logit_scale=100.0)
-        cl, it = cache.compute_cache_logits(f, state, cc.threshold,
-                                            cc.lambda_reg, graph_mode="auto")
-        nodes, probs, valid = cache.graph_nodes(state, "auto")
-        refined, _ = umath.online_value_refinement_new(
-            nodes, probs, valid, cc.threshold, cc.lambda_reg, cc.cg_max_iter)
-        for key, v in (("inserted", ins), ("iters", it), ("refined",
-                                                          refined[valid]),
+        ref = cache.start_refinement(state, cc.threshold, cc.lambda_reg,
+                                     graph_mode="auto")
+        umath.run_cg(lambda: cache.refinement_iteration(ref), cc.cg_max_iter)
+        cl = cache.graph_readout(f, ref)
+        valid = ref.graph.valid
+        refined = umath.refined_labels(ref.sol, valid)[valid]
+        for key, v in (("inserted", ins), ("iters", ref.cg.iters),
+                       ("refined", refined),
                        ("logits", fusion.fuse_cache(clip, cl, 100.0))):
             out[key].append(v.cpu())
     out = {k: (v if k == "refined" else torch.stack(v))
@@ -2556,31 +2681,26 @@ def run_cache_sequence(torch, device: str, text, feats, C: int) -> dict:
     return out
 
 
-def cg_per_column_freeze(A, b, max_iter: int = 100, tol: float = 1e-5):
-    """A planted fault: the CG with each column stopped on its own (the
-    reference stops a system only when all its columns have converged)."""
+def cg_iteration_per_column_(A, s, tol: float = 1e-5):
+    """A planted fault: `utils/math.cg_iteration_` with each column
+    stopped on its own once its residual is below tol (the reference
+    stops a system only when all its columns have converged)."""
     import torch
 
-    x = torch.zeros_like(b)
-    r = b.clone()
-    p = r
-    rz = (r * r).sum(-2)
-    live = torch.ones_like(rz, dtype=torch.bool)
-    for _ in range(max_iter):
-        Ap = torch.matmul(A, p)
-        alpha = (rz / ((p * Ap).sum(-2) + 1e-8)).unsqueeze(-2)
-        keep = live.unsqueeze(-2)
-        x = torch.where(keep, x + alpha * p, x)
-        r_new = r - alpha * Ap
-        rz_new = (r_new * r_new).sum(-2)
-        p = torch.where(keep, r_new + (rz_new / (rz + 1e-8)).unsqueeze(-2)
-                        * p, p)
-        r = torch.where(keep, r_new, r)
-        rz = torch.where(live, rz_new, rz)
-        live = live & ~(rz_new < tol)
-        if not bool(live.any()):
-            break
-    return x, torch.zeros(b.shape[:-2], dtype=torch.int32, device=b.device)
+    live = (s.rz >= tol) & ~s.done[..., None]
+    Ap = torch.matmul(A, s.p)
+    alpha = (s.rz / (torch.sum(s.p * Ap, dim=-2) + 1e-8)).unsqueeze(-2)
+    keep = live.unsqueeze(-2)
+    r_new = s.r - alpha * Ap
+    rz_new = torch.sum(r_new * r_new, dim=-2)
+    beta = (rz_new / (s.rz + 1e-8)).unsqueeze(-2)
+    s.x.copy_(torch.where(keep, s.x + alpha * s.p, s.x))
+    s.p.copy_(torch.where(keep, r_new + beta * s.p, s.p))
+    s.r.copy_(torch.where(keep, r_new, s.r))
+    s.rz.copy_(torch.where(live, rz_new, s.rz))
+    s.iters.add_(live.any(dim=-1).to(torch.int32))
+    s.done.logical_or_(torch.all(s.rz < tol, dim=-1))
+    return s.done.all()
 
 
 def cache_errors(got: dict, want: dict) -> tuple:
@@ -2633,8 +2753,8 @@ def check_cache_card_vs_cpu(torch) -> None:
 
     faults = {
         "TF32 products": tf32,
-        "per-column CG stop": patched(umath, "conjugate_gradient",
-                                      cg_per_column_freeze),
+        "per-column CG stop": patched(umath, "cg_iteration_",
+                                      cg_iteration_per_column_),
         "merge into the wrong slot": patched(
             cache, "merge_slot",
             lambda sims: (torch.argmax(sims, -1) + 1) % sims.shape[-1]),
@@ -2788,34 +2908,295 @@ def check_residual_tiers(torch, gen) -> dict:
     return times
 
 
-def run_continual(tmp: Path, n_steps: int = 16) -> dict:
+def run_continual(tmp: Path, n_steps: int = 4) -> dict:
     """`cli.tta.main --corruption all --continual true` (Uni3D-L, bf16) on
-    the sweep's 15 streams: each corruption starts from the one before's
-    carry, its step counter running 16·i → 16·(i + 1)."""
+    15 streams of n_steps clouds, traced (`traced_run`): each corruption
+    starts from the one before's carry, its step counter running
+    n_steps·i → n_steps·(i + 1)."""
+    import torch
+
     from uni_adapter_torch.cli import tta
     from uni_adapter_torch.config import CORRUPTIONS
 
-    counters = zeroed_counters()
-    summary = tta.main(["--root", str(tmp / "sweep_1024x40"), "--corruption",
-                        "all", "--continual", "true",
-                        "--precomputed-text-features", "large", "--device",
-                        "cuda", "--output-dir", str(tmp / "out"), "--name",
-                        "smoke-continual"])
-    launches = {n: c.launches for n, c in counters.items()}
+    root = tmp / f"continual_1024x40x{n_steps}"
+    if not root.exists():
+        write_stream(root, 1024, 40, n_steps, CORRUPTIONS)
+    _, _, _, per_step, idle = PATHS["uni3d"]
+    what = "the --continual path"
+    summary, launches, wrapper = traced_run(torch, what, lambda: tta.main(
+        ["--root", str(root), "--corruption", "all", "--continual", "true",
+         "--precomputed-text-features", "large", "--device", "cuda",
+         "--output-dir", str(tmp / "out"), "--name", "smoke-continual"]),
+        per_step)
     steps = [summary["steps"][c] for c in CORRUPTIONS]
     want = [[n_steps * i, n_steps * (i + 1)] for i in range(len(CORRUPTIONS))]
     if steps != want:
         fail(f"--continual: step counters {steps}, expected {want}")
     if not all(summary["finite"].values()):
         fail("--continual: non-finite final logits")
-    _, _, _, per_step, idle = PATHS["uni3d"]
-    check_launches("the --continual path", launches,
-                   {n: k * n_steps * len(CORRUPTIONS)
-                    for n, k in per_step.items()}, idle)
+    check_launches(what, launches, {n: k * n_steps * len(CORRUPTIONS)
+                                    for n, k in per_step.items()}, idle)
     print(f"--continual: {CORRUPTIONS[0]} steps {steps[0]}, {CORRUPTIONS[1]} "
           f"steps {steps[1]} (from the first's carry), ..., {CORRUPTIONS[-1]}"
-          f" steps {steps[-1]}; launches {launches}")
+          f" steps {steps[-1]}; launches (traced) {launches}; the wrappers "
+          f"counted {wrapper}")
     return launches
+
+
+def check_replayed_kernels(torch, what: str, run, per_step: dict,
+                           steps: int) -> None:
+    """A trace of run() (`steps` steps of a scan whose step is already
+    captured, so that it only replays) must hold, for each counter of
+    `per_step` (an eager step's launches by counter), `steps` times its
+    launches, and no other port kernel.  A trace that holds no port
+    kernel is taken again, up to three times."""
+    for _ in range(3):
+        counts = kernel_counts(k.name for k in trace_kernels(run, 1,
+                                                            warmup=0))
+        if any(counts.values()):
+            break
+    else:
+        fail(f"torch.profiler recorded none of the port's kernels in three "
+             f"traces of the replays of {what}")
+    got = by_counter(counts, per_step)
+    want = {c: steps * per_step.get(c, 0) for c in COUNTER_KERNELS}
+    print(f"scan {what}: launches in a trace of {steps} replayed steps "
+          f"{ {c: n for c, n in got.items() if n} }, {steps} eager steps' "
+          f"{ {c: n for c, n in want.items() if n} }")
+    owned = {k for c in per_step for k in COUNTER_KERNELS[c]}
+    if got != want or any(n for k, n in counts.items() if k not in owned):
+        fail(f"scan {what}: the replays' kernels {counts} are not the eager "
+             f"steps'")
+
+
+def check_captured_noise(torch) -> None:
+    """Draws of two generators in a captured segment, replayed four times,
+    against the same generators' eager draws from the same seeds: equal,
+    bitwise."""
+    from uni_adapter_torch.engine import _Segment
+
+    gens = tuple(torch.Generator(device="cuda").manual_seed(42 + i)
+                 for i in range(2))
+    refs = [torch.Generator(device="cuda").manual_seed(42 + i)
+            for i in range(2)]
+    shape = (2, 1024, 3)
+    seg = _Segment(lambda: torch.stack(
+        [torch.randn(shape, generator=g, device="cuda") for g in gens]),
+        gens)
+    seg.capture()
+    got = [seg().clone() for _ in range(4)]
+    want = [torch.stack([torch.randn(shape, generator=g, device="cuda")
+                         for g in refs]) for _ in range(4)]
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"scan: noise of 2 generators in 4 replays equal to their eager "
+          f"draws: {same}")
+    if not same:
+        fail("the captured step's noise differs from the eager draws")
+
+
+def check_captured_fps_grid(torch, gen) -> None:
+    """`fps_grid.cu`'s cluster launch (`cudaLaunchKernelEx`) captured and
+    replayed at 10,000 points (the LVIS path's, in registers) and at
+    24,576 (where its launch sets the kernel's shared-memory attribute at
+    every call, inside the capture too): indices equal to an eager
+    launch's, in three replays."""
+    from uni_adapter_torch.engine import _Segment
+    from uni_adapter_torch.ops import fps
+
+    for n in (10000, 24576):
+        xyz = sphere_cloud(torch, gen, 2, n)
+        want = fps.farthest_point_sample(xyz, 512)
+        seg = _Segment(lambda: fps.farthest_point_sample(xyz, 512))
+        seg.capture()
+        same = all(torch.equal(seg(), want) for _ in range(3))
+        print(f"scan: fps_grid captured at (2, {n}) → 512, replays equal to "
+              f"an eager launch: {same}")
+        if not same:
+            fail(f"captured fps_grid at {n} points differs from eager")
+
+
+def stacked_eager(torch, cfg, model, text, pcs, rgbs, targets):
+    """The eager loop (`engine.run_stream`) on one stream, or on S
+    (`engine.run_streams`, pcs (S, T, ...)): its final state, outputs
+    stacked (T, ...) and ms a step."""
+    from uni_adapter_torch import engine
+
+    if pcs.dim() == 5:
+        res = engine.run_streams(cfg, model, text, pcs, rgbs, targets)
+        return res["state"], engine.stack_outputs(res["outputs"]), \
+            res["step_ms"]
+    outs = []
+    res = engine.run_stream(cfg, model, text, zip(pcs, rgbs, targets),
+                            step_fn=fed_outputs(engine.make_step_fn(
+                                cfg, model), outs))
+    return res["state"], engine.stack_outputs(outs), res["step_ms"]
+
+
+def scan_against_eager(torch, what, cfg, model, text, pcs, rgbs, targets,
+                       atol, trace=False) -> tuple:
+    """The stream(s) through the eager loop and through the scan (its
+    step captured and replayed): final logits within atol every step,
+    identical correct counts and CG iterations, both finite; ms a step of
+    each (median of the steps after the first) printed.  With `trace`, a
+    second scan of the first two steps is traced and must launch each
+    kernel as often as two eager steps do (the wrappers' counts over the
+    eager run, a step's the same at every step).  Returns the eager and
+    the scan's final states and (eager, captured) ms a step."""
+    from uni_adapter_torch import engine
+
+    streams = pcs.dim() == 5
+    T = pcs.shape[1] if streams else pcs.shape[0]
+    counters = zeroed_counters()
+    e_state, e_out, e_ms = stacked_eager(torch, cfg, model, text, pcs,
+                                         rgbs, targets)
+    eager = {c: n.launches for c, n in counters.items() if n.launches}
+    if any(n % T for n in eager.values()):
+        fail(f"scan {what}: the eager run's {T} steps launched {eager}")
+    per_step = {c: n // T for c, n in eager.items()}
+    scan_fn = engine.make_scan_fn(cfg, model)
+    run = engine.run_streams_scan if streams else engine.run_stream_scan
+    torch.cuda.reset_peak_memory_stats()
+    s_state, s_out = run(cfg, model, text, pcs, rgbs, targets,
+                         scan_fn=scan_fn)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s_ms = scan_fn.step_ms
+    err = (e_out.final_logits - s_out.final_logits).abs().max().item()
+    same = (torch.equal(e_out.correct, s_out.correct)
+            and torch.equal(e_out.zs_correct, s_out.zs_correct))
+    iters_same = (e_out.cg_iters is None
+                  or torch.equal(e_out.cg_iters, s_out.cg_iters))
+    finite = bool(torch.isfinite(s_out.final_logits).all()
+                  and torch.isfinite(e_out.final_logits).all())
+    em, sm = statistics.median(e_ms[1:]), statistics.median(s_ms[1:])
+    print(f"scan {what}: eager {em:.2f} ms/step, captured {sm:.2f} ms/step "
+          f"(first step {e_ms[0]:.1f} / {s_ms[0]:.1f} ms; peak memory "
+          f"{peak:.2f} GiB); final logits max abs err {err:.3g} (atol "
+          f"{atol}); correct counts identical {same}; CG iterations "
+          f"{None if e_out.cg_iters is None else e_out.cg_iters.tolist()} "
+          f"identical {iters_same}; finite {finite}")
+    if err > atol or not (same and iters_same and finite):
+        fail(f"scan {what}: the captured step disagrees with the eager one")
+    if trace:
+        cut = (lambda a: a[:, :2]) if streams else (lambda a: a[:2])
+        check_replayed_kernels(torch, what, lambda: run(
+            cfg, model, text, cut(pcs), cut(rgbs), cut(targets),
+            scan_fn=scan_fn), per_step, 2)
+    return e_state, s_state, (em, sm)
+
+
+def check_scan(torch) -> dict:
+    """The captured step (`engine.run_stream_scan`, `run_streams_scan`)
+    against the eager loop on the card: Uni3D-L bf16 at full width and
+    depth, MODE-DOTA with residual learning, batch 1, 16 clouds; Uni3D
+    at width 1024 and depth 2 in fp32, residuals off (8 steps: logits
+    within 1e-4) and on at tiers 'highest' and 'high' (2 steps: logits
+    within 1e-3, residuals within the envelope of the streams check, the
+    Adam count 10, the sample count equal; the two tiers' captured
+    residuals must differ: the captured loop keeps TF32); ULIP-2's 15-stream sweep (4 steps); Uni3D-L on the
+    cache, ModelNet40 (the CG) and ShapeNetCore (the explicit solve), 8
+    clouds: CG iterations identical and the refined labels of the final
+    caches equal.  Each full-size path's replays are traced: two
+    replayed steps must launch each kernel as often as two eager steps.
+    Returns ms a step, eager and captured, by path."""
+    from uni_adapter_torch.adapt import cache as cache_mod
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.config import (CacheConfig, Config, DataConfig,
+                                          DotaConfig, ModelConfig)
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.utils import math as umath
+
+    check_captured_noise(torch)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    check_captured_fps_grid(torch, gen)
+    text = load_precomputed("large", "modelnet").cuda()
+    ms = {}
+
+    def stream(T, S=None, N=1024, scale=False):
+        lead = (T,) if S is None else (S, T)
+        n = T if S is None else S * T
+        pcs = sphere_cloud(torch, gen, n, N)
+        if scale:   # predictions that differ from cloud to cloud
+            pcs = pcs * torch.exp(torch.empty(n, 1, 1, device="cuda")
+                                  .uniform_(-1.4, 0.7, generator=gen))
+        pcs = pcs.reshape(*lead, 1, N, 3)
+        return (pcs, torch.ones_like(pcs),
+                torch.randint(0, 40, (*lead, 1), generator=gen,
+                              device="cuda"))
+
+    # depth 2, fp32: the tolerance of an fp32 path
+    mc = ModelConfig(eva_depth=2, compute_dtype="float32")
+    model, _, _ = build_backbone("uni3d", mc, "cuda", seed=0)
+    pcs, rgbs, tgts = stream(8)
+    residuals = {}
+    for res_learning, T, atol, tier in ((False, 8, 1e-4, "highest"),
+                                        (True, 2, 1e-3, "highest"),
+                                        (True, 2, 1e-3, "high")):
+        cfg = Config(model=mc, dota=DotaConfig(res_learning=res_learning,
+                                               residual_precision=tier))
+        e, s, _ = scan_against_eager(
+            torch, f"uni3d depth 2 fp32, residuals {res_learning} ({tier})",
+            cfg, model, text, pcs[:T], rgbs[:T], tgts[:T], atol)
+        if not torch.equal(e.method_state.t, s.method_state.t):
+            fail("scan: sample counts differ")
+        if res_learning:
+            residuals[tier] = s.res_state.residuals
+            d = (e.res_state.residuals - s.res_state.residuals).abs()
+            med, p90 = d.median().item(), d.flatten().quantile(0.9).item()
+            print(f"scan residuals ({tier}) |d| median {med:.3g}, 90th pct "
+                  f"{p90:.3g}; Adam count {int(s.res_state.count)}")
+            if not (med < 1e-6 and p90 < 2e-4
+                    and int(s.res_state.count) == 10
+                    and torch.equal(e.res_state.count, s.res_state.count)):
+                fail("scan: residuals or the Adam count out of the envelope")
+    # the captured 'high' loop keeps TF32: its residuals are not fp32's
+    tf32 = (residuals["high"] - residuals["highest"]).abs().max().item()
+    print(f"scan: captured residuals 'high' vs 'highest' max abs diff "
+          f"{tf32:.3g}")
+    if tf32 == 0:
+        fail("scan: the captured 'high' tier computed fp32 products")
+
+    # full width and depth, bf16
+    cfg = Config(model=ModelConfig(), dota=DotaConfig())
+    model, _, _ = build_backbone("uni3d", cfg.model, "cuda", seed=0)
+    pcs, rgbs, tgts = stream(16)
+    _, _, ms["uni3d"] = scan_against_eager(
+        torch, "uni3d (Uni3D-L, MODE-DOTA, residuals, batch 1)", cfg, model,
+        text, pcs, rgbs, tgts, 1e-2, trace=True)
+    for name, dataset in (("uni3d_cache", "modelnet"),
+                          ("uni3d_cache_shapenet", "shapenetcore")):
+        ccfg = Config(model=cfg.model, dota=DotaConfig(use_mode_dota=False),
+                      data=DataConfig(dataset_name=dataset)).resolve()
+        bank = load_precomputed("large", dataset).cuda()
+        pcs, rgbs, tgts = stream(8, scale=True)
+        e, s, ms[name] = scan_against_eager(
+            torch, name, ccfg, model, bank, pcs, rgbs, tgts, 1e-2,
+            trace=True)
+        cc = ccfg.cache
+        labels = []
+        for st in (e, s):
+            ref = cache_mod.start_refinement(
+                st.method_state, cc.threshold, cc.lambda_reg,
+                cc.use_new_approximation, cc.graph_mode)
+            if ref.cg is not None:
+                umath.run_cg(lambda: cache_mod.refinement_iteration(ref),
+                             cc.cg_max_iter)
+            valid = ref.graph.valid
+            labels.append(umath.refined_labels(ref.sol, valid)
+                          .argmax(-1)[valid])
+        print(f"scan {name}: refined labels of the final caches equal: "
+              f"{torch.equal(*labels)} ({labels[0].numel()} nodes)")
+        if not torch.equal(*labels):
+            fail(f"scan {name}: refined labels differ")
+    del model
+    ucfg = Config(model=ModelConfig(vlm3d="ulip"), dota=DotaConfig())
+    model, _, _ = build_backbone("ulip", ucfg.model, "cuda", seed=0)
+    bank = torch.randn(40, 512, generator=gen, device="cuda")
+    bank = bank / bank.norm(dim=1, keepdim=True)
+    pcs, rgbs, tgts = stream(4, S=15)
+    _, _, ms["sweep_ulip"] = scan_against_eager(
+        torch, "sweep_ulip (15 streams)", ucfg, model, bank, pcs, rgbs, tgts,
+        1e-2, trace=True)
+    return {k: {"eager_ms": v[0], "captured_ms": v[1]} for k, v in ms.items()}
 
 
 #: The extraction paths at full width and depth: CLI flags, then the
@@ -3033,6 +3414,7 @@ def main() -> None:
                 Path(tmp), name, None if extra else batch1_ms[path], card)
         check_streams_equal_sequential(torch)
         check_cache_streams_equal_sequential(torch)
+        scan_ms = check_scan(torch)
         check_cache_card_vs_cpu(torch)
         tier_ms = check_residual_tiers(torch, gen)
         by_path["continual_uni3d"] = run_continual(Path(tmp))
@@ -3043,7 +3425,8 @@ def main() -> None:
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-    print(json.dumps({"sweeps": sweeps, "residual_tier_product_ms": tier_ms}))
+    print(json.dumps({"sweeps": sweeps, "residual_tier_product_ms": tier_ms,
+                      "scan_ms": scan_ms}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
     python3 scripts/torch_step_profile.py [--vlm3d uni3d|openshape|ulip]
         [--npoints N] [--dataset-name NAME] [--compute-dtype float32]
         [--streams S] [--method mode_dota|cache]
-        [--residual-precision highest|high|default]
+        [--residual-precision highest|high|default] [--scan]
 
 On one CUDA card (its name and power limit printed first), one backbone
 at its published widths and depth in bf16 (or `--compute-dtype float32`:
@@ -45,7 +45,13 @@ width.  After warm-up it prints, per step:
     natural-layout and the (B, H, N, hd) attention), the fp32 attention
     core (its split-TF32 and FFMA kernels), the EVA block's GEMMs and the
     grouping kernels (FPS, kNN, ball query); library GEMMs; the rest.  Each
-    group with its ms and launches a step.
+    group with its ms and launches a step;
+  * with `--scan`, the captured step beside the eager one from the same
+    carry (the populated cache on `--method cache`) on 12 fresh steps
+    (`engine.make_scan_fn`: the stream's step captured as a CUDA graph
+    and replayed): ms a step (the scan's from CUDA events between its
+    replays), device busy ms a step (a trace of a second run: for the
+    scan, replays only) and the idle share of each.
 """
 from __future__ import annotations
 
@@ -93,6 +99,8 @@ PORT_GROUPS = {
         "ballquery_kernel"),
 }
 PROFILED_STEPS = 5
+#: Steps of the captured stream that `--scan` times and traces.
+SCAN_STEPS = 12
 
 
 def wall_ms(fn, n):
@@ -215,16 +223,19 @@ def cache_phases(cfg, cs, feat, text) -> dict:
     cs2 = update()
     nodes, probs, valid = cache.graph_nodes(cs2, cc.graph_mode)
     mode = "dense" if nodes.shape[-2] == K * C else "prototype"
-    graph = lambda: umath._masked_laplacian(              # noqa: E731
-        nodes, valid, cc.threshold, cc.lambda_reg)
-    L = graph()
-    b = 2.0 * cc.lambda_reg * probs * valid[..., None]
+    system = lambda: umath.refinement_system(             # noqa: E731
+        nodes, probs, valid, cc.threshold, cc.lambda_reg)
+    graph = cache.GraphSystem(nodes, valid, *system())
+    L, b = graph.L, graph.rhs
+    ref = cache.start_refinement(cs2, cc.threshold, cc.lambda_reg,
+                                 cc.use_new_approximation, cc.graph_mode)
     phases = {"update_cache": update,
               f"graph nodes ({mode})": lambda: cache.graph_nodes(
                   cs2, cc.graph_mode),
-              f"graph Laplacian ({mode})": graph}
+              f"graph Laplacian ({mode})": system}
     if cc.use_new_approximation:
-        sol, iters = umath.conjugate_gradient(L, b, max_iter=cc.cg_max_iter)
+        umath.run_cg(lambda: cache.refinement_iteration(ref), cc.cg_max_iter)
+        iters = ref.cg.iters
         print(f"CG iterations: {iters.tolist()} (max {cc.cg_max_iter}); "
               f"{mode} graph of {nodes.shape[-2]} nodes, "
               f"{valid.sum(dim=-1).tolist()} valid")
@@ -242,13 +253,64 @@ def cache_phases(cfg, cs, feat, text) -> dict:
         phases[f"CG at its cap ({cap} iterations), flags read every 4"] = (
             lambda: cg_read_every(L, b, 4, cap, tol=0.0))
     else:
-        sol = torch.linalg.solve(L, b)
-        phases["explicit solve"] = lambda: torch.linalg.solve(L, b)
-    refined = sol / (sol.sum(dim=-1, keepdim=True) + 1e-12)
-    refined = refined * valid[..., None]
+        phases["explicit solve"] = lambda: umath.solve_explicit(L, b)
     phases["readout + fusion"] = lambda: fusion.fuse_cache(
-        logits, cache._graph_readout(feat, nodes, valid, refined, K), scale)
+        logits, cache.graph_readout(feat, ref), scale)
     return phases
+
+
+def device_busy_ms(fn, n_steps: int) -> float:
+    """The sum of the kernels' durations a step in a trace of fn() (which
+    runs n_steps steps)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time_total for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / n_steps
+
+
+def scan_profile(cfg, model, text, state, pcs) -> dict:
+    """The captured step (the stream's scan, `engine.make_scan_fn`: its
+    step captured as a CUDA graph and replayed) beside the eager one (the
+    same step called once a step with a synchronise after it, as
+    `engine.run_stream` runs it), both from the same carry over the same
+    SCAN_STEPS steps of clouds `pcs` ((SCAN_STEPS, [S,] 1, N, 3) on the
+    card): ms a step (median of the steps after the first two; the
+    scan's from CUDA events between its replays), device busy ms a step
+    (a trace of a second run: for the scan, replays only) and the idle
+    share of each."""
+    rgbs = torch.ones_like(pcs)
+    tgts = torch.zeros(pcs.shape[:-2], dtype=torch.int64, device=pcs.device)
+    scan_fn = engine.make_scan_fn(cfg, model)
+
+    def eager():
+        st, ms = state, []
+        for t in range(SCAN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = scan_fn.step(text, st, (pcs[t], rgbs[t], tgts[t]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    def scan():
+        scan_fn(text, state, pcs, rgbs, tgts)
+        return scan_fn.step_ms
+
+    out = {}
+    for name, run in (("eager", eager), ("captured", scan)):
+        run()                             # warm-up; the scan captures
+        ms = statistics.median(run()[2:])
+        busy = device_busy_ms(run, SCAN_STEPS)
+        out.update({f"{name}_ms": ms, f"{name}_busy_ms": busy,
+                    f"{name}_idle": 1 - busy / ms})
+        print(f"scan: {name} {ms:.3f} ms/step, device busy {busy:.3f} ms "
+              f"a step, {100 * (1 - busy / ms):.1f}% idle")
+    return out
 
 
 def main() -> None:
@@ -263,6 +325,7 @@ def main() -> None:
                     default="mode_dota")
     ap.add_argument("--residual-precision", default="highest",
                     choices=list(residual.PRECISIONS))
+    ap.add_argument("--scan", action="store_true")
     args = ap.parse_args()
     kind, npoints, S = args.vlm3d, args.npoints, args.streams
     lead = (S,) if S > 1 else ()   # the stream axis of every tensor
@@ -409,6 +472,9 @@ def main() -> None:
     for name, (ms, n) in top:
         print(f"kernel {ms / PROFILED_STEPS:9.3f} ms/step "
               f"{n // PROFILED_STEPS:6d}x  {name[:90]}")
+    scan = (scan_profile(cfg, model, text, state,
+                         sphere(SCAN_STEPS, *lead, 1, npoints))
+            if args.scan else None)
     print(json.dumps({"vlm3d": kind, "npoints": npoints, "streams": S,
                       "method": args.method,
                       "residual_precision": dc.residual_precision,
@@ -417,7 +483,8 @@ def main() -> None:
                       "wall_ms": timings,
                       "profiled_wall_ms": wall, "device_busy_ms": busy,
                       "groups_ms": groups,
-                      "group_launches_per_step": group_launches}))
+                      "group_launches_per_step": group_launches,
+                      "scan": scan}))
 
 
 if __name__ == "__main__":

@@ -30,6 +30,8 @@ from uni_adapter_torch.adapt import fusion, mode_dota, residual
 from uni_adapter_torch.models.uni3d import create_uni3d
 from uni_adapter_torch.utils.metrics import topk_correct
 from uni_adapter_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 EPS = 1e-4
 SMALL = dict(pc_feat_dim=64, embed_dim=32, num_group=16, group_size=8,

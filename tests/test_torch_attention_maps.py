@@ -38,6 +38,8 @@ from uni_adapter_torch.models.uni3d import create_uni3d
 from uni_adapter_torch.ops.attention_heads import (attention_heads,
                                                    attention_heads_plain)
 from uni_adapter_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 #: Uni3D at width 64 (4 heads of 16), 2 blocks, 16 groups of 8.
 SMALL_UNI3D = dict(pc_feat_dim=64, embed_dim=32, num_group=16, group_size=8,

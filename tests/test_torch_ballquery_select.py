@@ -28,6 +28,8 @@ import torch
 
 import uni_adapter_tpu.ops.ballquery_pallas as ballquery_pallas
 from uni_adapter_torch.ops import ballquery, knn
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 SOURCE = (Path(ballquery.__file__).resolve().parent.parent / "csrc"
           / "ballquery.cu")

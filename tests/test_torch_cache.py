@@ -29,6 +29,8 @@ from uni_adapter_torch.config import CORRUPTIONS
 from uni_adapter_torch.models.uni3d import create_uni3d
 from uni_adapter_torch.utils import math as pmath
 from uni_adapter_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 K, D = 5, 16
 CACHE_FIELDS = ("feats", "conf", "probs", "counts", "valid")
@@ -239,13 +241,18 @@ def _graph_inputs(rng, n=14, k=4):
 
 
 def test_refinements_match_jax():
-    """The CG refinement and the explicit solve on a masked graph: refined
-    labels within 1e-6 of JAX's, invalid rows zero, rows summing to 1."""
+    """The CG refinement and the explicit solve on a masked graph (the
+    port's `refinement_system`, `conjugate_gradient` or `solve_explicit`,
+    `refined_labels`): refined labels within 1e-6 of JAX's
+    `online_value_refinement_new` / `_old`, invalid rows zero, rows
+    summing to 1."""
     keys, probs, valid = _graph_inputs(np.random.default_rng(4))
     args = (jnp.asarray(keys), jnp.asarray(probs), jnp.asarray(valid))
-    pargs = (_t(keys), _t(probs), _t(valid))
-    new, iters = pmath.online_value_refinement_new(*pargs, 0.5, 0.11)
-    old = pmath.online_value_refinement_old(*pargs, 0.5, 0.11)
+    L, rhs = pmath.refinement_system(_t(keys), _t(probs), _t(valid), 0.5,
+                                     0.11)
+    sol, iters = pmath.conjugate_gradient(L, rhs)
+    new = pmath.refined_labels(sol, _t(valid))
+    old = pmath.refined_labels(pmath.solve_explicit(L, rhs), _t(valid))
     for got, want in (
             (new, jmath.online_value_refinement_new(*args, 0.5, 0.11)),
             (old, jmath.online_value_refinement_old(*args, 0.5, 0.11))):
@@ -363,6 +370,10 @@ S, T, N, KE = 3, 8, 128, 10
 
 @pytest.fixture(scope="module")
 def setup():
+    return cache_setup()
+
+
+def cache_setup():
     """One small Uni3D in both packages, anchors and S streams of T
     clouds; the cache at capacity 2, so that classes fill and merge.
     A random encoder maps clouds of one scale to nearly one feature, so

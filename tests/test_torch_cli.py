@@ -17,6 +17,8 @@ from uni_adapter_torch import config as pcfg
 from uni_adapter_torch.anchors import load_precomputed
 from uni_adapter_torch.cli import tta
 from uni_adapter_torch.data import datasets as pdata
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL_ARGS = ["--npoints", "128", "--eva-depth", "2", "--pc-feat-dim", "64",

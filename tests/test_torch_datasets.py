@@ -15,6 +15,8 @@ from uni_adapter_torch import config as pcfg
 from uni_adapter_torch.anchors import load_precomputed
 from uni_adapter_torch.cli import tta
 from uni_adapter_torch.data import datasets as pdata
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 #: (dataset name, number of classes); OmniObject3D has no labels.json key
 #: of its own, so its runs name one.

@@ -15,6 +15,8 @@ import torch
 import uni_adapter_tpu.ops.attention_pallas as attention_pallas
 from uni_adapter_torch.ops import (attention, attention_fp32,
                                    attention_heads, build, eva_attention)
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 #: q and k scaled by this give logits of std ≈ 5: peaked attention, as in
 #: a trained model and in chip_smoke.py's kernel checks.

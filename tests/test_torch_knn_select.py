@@ -24,6 +24,8 @@ import torch
 
 import uni_adapter_tpu.ops.knn_pallas as knn_pallas
 from uni_adapter_torch.ops import knn, knn_gather
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 PAD = np.uint32(0xFFFFFFFF)
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)

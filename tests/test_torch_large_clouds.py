@@ -29,6 +29,7 @@ from uni_adapter_torch.models.pointbert import create_ulip
 from uni_adapter_torch.models.uni3d import create_uni3d
 from uni_adapter_torch.ops import fps, geometry, knn, knn_gather
 from uni_adapter_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rand(shape, seed):

@@ -18,6 +18,8 @@ from uni_adapter_tpu.models.uni3d import create_uni3d as jax_create_uni3d
 from uni_adapter_torch.config import ModelConfig
 from uni_adapter_torch.models.uni3d import Uni3D, create_uni3d
 from uni_adapter_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 SMALL = dict(pc_feat_dim=64, embed_dim=32, num_group=16, group_size=8,
              pc_encoder_dim=32, eva_depth=2, eva_heads=4,

@@ -25,6 +25,7 @@ from uni_adapter_torch.ops import (attention, attention_fp32,
                                    attention_heads, ballquery, build,
                                    eva_attention, fps, geometry, knn,
                                    knn_gather)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rand(shape, seed):

@@ -26,6 +26,8 @@ from uni_adapter_torch.cli import tta
 from uni_adapter_torch.config import CORRUPTIONS
 from uni_adapter_torch.models.uni3d import create_uni3d
 from uni_adapter_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 S, T, B, N, K = 3, 4, 1, 128, 10
 STATE_FIELDS = ("mu", "var", "pi", "c", "class_counts")
@@ -33,6 +35,10 @@ STATE_FIELDS = ("mu", "var", "pi", "c", "class_counts")
 
 @pytest.fixture(scope="module")
 def setup():
+    return streams_setup()
+
+
+def streams_setup():
     """One small Uni3D in both packages, anchors, and S streams of T
     steps."""
     jmodel = jax_create_uni3d(jcfg_mod.ModelConfig(**SMALL))

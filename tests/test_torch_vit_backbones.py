@@ -31,6 +31,8 @@ from uni_adapter_torch.cli import tta
 from uni_adapter_torch.models import ppta
 from uni_adapter_torch.models.pointbert import ULIP, create_ulip
 from uni_adapter_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 #: OpenShape cut to a small width: dim 64, 2 layers of 2 heads of 64.
 SMALL_PPTA = dict(dim=64, depth=2, heads=2, mlp_dim=128, sa_dim=32,

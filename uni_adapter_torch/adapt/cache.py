@@ -23,10 +23,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from uni_adapter_torch.utils.math import (normalized_entropy,
-                                          online_value_refinement_new,
-                                          online_value_refinement_old,
-                                          softmax_entropy)
+from uni_adapter_torch.utils import math as umath
+from uni_adapter_torch.utils.math import (normalized_entropy, refined_labels,
+                                          refinement_system, softmax_entropy,
+                                          solve_explicit)
 
 
 class CacheState(NamedTuple):
@@ -124,11 +124,72 @@ def update_cache(state: CacheState, pred: torch.Tensor,
             has_room.reshape(lead))
 
 
+class GraphSystem(NamedTuple):
+    """The refinement graph and its linear system."""
+    nodes: torch.Tensor    # ([S,] N, D)
+    valid: torch.Tensor    # ([S,] N)
+    L: torch.Tensor        # ([S,] N, N) regularised Laplacian
+    rhs: torch.Tensor      # ([S,] N, K)
+
+
+class Refinement(NamedTuple):
+    """A refinement under way: the graph's system, the CG's carry (None:
+    the explicit solve) and the solution (the CG's x, updated in place)."""
+    graph: GraphSystem
+    cg: Optional[umath.CGState]
+    sol: torch.Tensor
+
+
+def start_refinement(state: CacheState, threshold: float, lambda_reg: float,
+                     use_new_approximation: bool = True,
+                     graph_mode: str = "dense") -> Refinement:
+    """The first part of `compute_cache_logits`: the graph of `graph_mode`,
+    the system its refinement solves, and the CG's start (or the explicit
+    solve)."""
+    nodes, node_probs, node_valid = graph_nodes(state, graph_mode)
+    graph = GraphSystem(nodes, node_valid, *refinement_system(
+        nodes, node_probs, node_valid, threshold, lambda_reg))
+    if use_new_approximation:
+        cg = umath.cg_start(graph.rhs)
+        return Refinement(graph, cg, cg.x)
+    return Refinement(graph, None, solve_explicit(graph.L, graph.rhs))
+
+
+def refinement_iteration(ref: Refinement) -> torch.Tensor:
+    """The second part, run until every system has stopped: one CG
+    iteration in place, at the CG's default tolerance as the JAX engine
+    runs it; returns whether every system has stopped."""
+    return umath.cg_iteration_(ref.graph.L, ref.cg)
+
+
+def graph_readout(pc_features: torch.Tensor,
+                  ref: Refinement) -> torch.Tensor:
+    """The last part: the solution's refined labels → one-hot →
+    count-normalised → affinity readout at the features, ([S,] B, K),
+    shared by both graph modes."""
+    graph = ref.graph
+    refined = refined_labels(ref.sol, graph.valid)
+    node_valid = graph.valid[..., None].to(torch.float32)
+    values = torch.nn.functional.one_hot(torch.argmax(refined, dim=-1),
+                                         refined.shape[-1]).to(torch.float32)
+    values = values * node_valid
+    values = values / (values.sum(dim=-2, keepdim=True) + 1e-6)
+    pc = pc_features / (torch.linalg.norm(pc_features, dim=-1, keepdim=True)
+                        + 1e-12)
+    affinity = torch.matmul(pc.to(torch.float32),
+                            graph.nodes.transpose(-1, -2))
+    affinity = affinity * node_valid.transpose(-1, -2)
+    return torch.matmul(affinity, values)
+
+
 def compute_cache_logits(pc_features: torch.Tensor, state: CacheState,
                          threshold: float, lambda_reg: float,
                          use_new_approximation: bool = True,
                          cg_max_iter: int = 100, graph_mode: str = "dense"):
-    """Cache logits with graph-based label smoothing.
+    """Cache logits with graph-based label smoothing: `start_refinement`,
+    `refinement_iteration` until every system has stopped (the host reads
+    the stop flags after each), `graph_readout`, the parts that the
+    engine's cache step runs.
 
     graph_mode "dense" (the reference's): the K·C slots are the graph's
     nodes; "prototype": each class's valid shots collapse into one
@@ -143,18 +204,12 @@ def compute_cache_logits(pc_features: torch.Tensor, state: CacheState,
       (([S,] B, K) cache logits, zeros while the cache is empty;
        the CG's iterations ([S,]), None for the explicit solve).
     """
-    nodes, node_probs, node_valid = graph_nodes(state, graph_mode)
-    iters: Optional[torch.Tensor] = None
-    if use_new_approximation:
-        refined, iters = online_value_refinement_new(
-            nodes, node_probs, node_valid, threshold=threshold,
-            lambda_reg=lambda_reg, max_iter=cg_max_iter)
-    else:
-        refined = online_value_refinement_old(
-            nodes, node_probs, node_valid, threshold=threshold,
-            lambda_reg=lambda_reg)
-    return (_graph_readout(pc_features, nodes, node_valid, refined,
-                           state.probs.shape[-1]), iters)
+    ref = start_refinement(state, threshold, lambda_reg,
+                           use_new_approximation, graph_mode)
+    if ref.cg is None:
+        return graph_readout(pc_features, ref), None
+    umath.run_cg(lambda: refinement_iteration(ref), cg_max_iter)
+    return graph_readout(pc_features, ref), ref.cg.iters
 
 
 def graph_nodes(state: CacheState, graph_mode: str = "dense"):
@@ -173,22 +228,6 @@ def graph_nodes(state: CacheState, graph_mode: str = "dense"):
                 state.valid.reshape(*lead, K * C))
     raise ValueError(f"unknown graph_mode {graph_mode!r} "
                      "(expected 'auto', 'dense', or 'prototype')")
-
-
-def _graph_readout(pc_features: torch.Tensor, nodes: torch.Tensor,
-                   node_valid: torch.Tensor, refined: torch.Tensor,
-                   K: int) -> torch.Tensor:
-    """Refined labels → one-hot → count-normalised → affinity readout,
-    shared by both graph modes."""
-    values = torch.nn.functional.one_hot(torch.argmax(refined, dim=-1),
-                                         K).to(torch.float32)
-    values = values * node_valid[..., None].to(torch.float32)
-    values = values / (values.sum(dim=-2, keepdim=True) + 1e-6)
-    pc = pc_features / (torch.linalg.norm(pc_features, dim=-1, keepdim=True)
-                        + 1e-12)
-    affinity = torch.matmul(pc.to(torch.float32), nodes.transpose(-1, -2))
-    affinity = affinity * node_valid[..., None, :].to(torch.float32)
-    return torch.matmul(affinity, values)
 
 
 def _class_prototypes(state: CacheState):

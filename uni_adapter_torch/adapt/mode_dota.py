@@ -27,7 +27,7 @@ class ModeDotaState(NamedTuple):
     pi: torch.Tensor            # ([S,] K, M) mixture weights
     c: torch.Tensor             # ([S,] K, M) soft counts
     class_counts: torch.Tensor  # ([S,] K)
-    t: int                      # samples seen (each stream)
+    t: torch.Tensor             # () int32: samples seen (each stream)
 
 
 def resolve_sigma_init(sigma_cfg: float, input_dim: int) -> float:
@@ -63,7 +63,8 @@ def init(epsilon: float, sigma: float, input_dim: int, num_classes: int,
         mu=mu, var=var,
         pi=torch.full((K, M), 1.0 / M, device=dev),
         c=torch.full((K, M), 1.0 / M, device=dev),
-        class_counts=torch.zeros(K, device=dev), t=0)
+        class_counts=torch.zeros(K, device=dev),
+        t=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def regularized_var(state: ModeDotaState, epsilon: float) -> torch.Tensor:

@@ -26,7 +26,7 @@ The Adam count is shared: every stream takes the same steps.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,25 +40,42 @@ class ResidualState(NamedTuple):
     residuals: torch.Tensor   # ([S,] K, D)
     mu: torch.Tensor          # Adam first moment
     nu: torch.Tensor          # Adam second moment
-    count: int                # Adam steps taken (each stream)
+    count: torch.Tensor       # () int32: Adam steps taken (each stream)
 
 
 def init(text_features_initial: torch.Tensor) -> ResidualState:
     z = torch.zeros_like(text_features_initial, dtype=torch.float32)
-    return ResidualState(z, z.clone(), z.clone(), 0)
+    return ResidualState(z, z.clone(), z.clone(),
+                         torch.zeros((), dtype=torch.int32, device=z.device))
 
 
-def adam_step(state: ResidualState, grads: torch.Tensor,
-              lr: float) -> ResidualState:
+def bias_corrections(count: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """Adam's bias corrections 1 − b1**c and 1 − b2**c for the counts
+    c = count + 1 … count + num_steps, (num_steps, 2), taken in float64
+    and rounded once to fp32 (fp32's own 1 − 0.999 cancels to 1.3e-5 of
+    the value, which the loss's exp(exp(·)) carries over ten steps); a
+    loop's at once, in a few launches."""
+    c = (count + torch.arange(1, num_steps + 1, dtype=count.dtype,
+                              device=count.device)).to(torch.float64)
+    return (1.0 - torch.stack([ADAM_B1 ** c, ADAM_B2 ** c], dim=-1)
+            ).to(torch.float32)
+
+
+def adam_step(state: ResidualState, grads: torch.Tensor, lr: float,
+              correction: Optional[torch.Tensor] = None) -> ResidualState:
     """optax.adam(lr): m ← (1−b1)·g + b1·m; v ← (1−b2)·g² + b2·v;
-    update = −lr · m̂ / (√v̂ + eps) with bias-corrected m̂, v̂."""
-    count = state.count + 1
+    update = −lr · m̂ / (√v̂ + eps) with bias-corrected m̂, v̂.  The count
+    is a device tensor, as optax's int32 count is, so that a captured
+    step replays at every count; `correction` is this step's row of
+    `bias_corrections`, if the caller has it."""
+    if correction is None:
+        correction = bias_corrections(state.count, 1)[0]
     mu = (1 - ADAM_B1) * grads + ADAM_B1 * state.mu
     nu = (1 - ADAM_B2) * grads ** 2 + ADAM_B2 * state.nu
-    mu_hat = mu / (1 - ADAM_B1 ** count)
-    nu_hat = nu / (1 - ADAM_B2 ** count)
+    mu_hat = mu / correction[0]
+    nu_hat = nu / correction[1]
     update = -lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
-    return ResidualState(state.residuals + update, mu, nu, count)
+    return ResidualState(state.residuals + update, mu, nu, state.count + 1)
 
 
 class FrozenMixtureTerms(NamedTuple):
@@ -207,14 +224,15 @@ def optimize_residuals(res_state: ResidualState,
     each stream's gradient its own), the log-likelihood products at the
     `precision` tier."""
     terms = frozen_mixture_terms(mixture, epsilon)
+    corrections = bias_corrections(res_state.count, num_steps)
     with torch.enable_grad(), _tier(precision):
-        for _ in range(num_steps):
+        for i in range(num_steps):
             r = res_state.residuals.detach().requires_grad_(True)
             loss = _loss_from_terms(_normalize_rows(text_features_initial + r),
                                     terms, precision)
             (grads,) = torch.autograd.grad(loss.sum(), r)
             res_state = adam_step(res_state._replace(residuals=r.detach()),
-                                  grads, lr)
+                                  grads, lr, corrections[i])
     return res_state
 
 

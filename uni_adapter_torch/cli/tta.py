@@ -24,6 +24,10 @@ each from a fresh state; with `--continual true` one adaptation
 trajectory runs through them all, and with `--vmap-corruptions true` the
 15 streams run together, one step of each at a time (the encoder takes
 their 2·15 clouds in one forward), truncated to the shortest.
+Each stream runs as a scan of its step (`engine.run_stream_scan`, the JAX
+CLI's default): on the card one step is captured as a CUDA graph and
+replayed, and a failed capture raises; `--use-scan false` runs the eager
+step loop (`engine.run_stream`), with the same results.
 `--dota-use-mode-dota false` (with the other DOTA variants off, as by
 default) runs the prototype cache instead of MODE-DOTA: one forward of the
 batch-1 clouds a step, the cache updated, its graph refined by CG (or the
@@ -111,9 +115,10 @@ def finish(summary: dict) -> dict:
 
 
 def run_all_vmapped(cfg, model, text, corruptions, log_dir,
-                    step_fn) -> dict:
-    """All corruption streams together (`engine.run_streams`), each
-    truncated to the shortest; the JAX CLI's `run_all_vmapped`."""
+                    step_fn, scan_fn) -> dict:
+    """All corruption streams together (`engine.run_streams_scan`, or with
+    `--use-scan false` `engine.run_streams`), each truncated to the
+    shortest; the JAX CLI's `run_all_vmapped`."""
     stacks = []
     for corr in corruptions:
         c = dataclasses.replace(
@@ -125,19 +130,27 @@ def run_all_vmapped(cfg, model, text, corruptions, log_dir,
                        for i in range(3))
     logging.info("vmapped sweep: %d streams × %d steps", len(stacks), T)
     t0 = time.perf_counter()
-    res = engine.run_streams(cfg, model, text, pcs, rgbs, tgts,
-                             seed=cfg.run.seed, step_fn=step_fn)
-    per_stream = engine.summarize_streams(res["outputs"],
-                                          T * cfg.data.batch_size)
+    if scan_fn is not None:
+        state, outs = engine.run_streams_scan(cfg, model, text, pcs, rgbs,
+                                              tgts, seed=cfg.run.seed,
+                                              scan_fn=scan_fn)
+        step_ms = scan_fn.step_ms
+    else:
+        res = engine.run_streams(cfg, model, text, pcs, rgbs, tgts,
+                                 seed=cfg.run.seed, step_fn=step_fn)
+        state, outs, step_ms = res["state"], res["outputs"], res["step_ms"]
+    outs = engine.stack_outputs(outs)                        # (T, S, ...)
+    per_stream = engine.summarize_streams(outs, T * cfg.data.batch_size)
     dt = time.perf_counter() - t0
-    iters = ([None] * len(corruptions) if res["outputs"][0].cg_iters is None
-             else torch.stack([o.cg_iters for o in res["outputs"]]).T.tolist())
+    iters = ([None] * len(corruptions) if outs.cg_iters is None
+             else outs.cg_iters.T.tolist())
+    finite = torch.isfinite(outs.final_logits).transpose(0, 1).flatten(1)
     summary = {
         "acc1": {c: s["acc1"] for c, s in zip(corruptions, per_stream)},
         "zs_acc1": {c: s["zs_acc1"] for c, s in zip(corruptions, per_stream)},
-        "step_ms": dict.fromkeys(corruptions, res["step_ms"]),
-        "finite": dict(zip(corruptions, res["finite"])),
-        "steps": dict.fromkeys(corruptions, [0, res["state"].step]),
+        "step_ms": dict.fromkeys(corruptions, step_ms),
+        "finite": dict(zip(corruptions, finite.all(dim=1).tolist())),
+        "steps": dict.fromkeys(corruptions, [0, state.step]),
         "cg_iters": dict(zip(corruptions, iters)),
         "log_dir": log_dir}
     total = pcs.shape[0] * pcs.shape[1] * pcs.shape[2]
@@ -147,10 +160,27 @@ def run_all_vmapped(cfg, model, text, corruptions, log_dir,
     return finish(summary)
 
 
+def scan_stream(cfg, model, text, pcs, rgbs, targets, initial_state,
+                scan_fn) -> dict:
+    """One stream through `engine.run_stream_scan`, summarised as
+    `engine.run_stream` summarises it."""
+    state, outs = engine.run_stream_scan(cfg, model, text, pcs, rgbs,
+                                         targets, seed=cfg.run.seed,
+                                         initial_state=initial_state,
+                                         scan_fn=scan_fn)
+    n = pcs.shape[0] * pcs.shape[1]
+    return {**engine.summarize(outs, n), "n": n, "step_ms": scan_fn.step_ms,
+            "finite": bool(torch.isfinite(outs.final_logits).all()),
+            "cg_iters": (None if outs.cg_iters is None
+                         else outs.cg_iters.tolist()),
+            "state": state}
+
+
 def main(argv=None) -> dict:
     """Run the evaluation; returns per-corruption `acc1`, `zs_acc1`,
-    `step_ms` (wall time of each step, device-synchronised; under
-    `--vmap-corruptions` the sweep's steps, shared by all), `finite`
+    `step_ms` (each step's ms: on the card under the scan from CUDA events
+    between its replays, else wall time ending in a device synchronise;
+    under `--vmap-corruptions` the sweep's steps, shared by all), `finite`
     (every final logit finite), `steps` (the state's step counter at the
     stream's start and end), `cg_iters` (the cache path's CG iterations a
     step, None on MODE-DOTA) and the run's `log_dir`."""
@@ -183,13 +213,17 @@ def main(argv=None) -> dict:
         raise ValueError(f"the anchor bank {cfg.data.precomputed_text_features}"
                          f" is {tuple(text.shape)}; --vlm3d "
                          f"{cfg.model.vlm3d} gives {width}-d features")
-    step_fn = engine.make_step_fn(cfg, model)
+    # one scan (one set of captured graphs) for every corruption, as the
+    # JAX CLI jits one scan_fn
+    scan_fn = engine.make_scan_fn(cfg, model) if cfg.run.use_scan else None
+    step_fn = None if scan_fn is not None else engine.make_step_fn(cfg,
+                                                                    model)
 
     corruptions = (list(CORRUPTIONS) if cfg.data.corruption == "all"
                    else [cfg.data.corruption])
     if cfg.run.vmap_corruptions and len(corruptions) > 1:
         return run_all_vmapped(cfg, model, text, corruptions, log_dir,
-                               step_fn)
+                               step_fn, scan_fn)
     summary = {"acc1": {}, "zs_acc1": {}, "step_ms": {}, "finite": {},
                "steps": {}, "cg_iters": {}, "log_dir": log_dir}
     # --continual: one trajectory through the whole corruption sequence,
@@ -203,9 +237,15 @@ def main(argv=None) -> dict:
         pcs, rgbs, targets = load_tta_dataset(c).as_arrays(
             c.data.batch_size, npoints=c.data.npoints, seed=c.run.seed)
         t0 = time.perf_counter()
-        res = engine.run_stream(c, model, text, zip(pcs, rgbs, targets),
-                                seed=c.run.seed, print_freq=c.run.print_freq,
-                                step_fn=step_fn, initial_state=carry_state)
+        if scan_fn is not None:
+            res = scan_stream(c, model, text, pcs, rgbs, targets,
+                              carry_state, scan_fn)
+        else:
+            res = engine.run_stream(c, model, text, zip(pcs, rgbs, targets),
+                                    seed=c.run.seed,
+                                    print_freq=c.run.print_freq,
+                                    step_fn=step_fn,
+                                    initial_state=carry_state)
         dt = time.perf_counter() - t0
         logging.info("Final Results: Acc@1 %.3f Acc@3 %.3f Acc@5 %.3f",
                      res["acc1"], res["acc3"], res["acc5"])

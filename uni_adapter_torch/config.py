@@ -127,6 +127,9 @@ class RunConfig:
     seed: int = 42
     print_freq: int = 100
     device: str = "cuda"                 # cuda | cpu
+    # each stream through `engine.run_stream_scan` (on the card: one step
+    # captured as a CUDA graph and replayed); false: the eager step loop
+    use_scan: bool = True
     vmap_corruptions: bool = False
     continual: bool = False
     dist_mode: str = "replicated"

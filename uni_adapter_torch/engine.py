@@ -2,12 +2,16 @@
 MODE-DOTA or by the prototype cache (mirror of `uni_adapter_tpu/engine.py`,
 its MODE-DOTA and cache branches).
 
-The JAX package jit-compiles one pure step and scans it over the stream;
-here the step runs eagerly and `run_stream` is a Python loop.  The state
-stays on the device between steps.  A MODE-DOTA step reads nothing back
-to the host (the residual-learning gate `step > 0` is a host integer); a
-cache step reads only the CG's stop flags, once an iteration
-(`utils/math.conjugate_gradient`).
+The JAX package jit-compiles one pure step and scans it over the stream
+(`run_stream_scan`, its CLI's default).  Here `run_stream_scan` runs the
+step on static tensors (the carry, the anchors, an input slot) that each
+step updates in place: on the card the step is captured once as a CUDA
+graph and replayed, on the CPU the same in-place step runs eagerly.
+`run_stream` is the eager loop of the functional step.  The state stays
+on the device between steps.  A MODE-DOTA step reads nothing back to the
+host (the residual-learning gate `step > 0` is a host integer: the scan
+captures a graph for each side of it); a cache step reads only the CG's
+stop flags, once an iteration (`utils/math.run_cg`).
 
 The MODE-DOTA noise comes from a `torch.Generator` carried in the state;
 `step(..., noise=...)` takes it from the caller instead, which is how the
@@ -24,6 +28,8 @@ summed per-stream losses.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import logging
 import time
 from dataclasses import dataclass
@@ -33,7 +39,8 @@ import torch
 
 from uni_adapter_torch.adapt import cache, fusion, mode_dota, residual
 from uni_adapter_torch.config import Config
-from uni_adapter_torch.utils.math import normalized_entropy, softmax_entropy
+from uni_adapter_torch.utils.math import (normalized_entropy, run_cg,
+                                          softmax_entropy)
 from uni_adapter_torch.utils.metrics import topk_correct
 
 
@@ -115,12 +122,13 @@ def init_state(cfg: Config, text_features_initial: torch.Tensor,
 
 def _stack(states):
     """Single-stream NamedTuple states as one with a leading stream axis;
-    their int fields (sample and Adam counts) must agree."""
+    their () counts (samples seen, Adam steps) must agree and stay one
+    count, shared by the streams."""
     fields = []
     for vals in zip(*states):
-        if isinstance(vals[0], torch.Tensor):
+        if vals[0].dim() > 0:
             fields.append(torch.stack(vals))
-        elif len(set(vals)) == 1:
+        elif all(torch.equal(v, vals[0]) for v in vals):
             fields.append(vals[0])
         else:
             raise ValueError(f"streams disagree on a count: {vals}")
@@ -148,11 +156,11 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
     state is `init_states_streams`'s; the encoder then takes the clean
     clouds of streams 0..S−1 and then their noisy ones as one 2·S·B
     batch, and each stream's noise comes from its own generator.  The
-    cache path's step takes no noise (`make_cache_step_fn`)."""
+    cache path's step takes no noise (`CacheStep`)."""
     encode = encode_with(cfg.model.vlm3d, model)
     dc = cfg.dota
     if uses_cache(cfg):
-        return make_cache_step_fn(cfg, encode)
+        return CacheStep(cfg, encode)
     if not dc.use_mode_dota:
         raise NotImplementedError("plain, GMM and adaptive DOTA are not "
                                   "ported (ROADMAP M8)")
@@ -228,28 +236,47 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
     return step
 
 
-def make_cache_step_fn(cfg: Config, encode: Callable) -> Callable:
-    """The prototype-cache step, step(text_init, state, batch) ->
-    (state, StepOutput): one encoder forward of the clouds (S of them
-    with a stream axis), the sample inserted into or merged with its
-    predicted class's prototypes, then the cache logits read from the
-    cache that already holds it, fused with the clip logits.  Batch 1 a
-    stream: with B > 1 only sample 0 would enter the cache while all B
-    were scored against it, so B > 1 raises, as in the JAX engine."""
-    cc, scale = cfg.cache, cfg.model.logit_scale
+class _CacheContext(NamedTuple):
+    """What the cache step's first part hands its CG and its last part."""
+    feat: torch.Tensor              # ([S,] B, D)
+    clip_logits: torch.Tensor       # ([S,] B, K)
+    target: torch.Tensor
+    method_state: cache.CacheState  # the cache with the sample in it
+    ref: cache.Refinement
+
+
+class CacheStep:
+    """The prototype-cache step, step(text_init, state, batch) -> (state,
+    StepOutput): one encoder forward of the clouds (S of them with a
+    stream axis), the sample inserted into or merged with its predicted
+    class's prototypes, then the cache logits read from the cache that
+    already holds it, fused with the clip logits.  Batch 1 a stream:
+    with B > 1 only sample 0 would enter the cache while all B were
+    scored against it, so B > 1 raises, as in the JAX engine.
+
+    It runs in three parts, which a captured step replays one by one:
+    `head` (the forward, the cache update, the graph's system and the
+    CG's start, or the explicit solve), the CG's `iteration`, run until
+    every system has stopped (the host reads the stop flags after each),
+    and `tail` (the readout and the fusion)."""
+
+    def __init__(self, cfg: Config, encode: Callable):
+        self.cc, self.scale = cfg.cache, cfg.model.logit_scale
+        self.encode = encode
 
     @torch.no_grad()
-    def step(text_init: torch.Tensor, state: EngineState, batch):
+    def head(self, text_init: torch.Tensor, state: EngineState,
+             batch) -> _CacheContext:
+        cc, scale = self.cc, self.scale
         pc, rgb, target = batch
         *lead, B, N, _ = pc.shape
         if B != 1:
             raise ValueError(
                 f"the prototype-cache path requires batch_size=1 (got {B}): "
                 f"one sample a step enters the cache")
-        text_init = text_init.to(torch.float32)
-        clip_weights = text_init.T
-        feat = encode(pc.reshape(-1, N, 3),
-                      rgb.reshape(-1, N, 3)).reshape(*lead, B, -1)
+        clip_weights = text_init.to(torch.float32).T
+        feat = self.encode(pc.reshape(-1, N, 3),
+                           rgb.reshape(-1, N, 3)).reshape(*lead, B, -1)
         clip_logits, ent, prob_map, pred = clip_logits_from(
             feat, clip_weights, scale=scale)
         cs, _ = cache.update_cache(
@@ -259,18 +286,33 @@ def make_cache_step_fn(cfg: Config, encode: Callable) -> Callable:
             logit_scale=scale)
         # cc.cg_tol is not passed: the JAX engine runs the CG at its
         # default tolerance
-        cache_logits, iters = cache.compute_cache_logits(
-            feat, cs, cc.threshold, cc.lambda_reg,
-            use_new_approximation=cc.use_new_approximation,
-            cg_max_iter=cc.cg_max_iter, graph_mode=cc.graph_mode)
-        final = fusion.fuse_cache(clip_logits, cache_logits,
-                                  logit_scale=scale)
-        out = StepOutput(final, clip_logits,
-                         topk_correct(final, target, (1, 3, 5)),
-                         topk_correct(clip_logits, target, (1, 3, 5)), iters)
-        return EngineState(cs, None, state.step + 1, state.generator), out
+        return _CacheContext(feat, clip_logits, target, cs,
+                             cache.start_refinement(
+                                 cs, cc.threshold, cc.lambda_reg,
+                                 cc.use_new_approximation, cc.graph_mode))
 
-    return step
+    @torch.no_grad()
+    def iteration(self, ctx: _CacheContext) -> torch.Tensor:
+        return cache.refinement_iteration(ctx.ref)
+
+    @torch.no_grad()
+    def tail(self, state: EngineState, ctx: _CacheContext):
+        final = fusion.fuse_cache(
+            ctx.clip_logits, cache.graph_readout(ctx.feat, ctx.ref),
+            logit_scale=self.scale)
+        cg = ctx.ref.cg
+        out = StepOutput(final, ctx.clip_logits,
+                         topk_correct(final, ctx.target, (1, 3, 5)),
+                         topk_correct(ctx.clip_logits, ctx.target, (1, 3, 5)),
+                         None if cg is None else cg.iters)
+        return EngineState(ctx.method_state, None, state.step + 1,
+                           state.generator), out
+
+    def __call__(self, text_init: torch.Tensor, state: EngineState, batch):
+        ctx = self.head(text_init, state, batch)
+        if ctx.ref.cg is not None:
+            run_cg(lambda: self.iteration(ctx), self.cc.cg_max_iter)
+        return self.tail(state, ctx)
 
 
 def _sync(device: torch.device) -> None:
@@ -322,9 +364,7 @@ def run_stream(cfg: Config, model: Callable,
         if print_freq and i % print_freq == 0:
             logging.info("step %d: acc1=%.3f%%", i,
                          100 * float(totals[0]) / n)
-    accs = (100.0 * totals / max(n, 1)).tolist()
-    return {"acc1": accs[0], "acc3": accs[1], "acc5": accs[2],
-            "zs_acc1": 100.0 * float(zs_totals[0]) / max(n, 1),
+    return {**_percent(totals.tolist(), zs_totals.tolist(), max(n, 1)),
             "n": n, "step_ms": step_ms, "finite": bool(finite),
             "cg_iters": torch.stack(cg_iters).tolist() if cg_iters else None,
             "state": state}
@@ -364,24 +404,301 @@ def run_streams(cfg: Config, model: Callable,
             "finite": finite.tolist()}
 
 
-def summarize_streams(outputs: list[StepOutput],
-                      n_per_stream: int) -> list[dict]:
-    """Per-stream percent accuracies from `run_streams`'s outputs (the JAX
-    package's `summarize_vmapped`)."""
-    correct = torch.stack([o.correct for o in outputs]).sum(0).tolist()
-    zs = torch.stack([o.zs_correct for o in outputs]).sum(0).tolist()
-    return [{"acc1": 100.0 * c[0] / n_per_stream,
-             "acc3": 100.0 * c[1] / n_per_stream,
-             "acc5": 100.0 * c[2] / n_per_stream,
-             "zs_acc1": 100.0 * z[0] / n_per_stream}
-            for c, z in zip(correct, zs)]
+def stack_outputs(outputs) -> StepOutput:
+    """Per-step StepOutputs as one with a leading T axis (a stacked one is
+    returned as it is)."""
+    if isinstance(outputs, StepOutput):
+        return outputs
+    return StepOutput(*(None if vals[0] is None else torch.stack(vals)
+                        for vals in zip(*outputs)))
 
 
-def summarize(outputs: list[StepOutput], n_samples: int) -> dict:
-    """Aggregate per-step outputs into percent accuracies."""
-    correct = torch.stack([o.correct for o in outputs]).sum(0).tolist()
-    zs = torch.stack([o.zs_correct for o in outputs]).sum(0).tolist()
-    return {"acc1": 100.0 * correct[0] / n_samples,
-            "acc3": 100.0 * correct[1] / n_samples,
-            "acc5": 100.0 * correct[2] / n_samples,
-            "zs_acc1": 100.0 * zs[0] / n_samples}
+def _percent(correct: list, zs: list, n: int) -> dict:
+    return {"acc1": 100.0 * correct[0] / n, "acc3": 100.0 * correct[1] / n,
+            "acc5": 100.0 * correct[2] / n, "zs_acc1": 100.0 * zs[0] / n}
+
+
+def summarize_streams(outputs, n_per_stream: int) -> list[dict]:
+    """Per-stream percent accuracies from the outputs of `run_streams`
+    (a list) or `run_streams_scan` (stacked): the JAX package's
+    `summarize_vmapped`."""
+    out = stack_outputs(outputs)
+    return [_percent(c, z, n_per_stream) for c, z in
+            zip(out.correct.sum(0).tolist(), out.zs_correct.sum(0).tolist())]
+
+
+def summarize(outputs, n_samples: int) -> dict:
+    """Aggregate per-step outputs (a list, or stacked with a leading T axis
+    as `run_stream_scan` returns them) into percent accuracies."""
+    out = stack_outputs(outputs)
+    return _percent(out.correct.sum(0).tolist(),
+                    out.zs_correct.sum(0).tolist(), n_samples)
+
+
+# ---- the stream as one captured step, replayed ---------------------------
+
+#: Eager runs of a step on a side stream before it is captured (PyTorch's
+#: recipe for CUDA graphs: lazy initialisation, cuBLAS workspaces and the
+#: autograd engine's streams are set up outside the capture).
+WARMUP_RUNS = 2
+
+
+def _state_tensors(state: EngineState) -> list[torch.Tensor]:
+    return [*state.method_state, *(state.res_state or ())]
+
+
+def _generators(state: EngineState) -> tuple:
+    g = state.generator
+    return g if isinstance(g, tuple) else (g,)
+
+
+def _copy_generator(g: torch.Generator) -> torch.Generator:
+    c = torch.Generator(device=g.device)
+    c.set_state(g.get_state())
+    return c
+
+
+def clone_state(state: EngineState) -> EngineState:
+    """A copy of the carry that shares no tensor and no generator with it."""
+    res = state.res_state
+    gens = tuple(map(_copy_generator, _generators(state)))
+    return EngineState(
+        type(state.method_state)(*(t.clone() for t in state.method_state)),
+        None if res is None else type(res)(*(t.clone() for t in res)),
+        state.step, gens if isinstance(state.generator, tuple) else gens[0])
+
+
+def _load_state_(dst: EngineState, src: EngineState) -> None:
+    """Write the carry `src` into the static carry `dst` in place: its
+    tensors, and its generators' seeds and offsets."""
+    _load_state_tensors(dst, src)
+    for d, s in zip(_generators(dst), _generators(src), strict=True):
+        d.set_state(s.get_state())
+
+
+def _load_state_tensors(dst: EngineState, src: EngineState) -> None:
+    for d, s in zip(_state_tensors(dst), _state_tensors(src), strict=True):
+        d.copy_(s)
+
+
+class _Segment:
+    """A part of a step on static tensors, `fn()`: run eagerly until
+    `capture` records it as a CUDA graph, replayed after that."""
+
+    def __init__(self, fn: Callable, generators: tuple = ()):
+        self.fn, self.generators = fn, generators
+        self.graph = self.out = None
+
+    def capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:   # each replay draws the generator's next
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph):
+            self.out = self.fn()
+        self.graph = graph
+
+    def __call__(self):
+        if self.graph is None:
+            return self.fn()
+        self.graph.replay()
+        return self.out
+
+
+class _StreamRunner:
+    """One configuration's step on static tensors of one shape: the carry,
+    the anchors and an input slot.  The step reads the slot and the
+    carry and writes the new carry into it in place.  On the card each of
+    its parts is captured once (per residual gate) and replayed; on the
+    CPU the same parts run eagerly."""
+
+    def __init__(self, step: Callable, gated: bool, text: torch.Tensor,
+                 state: EngineState, slot: tuple):
+        self.step, self.gated = step, gated
+        self.text = text.clone()
+        self.state = clone_state(state)
+        self.slot = tuple(torch.empty_like(a, memory_format=torch
+                                           .contiguous_format) for a in slot)
+        self.on_card = text.device.type == "cuda"
+        self.ctx = None
+        if isinstance(step, CacheStep):
+            # the cache draws no noise and has no gate: one program of
+            # three parts
+            self.programs = {True: (
+                _Segment(lambda: step.head(self.text, self.state, self.slot)),
+                _Segment(lambda: step.iteration(self.ctx)),
+                _Segment(self._cache_tail))}
+        else:
+            self.programs = {gate: (_Segment(
+                functools.partial(self._mode_dota_body, gate),
+                _generators(self.state)),)
+                for gate in ((False, True) if gated else (True,))}
+
+    def _mode_dota_body(self, gate: bool) -> StepOutput:
+        # the residual gate `step > 0` is the graph's, not the carry's
+        new, out = self.step(self.text, dataclasses.replace(
+            self.state, step=int(gate)), self.slot)
+        _load_state_tensors(self.state, new)
+        return out
+
+    def _cache_tail(self) -> StepOutput:
+        new, out = self.step.tail(self.state, self.ctx)
+        _load_state_tensors(self.state, new)
+        return out
+
+    def _gate(self, step: int) -> bool:
+        return step > 0 or not self.gated
+
+    def _run_step(self, program: tuple) -> StepOutput:
+        if len(program) == 1:
+            return program[0]()
+        head, iteration, tail = program
+        self.ctx = head()
+        if self.ctx.ref.cg is not None:
+            run_cg(iteration, self.step.cc.cg_max_iter)
+        return tail()
+
+    def _capture(self, program: tuple) -> None:
+        """Warm the step up on a side stream, then capture its parts, and
+        leave the carry and its generators as they were."""
+        saved = [t.clone() for t in _state_tensors(self.state)]
+        gen_states = [g.get_state() for g in _generators(self.state)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                self._run_step(program)
+        torch.cuda.current_stream().wait_stream(side)
+        for i, seg in enumerate(program):
+            seg.capture()
+            if i == 0 and len(program) > 1:
+                self.ctx = seg.out     # the later parts read the head's
+                if self.ctx.ref.cg is None:     # the explicit solve: no CG
+                    program[2].capture()
+                    break
+        for t, s in zip(_state_tensors(self.state), saved):
+            t.copy_(s)
+        for g, s in zip(_generators(self.state), gen_states):
+            g.set_state(s)
+
+    def run(self, text: torch.Tensor, state: EngineState, pcs, rgbs,
+            targets):
+        """Steps over (T, ...) device tensors from `state`: returns the
+        final carry (a copy), the outputs with a leading T axis and each
+        step's ms (on the card from CUDA events recorded between the
+        steps, with no host synchronisation inside the stream, but for the
+        cache's stop flags; on the CPU its wall time)."""
+        T, step0 = pcs.shape[0], state.step
+        self.text.copy_(text)
+        _load_state_(self.state, state)
+        inputs = (pcs, rgbs, targets)
+        for s, a in zip(self.slot, inputs):
+            s.copy_(a[0])       # the warm-up's input: the first step's
+        if self.on_card:
+            for gate in {self._gate(step0 + t) for t in range(T)}:
+                if self.programs[gate][0].graph is None:
+                    self._capture(self.programs[gate])
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(T + 1)]
+        outs, step_ms = None, []
+        for t in range(T):
+            if self.on_card:
+                marks[t].record()
+            else:
+                t0 = time.perf_counter()
+            for s, a in zip(self.slot, inputs):
+                s.copy_(a[t])
+            out = self._run_step(self.programs[self._gate(step0 + t)])
+            if outs is None:
+                outs = StepOutput(*(None if o is None else
+                                    o.new_empty((T, *o.shape)) for o in out))
+            for buf, o in zip(outs, out):
+                if o is not None:
+                    buf[t].copy_(o)
+            if not self.on_card:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        if self.on_card:
+            marks[T].record()
+            marks[T].synchronize()
+            step_ms = [marks[t].elapsed_time(marks[t + 1]) for t in range(T)]
+        final = clone_state(self.state)
+        final.step = step0 + T
+        return final, outs, step_ms
+
+
+class ScanFn:
+    """`make_scan_fn`'s result: scan_fn(text, state, pcs, rgbs, targets)
+    -> (state, StepOutput with a leading T axis), over time-leading
+    (T, [S,] B, ...) device tensors.  It keeps one `_StreamRunner` (one
+    set of captured graphs on the card) per shape and reuses it across
+    calls, as the JAX CLI reuses one jitted scan across corruptions.
+    `step_ms` holds the last call's ms a step."""
+
+    def __init__(self, cfg: Config, model: Callable):
+        self.step = make_step_fn(cfg, model)
+        self.gated = cfg.dota.res_learning and not uses_cache(cfg)
+        self.runners: dict = {}
+        self.step_ms: list = []
+
+    def __call__(self, text: torch.Tensor, state: EngineState, pcs, rgbs,
+                 targets):
+        key = (text.device, tuple(text.shape),
+               *((a.dtype, tuple(a.shape[1:])) for a in (pcs, rgbs, targets)))
+        if key not in self.runners:
+            self.runners[key] = _StreamRunner(
+                self.step, self.gated, text, state,
+                tuple(a[0] for a in (pcs, rgbs, targets)))
+        state, outs, self.step_ms = self.runners[key].run(
+            text, state, pcs, rgbs, targets)
+        return state, outs
+
+
+def make_scan_fn(cfg: Config, model: Callable) -> ScanFn:
+    """The stream's scan for `cfg`; pass one to every `run_stream_scan` of
+    a run to reuse its captured step."""
+    return ScanFn(cfg, model)
+
+
+def run_stream_scan(cfg: Config, model: Callable,
+                    text_features_initial: torch.Tensor, pcs, rgbs, targets,
+                    seed: int = 42, initial_state: Optional[EngineState] = None,
+                    scan_fn: Optional[ScanFn] = None):
+    """Run one stream as a scan of its step (the JAX package's
+    `run_stream_scan`): the stream goes to the device once; on the card
+    one step is captured as a CUDA graph (two with residual learning:
+    step 0 without the Adam loop, the later steps with it; the cache's
+    step in three parts around its CG) and replayed T times.
+
+    Args:
+      pcs, rgbs: (T, B, N, 3); targets: (T, B); numpy arrays or tensors.
+      initial_state: resume the adaptation trajectory from this carry
+        instead of a fresh init (continual TTA).
+      scan_fn: `make_scan_fn(cfg, model)`, reused across calls.
+    Returns:
+      (final EngineState, StepOutput with a leading T axis).
+    """
+    dev = text_features_initial.device
+    scan_fn = scan_fn if scan_fn is not None else make_scan_fn(cfg, model)
+    state = (initial_state if initial_state is not None
+             else init_state(cfg, text_features_initial, seed))
+    return scan_fn(text_features_initial, state,
+                   *(torch.as_tensor(a).to(dev) for a in (pcs, rgbs, targets)))
+
+
+def run_streams_scan(cfg: Config, model: Callable,
+                     text_features_initial: torch.Tensor, pcs, rgbs, targets,
+                     seed: int = 42, scan_fn: Optional[ScanFn] = None):
+    """Run S independent streams as one scan of the S-stream step (the JAX
+    package's `run_streams_vmapped`).
+
+    Args:
+      pcs, rgbs: (S, T, B, N, 3); targets: (S, T, B).
+    Returns:
+      (final EngineState with a leading S axis, StepOutput with leading
+      (T, S) axes).
+    """
+    dev = text_features_initial.device
+    scan_fn = scan_fn if scan_fn is not None else make_scan_fn(cfg, model)
+    state = init_states_streams(cfg, text_features_initial, len(pcs), seed)
+    return scan_fn(text_features_initial, state,
+                   *(torch.as_tensor(a).to(dev).transpose(0, 1)
+                     for a in (pcs, rgbs, targets)))

@@ -10,6 +10,7 @@ the process.
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -28,6 +29,58 @@ def normalized_entropy(ent: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Entropy over log2(K): a natural-log entropy normalised by a base-2
     log, as the reference does."""
     return (ent / math.log2(float(num_classes))).to(torch.float32)
+
+
+class CGState(NamedTuple):
+    """The CG's carry, updated in place by `cg_iteration_`: x, r, p ([S,]
+    N, K); rz ([S,] K); done and iters ([S,])."""
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    done: torch.Tensor
+    iters: torch.Tensor
+
+
+def cg_start(b: torch.Tensor) -> CGState:
+    """The carry at x = 0: r = p = b (b − A·0 without a product), no
+    system stopped (a do-while: each runs at least one iteration)."""
+    rz = torch.sum(b * b, dim=-2)
+    return CGState(torch.zeros_like(b), b.clone(), b.clone(), rz,
+                   torch.zeros(rz.shape[:-1], dtype=torch.bool,
+                               device=b.device),
+                   torch.zeros(rz.shape[:-1], dtype=torch.int32,
+                               device=b.device))
+
+
+def cg_iteration_(A: torch.Tensor, s: CGState,
+                  tol: float = 1e-5) -> torch.Tensor:
+    """One CG iteration of every system that has not stopped, written into
+    `s` in place (a captured iteration replays on the same tensors);
+    returns whether every system has now stopped, a () bool tensor."""
+    Ap = torch.matmul(A, s.p)
+    alpha = (s.rz / (torch.sum(s.p * Ap, dim=-2) + 1e-8)).unsqueeze(-2)
+    run = ~s.done
+    keep = run[..., None, None]
+    r_new = s.r - alpha * Ap
+    rz_new = torch.sum(r_new * r_new, dim=-2)
+    beta = (rz_new / (s.rz + 1e-8)).unsqueeze(-2)
+    s.x.copy_(torch.where(keep, s.x + alpha * s.p, s.x))
+    s.p.copy_(torch.where(keep, r_new + beta * s.p, s.p))
+    s.r.copy_(torch.where(keep, r_new, s.r))
+    s.rz.copy_(torch.where(run[..., None], rz_new, s.rz))
+    s.iters.add_(run.to(torch.int32))
+    s.done.logical_or_(torch.all(s.rz < tol, dim=-1))
+    return s.done.all()
+
+
+def run_cg(iteration: Callable[[], torch.Tensor], max_iter: int) -> None:
+    """Call `iteration` (one in-place CG iteration, returning whether every
+    system has stopped) until every system has stopped or `max_iter`
+    times; the host reads the stop flag after each."""
+    for _ in range(max_iter):
+        if bool(iteration()):
+            break
 
 
 def conjugate_gradient(A, b: torch.Tensor, max_iter: int = 100,
@@ -49,30 +102,9 @@ def conjugate_gradient(A, b: torch.Tensor, max_iter: int = 100,
     long the others run.  The host reads the stop flags every iteration
     to leave the loop.
     """
-    x = torch.zeros_like(b)
-    r = b                   # b − A·x at x = 0, without a product
-    p = r
-    rz = torch.sum(r * r, dim=-2)
-    # do-while: no system has stopped before its first iteration
-    done = torch.zeros(rz.shape[:-1], dtype=torch.bool, device=b.device)
-    iters = torch.zeros(rz.shape[:-1], dtype=torch.int32, device=b.device)
-    for _ in range(max_iter):
-        Ap = torch.matmul(A, p)
-        alpha = (rz / (torch.sum(p * Ap, dim=-2) + 1e-8)).unsqueeze(-2)
-        run = ~done
-        keep = run[..., None, None]
-        x = torch.where(keep, x + alpha * p, x)
-        r_new = r - alpha * Ap
-        rz_new = torch.sum(r_new * r_new, dim=-2)
-        beta = (rz_new / (rz + 1e-8)).unsqueeze(-2)
-        p = torch.where(keep, r_new + beta * p, p)
-        r = torch.where(keep, r_new, r)
-        rz = torch.where(run[..., None], rz_new, rz)
-        iters += run.to(torch.int32)
-        done = done | torch.all(rz < tol, dim=-1)
-        if bool(done.all()):
-            break
-    return x, iters
+    s = cg_start(b)
+    run_cg(lambda: cg_iteration_(A, s, tol), max_iter)
+    return s.x, s.iters
 
 
 def _masked_laplacian(keys: torch.Tensor, valid: torch.Tensor,
@@ -92,35 +124,24 @@ def _masked_laplacian(keys: torch.Tensor, valid: torch.Tensor,
     return L_norm + 2.0 * lambda_reg * eye
 
 
-def online_value_refinement_new(cache_keys: torch.Tensor,
-                                all_probs: torch.Tensor, valid: torch.Tensor,
-                                threshold: float = 0.5,
-                                lambda_reg: float = 0.13,
-                                max_iter: int = 100):
-    """Graph-Laplacian label smoothing solved by CG.
-
-    Args:
-      cache_keys: ([S,] N, D) node features; all_probs: ([S,] N, K);
-        valid: ([S,] N) bool.
-    Returns:
-      (refined ([S,] N, K) row-normalised, invalid rows zero;
-       CG iterations ([S,])).
-    """
+def refinement_system(cache_keys: torch.Tensor, all_probs: torch.Tensor,
+                      valid: torch.Tensor, threshold: float,
+                      lambda_reg: float):
+    """The linear system of the graph-Laplacian label smoothing:
+    (L_reg ([S,] N, N), right-hand sides 2λ·probs ([S,] N, K), invalid rows
+    zero)."""
     L_reg = _masked_laplacian(cache_keys, valid, threshold, lambda_reg)
     probs = all_probs * valid[..., None].to(all_probs.dtype)
-    sol, iters = conjugate_gradient(L_reg, 2.0 * lambda_reg * probs,
-                                    max_iter=max_iter)
-    sol = sol / (sol.sum(dim=-1, keepdim=True) + 1e-12)
-    return sol * valid[..., None].to(sol.dtype), iters
+    return L_reg, 2.0 * lambda_reg * probs
 
 
-def online_value_refinement_old(cache_keys: torch.Tensor,
-                                all_probs: torch.Tensor, valid: torch.Tensor,
-                                threshold: float = 0.5,
-                                lambda_reg: float = 0.13) -> torch.Tensor:
-    """The explicit-solve variant (`torch.linalg.solve`)."""
-    L_reg = _masked_laplacian(cache_keys, valid, threshold, lambda_reg)
-    probs = all_probs * valid[..., None].to(all_probs.dtype)
-    sol = torch.linalg.solve(L_reg, 2.0 * lambda_reg * probs)
+def solve_explicit(L_reg: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """The explicit solve, without reading `info` back to the host (JAX's
+    solve checks nothing either), so that a captured step holds it."""
+    return torch.linalg.solve_ex(L_reg, rhs, check_errors=False)[0]
+
+
+def refined_labels(sol: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The solution row-normalised, invalid rows zero."""
     sol = sol / (sol.sum(dim=-1, keepdim=True) + 1e-12)
     return sol * valid[..., None].to(sol.dtype)
