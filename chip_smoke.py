@@ -63,7 +63,13 @@ exits non-zero before the result line:
      depth 2 and full width on the card (kernels) against the CPU (plain
      versions), the same weights in bf16; Uni3D and OpenShape-G also on
      10,000-point clouds; then all three in fp32 within 1 − cosine 1e-4
-     (maps within 1e-5), each forward on its fp32 kernels alone;
+     (maps within 1e-5), each forward on its fp32 kernels alone; then
+     OpenShape-G with `rel_pe` (the biased attention, no attention
+     kernel) and the `local` / `hierarchical` cache types (k-means
+     centres) against the CPU, fp32 and bf16, and `ops/pointnet.py`'s
+     multi-scale set abstraction on 1024- and 10,000-point clouds (FPS
+     on fps.cu / fps_grid.cu, the ball query on its kernel) and its
+     feature propagation;
   5. the three main paths through `uni_adapter_torch.cli.tta.main`, each at
      its published widths and depth in bf16 with random weights from a
      seed, MODE-DOTA defaults with residual learning, over a synthetic
@@ -91,7 +97,12 @@ exits non-zero before the result line:
      with `--use-scan false` (the eager step loop: every path above runs
      the CLI's default, the stream's scan, whose step is captured as a
      CUDA graph and replayed; here the trace's launches must equal the
-     wrappers' counts); and `--compute-dtype float16` raising;
+     wrappers' counts); plain DOTA, GMM-DOTA and adaptive-modes DOTA on
+     Uni3D-L (`uni3d_dota`, `uni3d_gmm`, `uni3d_adaptive`, captured, and
+     `uni3d_dota_eager`), each launching exactly one batch-1 forward's
+     kernels a step; `--compute-dtype float16` raising; `--use-scan false
+     --batch-size 3` over the 16 clouds (6 steps, 16 clouds counted: the
+     short last batch kept); and one `--profile-dir` run, its trace read;
   6. bench.py's eight configurations as 15-corruption sweeps (Uni3D-L,
      ULIP-2, OpenShape-G at published widths and depth, bf16) through
      `cli.tta.main --corruption all --vmap-corruptions true` on 15
@@ -129,7 +140,13 @@ exits non-zero before the result line:
      two replayed steps must launch each port kernel exactly as often as
      two eager steps; and `--continual true` (Uni3D-L, traced) through
      15 streams of 4 clouds, each corruption's step counter starting
-     where the one before ended;
+     where the one before ended.  The other DOTA variants as sweeps
+     (captured; plain DOTA also eager), with `--continual` (2 clouds a
+     stream), their stream runs against their streams one by one, each
+     captured against its eager loop at full width (adaptive DOTA over
+     60 steps, a split inside the captured graph at σ 1e-6), and their
+     functions on the card against the CPU at K 40 and 1156 with planted
+     faults (`VARIANT_TOL`), DOTA's update (the Λ inverse) timed;
   7. the attention-map extraction path of each backbone at full width and
      depth through `uni_adapter_torch.cli.extract_attention` on the
      synthetic sphere (the whole `main` where matplotlib imports, its
@@ -2231,6 +2248,23 @@ PATHS = {
                           {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
                           UNI3D_IDLE),
 }
+#: The other DOTA variants on Uni3D-L (one forward of the batch-1 cloud a
+#: step, no noise), captured, and plain DOTA's eager loop.  Their traced
+#: launches must equal exactly one forward's a step: 16 replayed steps
+#: and the WARMUP_RUNS eager ones before the capture (eager: 16 steps).
+VARIANT_FLAGS = {
+    "uni3d_dota": ["--dota-use-mode-dota", "false", "--dota-use-dota",
+                   "true"],
+    "uni3d_gmm": ["--dota-use-mode-dota", "false", "--dota-use-gmm-dota",
+                  "true"],
+    "uni3d_adaptive": ["--dota-use-mode-dota", "false",
+                       "--dota-use-adaptive-dota", "true"],
+}
+VARIANT_FLAGS["uni3d_dota_eager"] = VARIANT_FLAGS["uni3d_dota"] + [
+    "--use-scan", "false"]
+PATHS.update({kind: (flags, (1024, 40), "large",
+                     {"fps": 1, "knn": 1, "eva_attn_block": 24 * 3},
+                     UNI3D_IDLE) for kind, flags in VARIANT_FLAGS.items()})
 
 
 def write_stream(root: Path, n_points: int, n_classes: int,
@@ -2411,6 +2445,14 @@ def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
         fail(f"{kind}: {len(step_ms)} steps, expected {n_clouds}")
     check_launches(what, launches,
                    {n: k * n_clouds for n, k in per_step.items()}, idle)
+    if kind in VARIANT_FLAGS:
+        from uni_adapter_torch.engine import WARMUP_RUNS
+
+        runs = n_clouds + (0 if "--use-scan" in flags else WARMUP_RUNS)
+        want = {n: k * runs for n, k in per_step.items()}
+        if {n: launches[n] for n in per_step} != want:
+            fail(f"{what}: launches {launches}, expected exactly {want} "
+                 f"(one forward a step)")
     if not summary["finite"]["uniform"]:
         fail(f"{kind}: non-finite final logits")
     for f in ("results.json", "results_zs.json"):
@@ -2449,6 +2491,11 @@ SWEEPS = {
         LVIS_SWEEP + ["--dota-residual-precision", tier],
         ((1024, 1156), (1156, 1024))) for tier in ("highest", "high",
                                                     "default")},
+    # the other DOTA variants' sweeps (no bench.py metric): the 15 streams'
+    # clouds in one forward a step, captured; plain DOTA also eager
+    **{kind: (None, kind, [], None) for kind in ("uni3d_dota", "uni3d_gmm",
+                                                 "uni3d_adaptive")},
+    "uni3d_dota_eager": (None, "uni3d_dota", ["--use-scan", "false"], None),
 }
 
 
@@ -2506,7 +2553,9 @@ def run_sweep(tmp: Path, name: str, batch1_ms, card: str,
     beside = ("" if batch1_ms is None else
               f"; the batch-1 path of this call {batch1_ms:.2f} ms/step, "
               f"{1e3 / batch1_ms:.2f} pc/s")
-    print(f"sweep {name} ({metric}'s protocol, {card}): "
+    protocol = (f"{metric}'s protocol" if metric else
+                "bench.py's sweep protocol, no bench.py metric")
+    print(f"sweep {name} ({protocol}, {card}): "
           f"{len(CORRUPTIONS)} streams x {n_steps} steps, first step "
           f"{step_ms[0]:.1f} ms, then median {out['median_ms']:.2f} ms/step, "
           f"{out['pc_s']:.1f} pc/s over the steady steps{beside}; peak "
@@ -2541,7 +2590,10 @@ def check_streams_equal_sequential(torch) -> None:
     loop): final logits within atol 1e-3 every step, identical correct
     counts; the residuals held in distribution (median < 1e-6, 90th
     percentile < 2e-4: Adam's first steps move an element whose gradient
-    is near zero by ±lr on a last-bit difference)."""
+    is near zero by ±lr on a last-bit difference).  Then plain, GMM and
+    adaptive DOTA over 4 steps (no noise; GMM's stream c draws its init
+    from seed 42 + c on both sides): final logits within max(1e-3,
+    VARIANT_TOL of the largest), correct counts identical."""
     from uni_adapter_torch import engine
     from uni_adapter_torch.anchors import load_precomputed
     from uni_adapter_torch.config import Config, DotaConfig, ModelConfig
@@ -2596,6 +2648,38 @@ def check_streams_equal_sequential(torch) -> None:
                      f"90th percentile {p90}")
             line += f"; residuals |d| median {med:.3g}, 90th pct {p90:.3g}"
         print(line)
+    for flag in VARIANT_DOTA:
+        cfg = Config(model=mc, dota=DotaConfig(use_mode_dota=False,
+                                               **{flag: True}))
+        step = engine.make_step_fn(cfg, model)
+        outs = []
+        engine.run_streams(cfg, model, text, pcs, rgbs, targets,
+                           step_fn=fed_outputs(step, outs))
+        err, scale = 0.0, 0.0
+        for c in range(S):
+            seq = []
+            engine.run_stream(cfg, model, text,
+                              zip(pcs[c], rgbs[c], targets[c]), seed=42 + c,
+                              step_fn=fed_outputs(step, seq))
+            for t, (o, w) in enumerate(zip(outs, seq, strict=True)):
+                err = max(err, (o.final_logits[c] - w.final_logits)
+                          .abs().max().item())
+                scale = max(scale, w.final_logits.abs().max().item())
+                if not torch.equal(o.correct[c], w.correct):
+                    fail(f"streams vs sequential ({flag}): stream {c} step "
+                         f"{t} correct counts differ")
+        tol = max(1e-3, VARIANT_TOL[flag] * scale)
+        print(f"streams vs sequential on the card ({flag}), Uni3D width 1024 "
+              f"depth 2 fp32, {S} streams x {T} steps: final logits max abs "
+              f"err {err:.3g} (tolerance max(1e-3, {VARIANT_TOL[flag]} x the "
+              f"largest, {scale:.4g}) = {tol:.3g}), correct counts identical")
+        if err > tol:
+            fail(f"streams vs sequential ({flag}): final logits differ by "
+                 f"{err}")
+
+
+#: The DOTA variants' config flags.
+VARIANT_DOTA = ("use_dota", "use_gmm_dota", "use_adaptive_dota")
 
 
 #: The card-vs-CPU check of the cache's functions: (classes K, shot
@@ -2908,11 +2992,11 @@ def check_residual_tiers(torch, gen) -> dict:
     return times
 
 
-def run_continual(tmp: Path, n_steps: int = 4) -> dict:
-    """`cli.tta.main --corruption all --continual true` (Uni3D-L, bf16) on
-    15 streams of n_steps clouds, traced (`traced_run`): each corruption
-    starts from the one before's carry, its step counter running
-    n_steps·i → n_steps·(i + 1)."""
+def run_continual(tmp: Path, n_steps: int = 4, path: str = "uni3d") -> dict:
+    """`cli.tta.main --corruption all --continual true` (Uni3D-L, bf16, the
+    method of PATHS[path]) on 15 streams of n_steps clouds, traced
+    (`traced_run`): each corruption starts from the one before's carry,
+    its step counter running n_steps·i → n_steps·(i + 1)."""
     import torch
 
     from uni_adapter_torch.cli import tta
@@ -2921,13 +3005,13 @@ def run_continual(tmp: Path, n_steps: int = 4) -> dict:
     root = tmp / f"continual_1024x40x{n_steps}"
     if not root.exists():
         write_stream(root, 1024, 40, n_steps, CORRUPTIONS)
-    _, _, _, per_step, idle = PATHS["uni3d"]
-    what = "the --continual path"
+    flags, _, _, per_step, idle = PATHS[path]
+    what = f"the --continual path ({path})"
     summary, launches, wrapper = traced_run(torch, what, lambda: tta.main(
         ["--root", str(root), "--corruption", "all", "--continual", "true",
-         "--precomputed-text-features", "large", "--device", "cuda",
-         "--output-dir", str(tmp / "out"), "--name", "smoke-continual"]),
-        per_step)
+         "--precomputed-text-features", "large", *flags, "--device", "cuda",
+         "--output-dir", str(tmp / "out"), "--name",
+         f"smoke-continual-{path}"]), per_step)
     steps = [summary["steps"][c] for c in CORRUPTIONS]
     want = [[n_steps * i, n_steps * (i + 1)] for i in range(len(CORRUPTIONS))]
     if steps != want:
@@ -2936,7 +3020,8 @@ def run_continual(tmp: Path, n_steps: int = 4) -> dict:
         fail("--continual: non-finite final logits")
     check_launches(what, launches, {n: k * n_steps * len(CORRUPTIONS)
                                     for n, k in per_step.items()}, idle)
-    print(f"--continual: {CORRUPTIONS[0]} steps {steps[0]}, {CORRUPTIONS[1]} "
+    print(f"--continual ({path}): {CORRUPTIONS[0]} steps {steps[0]}, "
+          f"{CORRUPTIONS[1]} "
           f"steps {steps[1]} (from the first's carry), ..., {CORRUPTIONS[-1]}"
           f" steps {steps[-1]}; launches (traced) {launches}; the wrappers "
           f"counted {wrapper}")
@@ -3327,6 +3412,486 @@ def run_extraction_fp32(kind: str) -> dict:
     return launches
 
 
+#: The DOTA variants' functions on the card against the CPU: (classes K,
+#: steps) on `cache_sequence`'s seeded unit features from 12 of the
+#: classes; plain DOTA takes DOTA_STEPS[K] steps (it has no split, and at
+#: K = 1156 one copy of its (K, D, D) covariances is 4.8 GB, which the
+#: CPU side takes seconds a step to update).  The adaptive split check at
+#: fit 50 must split (threshold 10 σ_init = 1e-3, count ≥ 2).
+VARIANT_CASES = ((40, 60), (1156, 60))
+DOTA_STEPS = {40: 20, 1156: 3}
+#: Tolerances of the variants' card-vs-CPU check, each error relative to
+#: the largest |value| of its quantity (every step's scores, each field of
+#: the final state); masks and counts must be identical.  Both sides are
+#: fp32 with TF32 off, and differ by summation order (~1e-7 relative a
+#: product).  Plain DOTA's Λ is an inverse (cuSOLVER's Cholesky against
+#: LAPACK's), which scales those differences by the condition number of
+#: (1 − ε)Σ̄ + εI, a few hundred here: 1e-4.  GMM-DOTA's and adaptive
+#: DOTA's E-step takes a softmax over modes of log-densities Σ_d (x−μ)²/σ
+#: of ~1e4 (σ ≈ 1e-4 a dimension): a summation-order difference of 1e-7
+#: relative moves an exponent by ~1e-3, and with it the responsibilities
+#: and everything they weight (the first card run read 1.7e-4 on GMM's
+#: σ): 1e-3.
+VARIANT_TOL = {"use_dota": 1e-4, "use_gmm_dota": 1e-3,
+               "use_adaptive_dota": 1e-3}
+
+
+def run_variant_sequence(torch, device: str, flag: str, text, feats) -> dict:
+    """One DOTA variant's functions on `device`, as the engine's step calls
+    them, one feature a step: the clip probabilities, `predict` of the
+    state before the fit (plain DOTA with a 5-step prior), `fit`, then
+    `update` (the adaptive split check inside `fit`).  GMM-DOTA's init is
+    drawn on the CPU and moved, so both sides start equal.  Returns every
+    step's scores and the final state, on the CPU."""
+    from uni_adapter_torch.adapt import adaptive, dota, gmm
+    from uni_adapter_torch.engine import clip_logits_from
+
+    eps = 1e-4
+    K, D = text.shape
+    w = torch.as_tensor(text, device=device).T
+    if flag == "use_dota":
+        st = dota.init(eps, 1e-4, D, K, torch.full((D, K), 1e-3,
+                                                    device=device))
+    elif flag == "use_gmm_dota":
+        st = gmm.init(eps, 1e-4, D, K, w.cpu(), num_modes=4,
+                      generator=torch.Generator().manual_seed(0))
+        st = type(st)(*(t.to(device) for t in st))
+    else:
+        st = adaptive.init(eps, 1e-4, D, K, w, max_modes=4)
+    scores = []
+    for f in torch.as_tensor(feats, device=device):
+        prob = clip_logits_from(f, w, 100.0)[2]
+        if flag == "use_dota":
+            scores.append(dota.predict(st, f, prior_pre_steps=5))
+            st = dota.update(dota.fit(st, f, prob), eps)
+        elif flag == "use_gmm_dota":
+            scores.append(gmm.predict(st, f, alpha_max=0.5))
+            st = gmm.update(gmm.fit(st, f, prob), eps)
+        else:
+            scores.append(adaptive.predict(st, f, eps))
+            st = adaptive.fit(st, f, prob, eps, split_threshold=1e-3,
+                              min_count_to_split=2.0)
+    return {"scores": torch.stack(scores).cpu(),
+            "state": type(st)(*(t.cpu() for t in st))}
+
+
+def variant_errors(flag: str, got: dict, want: dict) -> tuple:
+    """Each quantity's error relative to its largest |value|, as a multiple
+    of VARIANT_TOL[flag]; and whether the masks and counts are equal.
+    Adaptive DOTA's means and variances are compared on the valid slots
+    (an empty slot holds the variance 1e10)."""
+    import torch
+
+    errs, same = {}, True
+    valid = getattr(want["state"], "mask", None)
+    for name, g, w in (("scores", got["scores"], want["scores"]),
+                       *zip(want["state"]._fields, got["state"],
+                            want["state"])):
+        if w.dtype in (torch.bool, torch.int32):
+            same &= torch.equal(g, w)
+            continue
+        if valid is not None and name in ("mu", "var"):
+            g, w = g[valid], w[valid]
+        errs[name] = ((g - w).abs().max() / w.abs().max()).item() / \
+            VARIANT_TOL[flag]
+    return errs, same
+
+
+def dota_fit_rows_unweighted_delta(mu, c, sigma, x, y):
+    """A planted fault: `adapt/dota.fit_rows` with Δ summed without the
+    soft labels."""
+    import torch
+
+    x, y = x.to(torch.float32), y.to(torch.float32)
+    sum_w = y.sum(dim=-2)
+    weighted_x = torch.matmul(y.transpose(-1, -2), x)
+    xm = (x[..., :, None, :] - mu[..., None, :, :]).movedim(-3, -2)
+    delta = torch.matmul(xm.transpose(-1, -2), xm)
+    new_mu = (weighted_x + c[..., None] * mu) / (sum_w[..., None]
+                                                 + c[..., None])
+    new_sigma = ((c[..., None, None] * sigma + delta)
+                 / (c + sum_w)[..., None, None])
+    return new_mu, c + sum_w, new_sigma, sum_w
+
+
+def gmm_fit_new_mu(fit):
+    """A planted fault: `adapt/gmm.fit` with the covariance taken about the
+    NEW means."""
+    import torch
+
+    from uni_adapter_torch.adapt import gmm
+
+    def bad(state, x, y):
+        new = fit(state, x, y)
+        x, y = x.to(torch.float32), y.to(torch.float32)
+        log_l = gmm._log_gauss_diag(x, state.mu, state.sigma)
+        r = torch.softmax(torch.log(torch.clamp(state.pi, min=1e-10))
+                          [..., None, :, :] + log_l, dim=-1)
+        gamma = y[..., None] * r
+        diff = x[..., :, None, None, :] - new.mu[..., None, :, :, :]
+        wdsq = (gamma[..., None] * (diff * diff)).sum(dim=-4)
+        denom = torch.clamp(new.C[..., None], min=1e-10)
+        return new._replace(sigma=torch.clamp(
+            (state.C[..., None] * state.sigma + wdsq) / denom, min=1e-8))
+    return bad
+
+
+def time_dota_update(torch, K: int, S=None) -> float:
+    """Device ms of one `dota.update` (the Λ inverse) at K classes, D 1024,
+    one stream or S, after a fit (median of 10, CUDA events)."""
+    from uni_adapter_torch.adapt import dota
+
+    D = 1024
+    st = dota.init(1e-4, 1e-4, D, K, torch.full((D, K), 1e-3, device="cuda"))
+    if S:
+        st = dota.DOTAState(*(t.expand(S, *t.shape).contiguous() if t.dim()
+                              else t for t in st))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lead = (S,) if S else ()
+    x = torch.nn.functional.normalize(
+        torch.randn(*lead, 1, D, generator=gen, device="cuda"), dim=-1)
+    y = torch.softmax(torch.randn(*lead, 1, K, generator=gen,
+                                  device="cuda") * 3, -1)
+    st = dota.fit(st, x, y)
+    return time_ms(lambda: dota.update(st, 1e-4), runs=10, per_run=1)
+
+
+def check_variants_card_vs_cpu(torch) -> dict:
+    """Plain, GMM and adaptive DOTA's functions on the card against the same
+    functions on the CPU (VARIANT_CASES, VARIANT_TOL): every step's
+    scores and the final state within tolerance, masks and counts
+    identical, the adaptive split fired.  Planted faults on the card side
+    must each fail it: DOTA's products in TF32 (at K 40; reported at K
+    1156) and its Δ without the soft labels, GMM's covariance about the
+    new means, adaptive DOTA's split check skipped.  Also times DOTA's
+    update.  Returns the update's ms."""
+    from uni_adapter_torch.adapt import adaptive, dota, gmm
+
+    def tf32(run):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return run()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def patched(module, name, make):
+        """Run with module.name replaced by make(the original)."""
+        def wrap(run):
+            saved = getattr(module, name)
+            setattr(module, name, make(saved))
+            try:
+                return run()
+            finally:
+                setattr(module, name, saved)
+        return wrap
+
+    faults = {"use_dota": {"TF32 products": tf32,
+                           "Δ without the soft labels": patched(
+                               dota, "fit_rows",
+                               lambda _: dota_fit_rows_unweighted_delta)},
+              "use_gmm_dota": {"covariance about the new means": patched(
+                  gmm, "fit", gmm_fit_new_mu)},
+              "use_adaptive_dota": {"the split check skipped": patched(
+                  adaptive, "check_and_split",
+                  lambda _: lambda state, *args, **kwargs: state)}}
+    for K, n_steps in VARIANT_CASES:
+        text, feats = cache_sequence(K, n_steps, 12)
+        for flag in VARIANT_DOTA:
+            steps = DOTA_STEPS[K] if flag == "use_dota" else n_steps
+            t0 = time.perf_counter()
+            want = run_variant_sequence(torch, "cpu", flag, text,
+                                        feats[:steps])
+            cpu_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = run_variant_sequence(torch, "cuda", flag, text,
+                                       feats[:steps])
+            card_s = time.perf_counter() - t0
+            ratios, same = variant_errors(flag, got, want)
+            extra = ""
+            if flag == "use_adaptive_dota":
+                modes = int(adaptive.num_modes_per_class(got["state"]).sum())
+                extra = f"; modes {modes} (K {K})"
+                if modes <= K:
+                    fail(f"{flag} at K {K}: no split fired")
+            print(f"{flag} card vs cpu, K {K}, {steps} steps (card "
+                  f"{card_s:.1f} s, cpu {cpu_s:.1f} s): masks and counts "
+                  f"identical {same}; err/tolerance "
+                  f"{ {n: round(r, 3) for n, r in ratios.items()} }{extra}")
+            if not same or max(ratios.values()) > 1:
+                fail(f"{flag} on the card disagrees with the CPU at K {K}")
+            for what, plant in faults[flag].items():
+                bad = plant(lambda: run_variant_sequence(
+                    torch, "cuda", flag, text, feats[:steps]))
+                r, same = variant_errors(flag, bad, want)
+                # at K 1156 (3 steps) Σ̄ is better conditioned, and TF32's
+                # rounding moves Λ by about its tolerance: reported there
+                required = not (what == "TF32 products" and K > 1000)
+                print(f"{flag} planted fault at K {K}, {what}: identical "
+                      f"{same}, largest err/tolerance {max(r.values()):.3g}"
+                      + ("" if required else " (reported, not required)"))
+                if required and same and max(r.values()) <= 1:
+                    fail(f"the {flag} check at K {K} passes with a planted "
+                         f"fault: {what}")
+    ms = {"K40": time_dota_update(torch, 40),
+          "K40_S15": time_dota_update(torch, 40, 15),
+          "K1156": time_dota_update(torch, 1156)}
+    print(f"dota update (the Λ inverse, cuSOLVER Cholesky, D 1024), ms: "
+          f"{ {k: round(v, 4) for k, v in ms.items()} }")
+    return ms
+
+
+def diverse_stream(torch, gen, T: int, N: int = 1024):
+    """T batch-1 clouds on spheres, each scaled by exp(U(−1.4, 0.7)) and
+    each axis by exp(U(−0.7, 0.7)): features and predictions that differ
+    from cloud to cloud.  (pcs, rgbs, targets) (T, 1, ...)."""
+    pcs = sphere_cloud(torch, gen, T, N) * torch.exp(
+        torch.empty(T, 1, 1, device="cuda").uniform_(-1.4, 0.7,
+                                                     generator=gen)) \
+        * torch.exp(torch.empty(T, 1, 3, device="cuda").uniform_(
+            -0.7, 0.7, generator=gen))
+    pcs = pcs.reshape(T, 1, N, 3)
+    return (pcs, torch.ones_like(pcs),
+            torch.randint(0, 40, (T, 1), generator=gen, device="cuda"))
+
+
+def check_variant_scans(torch) -> dict:
+    """Each variant on Uni3D-L (bf16, full width and depth, batch 1), the
+    captured step against the eager loop (`scan_against_eager`, traced):
+    plain DOTA and GMM-DOTA over 16 clouds, adaptive DOTA over 60, so that
+    the split check at fit 50 runs inside the captured graph.  At σ 5e-4
+    (split threshold 5e-3, the JAX package's split test's) it is printed
+    whether a split fired and the largest variance of a mode with the
+    count to split; at σ 1e-6 (threshold 1e-5) a split must fire: more
+    modes than classes, the valid slots a contiguous prefix, and the
+    captured run's mask equal to the eager run's, its μ within 1e-5.
+    (Random weights map the clouds near one feature, so a mode's variance
+    decays about as 1/count.)  Returns ms a step, eager and captured."""
+    from uni_adapter_torch.adapt import adaptive
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.config import Config, DotaConfig, ModelConfig
+    from uni_adapter_torch.models.loader import build_backbone
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    text = load_precomputed("large", "modelnet").cuda()
+    model, _, _ = build_backbone("uni3d", ModelConfig(), "cuda", seed=0)
+    ms = {}
+    for flag, T, sigma in (("use_dota", 16, 1e-4), ("use_gmm_dota", 16, 1e-4),
+                           ("use_adaptive_dota", 60, 5e-4),
+                           ("use_adaptive_dota", 60, 1e-6)):
+        cfg = Config(model=ModelConfig(), dota=DotaConfig(
+            use_mode_dota=False, sigma=sigma, **{flag: True}))
+        pcs, rgbs, tgts = diverse_stream(torch, gen, T)
+        e, s, times = scan_against_eager(
+            torch, f"uni3d {flag} ({T} steps, sigma {sigma})", cfg, model,
+            text, pcs, rgbs, tgts, 1e-2, trace=True)
+        ms[f"{flag}_sigma{sigma:g}"] = {"eager_ms": times[0],
+                                        "captured_ms": times[1]}
+        diffs = {n: (a.float() - b.float()).abs().max().item() for n, a, b in
+                 zip(e.method_state._fields, e.method_state, s.method_state)}
+        print(f"scan {flag}: final state captured vs eager, max abs diff "
+              f"{ {n: f'{d:.3g}' for n, d in diffs.items()} }")
+        if flag != "use_adaptive_dota":
+            continue
+        es, ss = e.method_state, s.method_state
+        counts = adaptive.num_modes_per_class(ss)
+        wide = torch.where(ss.mask & (ss.c >= 5.0), ss.var.amax(-1), 0.0)
+        print(f"scan {flag} at sigma {sigma:g}: the largest variance of a "
+              f"mode with count >= 5 {wide.max().item():.3g} (split "
+              f"threshold {10 * sigma:.3g}), largest count "
+              f"{ss.c.max().item():.3g}")
+        if sigma > 1e-5:
+            continue
+        prefix = all(bool(ss.mask[k, :n].all() and not ss.mask[k, n:].any())
+                     for k, n in enumerate(counts.tolist()))
+        print(f"scan {flag}: {int(counts.sum())} modes over {len(counts)} "
+              f"classes after {T} steps (split check at fit 50), valid "
+              f"slots a contiguous prefix {prefix}, masks equal "
+              f"{torch.equal(es.mask, ss.mask)}, fit calls "
+              f"{int(ss.fit_calls)}; mode stats "
+              f"{adaptive.get_mode_stats(ss)}")
+        if not (int(counts.sum()) > len(counts) and prefix
+                and torch.equal(es.mask, ss.mask) and diffs["mu"] <= 1e-5):
+            fail("the adaptive split inside the captured step: no split, "
+                 "slots not a prefix, or captured differs from eager")
+    return ms
+
+
+def run_short_last_batch(tmp: Path) -> dict:
+    """`cli.tta.main --use-scan false --batch-size 3` (Uni3D-L, MODE-DOTA)
+    over the 16-cloud stream: 6 steps (5 of 3 clouds, 1 of 1), all 16
+    clouds adapted on and counted, finite logits.  Returns its launches."""
+    from uni_adapter_torch.cli import tta
+
+    counters = zeroed_counters()
+    summary = tta.main(
+        ["--root", str(tmp / "stream_1024x40"), "--corruption", "uniform",
+         "--precomputed-text-features", "large", "--use-scan", "false",
+         "--batch-size", "3", "--device", "cuda", "--output-dir",
+         str(tmp / "out"), "--name", "smoke-batch3"])
+    launches = {n: c.launches for n, c in counters.items()}
+    steps, n = summary["steps"]["uniform"], summary["n"]["uniform"]
+    step_ms = summary["step_ms"]["uniform"]
+    print(f"--use-scan false --batch-size 3 over 16 clouds: steps {steps}, "
+          f"{n} clouds counted, ms a step {[round(t, 2) for t in step_ms]}, "
+          f"finite {summary['finite']['uniform']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if steps != [0, 6] or n != 16 or len(step_ms) != 6 \
+            or not summary["finite"]["uniform"]:
+        fail("the eager loop at batch 3 did not take the short last batch")
+    return launches
+
+
+def run_profile_dir(tmp: Path) -> dict:
+    """`cli.tta.main --profile-dir` (plain DOTA on Uni3D-L, captured), not
+    under `traced_run` (two profiler sessions cannot nest): one Chrome
+    trace written, holding the path's kernels (the warm-up steps' and the
+    replays') and no other port kernel.  Returns the launches in it."""
+    from uni_adapter_torch.cli import tta
+
+    prof = tmp / "profile"
+    tta.main(["--root", str(tmp / "stream_1024x40"), "--corruption",
+              "uniform", "--precomputed-text-features", "large",
+              *VARIANT_FLAGS["uni3d_dota"], "--profile-dir", str(prof),
+              "--device", "cuda", "--output-dir", str(tmp / "out"),
+              "--name", "smoke-profile"])
+    traces = sorted(prof.glob("trace_*.json"))
+    if len(traces) != 1:
+        fail(f"--profile-dir wrote {len(traces)} traces")
+    events = json.loads(traces[0].read_text()).get("traceEvents", [])
+    counts = kernel_counts(e.get("name", "") for e in events
+                           if e.get("cat") == "kernel")
+    print(f"--profile-dir: {traces[0].name}, "
+          f"{traces[0].stat().st_size / 2**20:.1f} MiB, {len(events)} "
+          f"events; port kernels in it "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    per_step = PATHS["uni3d_dota"][3]
+    owned = {k for c in per_step for k in COUNTER_KERNELS[c]}
+    if not all(counts[k] for k in owned) or any(
+            n for k, n in counts.items() if k not in owned):
+        fail("the --profile-dir trace lacks a kernel of the path or holds "
+             "another's")
+    return by_counter(counts, per_step)
+
+
+def check_openshape_rest(torch, gen) -> dict:
+    """OpenShape PPTA-G at full width and depth 2 with `rel_pe` and the
+    `local` / `hierarchical` cache types, card (kernels; the biased
+    attention in plain PyTorch) against the CPU on the same weights and
+    input: fp32 within 1 − cosine F32_FEATURE_1MCOS for every output row
+    (CLS features and the k-means centres), bf16 (`global` with `rel_pe`)
+    within cosine 0.99.  FPS and the ball query run their kernels; with
+    `rel_pe` no attention kernel runs, without it the natural layout's.
+    Returns the launches."""
+    import dataclasses
+
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models import ppta
+
+    g2 = dataclasses.replace(ppta.PRESETS[4], depth=2)
+    pc = cloud(torch, gen)
+    total = collections.Counter()
+    for dtype, cache_type, rel_pe in (
+            ("float32", "global", True), ("float32", "local", False),
+            ("float32", "hierarchical", True), ("bfloat16", "global", True)):
+        mc = ModelConfig(compute_dtype=dtype)
+        kw = dict(cache_type=cache_type, rel_pe=rel_pe)
+        gpu = ppta.create_openshape(mc, "cuda", seed=0, preset=g2, **kw)
+        cpu = ppta.create_openshape(mc, "cpu", seed=0, preset=g2, state_dict={
+            k: v.float().cpu() for k, v in gpu.state_dict().items()}, **kw)
+        counters = zeroed_counters()
+        with torch.no_grad():
+            outs_gpu = gpu(pc[..., :3], pc)
+            launches = {n: c.launches for n, c in counters.items()}
+            outs_cpu = cpu(pc[..., :3].cpu(), pc.cpu())
+        total.update(launches)
+        if cache_type != "hierarchical":
+            outs_gpu, outs_cpu = (outs_gpu,), (outs_cpu,)
+        cos = torch.cat([torch.nn.functional.cosine_similarity(
+            g.cpu(), c, dim=-1) for g, c in zip(outs_gpu, outs_cpu)])
+        worst = (1 - cos).max().item()
+        bound = F32_FEATURE_1MCOS if dtype == "float32" else 0.01
+        attn = [n for n in BF16_ATTENTION + FP32_ATTENTION if launches[n]]
+        print(f"openshape {cache_type} rel_pe {rel_pe} ({dtype}, depth 2, "
+              f"full width): outputs {[tuple(o.shape) for o in outs_gpu]}, "
+              f"1 - cosine card vs cpu {worst:.3g} (bound {bound}); "
+              f"launches { {k: v for k, v in launches.items() if v} }")
+        if not (all(torch.isfinite(o).all() for o in outs_gpu)
+                and worst <= bound):
+            fail(f"openshape {cache_type} rel_pe {rel_pe} ({dtype}) on the "
+                 f"card disagrees with the CPU")
+        want_attn = [] if rel_pe else ["eva_attention_fp32"]
+        if not (launches["fps"] and launches["ballquery"]) or \
+                attn != want_attn:
+            fail(f"openshape {cache_type} rel_pe {rel_pe}: launches "
+                 f"{launches}")
+    return dict(total)
+
+
+def check_pointnet(torch, gen) -> dict:
+    """`ops/pointnet.py` on the card against the CPU, fp32, seeded weights
+    (BatchNorm statistics too): `PointNetSetAbstractionMsg` (512 centres,
+    radii 0.1 / 0.2 / 0.4, 16 / 32 / 128 samples) on 2 clouds of 1024
+    points (FPS on fps.cu) and of 10,000 (fps_grid.cu), the ball query
+    on its kernel: centres equal, features within 1e-4 of their largest;
+    then `PointNetFeaturePropagation` back to the 1024 points (no
+    kernel).  Returns the launches."""
+    import copy
+
+    from uni_adapter_torch.models.common import BatchNormInference, Dense
+    from uni_adapter_torch.ops import pointnet
+
+    g = torch.Generator().manual_seed(0)
+
+    def seeded(m):
+        for mod in m.modules():
+            if isinstance(mod, Dense):
+                mod.reset_parameters(g)
+                mod.bias.data.uniform_(-0.1, 0.1, generator=g)
+            elif isinstance(mod, BatchNormInference):
+                mod.mean.data.normal_(0, 0.1, generator=g)
+                mod.var.data.uniform_(0.5, 1.5, generator=g)
+                mod.scale.data.uniform_(0.5, 1.5, generator=g)
+                mod.bias.data.normal_(0, 0.1, generator=g)
+        return m.requires_grad_(False)
+
+    msg = seeded(pointnet.PointNetSetAbstractionMsg(
+        512, [0.1, 0.2, 0.4], [16, 32, 128], 3,
+        [[32, 32, 64], [64, 64, 128], [64, 96, 128]]))
+    fp = seeded(pointnet.PointNetFeaturePropagation(3 + 320, [256, 128]))
+    msg_gpu, fp_gpu = copy.deepcopy(msg).cuda(), copy.deepcopy(fp).cuda()
+    total = collections.Counter()
+    for N, fps_kernel in ((1024, "fps"), (10000, "fps_grid")):
+        pc = cloud(torch, gen, 2, N)
+        xyz, rgb = pc[..., :3].contiguous(), pc[..., 3:].contiguous()
+        counters = zeroed_counters()
+        with torch.no_grad():
+            c_gpu, f_gpu = msg_gpu(xyz, rgb)
+            launches = {n: c.launches for n, c in counters.items()}
+            c_cpu, f_cpu = msg(xyz.cpu(), rgb.cpu())
+        total.update(launches)
+        err = ((f_gpu.cpu() - f_cpu).abs().max() / f_cpu.abs().max()).item()
+        same = torch.equal(c_gpu.cpu(), c_cpu)
+        print(f"pointnet MSG on (2, {N}) clouds: centres equal {same}, "
+              f"features {tuple(f_gpu.shape)} max abs err / largest "
+              f"{err:.3g} (tolerance 1e-4); launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        if not same or err > 1e-4 or not launches[fps_kernel] \
+                or launches["ballquery"] != 3:
+            fail(f"pointnet MSG on {N} points: the card disagrees with the "
+                 f"CPU or took another route")
+        if N == 1024:
+            with torch.no_grad():
+                u_gpu = fp_gpu(xyz, c_gpu, rgb, f_gpu)
+                u_cpu = fp(xyz.cpu(), c_cpu, rgb.cpu(), f_cpu)
+            err = ((u_gpu.cpu() - u_cpu).abs().max()
+                   / u_cpu.abs().max()).item()
+            print(f"pointnet FP to (2, 1024): {tuple(u_gpu.shape)}, max abs "
+                  f"err / largest {err:.3g} (tolerance 1e-4)")
+            if err > 1e-4:
+                fail("pointnet FP: the card disagrees with the CPU")
+    return dict(total)
+
+
 def check_float16_cli(tmp: Path) -> None:
     """`cli.tta.main --compute-dtype float16` on the card (Uni3D at depth 1)
     raises a ValueError naming the dtype: no kernel takes it."""
@@ -3348,6 +3913,8 @@ def check_float16_cli(tmp: Path) -> None:
 
 def main() -> None:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3405,19 +3972,27 @@ def main() -> None:
     check_features(torch, gen)
     check_features_fp32(torch, gen)
     by_path, batch1_ms, sweeps = {}, {}, {}
+    by_path["openshape_rest"] = check_openshape_rest(torch, gen)
+    by_path["pointnet"] = check_pointnet(torch, gen)
     with tempfile.TemporaryDirectory() as tmp:
         for kind in PATHS:
             by_path[kind], batch1_ms[kind] = run_main_path(Path(tmp), kind)
         check_float16_cli(Path(tmp))
+        by_path["uni3d_batch3_eager"] = run_short_last_batch(Path(tmp))
+        by_path["uni3d_dota_profiled"] = run_profile_dir(Path(tmp))
         for name, (_, path, extra, _) in SWEEPS.items():
             by_path[f"sweep_{name}"], sweeps[name] = run_sweep(
                 Path(tmp), name, None if extra else batch1_ms[path], card)
         check_streams_equal_sequential(torch)
         check_cache_streams_equal_sequential(torch)
         scan_ms = check_scan(torch)
+        scan_ms.update(check_variant_scans(torch))
         check_cache_card_vs_cpu(torch)
+        dota_update_ms = check_variants_card_vs_cpu(torch)
         tier_ms = check_residual_tiers(torch, gen)
         by_path["continual_uni3d"] = run_continual(Path(tmp))
+        for path in ("uni3d_dota", "uni3d_gmm", "uni3d_adaptive"):
+            by_path[f"continual_{path}"] = run_continual(Path(tmp), 2, path)
         for kind in EXTRACT_PATHS:
             by_path[f"extract_{kind}"] = run_extraction(Path(tmp), kind)
         for kind in EXTRACT_PATHS:
@@ -3425,8 +4000,9 @@ def main() -> None:
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"sweeps": sweeps, "residual_tier_product_ms": tier_ms,
-                      "scan_ms": scan_ms}))
+                      "scan_ms": scan_ms, "dota_update_ms": dota_update_ms}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

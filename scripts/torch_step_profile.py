@@ -2,7 +2,7 @@
 
     python3 scripts/torch_step_profile.py [--vlm3d uni3d|openshape|ulip]
         [--npoints N] [--dataset-name NAME] [--compute-dtype float32]
-        [--streams S] [--method mode_dota|cache]
+        [--streams S] [--method mode_dota|cache|dota|gmm|adaptive]
         [--residual-precision highest|high|default] [--scan]
 
 On one CUDA card (its name and power limit printed first), one backbone
@@ -37,7 +37,12 @@ width.  After warm-up it prints, per step:
     timed as the step runs it, reading its stop flags every iteration,
     and with a local copy that reads them every 2 and 4; and at its cap,
     tol 0, reading every 1 and every 4: an iteration's cost and a read's)
-    or the explicit solve, and the readout + fusion;
+    or the explicit solve, and the readout + fusion; with `--method
+    dota|gmm|adaptive`, plain DOTA's, GMM-DOTA's or adaptive-modes DOTA's
+    step (defaults): the encoder forward of the B (S·B) clouds, its
+    grouping, `predict`, `fit` (adaptive: with its split check, computed
+    at every fit), `update` (plain DOTA: the Λ inverse; GMM: the
+    shrinkage) and the fusion;
   * from `torch.profiler` over 5 steps: device busy time (the sum
     of kernel times) against the unprofiled step's wall time, and device
     time by kernel, in groups: the port's CUDA kernels split into the bf16
@@ -72,8 +77,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from uni_adapter_torch import engine  # noqa: E402
-from uni_adapter_torch.adapt import (cache, fusion, mode_dota,  # noqa: E402
-                                     residual)
+from uni_adapter_torch.adapt import (adaptive, cache, dota,  # noqa: E402
+                                     fusion, gmm, mode_dota, residual)
 from uni_adapter_torch.anchors import load_precomputed  # noqa: E402
 from uni_adapter_torch.cli.tta import feature_width, set_numerics  # noqa: E402
 from uni_adapter_torch.config import (CacheConfig, Config,  # noqa: E402
@@ -144,6 +149,37 @@ def mode_dota_phases(cfg, state, feat, text) -> dict:
             state.res_state, text, state.method_state, dc.residual_lr,
             dc.epsilon, dc.residual_steps, precision=dc.residual_precision),
     }
+
+
+def variant_phases(cfg, method, state, feat, text) -> dict:
+    """Plain, GMM or adaptive DOTA's adaptation phases on the features
+    `feat`, as `engine.variant_step` runs them."""
+    dc, ms = cfg.dota, state.method_state
+    logits, _, prob, _ = engine.clip_logits_from(feat, text.T)
+    mean = feat.mean(dim=-2, keepdim=True)
+    if method == "dota":
+        phases = {"predict": lambda: dota.predict(ms, mean,
+                                                  dc.prior_pre_steps),
+                  "fit": lambda: dota.fit(ms, feat, prob),
+                  "update (the Λ inverse)": lambda: dota.update(ms,
+                                                                dc.epsilon)}
+    elif method == "gmm":
+        phases = {"predict": lambda: gmm.predict(ms, mean, dc.alpha_max),
+                  "fit": lambda: gmm.fit(ms, feat, prob),
+                  "update": lambda: gmm.update(ms, dc.epsilon)}
+    else:
+        threshold = 10.0 * mode_dota.resolve_sigma_init(dc.sigma,
+                                                        text.shape[1])
+        phases = {"predict": lambda: adaptive.predict(ms, mean, dc.epsilon),
+                  "fit (with the split check)": lambda: adaptive.fit(
+                      ms, feat, prob, dc.epsilon, threshold)}
+    scores = phases["predict"]()
+    w = fusion.dota_fusion_weight(dc.rho, dc.eta, torch.ones(
+        feat.shape[:-2], device=feat.device), 1.0)
+    phases["fusion"] = (
+        (lambda: fusion.fuse_dota(logits, scores, w)) if method == "dota"
+        else lambda: fusion.fuse_mode_dota(logits, scores, w))
+    return {k: torch.no_grad()(f) for k, f in phases.items()}
 
 
 def populated_cache(cfg, cs, text, lead, gen):
@@ -321,8 +357,8 @@ def main() -> None:
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--streams", type=int, default=1)
-    ap.add_argument("--method", choices=["mode_dota", "cache"],
-                    default="mode_dota")
+    ap.add_argument("--method", choices=["mode_dota", "cache", "dota", "gmm",
+                                         "adaptive"], default="mode_dota")
     ap.add_argument("--residual-precision", default="highest",
                     choices=list(residual.PRECISIONS))
     ap.add_argument("--scan", action="store_true")
@@ -340,9 +376,13 @@ def main() -> None:
     set_numerics()
     dev = torch.device("cuda")
     use_cache = args.method == "cache"
+    variant = args.method in ("dota", "gmm", "adaptive")
     cfg = Config(model=ModelConfig(vlm3d=kind,
                                    compute_dtype=args.compute_dtype),
-                 dota=DotaConfig(use_mode_dota=not use_cache,
+                 dota=DotaConfig(use_mode_dota=args.method == "mode_dota",
+                                 use_dota=args.method == "dota",
+                                 use_gmm_dota=args.method == "gmm",
+                                 use_adaptive_dota=args.method == "adaptive",
                                  residual_precision=args.residual_precision),
                  data=DataConfig(dataset_name=args.dataset_name)).resolve()
     dc = cfg.dota
@@ -366,6 +406,7 @@ def main() -> None:
           f"{args.compute_dtype}: anchors {tuple(text.shape)}"
           + (f", {S} streams" if lead else "")
           + (f"; the cache: {cfg.cache}" if use_cache
+             else f"; {args.method}" if variant
              else f"; residual precision {dc.residual_precision}"))
     step = engine.make_step_fn(cfg, model)
     encode = engine.encode_with(kind, model)
@@ -388,7 +429,7 @@ def main() -> None:
     for _ in range(16 if use_cache else 3):  # warm-up; step > 0 after it
         state, _ = step(text, state, batch())
     pc, rgb, tgt = batch()
-    if use_cache:                           # one forward of the S·B clouds
+    if use_cache or variant:                # one forward of the S·B clouds
         two_b = "SB" if lead else "B"
         xyz2 = pc.reshape(-1, npoints, 3)
     else:
@@ -415,6 +456,8 @@ def main() -> None:
     }
     if use_cache:
         phases.update(cache_phases(cfg, state.method_state, feat, text))
+    elif variant:
+        phases.update(variant_phases(cfg, args.method, state, feat, text))
     else:
         phases.update(mode_dota_phases(cfg, state, feat, text))
     timings = {k: wall_ms(f, 10) for k, f in phases.items()}

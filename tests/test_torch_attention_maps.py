@@ -227,13 +227,15 @@ def test_return_attn_bf16_matches_jax(pallas_interpret):
 
 
 def test_return_attn_openshape_needs_the_global_cache_type():
+    """`return_attn` raises on the `local` cache type, which runs without
+    it (tests/test_torch_openshape_rest.py holds it against JAX)."""
     model = ppta.Projected(ppta.PPTAPreset(**SMALL_PPTA), OUT,
-                           cache_type="local")
-    xyz = torch.zeros(1, 64, 3)
+                           dtype=torch.float32, cache_type="local")
+    xyz = torch.rand(1, 64, 3, generator=torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="cache_type='global'"):
         model(xyz, torch.zeros(1, 64, 6), return_attn=True)
-    with pytest.raises(NotImplementedError, match="M8"):
-        model(xyz, torch.zeros(1, 64, 6))
+    with torch.no_grad():
+        assert model(xyz, torch.zeros(1, 64, 6)).shape == (5, OUT)
 
 
 @pytest.mark.parametrize("return_attn", [False, True])

@@ -86,7 +86,7 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dota-use-mode-dota", "false", "--dota-use-dota", "true"], "M8"),
+    (["--precomputed-text-features", ""], "M11"),
     (["--vmap-corruptions", "true", "--dist-mode", "sharded"], "M16"),
     (["--continual", "true", "--dist-mode", "ep"], "M16"),
     (["--dist-mode", "psum"], "M16"),
@@ -115,12 +115,16 @@ bad = sorted(n for n in new if n.split(".")[0] in
 assert not bad, bad
 from uni_adapter_torch.ops import build
 assert build.load.cache_info().currsize == 0
-print(len([n for n in new if n.startswith("uni_adapter_torch")]))
+print(" ".join(sorted(n for n in new if n.startswith("uni_adapter_torch"))))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 26
+    assert {f"uni_adapter_torch.{m}" for m in (
+        "adapt.dota", "adapt.gmm", "adapt.adaptive", "utils.kmeans",
+        "utils.profiling", "ops.pointnet")} <= names
 
 
 def test_as_arrays_and_iter_batches_match_jax_on_ragged_clouds():
@@ -219,3 +223,109 @@ def test_cache_table_and_flags_as_in_jax(argv):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     name = dict(zip(argv[::2], argv[1::2])).get("--dataset-name", "modelnet")
     assert pcfg.get_hyperparams(name) == jcfg.get_hyperparams(name)
+
+
+def test_eager_loop_keeps_the_short_last_batch_as_the_jax_cli(stream_dir,
+                                                             tmp_path,
+                                                             monkeypatch):
+    """`--use-scan false --batch-size 3` over 8 clouds: 3 steps (3, 3 and 2
+    clouds), all 8 counted, as the JAX CLI's eager loop
+    (`iter_batches`) takes them; on the JAX CLI's own random weights, its
+    results.json equal to the port's.  The scan path keeps whole batches
+    only (2 steps, 6 clouds), as JAX's does."""
+    from uni_adapter_tpu.cli import tta as jtta
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.weights import from_jax_params
+
+    built = {}
+
+    def build_model(cfg):
+        built["model"], built["params"] = jax_build(cfg)
+        return built["model"], built["params"]
+
+    jax_build = jtta.build_model
+    monkeypatch.setattr(jtta, "build_model", build_model)
+    base = ["--device", "cpu", "--root", str(stream_dir), "--corruption",
+            "uniform", "--batch-size", "3", *SMALL_ARGS]
+    argv = [*base, "--use-scan", "false"]
+    want = jtta.main([*argv, "--output-dir", str(tmp_path / "jax"),
+                      "--name", "run"])
+    port = create_uni3d(pcfg.parse_args(argv).model, "cpu",
+                        state_dict=from_jax_params(built["params"]))
+    monkeypatch.setattr(tta, "build_backbone",
+                        lambda *a, **k: (port, None, None))
+    calls = []
+    run_stream = tta.engine.run_stream
+
+    def counted(*args, **kwargs):
+        res = run_stream(*args, **kwargs)
+        calls.append(res["n"])
+        return res
+
+    monkeypatch.setattr(tta.engine, "run_stream", counted)
+    summary = tta.main([*argv, "--output-dir", str(tmp_path / "out"),
+                        "--name", "run"])
+    assert summary["steps"]["uniform"] == [0, 3]
+    assert len(summary["step_ms"]["uniform"]) == 3
+    assert calls == [8] and summary["n"]["uniform"] == 8
+    assert summary["acc1"] == want
+    assert json.loads((tmp_path / "out" / "run" / "results.json")
+                      .read_text()) == json.loads(
+        (tmp_path / "jax" / "run" / "results.json").read_text())
+    scan = tta.main([*base, "--output-dir", str(tmp_path / "scan"),
+                     "--name", "run"])
+    assert scan["steps"]["uniform"] == [0, 2] and scan["n"]["uniform"] == 6
+
+
+@pytest.mark.parametrize("variant", ["dota", "gmm-dota", "adaptive-dota"])
+def test_cli_runs_each_dota_variant_scan_and_eager(stream_dir, tmp_path,
+                                                   variant):
+    """`--dota-use-mode-dota false --dota-use-<variant> true`: the scan and
+    the eager loop write the same results.json and results_zs.json, 8
+    steps, finite logits, and the batch-0 figure."""
+    out = {}
+    for scan in ("true", "false"):
+        summary = tta.main([
+            "--device", "cpu", "--root", str(stream_dir), "--corruption",
+            "uniform", "--output-dir", str(tmp_path / scan), "--name", "run",
+            "--dota-use-mode-dota", "false", f"--dota-use-{variant}", "true",
+            "--use-scan", scan, *SMALL_ARGS])
+        assert summary["steps"]["uniform"] == [0, 8]
+        assert summary["finite"]["uniform"]
+        log_dir = tmp_path / scan / "run"
+        out[scan] = [json.loads((log_dir / f).read_text())
+                     for f in ("results.json", "results_zs.json")]
+        assert (log_dir / "vis_uniform_batch_0.html").exists()
+    assert out["true"] == out["false"]
+
+
+def test_batch0_figure_and_profile_dir(stream_dir, tmp_path):
+    """At batch 2, the batch-0 figure holds the first two clouds under the
+    JAX CLI's names; `--profile-dir` writes a Chrome trace of the loop
+    that holds the step's operators."""
+    prof = tmp_path / "prof"
+    tta.main(["--device", "cpu", "--root", str(stream_dir), "--corruption",
+              "uniform", "--output-dir", str(tmp_path / "out"), "--name",
+              "run", "--profile-dir", str(prof), "--batch-size", "2",
+              *SMALL_ARGS])
+    html = (tmp_path / "out" / "run" / "vis_uniform_batch_0.html").read_text()
+    labels = np.load(stream_dir / "label.npy")
+    for j in range(2):
+        name = pdata.MODELNET40_CLASSES[labels[j]]
+        assert f"Sample_{j}_{name}" in html
+    assert "uniform batch 0 input" in html
+    traces = list(prof.glob("trace_*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+
+
+def test_fetch_synced_time_times_each_call():
+    """`utils/profiling.fetch_synced_time`: one untimed call, then the
+    repeats; the last output and seconds a call."""
+    from uni_adapter_torch.utils import profiling
+
+    calls = []
+    out, sec = profiling.fetch_synced_time(
+        lambda x: calls.append(x) or x * 2, 3, repeats=4)
+    assert out == 6 and len(calls) == 5 and 0 <= sec < 1

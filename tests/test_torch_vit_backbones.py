@@ -192,15 +192,15 @@ def test_random_init_is_seeded_and_keeps_the_fp32_heads():
 
 
 def test_vit_attention_raises_on_unported_branches():
-    """A mask and an attention bias are not ported; `return_attn` and head
-    dims that are not a multiple of 8 are (tests/test_torch_attention_maps.py)."""
+    """A mask is not ported and raises, naming M11; an attention bias is
+    (tests/test_torch_openshape_rest.py), as are `return_attn` and head
+    dims that are not a multiple of 8 (tests/test_torch_attention_maps.py)."""
     from uni_adapter_torch.models.common import ViTAttention
     attn = ViTAttention(48, 2)
     x = torch.zeros(1, 5, 48)
-    for kw, item in (({"mask": torch.zeros(5, 5)}, "M11"),
-                     ({"attn_bias": torch.zeros(1, 2, 5, 5)}, "M10")):
-        with pytest.raises(NotImplementedError, match=item):
-            attn(x, **kw)
+    with pytest.raises(NotImplementedError, match="M11"):
+        attn(x, mask=torch.zeros(5, 5))
+    assert attn(x, attn_bias=torch.zeros(1, 2, 5, 5)).shape == (1, 5, 48)
 
 
 def _both_engines(kind):

@@ -1,0 +1,126 @@
+"""DOTA: a streaming Gaussian per class with a shared precision, scored as
+LDA (mirror of `uni_adapter_tpu/adapt/dota.py`).
+
+Every product is fp32 without TF32 (the JAX package runs them at
+`Precision.HIGHEST`); the entry points turn TF32 off for the process.
+The shared precision inverts a symmetric positive definite matrix (ε·I
+plus a mean of covariances), by Cholesky (`torch.linalg.cholesky_ex`,
+then `torch.cholesky_inverse`; the JAX package inverts by LU), which
+neither checks nor synchronises on the host.  On the card it runs on
+cuSOLVER, whose batched factorisation a captured step replays (MAGMA's,
+which PyTorch may pick for a batch of matrices, cannot be captured).
+
+Every function but `init` also takes S independent streams at once: a
+leading stream axis on every tensor of the state but the () sample count
+`prior_step` (which the streams share), and on `x` and `y`.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class DOTAState(NamedTuple):
+    """One stream's state; S streams' carry a leading (S,) axis on each
+    tensor but `prior_step`."""
+    mu: torch.Tensor               # ([S,] K, D) class means
+    c: torch.Tensor                # ([S,] K) effective counts
+    sigma: torch.Tensor            # ([S,] K, D, D) class covariances
+    lam: torch.Tensor              # ([S,] D, D) shared precision
+    cum_soft_labels: torch.Tensor  # ([S,] 1, K) cumulative prior evidence
+    prior_step: torch.Tensor       # () int32: samples fitted (each stream)
+
+
+def init(epsilon: float, sigma: float, input_dim: int, num_classes: int,
+         clip_weights: torch.Tensor) -> DOTAState:
+    """Means from `clip_weights` (D, K), counts 1, every covariance σ·I and
+    the precision I/σ.  (The engine passes a constant 0.001 matrix, as the
+    reference's driver does, not the anchors.)"""
+    del epsilon
+    dev = clip_weights.device
+    eye = torch.eye(input_dim, device=dev)
+    return DOTAState(
+        mu=clip_weights.T.to(torch.float32).contiguous(),
+        c=torch.ones(num_classes, device=dev),
+        sigma=(sigma * eye).expand(num_classes, -1, -1).contiguous(),
+        lam=eye / sigma,
+        cum_soft_labels=torch.zeros(1, num_classes, device=dev),
+        prior_step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def fit_rows(mu: torch.Tensor, c: torch.Tensor, sigma: torch.Tensor,
+             x: torch.Tensor, y: torch.Tensor):
+    """The streaming mean and covariance update on the soft-label weighted
+    batch: returns (new mu, new c, new sigma, Σ_b y).
+
+    Args:
+      mu ([S,] K, D), c ([S,] K), sigma ([S,] K, D, D); x ([S,] B, D)
+      features, y ([S,] B, K) soft labels.
+    """
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    sum_w = y.sum(dim=-2)                                       # ([S,] K)
+    weighted_x = torch.matmul(y.transpose(-1, -2), x)           # ([S,] K, D)
+    # Δ[k] = Σ_b y[b,k] (x_b − μ_k)(x_b − μ_k)ᵀ, K products (D, B)·(B, D)
+    xm = (x[..., :, None, :] - mu[..., None, :, :]).movedim(-3, -2)
+    delta = torch.matmul((y.transpose(-1, -2)[..., None] * xm)
+                         .transpose(-1, -2), xm)                # (.., K, D, D)
+    new_mu = (weighted_x + c[..., None] * mu) / (sum_w[..., None]
+                                                 + c[..., None])
+    denom = (c + sum_w)[..., None, None]
+    new_sigma = (c[..., None, None] * sigma + delta) / denom
+    return new_mu, c + sum_w, new_sigma, sum_w
+
+
+def fit(state: DOTAState, x: torch.Tensor, y: torch.Tensor) -> DOTAState:
+    """Soft-label-weighted streaming update; the prior's evidence sums y
+    over the batch and `prior_step` counts the samples fitted."""
+    mu, c, sigma, sum_w = fit_rows(state.mu, state.c, state.sigma, x, y)
+    return state._replace(mu=mu, c=c, sigma=sigma,
+                          cum_soft_labels=(state.cum_soft_labels
+                                           + sum_w[..., None, :]),
+                          prior_step=state.prior_step + x.shape[-2])
+
+
+@contextlib.contextmanager
+def _cusolver(on_card: bool):
+    """cuSOLVER as PyTorch's linear-algebra backend inside the block (on
+    the card; the setting is the process's, and is restored)."""
+    if not on_card:
+        yield
+        return
+    saved = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(saved)
+
+
+def update(state: DOTAState, epsilon: float) -> DOTAState:
+    """The shared precision Λ = ((1 − ε)·mean_k Σ_k + ε·I)⁻¹."""
+    d = state.mu.shape[-1]
+    reg = ((1.0 - epsilon) * state.sigma.mean(dim=-3)
+           + epsilon * torch.eye(d, device=state.mu.device))
+    with _cusolver(reg.is_cuda):
+        lam = torch.cholesky_inverse(torch.linalg.cholesky_ex(reg)[0])
+    return state._replace(lam=lam)
+
+
+def predict(state: DOTAState, x: torch.Tensor,
+            prior_pre_steps: Optional[int] = None) -> torch.Tensor:
+    """LDA scores x·W − ½·diag(MᵀW), W = Λ·M, ([S,] B, K); with
+    `prior_pre_steps`, plus the log of the cumulative soft-label prior
+    blended with that many pseudo-counts of a uniform prior."""
+    M = state.mu.transpose(-1, -2)                              # ([S,] D, K)
+    W = torch.matmul(state.lam, M)
+    c = 0.5 * (M * W).sum(dim=-2)                               # ([S,] K)
+    scores = torch.matmul(x.to(torch.float32), W) - c[..., None, :]
+    if prior_pre_steps is not None:
+        k = state.mu.shape[-2]
+        prior = state.cum_soft_labels + prior_pre_steps / k
+        prior = prior / (prior_pre_steps + state.prior_step)
+        scores = scores + torch.log(prior + 1e-10)
+    return scores

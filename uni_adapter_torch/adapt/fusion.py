@@ -1,4 +1,4 @@
-"""Logit fusion of MODE-DOTA and of the prototype cache (mirror of
+"""Logit fusion of the DOTA family and of the prototype cache (mirror of
 `uni_adapter_tpu/adapt/fusion.py`)."""
 from __future__ import annotations
 
@@ -13,6 +13,14 @@ def dota_fusion_weight(rho: float, eta: float, c_mean: torch.Tensor,
     S streams: `c_mean` is (S,), each stream's own mean over (K, M), and
     `batch` each stream's own B (not S·B)."""
     return torch.clamp(rho * c_mean / batch, max=eta)
+
+
+def fuse_dota(clip_logits: torch.Tensor, dota_logits: torch.Tensor,
+              weight: torch.Tensor) -> torch.Tensor:
+    """Plain DOTA's fusion clip + w·dota (the reference's usage comment's;
+    its own driver never assigns the result).  Logits ([S,] B, K),
+    `weight` () or S streams' (S,)."""
+    return clip_logits + weight[..., None, None] * dota_logits
 
 
 def fuse_mode_dota(clip_logits: torch.Tensor, dota_logits: torch.Tensor,

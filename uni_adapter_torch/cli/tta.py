@@ -25,19 +25,27 @@ trajectory runs through them all, and with `--vmap-corruptions true` the
 15 streams run together, one step of each at a time (the encoder takes
 their 2·15 clouds in one forward), truncated to the shortest.
 Each stream runs as a scan of its step (`engine.run_stream_scan`, the JAX
-CLI's default): on the card one step is captured as a CUDA graph and
-replayed, and a failed capture raises; `--use-scan false` runs the eager
-step loop (`engine.run_stream`), with the same results.
+CLI's default) over its whole batches: on the card one step is captured
+as a CUDA graph and replayed, and a failed capture raises; `--use-scan
+false` runs the eager step loop (`engine.run_stream`) over every batch,
+a short last one too, as the JAX CLI's eager loop does.
 `--dota-use-mode-dota false` (with the other DOTA variants off, as by
 default) runs the prototype cache instead of MODE-DOTA: one forward of the
 batch-1 clouds a step, the cache updated, its graph refined by CG (or the
 explicit solve, ShapeNetCore's table), and the two fused; `--cache-*`
-flags beat the per-dataset table.  Without `--checkpoint-path` (ROADMAP
-M12) the weights are random from `--seed`, so the accuracies only show
-that the pipeline ran.
+flags beat the per-dataset table.  `--dota-use-mode-dota false` with
+`--dota-use-dota true` runs plain DOTA (`--dota-prior-pre-steps`), with
+`--dota-use-gmm-dota true` GMM-DOTA (`--dota-alpha-max`), with
+`--dota-use-adaptive-dota true` adaptive-modes DOTA: one forward of the
+clouds a step, no noise.  Each corruption's first two clouds are written
+as `vis_{corruption}_batch_0.html` into the run's directory;
+`--profile-dir DIR` writes a torch.profiler trace of the corruption loop
+into DIR.  Without `--checkpoint-path` (ROADMAP M12) the weights are
+random from `--seed`, so the accuracies only show that the pipeline ran.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -54,6 +62,8 @@ from uni_adapter_torch.anchors import load_precomputed
 from uni_adapter_torch.config import CORRUPTIONS, parse_args, unported_paths
 from uni_adapter_torch.data.datasets import load_tta_dataset
 from uni_adapter_torch.models.loader import build_backbone
+from uni_adapter_torch.utils import profiling
+from uni_adapter_torch.visualize import visualize_pointclouds_plotly
 
 
 def resolve_device(name: str) -> torch.device:
@@ -114,6 +124,20 @@ def finish(summary: dict) -> dict:
     return summary
 
 
+def write_batch0_figure(log_dir: str, corr: str, dataset, pcs,
+                        targets) -> None:
+    """The first two clouds of the stream's first batch as
+    `vis_{corr}_batch_0.html`, best effort (a failure is logged)."""
+    try:
+        viz = {f"Sample_{j}_{dataset.class_names[int(targets[0, j])]}":
+               pcs[0, j] for j in range(min(2, pcs.shape[1]))}
+        visualize_pointclouds_plotly(
+            viz, save_path=os.path.join(log_dir, f"vis_{corr}_batch_0"),
+            title=f"{corr} batch 0 input")
+    except Exception as e:
+        logging.warning("Visualization failed: %s", e)
+
+
 def run_all_vmapped(cfg, model, text, corruptions, log_dir,
                     step_fn, scan_fn) -> dict:
     """All corruption streams together (`engine.run_streams_scan`, or with
@@ -151,6 +175,7 @@ def run_all_vmapped(cfg, model, text, corruptions, log_dir,
         "step_ms": dict.fromkeys(corruptions, step_ms),
         "finite": dict(zip(corruptions, finite.all(dim=1).tolist())),
         "steps": dict.fromkeys(corruptions, [0, state.step]),
+        "n": dict.fromkeys(corruptions, T * cfg.data.batch_size),
         "cg_iters": dict(zip(corruptions, iters)),
         "log_dir": log_dir}
     total = pcs.shape[0] * pcs.shape[1] * pcs.shape[2]
@@ -182,8 +207,9 @@ def main(argv=None) -> dict:
     between its replays, else wall time ending in a device synchronise;
     under `--vmap-corruptions` the sweep's steps, shared by all), `finite`
     (every final logit finite), `steps` (the state's step counter at the
-    stream's start and end), `cg_iters` (the cache path's CG iterations a
-    step, None on MODE-DOTA) and the run's `log_dir`."""
+    stream's start and end), `n` (the clouds adapted on and counted),
+    `cg_iters` (the cache path's CG iterations a
+    step, None on the DOTA family) and the run's `log_dir`."""
     cfg = parse_args(argv)
     missing = unported_paths(cfg)
     if not cfg.data.precomputed_text_features:
@@ -221,31 +247,47 @@ def main(argv=None) -> dict:
 
     corruptions = (list(CORRUPTIONS) if cfg.data.corruption == "all"
                    else [cfg.data.corruption])
+    # a torch.profiler trace of the loop (--profile-dir)
+    profile = (profiling.trace(cfg.run.profile_dir) if cfg.run.profile_dir
+               else contextlib.nullcontext())
     if cfg.run.vmap_corruptions and len(corruptions) > 1:
-        return run_all_vmapped(cfg, model, text, corruptions, log_dir,
-                               step_fn, scan_fn)
+        with profile:
+            return run_all_vmapped(cfg, model, text, corruptions, log_dir,
+                                   step_fn, scan_fn)
+    with profile:
+        return finish(run_sequential(cfg, model, text, corruptions, log_dir,
+                                     step_fn, scan_fn))
+
+
+def run_sequential(cfg, model, text, corruptions, log_dir, step_fn,
+                   scan_fn) -> dict:
+    """The corruption streams one after the other: the scan over each
+    stream's whole batches, or the eager loop over all its batches (a
+    short last one too, `iter_batches`); with `--continual` the carry
+    survives from one corruption to the next."""
     summary = {"acc1": {}, "zs_acc1": {}, "step_ms": {}, "finite": {},
-               "steps": {}, "cg_iters": {}, "log_dir": log_dir}
-    # --continual: one trajectory through the whole corruption sequence,
-    # the carry surviving the loop instead of a fresh state per corruption
+               "steps": {}, "n": {}, "cg_iters": {}, "log_dir": log_dir}
     carry_state = None
     for corr in corruptions:
         c = dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data, corruption=corr))
         logging.info("%s Processing corruption: %s %s", "=" * 20, corr,
                      "=" * 20)
-        pcs, rgbs, targets = load_tta_dataset(c).as_arrays(
+        dataset = load_tta_dataset(c)
+        pcs, rgbs, targets = dataset.as_arrays(
             c.data.batch_size, npoints=c.data.npoints, seed=c.run.seed)
+        write_batch0_figure(log_dir, corr, dataset, pcs, targets)
         t0 = time.perf_counter()
         if scan_fn is not None:
             res = scan_stream(c, model, text, pcs, rgbs, targets,
                               carry_state, scan_fn)
         else:
-            res = engine.run_stream(c, model, text, zip(pcs, rgbs, targets),
-                                    seed=c.run.seed,
-                                    print_freq=c.run.print_freq,
-                                    step_fn=step_fn,
-                                    initial_state=carry_state)
+            res = engine.run_stream(
+                c, model, text, dataset.iter_batches(
+                    c.data.batch_size, npoints=c.data.npoints,
+                    seed=c.run.seed),
+                seed=c.run.seed, print_freq=c.run.print_freq,
+                step_fn=step_fn, initial_state=carry_state)
         dt = time.perf_counter() - t0
         logging.info("Final Results: Acc@1 %.3f Acc@3 %.3f Acc@5 %.3f",
                      res["acc1"], res["acc3"], res["acc5"])
@@ -258,12 +300,13 @@ def main(argv=None) -> dict:
         summary["zs_acc1"][corr] = float(res["zs_acc1"])
         summary["step_ms"][corr] = res["step_ms"]
         summary["finite"][corr] = res["finite"]
+        summary["n"][corr] = res["n"]
         summary["cg_iters"][corr] = res["cg_iters"]
         summary["steps"][corr] = [carry_state.step if carry_state else 0,
                                   res["state"].step]
         if cfg.run.continual:
             carry_state = res["state"]
-    return finish(summary)
+    return summary
 
 
 def cli() -> int:

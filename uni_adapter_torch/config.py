@@ -1,5 +1,6 @@
-"""Configuration of the port: the fields its paths read (MODE-DOTA and the
-prototype cache, for the three backbones Uni3D, ULIP-2 and OpenShape).
+"""Configuration of the port: the fields its paths read (the DOTA family
+and the prototype cache, for the three backbones Uni3D, ULIP-2 and
+OpenShape).
 
 A copy, not an import, of the dataclasses in `uni_adapter_tpu/config.py`,
 with the same names and defaults, cut to what this package runs.  Two
@@ -73,6 +74,11 @@ class DotaConfig:
     rho: float = 0.02
     mode_M: int = 4
     res_learning: bool = True
+    # plain DOTA's prior: this many uniform pseudo-counts blended with the
+    # cumulative soft labels (None: no prior)
+    prior_pre_steps: Optional[int] = None
+    # GMM-DOTA's cap on the empirical class prior's blend weight
+    alpha_max: float = 0.5
     noise_std: float = 0.05
     residual_lr: float = 1e-3
     residual_steps: int = 10
@@ -134,6 +140,9 @@ class RunConfig:
     continual: bool = False
     dist_mode: str = "replicated"
     trunk_parallel: str = "none"
+    # a torch.profiler trace (CPU and CUDA) of the corruption loop, written
+    # into this directory (`utils/profiling.trace`); None: no trace
+    profile_dir: Optional[str] = None
 
 
 @dataclass
@@ -206,18 +215,10 @@ def load_labels(cfg: Config) -> list[str]:
 def unported_paths(cfg: Config) -> list[str]:
     """What `cfg` asks for that this package does not run yet, each with
     the ROADMAP item that ports it."""
-    m, d, r = cfg.model, cfg.dota, cfg.run
+    m, r = cfg.model, cfg.run
     out = []
     if m.vlm3d not in ("uni3d", "ulip", "openshape"):
         out.append(f"--vlm3d {m.vlm3d}")
-    # the JAX engine's dispatch order: MODE-DOTA wins over the others
-    if not d.use_mode_dota:
-        if d.use_dota:
-            out.append("plain DOTA, --dota-use-dota (ROADMAP M8)")
-        elif d.use_gmm_dota:
-            out.append("GMM-DOTA, --dota-use-gmm-dota (ROADMAP M8)")
-        elif d.use_adaptive_dota:
-            out.append("adaptive DOTA, --dota-use-adaptive-dota (ROADMAP M8)")
     if m.checkpoint_path is not None:
         out.append("--checkpoint-path (ROADMAP M12)")
     if r.dist_mode != "replicated":

@@ -1,6 +1,7 @@
 """TTA engine: the online adaptation loop for the three backbones, by
-MODE-DOTA or by the prototype cache (mirror of `uni_adapter_tpu/engine.py`,
-its MODE-DOTA and cache branches).
+MODE-DOTA, by the prototype cache or by one of the other DOTA variants
+(plain DOTA, GMM-DOTA, adaptive-modes DOTA) (mirror of
+`uni_adapter_tpu/engine.py`).
 
 The JAX package jit-compiles one pure step and scans it over the stream
 (`run_stream_scan`, its CLI's default).  Here `run_stream_scan` runs the
@@ -10,8 +11,9 @@ graph and replayed, on the CPU the same in-place step runs eagerly.
 `run_stream` is the eager loop of the functional step.  The state stays
 on the device between steps.  A MODE-DOTA step reads nothing back to the
 host (the residual-learning gate `step > 0` is a host integer: the scan
-captures a graph for each side of it); a cache step reads only the CG's
-stop flags, once an iteration (`utils/math.run_cg`).
+captures a graph for each side of it), nor does a step of the other
+variants; a cache step reads only the CG's stop flags, once an iteration
+(`utils/math.run_cg`).
 
 The MODE-DOTA noise comes from a `torch.Generator` carried in the state;
 `step(..., noise=...)` takes it from the caller instead, which is how the
@@ -37,7 +39,8 @@ from typing import Callable, Iterable, NamedTuple, Optional, Union
 
 import torch
 
-from uni_adapter_torch.adapt import cache, fusion, mode_dota, residual
+from uni_adapter_torch.adapt import adaptive, cache, dota, fusion, gmm
+from uni_adapter_torch.adapt import mode_dota, residual
 from uni_adapter_torch.config import Config
 from uni_adapter_torch.utils.math import (normalized_entropy, run_cg,
                                           softmax_entropy)
@@ -47,9 +50,11 @@ from uni_adapter_torch.utils.metrics import topk_correct
 @dataclass
 class EngineState:
     """The adaptation carry: one stream's, or S streams' with a leading
-    (S,) axis on every tensor and one generator a stream (the cache path
-    draws nothing from it)."""
-    method_state: Union[mode_dota.ModeDotaState, cache.CacheState]
+    (S,) axis on every tensor and one generator a stream (MODE-DOTA draws
+    its noise from it, GMM-DOTA its init; the others draw nothing)."""
+    method_state: Union[mode_dota.ModeDotaState, cache.CacheState,
+                        dota.DOTAState, gmm.GMMDotaState,
+                        adaptive.AdaptiveState]
     res_state: Optional[residual.ResidualState]
     step: int
     generator: Union[torch.Generator, tuple[torch.Generator, ...]]
@@ -102,21 +107,35 @@ def uses_cache(cfg: Config) -> bool:
 
 def init_state(cfg: Config, text_features_initial: torch.Tensor,
                seed: int = 42) -> EngineState:
-    """The carry: MODE-DOTA's mixture from the anchors and zero residuals,
-    or an empty prototype cache."""
+    """The carry, by the JAX engine's dispatch: MODE-DOTA's mixture from
+    the anchors and zero residuals; plain DOTA's Gaussians from a
+    constant 0.001 mean matrix (the reference's driver's); GMM-DOTA's
+    mixture, its perturbation drawn from the carry's generator (seeded
+    `seed`); adaptive DOTA's one mode a class; or an empty prototype
+    cache."""
     K, D = text_features_initial.shape
+    dev = text_features_initial.device
     dc = cfg.dota
     rs = None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    anchors = text_features_initial.T
     if uses_cache(cfg):
-        ms = cache.init(K, cfg.cache.shot_capacity, D,
-                        device=text_features_initial.device)
-    else:
-        ms = mode_dota.init(dc.epsilon, dc.sigma, D, K,
-                            text_features_initial.T, num_modes=dc.mode_M)
+        ms = cache.init(K, cfg.cache.shot_capacity, D, device=dev)
+    elif dc.use_mode_dota:
+        ms = mode_dota.init(dc.epsilon, dc.sigma, D, K, anchors,
+                            num_modes=dc.mode_M)
         if dc.res_learning:
             rs = residual.init(text_features_initial)
-    gen = torch.Generator(device=text_features_initial.device)
-    gen.manual_seed(seed)
+    elif dc.use_dota:
+        ms = dota.init(dc.epsilon, dc.sigma, D, K,
+                       torch.full((D, K), 0.001, device=dev))
+    elif dc.use_gmm_dota:
+        ms = gmm.init(dc.epsilon, dc.sigma, D, K, anchors,
+                      num_modes=dc.mode_M, generator=gen)
+    else:
+        ms = adaptive.init(dc.epsilon, dc.sigma, D, K, anchors,
+                           max_modes=dc.mode_M)
     return EngineState(ms, rs, 0, gen)
 
 
@@ -137,9 +156,10 @@ def _stack(states):
 
 def init_states_streams(cfg: Config, text_features_initial: torch.Tensor,
                         n_streams: int, seed: int = 42) -> EngineState:
-    """S streams' carry: the single-stream init stacked (MODE-DOTA's init
-    draws nothing), stream i's generator seeded seed + i (the JAX
-    package's `init_states_vmapped`, the reference's seed+rank)."""
+    """S streams' carry: the single-stream init stacked, stream i's
+    generator seeded seed + i (the JAX package's `init_states_vmapped`,
+    the reference's seed+rank; GMM-DOTA's stream i draws its init from
+    it)."""
     states = [init_state(cfg, text_features_initial, seed + i)
               for i in range(n_streams)]
     return EngineState(
@@ -156,23 +176,17 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
     state is `init_states_streams`'s; the encoder then takes the clean
     clouds of streams 0..S−1 and then their noisy ones as one 2·S·B
     batch, and each stream's noise comes from its own generator.  The
-    cache path's step takes no noise (`CacheStep`)."""
+    cache path's step (`CacheStep`) and the other variants' (`variant_step`)
+    take no noise."""
     encode = encode_with(cfg.model.vlm3d, model)
     dc = cfg.dota
     if uses_cache(cfg):
         return CacheStep(cfg, encode)
     if not dc.use_mode_dota:
-        raise NotImplementedError("plain, GMM and adaptive DOTA are not "
-                                  "ported (ROADMAP M8)")
+        return variant_step(cfg, encode)
     use_res = dc.res_learning
     if use_res:
         residual.check_precision(dc.residual_precision)
-
-    def predict_input(f):
-        m = f.mean(dim=-2, keepdim=True)
-        if dc.fp16_predict_input:
-            m = m.to(torch.float16).to(torch.float32)
-        return m
 
     @torch.no_grad()
     def step(text_init: torch.Tensor, state: EngineState, batch,
@@ -205,7 +219,8 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
             feat, clip_weights, scale=cfg.model.logit_scale)
 
         ms = state.method_state
-        dota_logits = mode_dota.predict(ms, predict_input(feat), dc.epsilon)
+        dota_logits = mode_dota.predict(
+            ms, _predict_input(feat, dc.fp16_predict_input), dc.epsilon)
         ms = mode_dota.fit(ms, feat, prob_map, dc.epsilon)
         # the noise-augmented fit uses the CLEAN prob_map
         ms = mode_dota.fit(ms, feat_aug, prob_map, dc.epsilon)
@@ -232,6 +247,71 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
                          topk_correct(zs_logits, target, (1, 3, 5)))
         return EngineState(ms, res_state, state.step + 1,
                            state.generator), out
+
+    return step
+
+
+def _predict_input(f: torch.Tensor, fp16: bool) -> torch.Tensor:
+    """The batch's mean feature that `predict` scores, rounded through
+    fp16 when asked (the reference's `.half()`)."""
+    m = f.mean(dim=-2, keepdim=True)
+    return m.to(torch.float16).to(torch.float32) if fp16 else m
+
+
+def variant_step(cfg: Config, encode: Callable) -> Callable:
+    """The step of plain DOTA, GMM-DOTA or adaptive-modes DOTA,
+    step(text_init, state, batch) -> (state, StepOutput): one encoder
+    forward of the B clouds (S·B with a stream axis), the scores of the
+    batch's mean feature from the state before the fit, the fit, then the
+    fusion with the clip logits (DOTA's additive, the others' inverse
+    entropy).  The JAX engine's branches of the three."""
+    dc, scale = cfg.dota, cfg.model.logit_scale
+    if dc.use_dota:
+        kind = "dota"
+    elif dc.use_gmm_dota:
+        kind = "gmm"
+    else:
+        kind = "adaptive"
+
+    @torch.no_grad()
+    def step(text_init: torch.Tensor, state: EngineState, batch):
+        pc, rgb, target = batch
+        text_init = text_init.to(torch.float32)
+        *lead, B, N, _ = pc.shape
+        feat = encode(pc.reshape(-1, N, 3),
+                      rgb.reshape(-1, N, 3)).reshape(*lead, B, -1)
+        clip_logits, _, prob_map, _ = clip_logits_from(feat, text_init.T,
+                                                       scale=scale)
+        ms = state.method_state
+        mean_feat = feat.mean(dim=-2, keepdim=True)
+        if kind == "dota":
+            scores = dota.predict(ms, _predict_input(feat,
+                                                     dc.fp16_predict_input),
+                                  prior_pre_steps=dc.prior_pre_steps)
+            ms = dota.update(dota.fit(ms, feat, prob_map), dc.epsilon)
+            counts = ms.c.mean(dim=-1)
+        elif kind == "gmm":
+            scores = gmm.predict(ms, mean_feat, alpha_max=dc.alpha_max)
+            ms = gmm.update(gmm.fit(ms, feat, prob_map), dc.epsilon)
+            counts = gmm.class_counts_per_class(ms).mean(dim=-1)
+        else:
+            sigma_init = mode_dota.resolve_sigma_init(dc.sigma,
+                                                      text_init.shape[1])
+            scores = adaptive.predict(ms, mean_feat, dc.epsilon)
+            ms = adaptive.fit(ms, feat, prob_map, dc.epsilon,
+                              split_threshold=10.0 * sigma_init)
+            counts = ms.c.mean(dim=(-2, -1))
+        w = fusion.dota_fusion_weight(dc.rho, dc.eta, counts, float(B))
+        if kind == "dota":
+            final = fusion.fuse_dota(clip_logits, scores, w)
+        else:
+            final = fusion.fuse_mode_dota(
+                clip_logits, scores, w,
+                fix_normalization=dc.fix_fusion_normalization)
+        out = StepOutput(final, clip_logits,
+                         topk_correct(final, target, (1, 3, 5)),
+                         topk_correct(clip_logits, target, (1, 3, 5)))
+        return EngineState(ms, None, state.step + 1, state.generator), out
 
     return step
 
@@ -509,10 +589,11 @@ class _StreamRunner:
     the anchors and an input slot.  The step reads the slot and the
     carry and writes the new carry into it in place.  On the card each of
     its parts is captured once (per residual gate) and replayed; on the
-    CPU the same parts run eagerly."""
+    CPU the same parts run eagerly.  `noise`: the step draws from the
+    carry's generators (MODE-DOTA), whose states each replay advances."""
 
-    def __init__(self, step: Callable, gated: bool, text: torch.Tensor,
-                 state: EngineState, slot: tuple):
+    def __init__(self, step: Callable, gated: bool, noise: bool,
+                 text: torch.Tensor, state: EngineState, slot: tuple):
         self.step, self.gated = step, gated
         self.text = text.clone()
         self.state = clone_state(state)
@@ -528,12 +609,14 @@ class _StreamRunner:
                 _Segment(lambda: step.iteration(self.ctx)),
                 _Segment(self._cache_tail))}
         else:
+            # one part: MODE-DOTA's (a program per residual gate) or
+            # another variant's (no gate, no generator)
+            gens = _generators(self.state) if noise else ()
             self.programs = {gate: (_Segment(
-                functools.partial(self._mode_dota_body, gate),
-                _generators(self.state)),)
+                functools.partial(self._body, gate), gens),)
                 for gate in ((False, True) if gated else (True,))}
 
-    def _mode_dota_body(self, gate: bool) -> StepOutput:
+    def _body(self, gate: bool) -> StepOutput:
         # the residual gate `step > 0` is the graph's, not the carry's
         new, out = self.step(self.text, dataclasses.replace(
             self.state, step=int(gate)), self.slot)
@@ -635,7 +718,8 @@ class ScanFn:
 
     def __init__(self, cfg: Config, model: Callable):
         self.step = make_step_fn(cfg, model)
-        self.gated = cfg.dota.res_learning and not uses_cache(cfg)
+        self.noise = cfg.dota.use_mode_dota
+        self.gated = self.noise and cfg.dota.res_learning
         self.runners: dict = {}
         self.step_ms: list = []
 
@@ -645,7 +729,7 @@ class ScanFn:
                *((a.dtype, tuple(a.shape[1:])) for a in (pcs, rgbs, targets)))
         if key not in self.runners:
             self.runners[key] = _StreamRunner(
-                self.step, self.gated, text, state,
+                self.step, self.gated, self.noise, text, state,
                 tuple(a[0] for a in (pcs, rgbs, targets)))
         state, outs, self.step_ms = self.runners[key].run(
             text, state, pcs, rgbs, targets)
@@ -664,9 +748,9 @@ def run_stream_scan(cfg: Config, model: Callable,
                     scan_fn: Optional[ScanFn] = None):
     """Run one stream as a scan of its step (the JAX package's
     `run_stream_scan`): the stream goes to the device once; on the card
-    one step is captured as a CUDA graph (two with residual learning:
-    step 0 without the Adam loop, the later steps with it; the cache's
-    step in three parts around its CG) and replayed T times.
+    one step is captured as a CUDA graph (two with MODE-DOTA's residual
+    learning: step 0 without the Adam loop, the later steps with it; the
+    cache's step in three parts around its CG) and replayed T times.
 
     Args:
       pcs, rgbs: (T, B, N, 3); targets: (T, B); numpy arrays or tensors.

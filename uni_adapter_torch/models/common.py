@@ -90,28 +90,40 @@ class BatchNormInference(nn.Module):
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           scale: float) -> torch.Tensor:
-    """Attention on (B, H, N, hd) tensors: the unmasked, unbiased branch of
-    the JAX `_attend(use_pallas=True)`, i.e. `ops.attention_heads` (the
-    kernel on the card, the plain version on the CPU).  A mask (the CLIP
-    text tower, ROADMAP M11) or a bias (OpenShape's RelPE, M10) is not
-    ported; the modules raise before they get here."""
-    return attention_heads(q, k, v, scale)
+           scale: float, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention on (B, H, N, hd) tensors, the JAX `_attend(use_pallas=True)`:
+    unbiased, `ops.attention_heads` (the kernel on the card, the plain
+    version on the CPU); with a bias (B, 1 or H, N, N), which the JAX
+    function never sends to its kernel, plain PyTorch on either device:
+    softmax((q·kᵀ + bias)·scale)·v, the logits stored as `attn_probs`
+    stores them.  A mask (the CLIP text tower, ROADMAP M11) is not ported;
+    the modules raise before they get here."""
+    if bias is None:
+        return attention_heads(q, k, v, scale)
+    p = attn_probs(q, k, scale, bias).to(v.dtype)
+    if v.dtype == torch.bfloat16:
+        return torch.matmul(p, v)
+    return torch.matmul(p.to(torch.float32),
+                        v.to(torch.float32)).to(v.dtype)
 
 
-def attn_probs(q: torch.Tensor, k: torch.Tensor,
-               scale: float) -> torch.Tensor:
+def attn_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The softmax map that `attend` applies, recomputed for extraction (the
     JAX `_attn_probs`): under bf16 the q·kᵀ logits are stored in bf16
     (fp32 accumulation, as XLA's bf16 einsum) before the fp32 softmax; in
-    fp32 they stay fp32.  Returns (B, H, N, N) fp32.  The maps do not come
-    from the kernel, which keeps fp32 scores."""
+    fp32 they stay fp32.  A bias is added to the fp32 logits before the
+    scale.  Returns (B, H, N, N) fp32.  The unbiased maps do not come from
+    the kernel, which keeps fp32 scores."""
     if q.dtype == torch.bfloat16:
         s = torch.matmul(q, k.transpose(-1, -2))
     else:
         s = torch.matmul(q.to(torch.float32),
                          k.to(torch.float32).transpose(-1, -2))
-    return torch.softmax(s.to(torch.float32) * scale, dim=-1)
+    s = s.to(torch.float32)
+    if bias is not None:
+        s = s + bias
+    return torch.softmax(s * scale, dim=-1)
 
 
 class EvaAttention(nn.Module):
@@ -208,12 +220,12 @@ class ViTAttention(nn.Module):
     """Fused-qkv multi-head attention (Point-BERT / PPTA): a bias-free
     `qkv` Dense to 3·inner_dim, `ops.eva_attention.eva_attention_fused` on
     its three column slices (the kernel on the card, the plain version on
-    the CPU), then `proj` back to dim.  As in the JAX module, `return_attn`
-    and head dims that are not a multiple of 8 take the (B, H, N, hd)
-    transpose of `qkv` through `attend` instead, and `return_attn` adds the
-    maps of `attn_probs`.  A mask and an attention bias are not ported and
-    raise.  Its `project_out=False` (one head of width dim, which no preset
-    of either backbone builds) is left out."""
+    the CPU), then `proj` back to dim.  As in the JAX module, `return_attn`,
+    an attention bias (B, 1 or H, N, N) and head dims that are not a
+    multiple of 8 take the (B, H, N, hd) transpose of `qkv` through
+    `attend` instead, and `return_attn` adds the maps of `attn_probs`.  A
+    mask is not ported and raises.  Its `project_out=False` (one head of
+    width dim, which no preset of either backbone builds) is left out."""
 
     def __init__(self, dim: int, num_heads: int,
                  inner_dim: Optional[int] = None):
@@ -225,27 +237,24 @@ class ViTAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask=None, attn_bias=None,
                 return_attn: bool = False):
-        for given, what in (
-                (mask is not None, "a mask (the CLIP text tower, ROADMAP M11)"),
-                (attn_bias is not None,
-                 "an attention bias (OpenShape's RelPE, ROADMAP M10)")):
-            if given:
-                raise NotImplementedError(f"ViTAttention with {what} is not "
-                                          f"ported yet")
+        if mask is not None:
+            raise NotImplementedError("ViTAttention with a mask (the CLIP "
+                                      "text tower, ROADMAP M11) is not "
+                                      "ported yet")
         qkv = self.qkv(x)                                  # (B, N, 3·inner)
         i, H = self.inner, self.num_heads
         hd = i // H
-        if not return_attn and hd % 8 == 0:
+        if not return_attn and attn_bias is None and hd % 8 == 0:
             out = eva_attention_fused(qkv[..., :i], qkv[..., i:2 * i],
                                       qkv[..., 2 * i:], num_heads=H,
                                       scale=hd ** -0.5)
             return self.proj(out)
         B, N = x.shape[:2]
         q, k, v = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-        out = attend(q, k, v, hd ** -0.5)                # (B, H, N, hd)
+        out = attend(q, k, v, hd ** -0.5, attn_bias)     # (B, H, N, hd)
         out = self.proj(out.transpose(1, 2).reshape(B, N, i))
         if return_attn:
-            return out, attn_probs(q, k, hd ** -0.5)
+            return out, attn_probs(q, k, hd ** -0.5, attn_bias)
         return out
 
 

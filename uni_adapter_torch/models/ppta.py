@@ -1,18 +1,19 @@
-"""OpenShape's PointPatchTransformer (PPTA), the `global` TTA path (mirror
-of `uni_adapter_tpu/models/ppta.py`).
+"""OpenShape's PointPatchTransformer (PPTA) (mirror of
+`uni_adapter_tpu/models/ppta.py`).
 
     (B, N, 3) xyz, (B, N, 6) xyz‖color
       → set abstraction: FPS `patches` centres + ball query (radius prad,
         nsamp points), rel-xyz ‖ xyz ‖ color, shared MLP [64, 64, sa_dim],
         max-pool                                  (ops/geometry.py)
       → lift Dense(3 + sa_dim → dim) + LayerNorm on centre ‖ features
-      → [CLS ‖ tokens] → `depth` pre-norm ViT blocks (heads of width 64)
-      → CLS → proj, an fp32 Dense to the CLIP text width
+      → [CLS ‖ tokens] → `depth` pre-norm ViT blocks (heads of width 64),
+        with `rel_pe` each biased by `RelPE` of the centroid deltas
+      → `cache_type` 'global': CLS → proj, an fp32 Dense to the CLIP text
+        width (the TTA path); 'local': the k-means centres of the patch
+        tokens → proj; 'hierarchical': both
 
-Not ported: the relative positional bias (`RelPE`; `create_openshape`
-never turns it on, so the (B, S+1, S+1, 3) centroid deltas it would read
-are not built either) and the `local`/`hierarchical` cache types, which
-need k-means (ROADMAP M8/M10).
+The biased attention runs in plain PyTorch on the card too, as the JAX
+package never sends it to a kernel; k-means is `utils/kmeans.py`.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from torch import nn
 from uni_adapter_torch.models.common import (LN, BatchNormInference, Dense,
                                              Mlp, ViTAttention, finish_model)
 from uni_adapter_torch.ops.geometry import sample_and_group
+from uni_adapter_torch.utils import kmeans
 
 
 #: Every preset's head width: attention runs at width 64·heads, which
@@ -81,18 +83,40 @@ class SetAbstraction(nn.Module):
         return new_xyz, x.amax(dim=2)                   # (B, S, 3), (B, S, C')
 
 
-class PPTABlockPair(nn.Module):
-    """Pre-norm attention + pre-norm feed-forward."""
+class RelPE(nn.Module):
+    """The relative position bias: Dense 3 → 64, ReLU, Dense 64 → 1 on the
+    (B, N, N, 3) centroid deltas, in the compute dtype; returns the
+    (B, 1, N, N) fp32 bias."""
 
-    def __init__(self, dim: int, heads: int, mlp_dim: int):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.dtype = dtype
+        self.fc1 = Dense(3, 64)
+        self.fc2 = Dense(64, 1)
+
+    def forward(self, centroid_delta: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.fc1(centroid_delta.to(self.dtype)))
+        return self.fc2(x).permute(0, 3, 1, 2).to(torch.float32)
+
+
+class PPTABlockPair(nn.Module):
+    """Pre-norm attention (biased by `RelPE` with `rel_pe`) + pre-norm
+    feed-forward."""
+
+    def __init__(self, dim: int, heads: int, mlp_dim: int,
+                 rel_pe: bool = False, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.pe = RelPE(dtype) if rel_pe else None
         self.attn_norm = LN(dim)
         self.attn = ViTAttention(dim, heads, inner_dim=DIM_HEAD * heads)
         self.ff_norm = LN(dim)
         self.ff = Mlp(dim, mlp_dim)
 
-    def forward(self, x: torch.Tensor, return_attn: bool = False):
-        a = self.attn(self.attn_norm(x), return_attn=return_attn)
+    def forward(self, x: torch.Tensor, centroid_delta: torch.Tensor,
+                return_attn: bool = False):
+        bias = None if self.pe is None else self.pe(centroid_delta)
+        a = self.attn(self.attn_norm(x), attn_bias=bias,
+                      return_attn=return_attn)
         attn = None
         if return_attn:
             a, attn = a
@@ -102,10 +126,10 @@ class PPTABlockPair(nn.Module):
 
 
 class PointPatchTransformer(nn.Module):
-    """The PPTA trunk on the `global` path: the CLS token out."""
+    """The PPTA trunk: the CLS token out (and the patch tokens)."""
 
     def __init__(self, preset: PPTAPreset,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, rel_pe: bool = False):
         super().__init__()
         p = preset
         self.dtype = dtype
@@ -116,67 +140,83 @@ class PointPatchTransformer(nn.Module):
         self.lift_norm = LN(p.dim)
         self.cls_token = nn.Parameter(torch.zeros(p.dim))
         self.layers = nn.ModuleList(
-            PPTABlockPair(p.dim, p.heads, p.mlp_dim)
+            PPTABlockPair(p.dim, p.heads, p.mlp_dim, rel_pe, dtype)
             for _ in range(p.depth))
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
-                return_attn: bool = False):
-        """The CLS token; with `return_attn` also every layer's
-        (B, H, N, N) fp32 attention map."""
+                return_tokens: bool = False, return_attn: bool = False):
+        """The CLS token, with `return_tokens` (CLS, patch tokens); with
+        `return_attn` also every layer's (B, H, N, N) fp32 attention
+        map."""
         centroids, feat = self.sa(xyz, features)
         x = self.lift_norm(self.lift(
             torch.cat([centroids.to(self.dtype), feat], dim=-1)))
         B, _, W = x.shape
         x = torch.cat([self.cls_token.to(self.dtype).expand(B, 1, W), x],
                       dim=1)
+        delta = None
+        if self.layers[0].pe is not None:
+            # the CLS token's centroid is 0
+            c = torch.cat([centroids.new_zeros(B, 1, 3), centroids], dim=1)
+            delta = c[:, :, None, :] - c[:, None, :, :]  # (B, S+1, S+1, 3)
         maps = []
         for layer in self.layers:
-            x = layer(x, return_attn=return_attn)
+            x = layer(x, delta, return_attn=return_attn)
             if return_attn:
                 x, attn = x
                 maps.append(attn)
-        return (x[:, 0], maps) if return_attn else x[:, 0]
+        out = (x[:, 0], x[:, 1:]) if return_tokens else x[:, 0]
+        return (out, maps) if return_attn else out
 
 
 class Projected(nn.Module):
-    """PPTA + the CLIP-space projection `proj`, an fp32 Dense on the fp32
-    CLS token.  Takes (xyz (B, N, 3), features (B, N, 6)); returns
-    (B, out_channel) fp32, with `return_attn` also the layers' attention
-    maps.  Only `cache_type='global'` is ported (`local`/`hierarchical`
-    need k-means, ROADMAP M8)."""
+    """PPTA + the CLIP-space projection `proj`, an fp32 Dense.  Takes (xyz
+    (B, N, 3), features (B, N, 6)).  `cache_type` 'global' returns the
+    projected CLS token (B, out_channel), with `return_attn` also the
+    layers' attention maps; 'local' the projected k-means centres of all
+    B·S patch tokens together (n_cluster, out_channel); 'hierarchical'
+    both."""
 
     def __init__(self, preset: PPTAPreset, out_channel: int = 1280,
                  dtype: torch.dtype = torch.bfloat16,
-                 cache_type: str = "global"):
+                 cache_type: str = "global", rel_pe: bool = False,
+                 n_cluster: int = 5):
         super().__init__()
-        self.cache_type = cache_type
-        self.ppat = PointPatchTransformer(preset, dtype=dtype)
+        self.cache_type, self.n_cluster = cache_type, n_cluster
+        self.ppat = PointPatchTransformer(preset, dtype=dtype, rel_pe=rel_pe)
         self.proj = Dense(preset.dim, out_channel)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
                 return_attn: bool = False):
-        if self.cache_type != "global":
-            if return_attn:          # the JAX module's own check comes first
-                raise ValueError("return_attn is supported for "
-                                 "cache_type='global' (the TTA/extraction "
-                                 "path)")
-            raise NotImplementedError(
-                f"cache_type {self.cache_type!r} is not ported yet (k-means, "
-                f"ROADMAP M8)")
-        out = self.ppat(xyz, features, return_attn=return_attn)
-        if return_attn:
-            return self.proj(out[0].to(torch.float32)), out[1]
-        return self.proj(out.to(torch.float32))
+        want_tokens = self.cache_type != "global"
+        if return_attn and want_tokens:
+            raise ValueError("return_attn is supported for "
+                             "cache_type='global' (the TTA/extraction path)")
+        out = self.ppat(xyz, features, return_tokens=want_tokens,
+                        return_attn=return_attn)
+        if not want_tokens:
+            if return_attn:
+                return self.proj(out[0].to(torch.float32)), out[1]
+            return self.proj(out.to(torch.float32))
+        cls_token, patch_tokens = out
+        centers = self.proj(kmeans.cluster_patches(
+            patch_tokens.to(torch.float32), self.n_cluster))
+        if self.cache_type == "local":
+            return centers
+        return self.proj(cls_token.to(torch.float32)), centers
 
 
 def create_openshape(cfg, device: torch.device | str,
                      dtype: Optional[torch.dtype] = None, seed: int = 0,
                      state_dict: Optional[dict] = None,
-                     preset: Optional[PPTAPreset] = None) -> Projected:
+                     preset: Optional[PPTAPreset] = None,
+                     **kwargs) -> Projected:
     """Build OpenShape from a ModelConfig on `device`, frozen, in eval mode:
     `vitg14` → scaling 4 into the 1280-d bigG text space (`oshape_clip_dim`),
     `vitl14` → scaling 3 into the 768-d L text space.  `preset` replaces
-    the scaling's (to cut depth or width).
+    the scaling's (to cut depth or width); `kwargs` go to `Projected`
+    (`cache_type`, `rel_pe`, `n_cluster`; the JAX package's
+    `create_openshape` builds the defaults).
 
     The weights are `state_dict` or random from `seed`, as
     `common.finish_model` draws them (cls_token standard normal); Dense
@@ -188,7 +228,7 @@ def create_openshape(cfg, device: torch.device | str,
     preset = preset or PRESETS[4 if vitg else 3]
     with torch.device(device):
         model = Projected(preset, cfg.oshape_clip_dim if vitg else 768,
-                          dtype=dtype)
+                          dtype=dtype, **kwargs)
     return finish_model(
         model, device, dtype, seed, state_dict,
         lambda gen: nn.init.normal_(model.ppat.cls_token, generator=gen),
