@@ -155,7 +155,22 @@ exits non-zero before the result line:
      none of the block or natural-layout kernels; then each in fp32
      (`build_backbone` with `compute_dtype="float32"` through
      `AttentionExtractor`): one fp32 (B, H, N, hd) launch per layer and no
-     other attention kernel.
+     other attention kernel;
+  8. the text side and checkpoint loading: the CLIP text tower (plain
+     PyTorch, no kernel) at the `uni3d` preset's full width and depth 2,
+     card against CPU in fp32 and bf16, its fp32 projection with TF32
+     allowed (a TF32 product as the planted fault), and ModelNet40's bank
+     (2560 prompts) built by the full `uni3d` and `ulip` towers, drawn on
+     the card, in bf16 and fp32, timed; Uni3D-L, ULIP-2, OpenShape-G and
+     the `uni3d` tower written as reference-layout checkpoints
+     (`scripts/reference_layouts.py`) and loaded by `models/loader.py`
+     into models from another seed: reports CLEAN, parameters and
+     features bitwise equal to the source's; then Uni3D-L through
+     `cli.tta.main --checkpoint-path` with no bank (anchors (40, 1024)
+     from the text tower, no random-weights warning, the `uni3d` path's
+     kernels, traced), `extract_attention --checkpoint` on the same file,
+     and `build_anchors --clip-checkpoint` against `clip_classifier`
+     in-process (max |Δ| 0).
 
 Phase 3 also holds the (B, H, N, hd) attention at the three extraction
 shapes and three general head dims, and phase 4 runs each backbone with
@@ -3294,11 +3309,12 @@ EXTRACT_PATHS = {
 }
 
 
-def run_extraction(tmp: Path, kind: str) -> dict:
+def run_extraction(tmp: Path, kind: str, extra=(), label: str = "") -> dict:
     """`python -m uni_adapter_torch.cli.extract_attention --device cuda` on
-    the synthetic sphere: the whole `main` where matplotlib imports, else
-    its device half `extract` (the same device work, no figures).  Checks
-    the maps and the launch counters, then times one more extraction."""
+    the synthetic sphere (`extra` flags added, e.g. `--checkpoint`): the
+    whole `main` where matplotlib imports, else its device half `extract`
+    (the same device work, no figures).  Checks the maps and the launch
+    counters, then times one more extraction."""
     import importlib.util
 
     import numpy as np
@@ -3307,7 +3323,9 @@ def run_extraction(tmp: Path, kind: str) -> dict:
     from uni_adapter_torch.cli import extract_attention
 
     flags, layers, H, N = EXTRACT_PATHS[kind]
-    argv = ["--device", "cuda", "--out", str(tmp / f"attn-{kind}"), *flags]
+    name = f"{kind}{label}"
+    out = tmp / f"attn-{name}"
+    argv = ["--device", "cuda", "--out", str(out), *flags, *extra]
     figures = importlib.util.find_spec("matplotlib") is not None
     counters = launch_counters()
     for c in counters.values():
@@ -3321,24 +3339,23 @@ def run_extraction(tmp: Path, kind: str) -> dict:
     run_s = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
 
-    out = tmp / f"attn-{kind}"
     maps = np.load(out / "attention_maps.npz")
     if sorted(maps.files) != sorted(f"layer_{i}" for i in range(layers)):
-        fail(f"extract {kind}: attention_maps.npz holds {maps.files}")
+        fail(f"extract {name}: attention_maps.npz holds {maps.files}")
     for key in maps.files:
         a = maps[key]
         if a.shape != (1, H, N, N) or not np.isfinite(a).all() or \
                 np.abs(a.sum(-1) - 1).max() > 1e-3:
-            fail(f"extract {kind}: {key} is {a.shape}, or not finite, or its "
+            fail(f"extract {name}: {key} is {a.shape}, or not finite, or its "
                  f"rows do not sum to 1")
     if not (out / "attention_stats.json").exists():
-        fail(f"extract {kind}: no attention_stats.json")
+        fail(f"extract {name}: no attention_stats.json")
     if launches["attention_heads"] != layers:
-        fail(f"extract {kind}: attention_heads launched "
+        fail(f"extract {name}: attention_heads launched "
              f"{launches['attention_heads']} times, expected {layers}")
     if any(launches[n] for n in ("eva_attn_block", "eva_attention")
            + FP32_KERNELS):
-        fail(f"extract {kind}: the block, natural-layout or an fp32 kernel "
+        fail(f"extract {name}: the block, natural-layout or an fp32 kernel "
              f"ran ({launches})")
     t0 = time.perf_counter()
     extractor.extract(pc)              # ends in the copy to the host
@@ -3348,16 +3365,17 @@ def run_extraction(tmp: Path, kind: str) -> dict:
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        extractor.model(*FORWARD_INPUTS[kind](cloud6), return_attn=True)
+        extractor.model(*FORWARD_INPUTS[kind](cloud6),
+                        return_attn=True)
         torch.cuda.synchronize()
     fwd_ms = (time.perf_counter() - t0) * 1e3
     drawn = ("figures drawn" if figures else
              "matplotlib does not import here: figures not drawn")
-    print(f"extract {kind}: {layers} maps of {(1, H, N, N)} in "
+    print(f"extract {name}: {layers} maps of {(1, H, N, N)} in "
           f"attention_maps.npz; {drawn}; whole run {run_s:.1f} s, one "
           f"extraction {one_ms:.1f} ms wall, of which the forward with its "
           f"maps on the card {fwd_ms:.1f} ms")
-    print(f"extract {kind} launches: {launches}")
+    print(f"extract {name} launches: {launches}")
     return launches
 
 
@@ -3911,6 +3929,290 @@ def check_float16_cli(tmp: Path) -> None:
     fail("--compute-dtype float16 ran on the card")
 
 
+#: The text tower on the card against the CPU: 1 − cosine of each row
+#: (fp32: both sides in fp32, TF32 off, so summation order alone; bf16:
+#: the features check's cosine 0.99), and the fp32 projection's error
+#: relative to its largest output with TF32 allowed in the process (its
+#: product must stay fp32: a TF32 product, the planted fault, moves it by
+#: ~1e-3, at least TEXT_PROJ_FAULT_MARGIN times the gate).
+TEXT_1MCOS = {"float32": 1e-5, "bfloat16": 1e-2}
+TEXT_PROJ_RTOL, TEXT_PROJ_FAULT_MARGIN = 1e-5, 5
+#: The banks timed on the card: text preset → the point backbone's width.
+TEXT_BANKS = {"uni3d": 1024, "ulip": 512}
+
+
+def text_prompts(n: int) -> list:
+    """n ModelNet40 prompts (class × template), the first past 77 tokens."""
+    from uni_adapter_torch.config import Config, load_labels, load_templates
+
+    cfg = Config().resolve()
+    names, templates = load_labels(cfg), load_templates(cfg)
+    prompts = [t.format(c.replace("_", " ")) for c in names
+               for t in templates]
+    return [" ".join(["chair"] * 100)] + prompts[:n - 1]
+
+
+def check_text_tower(torch) -> dict:
+    """The CLIP text tower (`models/clip_text.py`, plain PyTorch on the
+    card: masked attention never reaches a kernel, as in the JAX package).
+    The `uni3d` preset at full width (1280, 20 heads, embed 1024) and depth
+    2, card against CPU on 16 prompts in fp32 and bf16 (`TEXT_1MCOS`);
+    its projection with TF32 allowed, against the CPU, with a TF32 product
+    as a planted fault (`TEXT_PROJ_RTOL`); then the full `uni3d` (32
+    layers) and `ulip` (12) presets, drawn on the card, each building
+    ModelNet40's bank (40 classes × 64 templates, 2560 prompts, 256 a
+    forward) in bf16 and fp32: finite unit rows, the bank's seconds and a
+    256-prompt batch's ms (median of 5, CUDA events), its device ms and
+    its GEMMs' (torch.profiler) beside its bound (the blocks' and the
+    projection's products at the dtype's peak).  Returns those numbers by
+    preset and dtype."""
+    from uni_adapter_torch.anchors import clip_classifier
+    from uni_adapter_torch.config import Config, load_labels, load_templates
+    from uni_adapter_torch.adapt.residual import tier_product
+    from uni_adapter_torch.models.clip_text import create_text_encoder
+    from uni_adapter_torch.utils.tokenizer import tokenize
+
+    ids = torch.from_numpy(tokenize(text_prompts(16)))
+    if (ids[0] == 49407).any():
+        fail("the long prompt kept its end-of-text token")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        gpu = create_text_encoder("uni3d", "cuda", dt, seed=0, layers=2)
+        cpu = create_text_encoder("uni3d", "cpu", dt, layers=2, state_dict={
+            k: v.cpu() for k, v in gpu.state_dict().items()})
+        with torch.no_grad():
+            got, want = gpu(ids.cuda()).cpu(), cpu(ids)
+        one_m_cos = (1 - torch.nn.functional.cosine_similarity(
+            got, want, dim=-1)).max().item()
+        print(f"text tower uni3d depth 2 {dtype}: {tuple(got.shape)}, "
+              f"1 - cosine card vs cpu {one_m_cos:.3g} (gate "
+              f"{TEXT_1MCOS[dtype]}), max abs diff "
+              f"{(got - want).abs().max().item():.4g}")
+        if not torch.isfinite(got).all() or one_m_cos > TEXT_1MCOS[dtype]:
+            fail(f"the text tower ({dtype}) on the card disagrees with the "
+                 f"CPU's")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pooled = torch.randn(256, 1280, generator=gen, device="cuda")
+    proj = torch.randn(1280, 1024, generator=gen, device="cuda") * 0.02
+    want = pooled.cpu() @ proj.cpu()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = tier_product(pooled, proj.T, "highest").cpu()   # the tower's
+        tf32 = torch.matmul(pooled, proj).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item() / scale
+    fault = (tf32 - want).abs().max().item() / scale
+    print(f"text projection fp32 with TF32 allowed: rel err {err:.3g} (gate "
+          f"{TEXT_PROJ_RTOL}); a TF32 product {fault:.3g}")
+    if err > TEXT_PROJ_RTOL or fault < TEXT_PROJ_FAULT_MARGIN * TEXT_PROJ_RTOL:
+        fail("the text projection is not an fp32 product on the card, or "
+             "its gate does not catch a TF32 one")
+
+    cfg = Config().resolve()
+    names, templates = load_labels(cfg), load_templates(cfg)
+    batch = torch.from_numpy(tokenize(text_prompts(256))).cuda()
+    numbers = {}
+    for preset, width in TEXT_BANKS.items():
+        for dtype in ("bfloat16", "float32"):
+            tower = create_text_encoder(preset, "cuda", getattr(torch, dtype),
+                                        seed=0)
+            with torch.no_grad():
+                tower(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bank = clip_classifier(names, templates, tower, device="cuda")
+            torch.cuda.synchronize()
+            bank_s = time.perf_counter() - t0
+            with torch.no_grad():
+                batch_ms = time_ms(lambda: tower(batch), runs=5, per_run=1,
+                                   warmup=1)
+                kern = trace_kernels(lambda: tower(batch), calls=2,
+                                     warmup=1)
+            busy = sum(k.device_time_total for k in kern) / 2e3
+            by_name = collections.Counter()
+            for k in kern:
+                by_name[k.name[:48]] += k.device_time_total / 2e3
+            gemm = sum(t for name, t in by_name.items()
+                       if re.search(r"gemm|xmma|cutlass|nvjet", name))
+            n_ops = 2 * 256 * 77 * sum(
+                p.numel() for n, p in tower.named_parameters()
+                if n.startswith("resblocks") or n == "text_projection")
+            bound_ms = n_ops / (PEAK_BF16 if dtype == "bfloat16"
+                                else PEAK_FP32) * 1e3
+            norm_err = (bank.norm(dim=1) - 1).abs().max().item()
+            print(f"text bank {preset} {dtype}: {tuple(bank.shape)} "
+                  f"(2560 prompts) in {bank_s:.3f} s, one 256-prompt batch "
+                  f"{batch_ms:.2f} ms (device {busy:.2f}, of which GEMMs "
+                  f"{gemm:.2f}; bound {bound_ms:.2f} by operations); rows "
+                  f"unit within {norm_err:.2g}; top kernels (ms a batch) "
+                  f"{[(n, round(t, 2)) for n, t in by_name.most_common(6)]}")
+            if bank.shape != (40, width) or not torch.isfinite(bank).all() \
+                    or norm_err > 1e-5:
+                fail(f"the {preset} {dtype} bank is {tuple(bank.shape)}, not "
+                     f"finite or not of unit rows")
+            numbers[f"{preset}_{dtype}"] = {
+                "bank_s": bank_s, "batch256_ms": batch_ms,
+                "batch256_device_ms": busy, "batch256_gemm_ms": gemm,
+                "batch256_bound_ms": bound_ms}
+            del tower
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def full_size_models(torch) -> dict:
+    """name → (layout, build(seed), inputs(model)) at published widths and
+    depths, in bf16: Uni3D-L, ULIP-2's Point-BERT, OpenShape PPTA-G and the
+    `uni3d` text preset."""
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.clip_text import create_text_encoder
+    from uni_adapter_torch.models.loader import BACKBONES
+    from uni_adapter_torch.utils.tokenizer import tokenize
+
+    pc = cloud(torch, torch.Generator(device="cuda").manual_seed(7))
+    ids = torch.from_numpy(tokenize(text_prompts(16))).cuda()
+
+    def backbone(kind):
+        return lambda seed: BACKBONES[kind](ModelConfig(vlm3d=kind), "cuda",
+                                            seed=seed)
+
+    return {
+        **{kind: (kind, backbone(kind), FORWARD_INPUTS[kind](pc))
+           for kind in ("uni3d", "ulip", "openshape")},
+        "clip_text_uni3d": ("clip_text", lambda seed: create_text_encoder(
+            "uni3d", "cuda", torch.bfloat16, seed=seed), (ids,)),
+    }
+
+
+def check_loader(torch) -> dict:
+    """`models/loader.py` at full size on the card: each model of
+    `full_size_models` from seed 1 written as a reference-layout checkpoint
+    (`scripts/reference_layouts.py`: timm's fused EVA02 blocks with rope
+    buffers for Uni3D, Point-BERT, PPTA, open_clip's text tower; the
+    `module.` prefix), loaded into the same model from seed 2: the report
+    CLEAN, every parameter equal to the source's bitwise, and one batch's
+    features equal to the source model's bitwise (same kernels, same
+    weights).  Returns the seconds each load took."""
+    import io
+
+    from scripts import reference_layouts
+    from uni_adapter_torch.models.loader import load_checkpoint
+
+    seconds = {}
+    for name, (layout, build_model, inputs) in full_size_models(torch).items():
+        src = build_model(1)
+        buf = io.BytesIO()
+        reference_layouts.save(reference_layouts.LAYOUTS[layout](src), buf)
+        size = buf.tell()
+        dst = build_model(2)
+        buf.seek(0)
+        t0 = time.perf_counter()
+        report = load_checkpoint(dst, buf)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        clean = not (report["missing"] or report["unexpected"]
+                     or report["shape_mismatches"])
+        differ = [k for (k, a), (_, b) in zip(src.state_dict().items(),
+                                              dst.state_dict().items())
+                  if not torch.equal(a, b)]
+        with torch.no_grad():
+            same = torch.equal(src(*inputs), dst(*inputs))
+        print(f"loader {name}: {size / 2**20:.0f} MiB checkpoint, "
+              f"{report['n_model_leaves']} leaves, "
+              f"{'CLEAN' if clean else 'DIFFS FOUND'}, loaded in "
+              f"{seconds[name]:.2f} s; parameters differing from the "
+              f"source {len(differ)}; features bitwise equal {same}")
+        if not clean or differ or not same:
+            fail(f"the {name} checkpoint did not load exactly: report "
+                 f"{ {k: report[k] for k in ('missing', 'unexpected', 'shape_mismatches')} }, "
+                 f"differing {differ[:5]}")
+        del src, dst, buf
+        torch.cuda.empty_cache()
+    return seconds
+
+
+def run_loaded_path(tmp: Path) -> tuple:
+    """Uni3D-L from a reference-layout checkpoint through `cli.tta.main
+    --checkpoint-path` with no bank: the anchors (40, 1024) from the
+    `uni3d` text tower on the card, no random-weights warning, 16 clouds
+    on the default captured path with FPS, kNN and the block launched as
+    on the `uni3d` path (traced).  Then `extract_attention --checkpoint` on
+    the same file, and `build_anchors` (the `ulip` preset from a seed and
+    `--clip-checkpoint` of another seed's tower) against the bank that
+    `clip_classifier` builds in-process from the checkpoint's tower:
+    max |Δ| 0.  Returns the launches of the two CLI runs by path."""
+    import numpy as np
+    import torch
+
+    from scripts import reference_layouts
+    from uni_adapter_torch.anchors import clip_classifier
+    from uni_adapter_torch.cli import build_anchors, tta
+    from uni_adapter_torch.config import (Config, ModelConfig, load_labels,
+                                          load_templates)
+    from uni_adapter_torch.models.clip_text import create_text_encoder
+    from uni_adapter_torch.models.uni3d import create_uni3d
+
+    ckpt = tmp / "uni3d_L.pt"
+    reference_layouts.save(reference_layouts.uni3d(
+        create_uni3d(ModelConfig(), "cuda", seed=3)), ckpt)
+    anchors = []
+    fallback = tta.get_text_anchors_with_fallback
+
+    def recorded(cfg, device):
+        anchors.append(fallback(cfg, device))
+        return anchors[-1]
+
+    tta.get_text_anchors_with_fallback = recorded
+    try:
+        flags, _, _, per_step, idle = PATHS["uni3d"]
+        summary, launches, wrapper = traced_run(
+            torch, "the loaded uni3d path", lambda: tta.main(
+                ["--root", str(tmp / "stream_1024x40"), "--corruption",
+                 "uniform", "--checkpoint-path", str(ckpt), "--device",
+                 "cuda", "--output-dir", str(tmp / "out"), "--name",
+                 "smoke-loaded"]), per_step)
+    finally:
+        tta.get_text_anchors_with_fallback = fallback
+    log = (Path(summary["log_dir"]) / "out.log").read_text()
+    step_ms = summary["step_ms"]["uniform"]
+    print(f"loaded path uni3d (--checkpoint-path, anchors from the text "
+          f"tower): anchors {tuple(anchors[0].shape)}, {len(step_ms)} steps, "
+          f"median {statistics.median(step_ms[1:]):.2f} ms/step; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if "random weights" in log or tuple(anchors[0].shape) != (40, 1024) \
+            or len(step_ms) != 16 or not summary["finite"]["uniform"]:
+        fail("the loaded uni3d path warned of random weights, or its "
+             "anchors, steps or logits are off")
+    check_launches("the loaded uni3d path", launches,
+                   {n: k * 16 for n, k in per_step.items()}, idle)
+    by_path = {"loaded_uni3d": launches}
+    by_path["extract_uni3d_loaded"] = run_extraction(
+        tmp, "uni3d", ["--checkpoint", str(ckpt)], "_loaded")
+
+    src = create_text_encoder("ulip", "cuda", torch.float32, seed=4)
+    clip = tmp / "clip_ulip.pt"
+    reference_layouts.save(reference_layouts.clip_text(src), clip)
+    cfg = Config().resolve()
+    bank = clip_classifier(load_labels(cfg), load_templates(cfg), src,
+                           device="cuda").cpu().numpy()
+    np.save(tmp / "bank_inprocess.npy", bank)
+    counters = zeroed_counters()
+    built = build_anchors.main(
+        ["--text-preset", "ulip", "--clip-checkpoint", str(clip),
+         "--labels-key", "modelnet40_openshape", "--seed", "5", "--out",
+         str(tmp / "bank_cli.npy"), "--compare-to",
+         str(tmp / "bank_inprocess.npy"), "--device", "cuda"])
+    diff = float(np.abs(built - bank).max())
+    print(f"build_anchors ulip on the card: {built.shape}, max |Δ| against "
+          f"clip_classifier in-process {diff}; kernel launches "
+          f"{sum(c.launches for c in counters.values())}")
+    if built.shape != (40, 512) or diff != 0:
+        fail("build_anchors on the card differs from clip_classifier")
+    return by_path
+
+
 def main() -> None:
     import torch
 
@@ -3997,12 +4299,16 @@ def main() -> None:
             by_path[f"extract_{kind}"] = run_extraction(Path(tmp), kind)
         for kind in EXTRACT_PATHS:
             by_path[f"extract_{kind}_fp32"] = run_extraction_fp32(kind)
+        text_ms = check_text_tower(torch)
+        load_s = check_loader(torch)
+        by_path.update(run_loaded_path(Path(tmp)))
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"sweeps": sweeps, "residual_tier_product_ms": tier_ms,
-                      "scan_ms": scan_ms, "dota_update_ms": dota_update_ms}))
+                      "scan_ms": scan_ms, "dota_update_ms": dota_update_ms,
+                      "text_tower": text_ms, "checkpoint_load_s": load_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

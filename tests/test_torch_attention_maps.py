@@ -345,9 +345,12 @@ def test_cli_without_gpu_and_without_device_cpu_raises(tmp_path):
 
 
 def test_cli_checkpoint_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="M12"):
-        extract_attention.main(["--device", "cpu", "--checkpoint", "x.pt",
-                                "--out", str(tmp_path)])
+    """`--checkpoint` is ported (tests/test_torch_loader.py holds its maps
+    against the JAX CLI's); a path that does not exist raises."""
+    with pytest.raises(FileNotFoundError):
+        extract_attention.main(["--device", "cpu", "--checkpoint",
+                                str(tmp_path / "x.pt"), "--out",
+                                str(tmp_path)])
 
 
 def test_cli_reads_a_sample_from_root(tmp_path):

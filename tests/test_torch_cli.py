@@ -86,12 +86,12 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--precomputed-text-features", ""], "M11"),
+    (["--dist-mode", "sharded"], "M16"),
     (["--vmap-corruptions", "true", "--dist-mode", "sharded"], "M16"),
     (["--continual", "true", "--dist-mode", "ep"], "M16"),
     (["--dist-mode", "psum"], "M16"),
     (["--trunk-parallel", "tp"], "M16"),
-    (["--checkpoint-path", "ckpt.npz"], "M12"),
+    (["--trunk-parallel", "sp"], "M16"),
 ])
 def test_unported_paths_raise_and_name_their_roadmap_item(flags, item,
                                                           stream_dir):
@@ -111,7 +111,8 @@ for m in pkgutil.walk_packages(uni_adapter_torch.__path__, "uni_adapter_torch.")
     importlib.import_module(m.name)
 new = set(sys.modules) - before
 bad = sorted(n for n in new if n.split(".")[0] in
-             ("jax", "jaxlib", "flax", "optax", "uni_adapter_tpu", "triton"))
+             ("jax", "jaxlib", "flax", "optax", "uni_adapter_tpu", "triton",
+              "regex", "ftfy"))
 assert not bad, bad
 from uni_adapter_torch.ops import build
 assert build.load.cache_info().currsize == 0
@@ -124,7 +125,8 @@ print(" ".join(sorted(n for n in new if n.startswith("uni_adapter_torch"))))
     assert len(names) >= 26
     assert {f"uni_adapter_torch.{m}" for m in (
         "adapt.dota", "adapt.gmm", "adapt.adaptive", "utils.kmeans",
-        "utils.profiling", "ops.pointnet")} <= names
+        "utils.profiling", "ops.pointnet", "utils.tokenizer",
+        "models.clip_text", "models.loader", "cli.build_anchors")} <= names
 
 
 def test_as_arrays_and_iter_batches_match_jax_on_ragged_clouds():
@@ -193,7 +195,8 @@ def test_config_copy_keeps_the_jax_defaults():
             if f.name == "device":     # the port runs on cuda by default
                 assert f.default == "cuda"
                 continue
-            if f.name == "labels_path":   # the port's own copy of the file
+            if f.name in ("labels_path", "templates_path"):
+                # the port's own copy of the file
                 assert Path(f.default).read_bytes() == Path(
                     jdefaults[f.name]).read_bytes()
                 assert Path(f.default).parent == REPO / (

@@ -192,15 +192,26 @@ def test_random_init_is_seeded_and_keeps_the_fp32_heads():
 
 
 def test_vit_attention_raises_on_unported_branches():
-    """A mask is not ported and raises, naming M11; an attention bias is
-    (tests/test_torch_openshape_rest.py), as are `return_attn` and head
-    dims that are not a multiple of 8 (tests/test_torch_attention_maps.py)."""
+    """Every branch is ported now: a mask (the CLIP text tower; held
+    against JAX in tests/test_torch_text.py), an attention bias
+    (tests/test_torch_openshape_rest.py), `return_attn` and head dims that
+    are not a multiple of 8 (tests/test_torch_attention_maps.py).  A zero
+    mask gives what a zero bias gives on the same plain route (bitwise),
+    and a causal one leaves the first token attending to itself alone."""
     from uni_adapter_torch.models.common import ViTAttention
-    attn = ViTAttention(48, 2)
-    x = torch.zeros(1, 5, 48)
-    with pytest.raises(NotImplementedError, match="M11"):
-        attn(x, mask=torch.zeros(5, 5))
-    assert attn(x, attn_bias=torch.zeros(1, 2, 5, 5)).shape == (1, 5, 48)
+    gen = torch.Generator().manual_seed(0)
+    attn = ViTAttention(48, 2).float()
+    for p in attn.parameters():
+        torch.nn.init.normal_(p, std=0.2, generator=gen)
+    x = torch.randn(1, 5, 48, generator=gen)
+    with torch.no_grad():
+        plain = attn(x, attn_bias=torch.zeros(1, 2, 5, 5))
+        zero = attn(x, mask=torch.zeros(5, 5))
+        causal = torch.full((5, 5), float("-inf")).triu(1)
+        out, maps = attn(x, mask=causal, return_attn=True)
+    torch.testing.assert_close(zero, plain, rtol=0, atol=0)
+    assert maps[0, :, 0, 0].eq(1).all() and maps[0, :, 0, 1:].eq(0).all()
+    assert torch.isfinite(out).all() and out.shape == (1, 5, 48)
 
 
 def _both_engines(kind):

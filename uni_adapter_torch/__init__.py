@@ -6,7 +6,10 @@ rewritten by hand in CUDA C++ for `sm_90a` (`csrc/`).  It covers Uni3D
 with the EVA02 trunk, OpenShape PPTA and ULIP-2 Point-BERT under MODE-DOTA
 adaptation, entered through `python -m uni_adapter_torch.cli.tta`, and
 their attention maps through `python -m
-uni_adapter_torch.cli.extract_attention`.
+uni_adapter_torch.cli.extract_attention`; their CLIP text towers build
+anchor banks (`python -m uni_adapter_torch.cli.build_anchors`), and
+reference-layout torch checkpoints load into either (`models/loader.py`,
+with its report `python -m uni_adapter_torch.models.loader`).
 
 Importing the package, or any module in it, builds nothing: each CUDA
 kernel is compiled by `nvcc` at its first launch (ops/build.py).

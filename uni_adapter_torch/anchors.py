@@ -1,21 +1,30 @@
-"""Precomputed text anchors (mirror of `uni_adapter_tpu/anchors.py::
-load_precomputed`).
+"""Text anchors: the zero-shot classifier's (K, D) rows (mirror of
+`uni_adapter_tpu/anchors.py`).
 
-The port ships its own copies of the JAX package's four banks (the
-reference's precomputed CLIP text features, fp32): Uni3D large and giant
-for ModelNet40, large for ScanObjectNN and for ShapeNetCore.  ULIP-2
-(512-d), OpenShape (1280-d or 768-d) and Objaverse-LVIS banks are passed
-as files.  The on-the-fly text tower is ROADMAP M11.
+Two sources, in the reference's precedence (`get_text_anchors`):
+
+  * precomputed banks: the port ships its own copies of the JAX package's
+    four (the reference's CLIP text features, fp32): Uni3D large and
+    giant for ModelNet40, large for ScanObjectNN and for ShapeNetCore;
+    ULIP-2 (512-d), OpenShape (1280-d or 768-d) and Objaverse-LVIS banks
+    are passed as files;
+  * on the fly (`clip_classifier`): each class name in each of the 64
+    prompt templates, tokenized on the host, through the text tower in
+    batches on its device; each embedding L2-normalised, averaged over
+    the templates and normalised again.
 """
 from __future__ import annotations
 
+import logging
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from uni_adapter_torch.config import ASSETS_DIR
+from uni_adapter_torch.config import (ASSETS_DIR, Config, load_labels,
+                                      load_templates)
+from uni_adapter_torch.utils.tokenizer import SimpleTokenizer
 
 #: Shipped banks, keyed by (backbone size, dataset family).
 PRECOMPUTED = {
@@ -61,3 +70,55 @@ def load_precomputed(path_or_key: str,
         ) from None
     return torch.from_numpy(
         np.load(os.path.join(ASSETS_DIR, fname)).astype(np.float32))
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+
+@torch.no_grad()
+def clip_classifier(classnames, templates,
+                    encode_text_fn: Callable[[torch.Tensor], torch.Tensor],
+                    tokenizer: Optional[SimpleTokenizer] = None,
+                    batch_size: int = 256,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """The template ensemble's (K, D) fp32 rows, row-normalised, on
+    `device`.
+
+    Each class name ('_' read as ' ') goes into every template; the K·T
+    prompts are tokenized on the host and `encode_text_fn` ((B, 77) ids on
+    `device` → (B, D)) takes them `batch_size` at a time.
+    """
+    tokenizer = tokenizer or SimpleTokenizer()
+    prompts = [t.format(name.replace("_", " "))
+               for name in classnames for t in templates]
+    tokens = torch.from_numpy(tokenizer(prompts))                # (K·T, 77)
+    emb = torch.cat([
+        encode_text_fn(tokens[s:s + batch_size].to(device)).to(torch.float32)
+        for s in range(0, tokens.shape[0], batch_size)])
+    emb = _normalize(emb).reshape(len(classnames), len(templates), -1)
+    return _normalize(emb.mean(dim=1))
+
+
+def get_text_anchors(cfg: Config, encode_text_fn=None, tokenizer=None,
+                     device: torch.device | str = "cpu") -> torch.Tensor:
+    """The anchors in the reference's precedence: a bank that is configured
+    and present; else (a configured bank that is missing warns) the text
+    tower `encode_text_fn` on the labels and templates of `cfg`; with
+    neither, ValueError.  A bank comes back on the CPU, the tower's rows
+    on `device`."""
+    pre = cfg.data.precomputed_text_features
+    if pre:
+        try:
+            return load_precomputed(pre, cfg.data.dataset_name)
+        except FileNotFoundError:
+            if encode_text_fn is None:
+                raise
+            logging.warning(
+                "precomputed bank '%s' not found; computing anchors on the "
+                "fly", pre)
+    if encode_text_fn is None:
+        raise ValueError("No precomputed anchors configured and no text "
+                         "encoder provided for the on-the-fly path")
+    return clip_classifier(load_labels(cfg), load_templates(cfg),
+                           encode_text_fn, tokenizer, device=device)

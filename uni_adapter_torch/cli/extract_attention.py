@@ -2,7 +2,8 @@
 `uni_adapter_tpu/cli/extract_attention.py`).
 
     python -m uni_adapter_torch.cli.extract_attention --vlm3d uni3d \
-        [--depth 24] [--root DATA --corruption uniform] [--device cuda|cpu]
+        [--depth 24] [--root DATA --corruption uniform] \
+        [--checkpoint POINT.pt] [--device cuda|cpu]
 
 Builds the backbone at its published widths (`--depth` cuts Uni3D's, as
 in the JAX CLI), feeds it one sample (from the corrupted dataset under
@@ -12,8 +13,9 @@ attention map and writes, under `--out`: `attention_maps.npz`,
 heatmaps, head-averaged maps, CLS evolution, per-head grid, layer
 evolution, the 3D views).  Runs on the GPU unless `--device cpu` is
 passed; asked for `cuda` on a host without one, it raises.  The weights
-are random from seed 42 (no `--checkpoint` yet, ROADMAP M12), so the maps
-show that the path ran, not what a trained model attends to.
+are random from seed 42 with `--checkpoint` (a reference-layout torch
+checkpoint, `models/loader.py`) laid over them; without one the maps show
+that the path ran, not what a trained model attends to.
 
 `extract` is the device half (model, extraction, statistics, the .npz);
 `main` calls it, then draws the figures on the host.
@@ -68,15 +70,13 @@ def extract(args: argparse.Namespace):
     """The device half: build the model, extract one sample's maps, write
     `attention_stats.json` and `attention_maps.npz` under `args.out`.
     Returns (extractor, point cloud, maps)."""
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint is not ported yet (ROADMAP "
-                                  "M12); the weights are random from a seed")
     device = resolve_device(args.device)
     set_numerics()
     os.makedirs(args.out, exist_ok=True)
     mc = ModelConfig(vlm3d=args.vlm3d, eva_depth=args.depth)
-    model, num_group, group_size = build_backbone(args.vlm3d, mc, device,
-                                                  seed=WEIGHT_SEED)
+    model, num_group, group_size = build_backbone(
+        args.vlm3d, mc, device, seed=WEIGHT_SEED,
+        checkpoint_path=args.checkpoint)
     if args.root:
         cfg = Config(data=DataConfig(root=args.root,
                                      dataset_name=args.dataset_name,

@@ -5,13 +5,24 @@
         --precomputed-text-features large [--device cuda|cpu]
     python -m uni_adapter_torch.cli.tta --vlm3d openshape|ulip ... \
         --precomputed-text-features BANK.npy
+    python -m uni_adapter_torch.cli.tta ... --checkpoint-path POINT.pt \
+        [--clip-checkpoint-path TEXT.pt]
 
     python -m uni_adapter_torch.cli.tta --corruption all \
         --vmap-corruptions true ...
 
 `--vlm3d` picks the backbone: uni3d (Uni3D-L, the default), ulip
 (ULIP-2 Point-BERT, 512-d features) or openshape (PPTA, `vitg14` 1280-d
-or `vitl14` 768-d); the anchor bank must have the backbone's width.
+or `vitl14` 768-d); the anchors must have the backbone's width.  They come
+from `--precomputed-text-features` (a shipped size key or a file) when it
+is set and present; otherwise (a configured bank that is missing warns)
+from the backbone's CLIP text tower (`models/clip_text.py`, the preset of
+`--vlm3d`, `openshape_{--oshape-version}` for OpenShape) in bf16 on the
+run's device, over the labels and the `--template-key` templates.
+`--checkpoint-path` lays a reference-layout torch checkpoint over the
+point backbone and `--clip-checkpoint-path` one over the text tower
+(`models/loader.py`); what a checkpoint does not cover keeps its random
+init from `--seed`, and is logged.
 
 Runs on the GPU unless `--device cpu` is passed; asked for `cuda` on a
 host without one, it raises.  `--compute-dtype` (bfloat16, the default, or
@@ -40,8 +51,9 @@ flags beat the per-dataset table.  `--dota-use-mode-dota false` with
 clouds a step, no noise.  Each corruption's first two clouds are written
 as `vis_{corruption}_batch_0.html` into the run's directory;
 `--profile-dir DIR` writes a torch.profiler trace of the corruption loop
-into DIR.  Without `--checkpoint-path` (ROADMAP M12) the weights are
-random from `--seed`, so the accuracies only show that the pipeline ran.
+into DIR.  Without `--checkpoint-path` the point backbone's weights are
+random from `--seed` (a warning says so), so the accuracies only show
+that the pipeline ran.
 """
 from __future__ import annotations
 
@@ -58,10 +70,11 @@ import numpy as np
 import torch
 
 from uni_adapter_torch import engine
-from uni_adapter_torch.anchors import load_precomputed
+from uni_adapter_torch.anchors import get_text_anchors
 from uni_adapter_torch.config import CORRUPTIONS, parse_args, unported_paths
 from uni_adapter_torch.data.datasets import load_tta_dataset
-from uni_adapter_torch.models.loader import build_backbone
+from uni_adapter_torch.models.clip_text import create_text_encoder
+from uni_adapter_torch.models.loader import build_backbone, load_checkpoint
 from uni_adapter_torch.utils import profiling
 from uni_adapter_torch.visualize import visualize_pointclouds_plotly
 
@@ -212,9 +225,6 @@ def main(argv=None) -> dict:
     step, None on the DOTA family) and the run's `log_dir`."""
     cfg = parse_args(argv)
     missing = unported_paths(cfg)
-    if not cfg.data.precomputed_text_features:
-        missing.append("anchors from the on-the-fly text tower; pass "
-                       "--precomputed-text-features (ROADMAP M11)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
     device = resolve_device(cfg.run.device)
@@ -229,16 +239,18 @@ def main(argv=None) -> dict:
     logging.info("Config: %s", cfg)
 
     model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,
-                                 seed=cfg.run.seed)
-    logging.warning("No checkpoint configured — random weights; accuracy "
-                    "numbers are not meaningful.")
-    text = load_precomputed(cfg.data.precomputed_text_features,
-                            cfg.data.dataset_name).to(device)
+                                 seed=cfg.run.seed,
+                                 checkpoint_path=cfg.model.checkpoint_path)
+    if cfg.model.checkpoint_path is None:
+        logging.warning("No checkpoint configured — random weights; "
+                        "accuracy numbers are not meaningful.")
+    text = get_text_anchors_with_fallback(cfg, device)
     width = feature_width(cfg.model)
     if text.shape[1] != width:
-        raise ValueError(f"the anchor bank {cfg.data.precomputed_text_features}"
-                         f" is {tuple(text.shape)}; --vlm3d "
-                         f"{cfg.model.vlm3d} gives {width}-d features")
+        source = cfg.data.precomputed_text_features or "the text tower"
+        raise ValueError(f"the anchors ({source}) are {tuple(text.shape)}; "
+                         f"--vlm3d {cfg.model.vlm3d} gives {width}-d "
+                         f"features")
     # one scan (one set of captured graphs) for every corruption, as the
     # JAX CLI jits one scan_fn
     scan_fn = engine.make_scan_fn(cfg, model) if cfg.run.use_scan else None
@@ -257,6 +269,27 @@ def main(argv=None) -> dict:
     with profile:
         return finish(run_sequential(cfg, model, text, corruptions, log_dir,
                                      step_fn, scan_fn))
+
+
+def get_text_anchors_with_fallback(cfg, device: torch.device) -> torch.Tensor:
+    """The anchors on `device`: the configured bank if it is present, else
+    the text tower of the backbone's preset in bf16 (as the JAX CLI builds
+    it), random from `--seed` with `--clip-checkpoint-path` laid over it."""
+    if cfg.data.precomputed_text_features:
+        try:
+            return get_text_anchors(cfg).to(device)
+        except FileNotFoundError:
+            logging.warning(
+                "precomputed bank '%s' not found; falling back to the "
+                "on-the-fly text tower", cfg.data.precomputed_text_features)
+    m = cfg.model
+    preset = (m.vlm3d if m.vlm3d != "openshape"
+              else f"openshape_{m.oshape_version}")
+    tower = create_text_encoder(preset, device, torch.bfloat16,
+                                seed=cfg.run.seed)
+    if m.clip_checkpoint_path:
+        load_checkpoint(tower, m.clip_checkpoint_path)
+    return get_text_anchors(cfg, encode_text_fn=tower, device=device)
 
 
 def run_sequential(cfg, model, text, corruptions, log_dir, step_fn,

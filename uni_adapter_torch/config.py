@@ -59,7 +59,10 @@ class ModelConfig:
     oshape_clip_dim: int = 1280          # bigG text width
     logit_scale: float = 100.0
     compute_dtype: str = "bfloat16"
+    # reference-layout torch checkpoints (models/loader.py); random
+    # weights from the run's seed otherwise
     checkpoint_path: Optional[str] = None
+    clip_checkpoint_path: Optional[str] = None
 
 
 @dataclass
@@ -117,6 +120,7 @@ class DataConfig:
     dataset_name: str = "modelnet"       # modelnet | scanobject | shapenetcore
     # labels.json key; None = inferred from dataset_name (`Config.resolve`)
     validate_dataset_name: Optional[str] = None
+    template_key: str = "modelnet40_64"
     corruption: str = "all"
     severity: int = 5
     batch_size: int = 1
@@ -124,6 +128,7 @@ class DataConfig:
     debug: bool = False
     precomputed_text_features: Optional[str] = None
     labels_path: str = os.path.join(ASSETS_DIR, "labels.json")
+    templates_path: str = os.path.join(ASSETS_DIR, "templates.json")
 
 
 @dataclass
@@ -212,6 +217,13 @@ def load_labels(cfg: Config) -> list[str]:
         return json.load(f)[key]
 
 
+def load_templates(cfg: Config) -> list[str]:
+    """The prompt templates `cfg.data.template_key` of
+    `cfg.data.templates_path`."""
+    with open(cfg.data.templates_path) as f:
+        return json.load(f)[cfg.data.template_key]
+
+
 def unported_paths(cfg: Config) -> list[str]:
     """What `cfg` asks for that this package does not run yet, each with
     the ROADMAP item that ports it."""
@@ -219,8 +231,6 @@ def unported_paths(cfg: Config) -> list[str]:
     out = []
     if m.vlm3d not in ("uni3d", "ulip", "openshape"):
         out.append(f"--vlm3d {m.vlm3d}")
-    if m.checkpoint_path is not None:
-        out.append("--checkpoint-path (ROADMAP M12)")
     if r.dist_mode != "replicated":
         out.append(f"--dist-mode {r.dist_mode} (ROADMAP M16)")
     if r.trunk_parallel != "none":

@@ -1,6 +1,6 @@
 """Transformer building blocks (mirror of `uni_adapter_tpu/models/
 common.py`): the EVA02 trunk of Uni3D, and the fused-qkv ViT blocks of
-ULIP-2's Point-BERT and OpenShape's PPTA.
+ULIP-2's Point-BERT, OpenShape's PPTA and the CLIP text tower.
 
 Numerics follow the flax modules: dense layers run in the compute dtype
 and round before their bias; LayerNorm and BatchNorm keep fp32 parameters
@@ -72,6 +72,11 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's QuickGELU, x·sigmoid(1.702x), in the compute dtype."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 class BatchNormInference(nn.Module):
     """BatchNorm with running statistics, fp32 arithmetic; parameters named
     as the flax module's (mean, var, scale, bias)."""
@@ -90,17 +95,18 @@ class BatchNormInference(nn.Module):
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           scale: float, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+           scale: float, bias: Optional[torch.Tensor] = None,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention on (B, H, N, hd) tensors, the JAX `_attend(use_pallas=True)`:
-    unbiased, `ops.attention_heads` (the kernel on the card, the plain
-    version on the CPU); with a bias (B, 1 or H, N, N), which the JAX
-    function never sends to its kernel, plain PyTorch on either device:
-    softmax((q·kᵀ + bias)·scale)·v, the logits stored as `attn_probs`
-    stores them.  A mask (the CLIP text tower, ROADMAP M11) is not ported;
-    the modules raise before they get here."""
-    if bias is None:
+    with neither a bias nor a mask, `ops.attention_heads` (the kernel on
+    the card, the plain version on the CPU); with a bias (B, 1 or H, N, N)
+    or an additive mask (broadcast to (B, H, N, N); the CLIP text tower's
+    causal mask), which the JAX function never sends to its kernel, plain
+    PyTorch on either device: softmax((q·kᵀ + bias)·scale + mask)·v, the
+    logits stored as `attn_probs` stores them."""
+    if bias is None and mask is None:
         return attention_heads(q, k, v, scale)
-    p = attn_probs(q, k, scale, bias).to(v.dtype)
+    p = attn_probs(q, k, scale, bias, mask).to(v.dtype)
     if v.dtype == torch.bfloat16:
         return torch.matmul(p, v)
     return torch.matmul(p.to(torch.float32),
@@ -108,13 +114,15 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The softmax map that `attend` applies, recomputed for extraction (the
     JAX `_attn_probs`): under bf16 the q·kᵀ logits are stored in bf16
     (fp32 accumulation, as XLA's bf16 einsum) before the fp32 softmax; in
-    fp32 they stay fp32.  A bias is added to the fp32 logits before the
-    scale.  Returns (B, H, N, N) fp32.  The unbiased maps do not come from
-    the kernel, which keeps fp32 scores."""
+    fp32 they stay fp32.  In fp32 then: `+ bias`, `× scale`, `+ mask`, in
+    the JAX order (a mask of 0 and -inf added before the scale would give
+    the same map only by luck).  Returns (B, H, N, N) fp32.  The unbiased
+    maps do not come from the kernel, which keeps fp32 scores."""
     if q.dtype == torch.bfloat16:
         s = torch.matmul(q, k.transpose(-1, -2))
     else:
@@ -123,7 +131,10 @@ def attn_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
     s = s.to(torch.float32)
     if bias is not None:
         s = s + bias
-    return torch.softmax(s * scale, dim=-1)
+    s = s * scale
+    if mask is not None:
+        s = s + mask
+    return torch.softmax(s, dim=-1)
 
 
 class EvaAttention(nn.Module):
@@ -187,12 +198,13 @@ class EvaBlock(nn.Module):
     """Pre-norm EVA02 block.  Rope is inactive, as in the reference's
     Uni3D path (the JAX `EvaBlock` omits it for the same reason)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int,
+                 mlp_ratio: float = MLP_RATIO):
         super().__init__()
         self.norm1 = LN(dim)
         self.attn = EvaAttention(dim, num_heads)
         self.norm2 = LN(dim)
-        self.mlp = SwiGLU(dim, int(dim * MLP_RATIO))
+        self.mlp = SwiGLU(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         a = self.attn(self.norm1(x), return_attn=return_attn)
@@ -205,56 +217,57 @@ class EvaBlock(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Two-layer GELU MLP (Point-BERT / PPTA feed-forward)."""
+    """Two-layer MLP: the erf GELU by default (Point-BERT / PPTA
+    feed-forward), `act=quick_gelu` in the CLIP text tower."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int,
+                 act: Callable[[torch.Tensor], torch.Tensor] = gelu_exact):
         super().__init__()
+        self.act = act
         self.fc1 = Dense(dim, hidden_dim)
         self.fc2 = Dense(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_exact(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class ViTAttention(nn.Module):
-    """Fused-qkv multi-head attention (Point-BERT / PPTA): a bias-free
-    `qkv` Dense to 3·inner_dim, `ops.eva_attention.eva_attention_fused` on
-    its three column slices (the kernel on the card, the plain version on
-    the CPU), then `proj` back to dim.  As in the JAX module, `return_attn`,
-    an attention bias (B, 1 or H, N, N) and head dims that are not a
-    multiple of 8 take the (B, H, N, hd) transpose of `qkv` through
-    `attend` instead, and `return_attn` adds the maps of `attn_probs`.  A
-    mask is not ported and raises.  Its `project_out=False` (one head of
-    width dim, which no preset of either backbone builds) is left out."""
+    """Fused-qkv multi-head attention (Point-BERT / PPTA / CLIP text): a
+    `qkv` Dense to 3·inner_dim (biased with `qkv_bias`, as in the text
+    tower), `ops.eva_attention.eva_attention_fused` on its three column
+    slices (the kernel on the card, the plain version on the CPU), then
+    `proj` back to dim.  As in the JAX module, a mask, an attention bias
+    (B, 1 or H, N, N), `return_attn` and head dims that are not a multiple
+    of 8 take the (B, H, N, hd) transpose of `qkv` through `attend`
+    instead, and `return_attn` adds the maps of `attn_probs`.  Its
+    `project_out=False` (one head of width dim, which no preset of any
+    model builds) is left out."""
 
     def __init__(self, dim: int, num_heads: int,
-                 inner_dim: Optional[int] = None):
+                 inner_dim: Optional[int] = None, qkv_bias: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.inner = inner_dim or dim
-        self.qkv = Dense(dim, 3 * self.inner, bias=False)
+        self.qkv = Dense(dim, 3 * self.inner, bias=qkv_bias)
         self.proj = Dense(self.inner, dim)
 
     def forward(self, x: torch.Tensor, mask=None, attn_bias=None,
                 return_attn: bool = False):
-        if mask is not None:
-            raise NotImplementedError("ViTAttention with a mask (the CLIP "
-                                      "text tower, ROADMAP M11) is not "
-                                      "ported yet")
         qkv = self.qkv(x)                                  # (B, N, 3·inner)
         i, H = self.inner, self.num_heads
         hd = i // H
-        if not return_attn and attn_bias is None and hd % 8 == 0:
+        if (not return_attn and attn_bias is None and mask is None
+                and hd % 8 == 0):
             out = eva_attention_fused(qkv[..., :i], qkv[..., i:2 * i],
                                       qkv[..., 2 * i:], num_heads=H,
                                       scale=hd ** -0.5)
             return self.proj(out)
         B, N = x.shape[:2]
         q, k, v = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-        out = attend(q, k, v, hd ** -0.5, attn_bias)     # (B, H, N, hd)
+        out = attend(q, k, v, hd ** -0.5, attn_bias, mask)  # (B, H, N, hd)
         out = self.proj(out.transpose(1, 2).reshape(B, N, i))
         if return_attn:
-            return out, attn_probs(q, k, hd ** -0.5, attn_bias)
+            return out, attn_probs(q, k, hd ** -0.5, attn_bias, mask)
         return out
 
 

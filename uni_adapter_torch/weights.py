@@ -3,7 +3,8 @@
 The port names its submodules after the flax tree, so the mapping is a
 flatten with these renames:
 
-  * `blocks_{i}` (flax list naming) → `blocks.{i}`;
+  * `blocks_{i}` (flax list naming) → `blocks.{i}`, except the CLIP text
+    block's LayerNorms `ln_1`/`ln_2`, whose digit is part of the name;
   * Dense `kernel` (in, out) → `weight` (out, in);
   * LayerNorm `scale` → `weight` (`bias` stays);
   * BatchNormInference `mean`/`var`/`scale`/`bias` and the bare
@@ -23,11 +24,15 @@ import numpy as np
 import torch
 
 _BN_KEYS = {"mean", "var", "scale", "bias"}
+#: Module names that end in `_{digit}` without being list elements.
+_NOT_LISTS = {"ln_1", "ln_2"}
 
 
 def _module_name(part: str) -> str:
     m = re.fullmatch(r"(.+)_(\d+)", part)
-    return f"{m.group(1)}.{m.group(2)}" if m else part
+    if m and part not in _NOT_LISTS:
+        return f"{m.group(1)}.{m.group(2)}"
+    return part
 
 
 def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
