@@ -170,7 +170,22 @@ exits non-zero before the result line:
      from the text tower, no random-weights warning, the `uni3d` path's
      kernels, traced), `extract_attention --checkpoint` on the same file,
      and `build_anchors --clip-checkpoint` against `clip_classifier`
-     in-process (max |Δ| 0).
+     in-process (max |Δ| 0);
+  9. serving and the int8 trunk: `serve.TTAServer` against each client's
+     own `engine.run_stream` (Uni3D width 1024, depth 2, fp32, 4 clients
+     on ragged ticks that stack clients at step 0 with older ones:
+     MODE-DOTA with and without residual learning, the cache) and its
+     blocking and non-blocking snapshots restored into a fresh server
+     (the next tick bitwise equal); the serving path at full width
+     (`serve_uni3d`: `cli.serve.main` in-process, Uni3D-L bf16, --warmup,
+     6 `TTAClient`s posting from threads for 8 rounds, a 404 and a 400
+     among them, one tick traced; ms a chunk, a tick and a request); then
+     `QuantDense`'s int8 operands and int32 products card against CPU
+     bitwise at Uni3D-L's shapes (`torch._int_mm`'s limits printed), a
+     quantised Uni3D-L at depth 2 card against CPU (fp32) and against the
+     bf16 trunk, and the int8 TTA path `uni3d_int8` (`--quantize-int8
+     true`, captured: 24 launches of the (B, H, N, hd) attention kernel a
+     forward, none of the block kernel).
 
 Phase 3 also holds the (B, H, N, hd) attention at the three extraction
 shapes and three general head dims, and phase 4 runs each backbone with
@@ -2418,16 +2433,17 @@ def check_launches(what: str, launches: dict, need: dict, idle) -> None:
                  f"expected none")
 
 
-def run_main_path(tmp: Path, kind: str, n_clouds: int = 16):
+def run_main_path(tmp: Path, kind: str, n_clouds: int = 16, spec=None):
     """One main path through `cli.tta.main`, traced (`traced_run`): its
     launches and its steady ms a step (median of steps 2-16, under the
     trace).  On an eager path the trace's launches must equal the
-    wrappers' counts."""
+    wrappers' counts.  `spec`: a path's PATHS entry, for one not in
+    PATHS."""
     import torch
 
     from uni_adapter_torch.cli import tta
 
-    flags, (n_points, n_classes), bank, per_step, idle = PATHS[kind]
+    flags, (n_points, n_classes), bank, per_step, idle = spec or PATHS[kind]
     root = tmp / f"stream_{n_points}x{n_classes}"
     if not root.exists():
         write_stream(root, n_points, n_classes, n_clouds)
@@ -4213,6 +4229,386 @@ def run_loaded_path(tmp: Path) -> tuple:
     return by_path
 
 
+
+# ---- serving: TTAServer, the HTTP front end, the int8 trunk --------------
+
+#: The serving check's schedules, the clients of each tick.  Ragged: over
+#: 5 ticks client i submits from tick i on, but for client 1 at tick 3, so
+#: that chunks stack clients at step 0 with older ones.  With residual
+#: learning: client 0 alone, then all four (the Adam loop for client 0
+#: only), then clients 1-3 (their first loop), so that every client takes
+#: one Adam loop, as the streams check holds them.
+SERVE_TICKS = 5
+SERVE_RAGGED = [[i for i in range(4) if t >= i and (i, t) != (1, 3)]
+                for t in range(SERVE_TICKS)]
+SERVE_RESIDUALS = [[0], [0, 1, 2, 3], [1, 2, 3]]
+
+
+def check_serving_equals_sequential(torch) -> None:
+    """`serve.TTAServer` on the card against each client's own
+    `engine.run_stream` (seed 42 + i, the clouds it submitted): Uni3D at
+    width 1024 and depth 2, fp32, 4 clients on the ladder (1, 2, 4) over
+    ragged ticks whose chunks stack clients at step 0 with older ones
+    (SERVE_RAGGED).  MODE-DOTA without residual learning and the cache on
+    SERVE_RAGGED, MODE-DOTA with it on SERVE_RESIDUALS (the Adam loop runs
+    for a chunk where only one gate is open): final logits within atol
+    1e-3 every tick, step
+    counts equal; with residual learning the residuals in the streams
+    check's distribution (median < 1e-6, 90th percentile < 2e-4).  Then a
+    blocking and a non-blocking snapshot taken mid-run and restored into
+    a fresh server: the next tick's logits bitwise equal to the live
+    server's."""
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.config import (CacheConfig, Config, DotaConfig,
+                                          ModelConfig)
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.serve import TTAServer
+
+    C = 4
+    mc = ModelConfig(eva_depth=2, compute_dtype="float32")
+    model, _, _ = build_backbone("uni3d", mc, "cuda", seed=0)
+    text = load_precomputed("large", "modelnet").cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    scale = torch.exp(torch.empty(C * SERVE_TICKS, 1, 1, device="cuda")
+                      .uniform_(-1.4, 0.7, generator=gen))
+    clouds = (scale * sphere_cloud(torch, gen, C * SERVE_TICKS, 1024)
+              ).reshape(C, SERVE_TICKS, 1, 1024, 3).cpu().numpy()
+    cases = (("MODE-DOTA, residuals off", DotaConfig(res_learning=False),
+              SERVE_RAGGED),
+             ("MODE-DOTA, residuals on", DotaConfig(), SERVE_RESIDUALS),
+             ("cache", DotaConfig(use_mode_dota=False), SERVE_RAGGED))
+    for what, dota, schedule in cases:
+        cfg = Config(model=mc, dota=dota, cache=CacheConfig(shot_capacity=2))
+        server = TTAServer(cfg, model, text, sizes=(1, 2, 4), seed=42)
+        for i in range(C):
+            server.register(f"c{i}")
+        got = [[] for _ in range(C)]
+        seen = [[] for _ in range(C)]
+        chunks = []
+        run_chunk = server._run_chunk
+        server._run_chunk = lambda reqs, size: (
+            chunks.append((len(reqs), size)), run_chunk(reqs, size))[1]
+        for t, clients in enumerate(schedule):
+            out = server.submit([(f"c{i}", clouds[i, t], None)
+                                 for i in clients])
+            for i in clients:
+                got[i].append(out[f"c{i}"])
+                seen[i].append(clouds[i, t])
+        err, residuals = 0.0, []
+        for i in range(C):
+            seq = []
+            one = engine.run_stream(
+                cfg, model, text, [(pc, torch.ones(pc.shape), torch.zeros(
+                    1, dtype=torch.int64)) for pc in map(torch.from_numpy,
+                                                        seen[i])],
+                seed=42 + i, step_fn=fed_outputs(
+                    engine.make_step_fn(cfg, model), seq))
+            err = max(err, max(abs(g - w.final_logits.cpu().numpy()).max()
+                               for g, w in zip(got[i], seq, strict=True)))
+            if server.states[f"c{i}"].step != one["state"].step:
+                fail(f"serving vs sequential ({what}): client {i} at step "
+                     f"{server.states[f'c{i}'].step}, its stream at "
+                     f"{one['state'].step}")
+            if dota.use_mode_dota and dota.res_learning:
+                residuals.append((server.states[f"c{i}"].res_state.residuals
+                                  - one["state"].res_state.residuals)
+                                 .abs().flatten())
+        line = (f"serving vs sequential on the card ({what}), Uni3D width "
+                f"1024 depth 2 fp32, {C} clients, ticks {schedule} on "
+                f"the ladder (1, 2, 4), chunks (requests, size) {chunks}: "
+                f"final logits max abs err {err:.3g} (atol 1e-3), step "
+                f"counts equal")
+        if residuals:
+            d = torch.cat(residuals)
+            med, p90 = d.median().item(), d.quantile(0.9).item()
+            line += f"; residuals |d| median {med:.3g}, 90th pct {p90:.3g}"
+            if not (med < 1e-6 and p90 < 2e-4):
+                fail(f"serving vs sequential: residuals |d| median {med}, "
+                     f"90th percentile {p90}")
+        print(line)
+        if err > 1e-3:
+            fail(f"serving vs sequential ({what}): final logits differ by "
+                 f"{err}")
+    check_serving_snapshots(torch, model, text, clouds)
+
+
+def check_serving_snapshots(torch, model, text, clouds) -> None:
+    """MODE-DOTA with residuals: after two ticks of clients c0 and c1, c0
+    snapshotted blocking and c1 on the background thread; the live
+    server's third tick against a fresh server's (both clients restored,
+    never registered there) on the same requests: bitwise equal."""
+    from uni_adapter_torch.config import Config, DotaConfig, ModelConfig
+    from uni_adapter_torch.serve import TTAServer
+
+    cfg = Config(model=ModelConfig(eva_depth=2, compute_dtype="float32"),
+                 dota=DotaConfig())
+    live = TTAServer(cfg, model, text, sizes=(1, 2, 4), seed=42)
+    for cid in ("c0", "c1"):
+        live.register(cid)
+    for t in range(2):
+        live.submit([(f"c{i}", clouds[i, t], None) for i in range(2)])
+    with tempfile.TemporaryDirectory() as tmp:
+        live.snapshot("c0", f"{tmp}/c0")
+        live.snapshot("c1", f"{tmp}/c1", blocking=False)
+        reqs = [(f"c{i}", clouds[i, 2], None) for i in range(2)]
+        want = live.submit(reqs)
+        fresh = TTAServer(cfg, model, text, sizes=(1, 2, 4), seed=42)
+        live.drain_snapshots()
+        for cid in ("c0", "c1"):
+            fresh.restore(cid, f"{tmp}/{cid}")
+        got = fresh.submit(reqs)
+    same = all((got[c] == want[c]).all() for c in want)
+    print(f"serving snapshots on the card: blocking (c0) and non-blocking "
+          f"(c1) after 2 ticks, restored into a fresh server: the next "
+          f"tick's logits bitwise equal {same}")
+    if not same:
+        fail("a restored snapshot's next tick differs from the live server's")
+
+
+def run_serving(tmp: Path, card: str) -> tuple:
+    """The serving path at full width: `cli.serve.main` in-process
+    (Uni3D-L, bf16, MODE-DOTA defaults with residual learning, the
+    bundled ModelNet40 anchors, the ladder (1, 2, 4, 8), --warmup), then 6
+    `client.TTAClient`s posting 1024-point clouds from threads for 8
+    rounds, with the launch counters zeroed after the warm-up and read
+    after the clients: every response (1, 40) and finite, /healthz's
+    counts, each client's step count its submissions, a 404 and a 400
+    while the clients run, and one tick traced on its own (4 requests,
+    `traced_run`): FPS, kNN and the block, no other kernel.  Prints the
+    warm-up s, the chunks and their ms by size, ms a tick (the server's
+    `submit`), ms a request (the client's round trip) and ms a library
+    tick of exactly 1, 2, 4, 6 and 8 requests, with the card."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from uni_adapter_torch.cli import serve as serve_cli
+    from uni_adapter_torch.client import ServerError, TTAClient
+
+    n_clients, rounds = 6, 8
+    t0 = time.perf_counter()
+    http_srv = serve_cli.main([
+        "--port", "0", "--sizes", "1,2,4,8", "--warmup", "--gather-ms", "2",
+        "--device", "cuda", "--precomputed-text-features", "large",
+        "--output-dir", str(tmp / "serve"), "--snapshot-dir",
+        str(tmp / "serve" / "snaps")])
+    warmup_s = time.perf_counter() - t0
+    server = http_srv.server
+    chunks, tick_ms = [], []
+    run_chunk, submit = server._run_chunk, server.submit
+
+    def timed(fn, record):
+        def run(*args):
+            start = time.perf_counter()
+            out = fn(*args)     # ends in the logits' copy to the host
+            record((time.perf_counter() - start) * 1e3, *args)
+            return out
+        return run
+
+    server._run_chunk = timed(run_chunk, lambda ms, reqs, size:
+                              chunks.append((size, ms)))
+    server.submit = timed(submit, lambda ms, reqs: tick_ms.append(ms))
+    rng = np.random.default_rng(0)
+    pcs = rng.standard_normal((n_clients, rounds, 1, 1024, 3)).astype(
+        np.float32)
+    pcs *= 0.5 / np.linalg.norm(pcs, axis=-1, keepdims=True)
+    latency, bad, errors = [], [], []
+    try:
+        clients = [TTAClient("127.0.0.1", http_srv.port, f"robot-{i}",
+                             timeout=300) for i in range(n_clients)]
+        for c in clients:
+            c.register()
+        counters = zeroed_counters()
+
+        def drive(i):
+            try:
+                for r in range(rounds):
+                    start = time.perf_counter()
+                    out = clients[i].submit(pcs[i, r])
+                    latency.append((time.perf_counter() - start) * 1e3)
+                    if out.shape != (1, 40) or not np.isfinite(out).all():
+                        bad.append((i, r, out.shape))
+            except Exception as e:     # reported below, fails the phase
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=drive, args=(i,))
+                   for i in range(n_clients)]
+        for th in threads:
+            th.start()
+        conn_codes = []
+        for path, body in (("/nope", b""), ("/submit?client=robot-0",
+                                             b"not an npz")):
+            try:
+                clients[0]._request("POST", path, body)
+                conn_codes.append(200)
+            except ServerError as e:
+                conn_codes.append(e.status)
+        for th in threads:
+            th.join(timeout=600)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        health = clients[0].healthz()
+        steps = [server.states[f"robot-{i}"].step for i in range(n_clients)]
+        server.submit, server._run_chunk = submit, run_chunk
+        reqs = [(f"robot-{i}", pcs[i, 0], None) for i in range(4)]
+        _, traced, _ = traced_run(torch, "a traced serving tick",
+                                  lambda: server.submit(reqs),
+                                  ("fps", "knn", "eva_attn_block"))
+        # ticks of exactly n requests on the library server, 5 each
+        sized_ms = {}
+        for i in range(n_clients, 8):
+            server.register(f"robot-{i}")
+        for n in (1, 2, 4, 6, 8):
+            reqs = [(f"robot-{i}", pcs[i % n_clients, 1], None)
+                    for i in range(n)]
+            ms = []
+            for _ in range(5):
+                start = time.perf_counter()
+                server.submit(reqs)
+                ms.append((time.perf_counter() - start) * 1e3)
+            sized_ms[n] = statistics.median(ms)
+    finally:
+        http_srv.close()
+    if any(th.is_alive() for th in threads) or errors or bad:
+        fail(f"serving: clients failed {errors}, bad responses {bad}")
+    lat = sorted(latency)
+    p50, p95 = lat[len(lat) // 2], lat[int(0.95 * (len(lat) - 1))]
+    by_size = collections.defaultdict(list)
+    for size, ms in chunks:
+        by_size[size].append(ms)
+    chunk_ms = {size: statistics.median(v) for size, v in sorted(
+        by_size.items())}
+    print(f"serving Uni3D-L (bf16, MODE-DOTA with residuals, ladder "
+          f"1,2,4,8) on {card}: warm-up {warmup_s:.1f} s (model, anchors, "
+          f"one step a ladder size); {n_clients} clients x {rounds} rounds "
+          f"in {len(tick_ms)} ticks, their chunks by size "
+          f"{ {k: len(v) for k, v in sorted(by_size.items())} }, median ms a "
+          f"chunk by size { {k: round(v, 2) for k, v in chunk_ms.items()} };"
+          f" ms a tick median {statistics.median(tick_ms):.2f}, min "
+          f"{min(tick_ms):.2f}, max {max(tick_ms):.2f}; ms a request "
+          f"(client round trip) p50 {p50:.2f}, p95 {p95:.2f}; library ticks "
+          f"of n requests, median of 5, ms "
+          f"{ {k: round(v, 2) for k, v in sized_ms.items()} }")
+    print(f"serving launches (counters over the clients' run): "
+          f"{ {n: v for n, v in launches.items() if v} }; traced tick of 4 "
+          f"requests: { {n: v for n, v in traced.items() if v} }; /healthz "
+          f"{health}; step counts {steps}; mid-run codes {conn_codes}")
+    if conn_codes != [404, 400]:
+        fail(f"serving: the bad requests got {conn_codes}, not [404, 400]")
+    if health["clients"] != n_clients or health["ticks"] < rounds:
+        fail(f"serving: /healthz {health}")
+    if steps != [rounds] * n_clients:
+        fail(f"serving: step counts {steps}, expected {rounds} each")
+    check_launches("the serving path", launches,
+                   {"fps": rounds, "knn": rounds, "eva_attn_block": 72},
+                   UNI3D_IDLE)
+    return launches, {"warmup_s": warmup_s, "ticks": len(tick_ms),
+                      "chunk_ms_by_size": chunk_ms,
+                      "tick_ms_median": statistics.median(tick_ms),
+                      "request_ms_p50": p50, "request_ms_p95": p95,
+                      "tick_ms_by_requests": sized_ms}
+
+
+#: The int8 path: Uni3D-L with `--quantize-int8 true`, captured.  Its
+#: attention runs the (B, H, N, hd) kernel (row 7) once a block, and never
+#: the block kernel (JAX bypasses `eva_attn_block_fused` under quantize).
+INT8_PATH = (["--quantize-int8", "true"], (1024, 40), "large",
+             {"fps": 1, "knn": 1, "attention_heads": 24},
+             ("fps_grid", "knn_gather", "ballquery", "eva_attention",
+              "eva_attn_block") + FP32_KERNELS)
+#: QuantDense's shapes on Uni3D-L's trunk at batch 2: (rows, in, out).
+QUANT_SHAPES = ((1026, 1024, 1024), (1026, 1024, 2730), (1026, 2730, 1024))
+
+
+def check_quant(torch, tmp: Path, uni3d_ms: float) -> tuple:
+    """The int8 trunk on the card: QuantDense's quantisation and int32
+    products (cuBLASLt's int8 GEMM through `int_mm_padded`) bitwise equal
+    to the CPU's at Uni3D-L's shapes; a quantised Uni3D-L at depth 2 in
+    fp32, card against CPU within 1 − cosine 1e-4, and in bf16 within
+    cosine 0.99 of the bf16 trunk's features (the JAX package's bound);
+    then the full-width TTA path `uni3d_int8` through `cli.tta.main`
+    (captured), its launches exactly 24 of row 7 a forward and none of
+    the block kernel, its ms a step beside `uni3d`'s."""
+    import dataclasses
+
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.engine import WARMUP_RUNS
+    from uni_adapter_torch.models import common
+    from uni_adapter_torch.models.uni3d import create_uni3d
+
+    # torch._int_mm's limits on the card, with the second operand laid out
+    # as `int_mm_padded` passes it (the transpose of a contiguous (N, K))
+    limits = {}
+    for m, k, n in ((16, 64, 64), (17, 60, 64), (17, 64, 60), (17, 64, 64),
+                    (24, 64, 64), (1026, 1024, 1024)):
+        try:
+            torch._int_mm(torch.ones(m, k, dtype=torch.int8, device="cuda"),
+                          torch.ones(n, k, dtype=torch.int8, device="cuda").T)
+            torch.cuda.synchronize()
+            limits[(m, k, n)] = "runs"
+        except RuntimeError as e:
+            limits[(m, k, n)] = f"raises ({str(e).splitlines()[0][:70]})"
+    print(f"torch._int_mm on the card, (M, K, N): {limits}")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for rows, k, n in QUANT_SHAPES:
+        x = torch.randn(rows, k, generator=gen, device="cuda")
+        w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
+        xq, sx = common.quantize_rows(x)
+        wq, sw = common.quantize_rows(w)
+        xq_c, sx_c = common.quantize_rows(x.cpu())
+        wq_c, sw_c = common.quantize_rows(w.cpu())
+        acc = common.int8_matmul(xq, wq)
+        acc_c = common.int8_matmul(xq_c, wq_c)
+        same = (torch.equal(xq.cpu(), xq_c) and torch.equal(wq.cpu(), wq_c)
+                and torch.equal(acc.cpu(), acc_c))
+        ms = time_ms(lambda: common.int8_matmul(xq, wq))
+        print(f"QuantDense ({rows}, {k}) -> {n}: int8 operands and int32 "
+              f"products card vs cpu bitwise {same}; scales max |Δ| "
+              f"{(sx.cpu() - sx_c).abs().max().item():.3g} / "
+              f"{(sw.cpu() - sw_c).abs().max().item():.3g}; int8 GEMM "
+              f"{ms:.4f} ms")
+        if not same:
+            fail(f"QuantDense's int8 product at ({rows}, {k}) -> {n} "
+                 f"differs between the card and the CPU")
+    mc = ModelConfig(eva_depth=2, compute_dtype="float32", quantize_int8=True)
+    gpu = create_uni3d(mc, "cuda", seed=0)
+    cpu = create_uni3d(mc, "cpu", state_dict={
+        k: v.cpu() for k, v in gpu.state_dict().items()})
+    bf16 = create_uni3d(dataclasses.replace(mc, compute_dtype="bfloat16"),
+                        "cuda", state_dict=gpu.state_dict())
+    plain = create_uni3d(dataclasses.replace(
+        mc, compute_dtype="bfloat16", quantize_int8=False), "cuda",
+        state_dict=gpu.state_dict())
+    pc = torch.cat([sphere_cloud(torch, gen, 2, 1024),
+                    torch.ones(2, 1024, 3, device="cuda")], dim=-1)
+    with torch.no_grad():
+        f_gpu, f_cpu = gpu(pc).cpu(), cpu(pc.cpu())
+        f_q16, f_16 = bf16(pc), plain(pc)
+    cos = torch.nn.functional.cosine_similarity
+    c32 = cos(f_gpu, f_cpu, dim=-1).min().item()
+    c8 = cos(f_q16, f_16, dim=-1).min().item()
+    print(f"quantised Uni3D-L depth 2: fp32 card vs cpu 1 - cosine "
+          f"{1 - c32:.3g} (gate 1e-4); int8 vs bf16 trunk on the card "
+          f"cosine {c8:.5f} (gate 0.99)")
+    if not (torch.isfinite(f_gpu).all() and 1 - c32 < 1e-4 and c8 > 0.99):
+        fail("the quantised Uni3D disagrees with the CPU or the bf16 trunk")
+    del gpu, cpu, bf16, plain
+    launches, step_ms = run_main_path(tmp, "uni3d_int8", spec=INT8_PATH)
+    # the captured MODE-DOTA step with residuals: two programs (the gate
+    # closed at step 0, open after), each run WARMUP_RUNS times eagerly
+    # before its capture, and 16 replays
+    forwards = 16 + 2 * WARMUP_RUNS
+    if launches["attention_heads"] != 24 * forwards:
+        fail(f"uni3d_int8: {launches['attention_heads']} attention_heads "
+             f"launches over {forwards} forwards, expected 24 each")
+    print(f"main path uni3d_int8: {step_ms:.2f} ms/step against uni3d's "
+          f"{uni3d_ms:.2f} (bf16 block kernel); attention_heads 24 a "
+          f"forward, eva_attn_block 0")
+    return launches, step_ms
+
+
 def main() -> None:
     import torch
 
@@ -4302,13 +4698,20 @@ def main() -> None:
         text_ms = check_text_tower(torch)
         load_s = check_loader(torch)
         by_path.update(run_loaded_path(Path(tmp)))
+        check_serving_equals_sequential(torch)
+        by_path["serve_uni3d"], serving = run_serving(Path(tmp), card)
+        by_path["uni3d_int8"], int8_ms = check_quant(torch, Path(tmp),
+                                                     batch1_ms["uni3d"])
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"sweeps": sweeps, "residual_tier_product_ms": tier_ms,
                       "scan_ms": scan_ms, "dota_update_ms": dota_update_ms,
-                      "text_tower": text_ms, "checkpoint_load_s": load_s}))
+                      "text_tower": text_ms, "checkpoint_load_s": load_s,
+                      "serving": serving,
+                      "uni3d_int8_ms": {"uni3d_int8": int8_ms,
+                                        "uni3d": batch1_ms["uni3d"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,10 @@ is computed at every fit and its result taken where the fit counter says
 so (`torch.where` on a device flag): no host read, one captured graph.
 
 Every function but `init` and `get_mode_stats` also takes S independent
-streams at once: a leading stream axis on every tensor of the state but
-the () counts `t` and `fit_calls` (which the streams share), and on `x`
-and `gamma_class`.
+streams at once: a leading stream axis on every tensor of the state, and
+on `x` and `gamma_class`.  The counts `t` and `fit_calls` are () while
+the streams agree on them and ([S],) when they do not; the split check
+is then due for each stream by its own `fit_calls`.
 """
 from __future__ import annotations
 
@@ -34,15 +35,16 @@ _PAD_VAR = 1e10   # an empty slot's variance: its log-likelihood is -inf-like
 
 class AdaptiveState(NamedTuple):
     """One stream's padded mixture; S streams' carry a leading (S,) axis on
-    each tensor but `t` and `fit_calls`."""
+    each tensor but the counts `t` and `fit_calls`, which have one only
+    where the streams' counts differ."""
     mu: torch.Tensor            # ([S,] K, Mmax, D)
     var: torch.Tensor           # ([S,] K, Mmax, D)
     pi: torch.Tensor            # ([S,] K, Mmax)
     c: torch.Tensor             # ([S,] K, Mmax)
     mask: torch.Tensor          # ([S,] K, Mmax) bool: the valid slots
     class_counts: torch.Tensor  # ([S,] K)
-    t: torch.Tensor             # () int32: samples fitted (each stream)
-    fit_calls: torch.Tensor     # () int32
+    t: torch.Tensor             # () or ([S],) int32: samples fitted
+    fit_calls: torch.Tensor     # () or ([S],) int32
 
 
 def init(epsilon: float, sigma: float, input_dim: int, num_classes: int,
@@ -176,8 +178,9 @@ def fit(state: AdaptiveState, x: torch.Tensor, gamma_class: torch.Tensor,
         t=state.t + x.shape[-2], fit_calls=state.fit_calls + 1)
     split = check_and_split(new, split_threshold, min_count_to_split)
     due = new.fit_calls % split_check_interval == 0
-    return AdaptiveState(*(torch.where(due, s, n) if n.dim() else n
-                           for s, n in zip(split, new)))
+    return AdaptiveState(*(
+        torch.where(due.reshape(due.shape + (1,) * (n.dim() - due.dim())),
+                    s, n) if n.dim() else n for s, n in zip(split, new)))
 
 
 def predict(state: AdaptiveState, x: torch.Tensor,

@@ -11,8 +11,9 @@ cuSOLVER, whose batched factorisation a captured step replays (MAGMA's,
 which PyTorch may pick for a batch of matrices, cannot be captured).
 
 Every function but `init` also takes S independent streams at once: a
-leading stream axis on every tensor of the state but the () sample count
-`prior_step` (which the streams share), and on `x` and `y`.
+leading stream axis on every tensor of the state, and on `x` and `y`.
+The sample count `prior_step` is () while the streams agree on it and
+([S],) when they do not.
 """
 from __future__ import annotations
 
@@ -24,13 +25,14 @@ import torch
 
 class DOTAState(NamedTuple):
     """One stream's state; S streams' carry a leading (S,) axis on each
-    tensor but `prior_step`."""
+    tensor but `prior_step`, which has one only where the streams'
+    counts differ."""
     mu: torch.Tensor               # ([S,] K, D) class means
     c: torch.Tensor                # ([S,] K) effective counts
     sigma: torch.Tensor            # ([S,] K, D, D) class covariances
     lam: torch.Tensor              # ([S,] D, D) shared precision
     cum_soft_labels: torch.Tensor  # ([S,] 1, K) cumulative prior evidence
-    prior_step: torch.Tensor       # () int32: samples fitted (each stream)
+    prior_step: torch.Tensor       # () or ([S],) int32: samples fitted
 
 
 def init(epsilon: float, sigma: float, input_dim: int, num_classes: int,
@@ -121,6 +123,7 @@ def predict(state: DOTAState, x: torch.Tensor,
     if prior_pre_steps is not None:
         k = state.mu.shape[-2]
         prior = state.cum_soft_labels + prior_pre_steps / k
-        prior = prior / (prior_pre_steps + state.prior_step)
+        steps = state.prior_step[..., None, None]       # over (1, K)
+        prior = prior / (prior_pre_steps + steps)
         scores = scores + torch.log(prior + 1e-10)
     return scores

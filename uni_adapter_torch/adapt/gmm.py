@@ -7,8 +7,9 @@ old means, `update` shrinks the covariance toward ones, and `predict`
 blends an empirical class prior with the uniform one.
 
 Every function but `init` also takes S independent streams at once: a
-leading stream axis on every tensor of the state but the () sample count
-`total_samples` (which the streams share), and on `x` and `y`.  The
+leading stream axis on every tensor of the state, and on `x` and `y`.
+The sample count `total_samples` is () while the streams agree on it and
+([S],) when they do not.  The
 init's draw comes from an explicit generator; the JAX package's comes
 from a PRNG key, so the tests hand the port JAX's initial state.
 """
@@ -25,14 +26,15 @@ _FLOOR = 1e-8
 
 class GMMDotaState(NamedTuple):
     """One stream's mixture; S streams' carry a leading (S,) axis on each
-    tensor but `total_samples`."""
+    tensor but `total_samples`, which has one only where the streams'
+    counts differ."""
     mu: torch.Tensor             # ([S,] K, M, D)
     sigma: torch.Tensor          # ([S,] K, M, D) diagonal
     sigma_reg: torch.Tensor      # ([S,] K, M, D) the copy `predict` reads
     pi: torch.Tensor             # ([S,] K, M)
     C: torch.Tensor              # ([S,] K, M) soft counts
     class_counts: torch.Tensor   # ([S,] K)
-    total_samples: torch.Tensor  # () int32 (each stream)
+    total_samples: torch.Tensor  # () or ([S],) int32
 
 
 def class_counts_per_class(state: GMMDotaState) -> torch.Tensor:
@@ -137,7 +139,7 @@ def predict(state: GMMDotaState, x: torch.Tensor,
     log_pi = torch.log(torch.clamp(state.pi, min=1e-10))
     log_class_lik = torch.logsumexp(log_pi[..., None, :, :] + f_km, dim=-1)
     total = state.class_counts.sum(dim=-1, keepdim=True)
-    t = state.total_samples.to(torch.float32)
+    t = state.total_samples.to(torch.float32)[..., None]       # over K
     est = state.class_counts / torch.clamp(total, min=1e-10)
     alpha_t = torch.clamp(t / (t + 100.0), max=alpha_max)
     uniform = torch.full_like(est, 1.0 / K)

@@ -21,13 +21,14 @@ _VAR_FLOOR = 1e-8
 
 class ModeDotaState(NamedTuple):
     """One stream's mixture; S streams' carry a leading (S,) axis on each
-    tensor."""
+    tensor but the count `t`, which has one only where the streams'
+    counts differ."""
     mu: torch.Tensor            # ([S,] K, M, D) mode means
     var: torch.Tensor           # ([S,] K, M, D) diagonal variances
     pi: torch.Tensor            # ([S,] K, M) mixture weights
     c: torch.Tensor             # ([S,] K, M) soft counts
     class_counts: torch.Tensor  # ([S,] K)
-    t: torch.Tensor             # () int32: samples seen (each stream)
+    t: torch.Tensor             # () or ([S],) int32: samples seen
 
 
 def resolve_sigma_init(sigma_cfg: float, input_dim: int) -> float:

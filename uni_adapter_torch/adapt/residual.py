@@ -21,7 +21,9 @@ mixture, the residuals and their Adam moments (the JAX package's
 `jax.vmap`): the loss is per stream (its own max, its own means), and the
 per-stream losses are summed before one `torch.autograd.grad`, which
 gives each stream its own gradient since the streams share no parameter.
-The Adam count is shared: every stream takes the same steps.
+The Adam count is () while the streams agree on it and ([S],) when they
+do not (a serving tick that batches clients at different points of their
+streams): each stream's bias corrections read its own count.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ class ResidualState(NamedTuple):
     residuals: torch.Tensor   # ([S,] K, D)
     mu: torch.Tensor          # Adam first moment
     nu: torch.Tensor          # Adam second moment
-    count: torch.Tensor       # () int32: Adam steps taken (each stream)
+    count: torch.Tensor       # () or ([S],) int32: Adam steps taken
 
 
 def init(text_features_initial: torch.Tensor) -> ResidualState:
@@ -51,12 +53,13 @@ def init(text_features_initial: torch.Tensor) -> ResidualState:
 
 def bias_corrections(count: torch.Tensor, num_steps: int) -> torch.Tensor:
     """Adam's bias corrections 1 − b1**c and 1 − b2**c for the counts
-    c = count + 1 … count + num_steps, (num_steps, 2), taken in float64
-    and rounded once to fp32 (fp32's own 1 − 0.999 cancels to 1.3e-5 of
-    the value, which the loss's exp(exp(·)) carries over ten steps); a
-    loop's at once, in a few launches."""
-    c = (count + torch.arange(1, num_steps + 1, dtype=count.dtype,
-                              device=count.device)).to(torch.float64)
+    c = count + 1 … count + num_steps, ([S,] num_steps, 2) for a ([S],)
+    count, taken in float64 and rounded once to fp32 (fp32's own 1 − 0.999
+    cancels to 1.3e-5 of the value, which the loss's exp(exp(·)) carries
+    over ten steps); a loop's at once, in a few launches."""
+    c = (count[..., None] + torch.arange(1, num_steps + 1, dtype=count.dtype,
+                                         device=count.device)
+         ).to(torch.float64)
     return (1.0 - torch.stack([ADAM_B1 ** c, ADAM_B2 ** c], dim=-1)
             ).to(torch.float32)
 
@@ -66,14 +69,15 @@ def adam_step(state: ResidualState, grads: torch.Tensor, lr: float,
     """optax.adam(lr): m ← (1−b1)·g + b1·m; v ← (1−b2)·g² + b2·v;
     update = −lr · m̂ / (√v̂ + eps) with bias-corrected m̂, v̂.  The count
     is a device tensor, as optax's int32 count is, so that a captured
-    step replays at every count; `correction` is this step's row of
-    `bias_corrections`, if the caller has it."""
+    step replays at every count; `correction` is this step's ([S,] 2) row
+    of `bias_corrections`, if the caller has it."""
     if correction is None:
-        correction = bias_corrections(state.count, 1)[0]
+        correction = bias_corrections(state.count, 1)[..., 0, :]
+    correction = correction[..., None, None, :]     # over the (K, D) rows
     mu = (1 - ADAM_B1) * grads + ADAM_B1 * state.mu
     nu = (1 - ADAM_B2) * grads ** 2 + ADAM_B2 * state.nu
-    mu_hat = mu / correction[0]
-    nu_hat = nu / correction[1]
+    mu_hat = mu / correction[..., 0]
+    nu_hat = nu / correction[..., 1]
     update = -lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
     return ResidualState(state.residuals + update, mu, nu, state.count + 1)
 
@@ -232,7 +236,7 @@ def optimize_residuals(res_state: ResidualState,
                                     terms, precision)
             (grads,) = torch.autograd.grad(loss.sum(), r)
             res_state = adam_step(res_state._replace(residuals=r.detach()),
-                                  grads, lr, corrections[i])
+                                  grads, lr, corrections[..., i, :])
     return res_state
 
 

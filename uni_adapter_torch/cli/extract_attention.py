@@ -30,11 +30,11 @@ import os
 import numpy as np
 
 from uni_adapter_torch.analysis import attention as A
-from uni_adapter_torch.cli.tta import (resolve_device, set_numerics,
-                                       setup_logging)
+from uni_adapter_torch.cli.tta import resolve_device, set_numerics
 from uni_adapter_torch.config import Config, DataConfig, ModelConfig
 from uni_adapter_torch.data.datasets import load_tta_dataset
 from uni_adapter_torch.models.loader import build_backbone
+from uni_adapter_torch.utils.logging import setup_logging
 
 #: The seed of the JAX CLI's random weights (`init_or_load_params`).
 WEIGHT_SEED = 42

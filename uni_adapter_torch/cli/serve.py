@@ -1,0 +1,113 @@
+"""CLI: serve online test-time adaptation over HTTP (mirror of
+`uni_adapter_tpu/cli/serve.py`).
+
+Builds the configured backbone and text anchors (the evaluation CLI's
+flags, `config.parse_args`) and exposes `serve.TTAServer` through the
+micro-batching HTTP endpoint (`serve_http.HTTPTTAServer`):
+
+    python -m uni_adapter_torch.cli.serve --checkpoint-path uni3d_L.pt \
+        --precomputed-text-features large --port 8080 --warmup
+
+    POST /register?client=ID, POST /submit?client=ID (npz body: pc[,rgb])
+    -> npy logits; GET /healthz; snapshots by NAME under --snapshot-dir.
+    See the serve_http module docstring for the whole protocol.
+
+Serving flags are split off first, so the evaluation parser stays the one
+source of model and data flags; `--help` prints both.  Runs on the GPU
+unless `--device cpu` is passed (asked for `cuda` without one, it
+raises).  `--warmup` runs one step of every ladder size at start-up, so
+every kernel is built before the first request; a build that fails stops
+the server from starting.  `--dist-mode ep` and `--trunk-parallel` raise
+`NotImplementedError` (ROADMAP M16).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+
+def main(argv=None):
+    """Start the server; returns the running `HTTPTTAServer` (the caller
+    owns its lifetime: `close()`)."""
+    ap = argparse.ArgumentParser(
+        prog="uni-adapter-serve",
+        description="Serving flags (all other flags: evaluation parser "
+                    "below)", add_help=False)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--gather-ms", type=float, default=2.0,
+                    help="first-request gather window per tick")
+    ap.add_argument("--sizes", default="1,2,4,8,16",
+                    help="ladder of chunk sizes a tick is cut into")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="server-owned snapshot directory (default "
+                         "<output-dir>/snapshots); clients reference "
+                         "snapshots by NAME, never by path")
+    ap.add_argument("--warmup", action="store_true",
+                    help="run one step of every ladder size at start-up "
+                         "(builds every kernel before the first request)")
+    serve_args, rest = ap.parse_known_args(argv)
+    if "-h" in (rest or []) or "--help" in (rest or []):
+        print(ap.format_help())   # then the shared parser prints and exits
+
+    from uni_adapter_torch.cli.tta import (feature_width,
+                                           get_text_anchors_with_fallback,
+                                           resolve_device, set_numerics)
+    from uni_adapter_torch.config import parse_args, unported_paths
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.serve import TTAServer
+    from uni_adapter_torch.serve_http import HTTPTTAServer
+    from uni_adapter_torch.utils.logging import setup_logging
+
+    cfg = parse_args(rest)
+    missing = unported_paths(cfg)
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    device = resolve_device(cfg.run.device)
+    set_numerics()
+    os.makedirs(cfg.run.output_dir, exist_ok=True)
+    setup_logging(os.path.join(cfg.run.output_dir, "serve.log"))
+
+    model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,
+                                 seed=cfg.run.seed,
+                                 checkpoint_path=cfg.model.checkpoint_path)
+    if cfg.model.checkpoint_path is None:
+        logging.warning("No checkpoint configured — random weights; "
+                        "served logits are not meaningful.")
+    text = get_text_anchors_with_fallback(cfg, device)
+    width = feature_width(cfg.model)
+    if text.shape[1] != width:
+        raise ValueError(f"the anchors are {tuple(text.shape)}; --vlm3d "
+                         f"{cfg.model.vlm3d} gives {width}-d features")
+    sizes = tuple(int(s) for s in serve_args.sizes.split(","))
+    server = TTAServer(cfg, model, text, sizes=sizes, seed=cfg.run.seed,
+                       dist_mode=cfg.run.dist_mode)
+    if serve_args.warmup:
+        logging.info("warming up %d step sizes ...",
+                     len(server.sizes) + (0 if 1 in server.sizes else 1))
+        server.warmup(cfg.data.npoints)
+    snapshot_dir = (serve_args.snapshot_dir
+                    or os.path.join(cfg.run.output_dir, "snapshots"))
+    http_srv = HTTPTTAServer(server, host=serve_args.host,
+                             port=serve_args.port,
+                             gather_ms=serve_args.gather_ms,
+                             snapshot_dir=snapshot_dir).start()
+    logging.info("serving TTA on %s:%d (sizes %s)", serve_args.host,
+                 http_srv.port, tuple(server.sizes))
+    return http_srv
+
+
+def cli() -> int:
+    """Serve until interrupted."""
+    http_srv = main()
+    try:
+        http_srv.wait()
+    except KeyboardInterrupt:
+        logging.info("shutting down")
+        http_srv.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(cli())

@@ -62,7 +62,6 @@ import dataclasses
 import json
 import logging
 import os
-import sys
 import time
 from datetime import datetime
 
@@ -76,6 +75,7 @@ from uni_adapter_torch.data.datasets import load_tta_dataset
 from uni_adapter_torch.models.clip_text import create_text_encoder
 from uni_adapter_torch.models.loader import build_backbone, load_checkpoint
 from uni_adapter_torch.utils import profiling
+from uni_adapter_torch.utils.logging import setup_logging
 from uni_adapter_torch.visualize import visualize_pointclouds_plotly
 
 
@@ -109,19 +109,6 @@ def feature_width(m) -> int:
     if m.vlm3d == "openshape":
         return m.oshape_clip_dim if m.oshape_version == "vitg14" else 768
     return m.embed_dim
-
-
-def setup_logging(log_file: str) -> None:
-    logger = logging.getLogger()
-    logger.setLevel(logging.INFO)
-    for h in list(logger.handlers):
-        logger.removeHandler(h)
-        h.close()
-    fmt = logging.Formatter("%(asctime)s | %(levelname)s | %(message)s",
-                            datefmt="%Y-%m-%d,%H:%M:%S")
-    for h in (logging.StreamHandler(sys.stdout), logging.FileHandler(log_file)):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
 
 
 def finish(summary: dict) -> dict:

@@ -3,13 +3,14 @@ and the prototype cache, for the three backbones Uni3D, ULIP-2 and
 OpenShape).
 
 A copy, not an import, of the dataclasses in `uni_adapter_tpu/config.py`,
-with the same names and defaults, cut to what this package runs.  Two
-differences by design:
+with the same names and defaults, cut to what this package runs.
+`quantize_int8` is a model variant, not a choice of implementation: it
+changes the function (Uni3D's trunk on int8 `QuantDense` layers,
+`models/common.py`), and it is kept.  Two differences by design:
 
-  * no kernel-selection fields (`use_pallas_*`, `approx_knn`,
-    `quantize_int8`): the device fixes the implementation — CUDA tensors
-    go through the Hopper kernels, CPU tensors through their plain
-    PyTorch versions;
+  * no kernel-selection fields (`use_pallas_*`, `approx_knn`): the device
+    fixes the implementation — CUDA tensors go through the Hopper
+    kernels, CPU tensors through their plain PyTorch versions;
   * `--device` defaults to `cuda`, and a run asked for `cuda` on a host
     without a GPU raises instead of falling back to the CPU.
 
@@ -59,6 +60,9 @@ class ModelConfig:
     oshape_clip_dim: int = 1280          # bigG text width
     logit_scale: float = 100.0
     compute_dtype: str = "bfloat16"
+    # Uni3D's EVA trunk on int8 QuantDense layers (dynamic per-row and
+    # per-column scales, int32 accumulation); the other backbones ignore it
+    quantize_int8: bool = False
     # reference-layout torch checkpoints (models/loader.py); random
     # weights from the run's seed otherwise
     checkpoint_path: Optional[str] = None

@@ -26,13 +26,21 @@ step takes (S, B, ...) batches.  `torch.func.vmap` cannot wrap the
 residual loop's `torch.autograd.grad` or the kernels' launches, so the
 axis is written out: the encoder takes one forward of the 2·S·B clouds,
 the adaptation batched products, the residual loop one gradient of the
-summed per-stream losses.
+summed per-stream losses.  The streams of a stacked carry may stand at
+different points of their streams (`stack_states`, as a serving tick
+batches its clients): every count that enters the math is then read per
+stream, and the residual gate `step > 0` is a host mask, as JAX's
+vmapped `lax.cond` is a per-stream select: with the gate open for some
+streams only, the Adam loop runs for the stack and a closed stream
+keeps its residual state bitwise.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import logging
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterable, NamedTuple, Optional, Union
@@ -50,13 +58,15 @@ from uni_adapter_torch.utils.metrics import topk_correct
 @dataclass
 class EngineState:
     """The adaptation carry: one stream's, or S streams' with a leading
-    (S,) axis on every tensor and one generator a stream (MODE-DOTA draws
-    its noise from it, GMM-DOTA its init; the others draw nothing)."""
+    (S,) axis on every tensor but the counts the streams agree on, and
+    one generator a stream (MODE-DOTA draws its noise from it, GMM-DOTA
+    its init; the others draw nothing).  `step` is the steps taken: one
+    int, or S of them where the streams' differ."""
     method_state: Union[mode_dota.ModeDotaState, cache.CacheState,
                         dota.DOTAState, gmm.GMMDotaState,
                         adaptive.AdaptiveState]
     res_state: Optional[residual.ResidualState]
-    step: int
+    step: Union[int, tuple[int, ...]]
     generator: Union[torch.Generator, tuple[torch.Generator, ...]]
 
 
@@ -140,18 +150,47 @@ def init_state(cfg: Config, text_features_initial: torch.Tensor,
 
 
 def _stack(states):
-    """Single-stream NamedTuple states as one with a leading stream axis;
-    their () counts (samples seen, Adam steps) must agree and stay one
-    count, shared by the streams."""
+    """Single-stream NamedTuple states as one with a leading stream axis.
+    A () count (samples seen, Adam steps) on which the streams agree
+    stays one () count; counts that differ are stacked to ([S],)."""
     fields = []
     for vals in zip(*states):
         if vals[0].dim() > 0:
             fields.append(torch.stack(vals))
-        elif all(torch.equal(v, vals[0]) for v in vals):
-            fields.append(vals[0])
-        else:
-            raise ValueError(f"streams disagree on a count: {vals}")
+            continue
+        counts = torch.stack(vals)
+        fields.append(vals[0] if bool((counts == counts[0]).all())
+                      else counts)
     return type(states[0])(*fields)
+
+
+def _unstack(state, i: int):
+    """Stream i of a NamedTuple state with a leading stream axis."""
+    return type(state)(*(t if t.dim() == 0 else t[i] for t in state))
+
+
+def stack_states(states: list) -> EngineState:
+    """Single-stream carries as one carry with a leading stream axis (S =
+    len(states)): their tensors stacked, their generators (the objects
+    themselves) in a tuple, their steps one int or S of them."""
+    steps = [s.step for s in states]
+    res = states[0].res_state
+    return EngineState(
+        _stack([s.method_state for s in states]),
+        None if res is None else _stack([s.res_state for s in states]),
+        steps[0] if len(set(steps)) == 1 else tuple(steps),
+        tuple(s.generator for s in states))
+
+
+def unstack_state(state: EngineState, i: int) -> EngineState:
+    """Stream i of a carry with a leading stream axis, as a single-stream
+    carry (its tensors views of the stacked ones)."""
+    res = state.res_state
+    return EngineState(
+        _unstack(state.method_state, i),
+        None if res is None else _unstack(res, i),
+        state.step[i] if isinstance(state.step, tuple) else state.step,
+        state.generator[i])
 
 
 def init_states_streams(cfg: Config, text_features_initial: torch.Tensor,
@@ -160,13 +199,28 @@ def init_states_streams(cfg: Config, text_features_initial: torch.Tensor,
     generator seeded seed + i (the JAX package's `init_states_vmapped`,
     the reference's seed+rank; GMM-DOTA's stream i draws its init from
     it)."""
-    states = [init_state(cfg, text_features_initial, seed + i)
-              for i in range(n_streams)]
-    return EngineState(
-        _stack([s.method_state for s in states]),
-        (None if states[0].res_state is None
-         else _stack([s.res_state for s in states])),
-        0, tuple(s.generator for s in states))
+    return stack_states([init_state(cfg, text_features_initial, seed + i)
+                         for i in range(n_streams)])
+
+
+def _next_step(step):
+    return tuple(s + 1 for s in step) if isinstance(step, tuple) else step + 1
+
+
+def _gates(step) -> tuple:
+    """The residual gate `step > 0`: one bool, or one a stream where the
+    streams' steps differ."""
+    return tuple(s > 0 for s in step) if isinstance(step, tuple) else (
+        step > 0,)
+
+
+def _select_streams(gates: tuple, new, old):
+    """The NamedTuple `new` on the streams whose gate is open and `old` on
+    the others (JAX's vmapped `lax.cond`)."""
+    m = torch.tensor(gates, device=old[0].device)
+    return type(old)(*(
+        torch.where(m.reshape(m.shape + (1,) * max(o.dim() - 1, 0)), n, o)
+        for n, o in zip(new, old)))
 
 
 def make_step_fn(cfg: Config, model: Callable) -> Callable:
@@ -226,11 +280,15 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
         ms = mode_dota.fit(ms, feat_aug, prob_map, dc.epsilon)
 
         res_state = state.res_state
-        if use_res and state.step > 0:
+        gates = _gates(state.step)
+        if use_res and any(gates):
             res_state = residual.optimize_residuals(
                 res_state, text_init, ms, dc.residual_lr, dc.epsilon,
                 num_steps=dc.residual_steps,
                 precision=dc.residual_precision)
+            if not all(gates):
+                res_state = _select_streams(gates, res_state,
+                                            state.res_state)
 
         w = fusion.dota_fusion_weight(dc.rho, dc.eta,
                                       ms.c.mean(dim=(-2, -1)), float(B))
@@ -245,7 +303,7 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
         out = StepOutput(final, clip_logits,
                          topk_correct(final, target, (1, 3, 5)),
                          topk_correct(zs_logits, target, (1, 3, 5)))
-        return EngineState(ms, res_state, state.step + 1,
+        return EngineState(ms, res_state, _next_step(state.step),
                            state.generator), out
 
     return step
@@ -311,7 +369,8 @@ def variant_step(cfg: Config, encode: Callable) -> Callable:
         out = StepOutput(final, clip_logits,
                          topk_correct(final, target, (1, 3, 5)),
                          topk_correct(clip_logits, target, (1, 3, 5)))
-        return EngineState(ms, None, state.step + 1, state.generator), out
+        return EngineState(ms, None, _next_step(state.step),
+                           state.generator), out
 
     return step
 
@@ -385,7 +444,7 @@ class CacheStep:
                          topk_correct(final, ctx.target, (1, 3, 5)),
                          topk_correct(ctx.clip_logits, ctx.target, (1, 3, 5)),
                          None if cg is None else cg.iters)
-        return EngineState(ctx.method_state, None, state.step + 1,
+        return EngineState(ctx.method_state, None, _next_step(state.step),
                            state.generator), out
 
     def __call__(self, text_init: torch.Tensor, state: EngineState, batch):
@@ -405,7 +464,9 @@ def run_stream(cfg: Config, model: Callable,
                batches: Iterable, seed: int = 42,
                print_freq: Optional[int] = None,
                step_fn: Optional[Callable] = None,
-               initial_state: Optional[EngineState] = None) -> dict:
+               initial_state: Optional[EngineState] = None,
+               checkpoint_path: Optional[str] = None,
+               checkpoint_every: Optional[int] = None) -> dict:
     """Run one stream step by step.
 
     Args:
@@ -414,12 +475,21 @@ def run_stream(cfg: Config, model: Callable,
       initial_state: resume the adaptation trajectory from this carry
         instead of a fresh init (continual TTA: streams chained without a
         reset; the reference re-inits per corruption).
+      checkpoint_path, checkpoint_every: every `checkpoint_every` steps
+        the carry (generator and step count included) and the running
+        counts are written to `checkpoint_path` (`checkpoint.save_state`).
+        A run that finds a checkpoint there resumes from it exactly: at
+        its step, skipping the batches it has seen.  A checkpoint takes
+        precedence over `initial_state`.
     Returns:
       dict with acc1/acc3/acc5 and zs_acc1 (percent), per-step wall times
-      in ms (each step ends in a device synchronise), `finite` (every
-      final logit was finite), the cache's CG iterations a step
-      (`cg_iters`, None on the other paths) and the final `state`.
+      in ms (each step ends in a device synchronise; the steps this call
+      ran), `finite` (every final logit was finite), the cache's CG
+      iterations a step (`cg_iters`, None on the other paths) and the
+      final `state`.
     """
+    from uni_adapter_torch import checkpoint
+
     dev = text_features_initial.device
     step = step_fn if step_fn is not None else make_step_fn(cfg, model)
     state = (initial_state if initial_state is not None
@@ -427,9 +497,17 @@ def run_stream(cfg: Config, model: Callable,
     totals = torch.zeros(3, device=dev)
     zs_totals = torch.zeros(3, device=dev)
     finite = torch.ones((), dtype=torch.bool, device=dev)
-    n = 0
+    n = start_step = 0
+    if checkpoint_path and os.path.exists(checkpoint_path + ".npz"):
+        saved = checkpoint.restore_state(checkpoint_path, dev)
+        state, totals, zs_totals, finite, n = (
+            saved[k] for k in ("state", "totals", "zs_totals", "finite", "n"))
+        start_step = state.step
+        logging.info("resumed adaptation state at step %d", start_step)
     step_ms, cg_iters = [], []
     for i, (pc, rgb, target) in enumerate(batches):
+        if i < start_step:
+            continue
         batch = tuple(torch.as_tensor(a).to(dev) for a in (pc, rgb, target))
         t0 = time.perf_counter()
         state, out = step(text_features_initial, state, batch)
@@ -444,6 +522,11 @@ def run_stream(cfg: Config, model: Callable,
         if print_freq and i % print_freq == 0:
             logging.info("step %d: acc1=%.3f%%", i,
                          100 * float(totals[0]) / n)
+        if checkpoint_path and checkpoint_every and (
+                (i + 1) % checkpoint_every == 0):
+            checkpoint.save_state(checkpoint_path, {
+                "state": state, "totals": totals, "zs_totals": zs_totals,
+                "finite": finite, "n": n})
     return {**_percent(totals.tolist(), zs_totals.tolist(), max(n, 1)),
             "n": n, "step_ms": step_ms, "finite": bool(finite),
             "cg_iters": torch.stack(cg_iters).tolist() if cg_iters else None,
@@ -532,7 +615,8 @@ def _generators(state: EngineState) -> tuple:
     return g if isinstance(g, tuple) else (g,)
 
 
-def _copy_generator(g: torch.Generator) -> torch.Generator:
+def copy_generator(g: torch.Generator) -> torch.Generator:
+    """A new generator in the state of `g` (its next draws are g's)."""
     c = torch.Generator(device=g.device)
     c.set_state(g.get_state())
     return c
@@ -541,7 +625,7 @@ def _copy_generator(g: torch.Generator) -> torch.Generator:
 def clone_state(state: EngineState) -> EngineState:
     """A copy of the carry that shares no tensor and no generator with it."""
     res = state.res_state
-    gens = tuple(map(_copy_generator, _generators(state)))
+    gens = tuple(map(copy_generator, _generators(state)))
     return EngineState(
         type(state.method_state)(*(t.clone() for t in state.method_state)),
         None if res is None else type(res)(*(t.clone() for t in res)),
@@ -573,8 +657,19 @@ class _Segment:
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:   # each replay draws the generator's next
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph):
-            self.out = self.fn()
+        # a graph destroyed while another is captured invalidates the
+        # capture, and an earlier runner's graphs are freed by the cyclic
+        # collector (a runner and its segments refer to each other): collect
+        # before the capture, and none during it
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.out = self.fn()
+        finally:
+            if enabled:
+                gc.enable()
         self.graph = graph
 
     def __call__(self):

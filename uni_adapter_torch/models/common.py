@@ -52,6 +52,40 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias
 
 
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """xq @ wqᵀ for int8 xq (M, K) and wq (N, K), summed exactly in int32
+    (|Σ| ≤ 127²·K fits for K < 133,000): on the card `int_mm_padded`, on
+    the CPU an int32 product."""
+    if xq.is_cuda:
+        return int_mm_padded(xq, wq)
+    return torch.matmul(xq.to(torch.int32), wq.to(torch.int32).T)
+
+
+def int_mm_padded(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """xq @ wqᵀ through one `torch._int_mm` (on the card cuBLASLt's int8
+    GEMM), which takes M > 16 and K, N multiples of 8: K is zero-padded
+    (exact), M and N are padded and the extra rows and columns dropped."""
+    (m, k), n = xq.shape, wq.shape[0]
+    pm, pk, pn = max(m, 17) - m, -k % 8, -n % 8
+    if pk or pm:
+        xq = F.pad(xq, (0, pk, 0, pm))
+    if pk or pn:
+        wq = F.pad(wq, (0, pk, 0, pn))
+    return torch._int_mm(xq, wq.T)[:m, :n]
+
+
+def quantize_rows(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric abs-max int8 quantisation of each row of an fp32 (R, C):
+    scale max|row| / 127 + 1e-12, values rounded half to even and clipped
+    to ±127.  Returns (int8 (R, C), fp32 scales (R, 1)).  The divisions
+    are by tensors: PyTorch's CUDA division by a Python number multiplies
+    by its reciprocal, which can move a scale by an ulp and a quantised
+    value across a rounding boundary."""
+    amax = t.abs().amax(dim=1, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0) + 1e-12
+    return torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8), scale
+
+
 class LN(nn.Module):
     """LayerNorm with eps 1e-5, fp32 parameters and statistics; the output
     takes the input's dtype (the residual stream's compute dtype)."""
@@ -65,6 +99,33 @@ class LN(nn.Module):
         y = F.layer_norm(x.to(torch.float32), (x.shape[-1],), self.weight,
                          self.bias, eps=1e-5)
         return y.to(x.dtype)
+
+
+class QuantDense(Dense):
+    """`Dense` with dynamic int8 × int8 arithmetic (the JAX `QuantDense`):
+    activations quantised per row (token), the weight per output column,
+    both symmetric abs-max in fp32 (`quantize_rows`); the int8 product
+    summed in int32 (`int8_matmul`), rescaled in fp32, the bias added in
+    fp32 and the result cast to the input's (compute) dtype.  The weight
+    is requantised each call and kept in fp32 (`finish_model`), as the
+    JAX layer quantises its fp32 parameter.  Parameter names and shapes
+    are `Dense`'s, so checkpoints and `weights.from_jax_params` map
+    unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).to(torch.float32))
+        wq, sw = quantize_rows(self.weight.to(torch.float32))
+        out = int8_matmul(xq, wq).to(torch.float32) * sx * sw.T
+        if self.bias is not None:
+            out = out + self.bias.to(torch.float32)
+        return out.reshape(*lead, -1).to(x.dtype)
+
+
+def make_dense(quantize: bool) -> type:
+    """The dense layer of an EVA trunk: `QuantDense` or `Dense` (JAX
+    `make_dense`)."""
+    return QuantDense if quantize else Dense
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -141,26 +202,31 @@ class EvaAttention(nn.Module):
     """EVA02 attention: separate q/k/v projections (k without bias),
     per-head q/k LayerNorm, out projection.  Its path is the
     `ops.attention.eva_attn_block` kernel (the plain version on the CPU);
-    with `return_attn` it takes the JAX module's transposed branch instead:
-    the same parameters applied as modules on (B, H, N, hd), `attend`,
-    then `proj`, and the maps from `attn_probs` on the normalised q, k."""
+    with `return_attn`, or with `quantize` (int8 `QuantDense`
+    projections, which the block kernel does not compute), it takes the
+    JAX module's transposed branch instead: the projections applied as
+    modules, the LayerNorms on (B, H, N, hd), `attend` (on the card the
+    `ops.attention_heads` kernel), then `proj`, and with `return_attn`
+    the maps from `attn_probs` on the normalised q, k."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, quantize: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.quantize = quantize
         hd = dim // num_heads
-        self.q_proj = Dense(dim, dim)
-        self.k_proj = Dense(dim, dim, bias=False)
-        self.v_proj = Dense(dim, dim)
+        dense = make_dense(quantize)
+        self.q_proj = dense(dim, dim)
+        self.k_proj = dense(dim, dim, bias=False)
+        self.v_proj = dense(dim, dim)
         self.q_norm = LN(hd)
         self.k_norm = LN(hd)
-        self.proj = Dense(dim, dim)
+        self.proj = dense(dim, dim)
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         B, N, D = x.shape
         H = self.num_heads
         hd = D // H
-        if not return_attn:
+        if not return_attn and not self.quantize:
             return eva_attn_block(
                 x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
                 self.v_proj.weight, self.v_proj.bias, self.q_norm.weight,
@@ -176,18 +242,22 @@ class EvaAttention(nn.Module):
         v = heads(self.v_proj(x))
         out = attend(q, k, v, hd ** -0.5)
         out = self.proj(out.transpose(1, 2).reshape(B, N, D))
+        if not return_attn:
+            return out
         return out, attn_probs(q, k, hd ** -0.5)
 
 
 class SwiGLU(nn.Module):
-    """EVA02 SwiGLU MLP with its mid LayerNorm."""
+    """EVA02 SwiGLU MLP with its mid LayerNorm (its dense layers int8
+    `QuantDense` with `quantize`)."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, quantize: bool = False):
         super().__init__()
-        self.fc1_g = Dense(dim, hidden_dim)
-        self.fc1_x = Dense(dim, hidden_dim)
+        dense = make_dense(quantize)
+        self.fc1_g = dense(dim, hidden_dim)
+        self.fc1_x = dense(dim, hidden_dim)
         self.norm = LN(hidden_dim)
-        self.fc2 = Dense(hidden_dim, dim)
+        self.fc2 = dense(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.silu(self.fc1_g(x)) * self.fc1_x(x)
@@ -196,15 +266,16 @@ class SwiGLU(nn.Module):
 
 class EvaBlock(nn.Module):
     """Pre-norm EVA02 block.  Rope is inactive, as in the reference's
-    Uni3D path (the JAX `EvaBlock` omits it for the same reason)."""
+    Uni3D path (the JAX `EvaBlock` omits it for the same reason).
+    `quantize`: the int8 trunk (`QuantDense` in the attention and MLP)."""
 
     def __init__(self, dim: int, num_heads: int,
-                 mlp_ratio: float = MLP_RATIO):
+                 mlp_ratio: float = MLP_RATIO, quantize: bool = False):
         super().__init__()
         self.norm1 = LN(dim)
-        self.attn = EvaAttention(dim, num_heads)
+        self.attn = EvaAttention(dim, num_heads, quantize=quantize)
         self.norm2 = LN(dim)
-        self.mlp = SwiGLU(dim, int(dim * mlp_ratio))
+        self.mlp = SwiGLU(dim, int(dim * mlp_ratio), quantize=quantize)
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         a = self.attn(self.norm1(x), return_attn=return_attn)
@@ -302,7 +373,8 @@ def finish_model(model: nn.Module, device: torch.device | str,
     flax draws it, in module order, then `init_bare(generator)` for the
     bare parameters; the rest keep the flax defaults.  Dense layers are
     stored in the compute dtype `dtype`, except the modules in `keep_fp32`
-    (heads that the JAX package runs in fp32); LayerNorm and BatchNorm
+    (heads that the JAX package runs in fp32) and `QuantDense` layers
+    (which quantise their fp32 weight); LayerNorm and BatchNorm
     parameters stay fp32.
     """
     if state_dict is not None:
@@ -314,6 +386,7 @@ def finish_model(model: nn.Module, device: torch.device | str,
                 m.reset_parameters(gen)
         init_bare(gen)
     for m in model.modules():
-        if isinstance(m, Dense) and not any(m is k for k in keep_fp32):
+        if (isinstance(m, Dense) and not isinstance(m, QuantDense)
+                and not any(m is k for k in keep_fp32)):
             m.to(dtype)
     return model.eval().requires_grad_(False)

@@ -69,7 +69,8 @@ class PointcloudEncoder(nn.Module):
     def __init__(self, trans_dim: int = 1024, embed_dim: int = 1024,
                  num_group: int = 512, group_size: int = 64,
                  encoder_dim: int = 512, depth: int = 24,
-                 num_heads: int = 16, dtype: torch.dtype = torch.bfloat16):
+                 num_heads: int = 16, dtype: torch.dtype = torch.bfloat16,
+                 quantize: bool = False):
         super().__init__()
         self.dtype = dtype
         self.num_group, self.group_size = num_group, group_size
@@ -79,7 +80,8 @@ class PointcloudEncoder(nn.Module):
         self.cls_pos = nn.Parameter(torch.zeros(1, 1, trans_dim))
         self.pos_embed = PosEmbedMLP(trans_dim, dtype=dtype)
         self.blocks = nn.ModuleList(
-            EvaBlock(trans_dim, num_heads) for _ in range(depth))
+            EvaBlock(trans_dim, num_heads, quantize=quantize)
+            for _ in range(depth))
         self.norm = LN(trans_dim)
         self.fc_norm = LN(trans_dim)
         self.trans2embed = Dense(trans_dim, embed_dim)
@@ -109,16 +111,18 @@ class PointcloudEncoder(nn.Module):
 
 class Uni3D(nn.Module):
     """Splits (B, N, 6) into xyz and color and encodes; features in fp32
-    (with `return_attn`, and the blocks' attention maps)."""
+    (with `return_attn`, and the blocks' attention maps).  `quantize`:
+    the EVA trunk's dense layers are int8 `QuantDense` (its attention then
+    the JAX transposed branch, on the card `ops.attention_heads`)."""
 
     def __init__(self, trans_dim: int = 1024, embed_dim: int = 1024,
                  num_group: int = 512, group_size: int = 64,
                  encoder_dim: int = 512, depth: int = 24, num_heads: int = 16,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, quantize: bool = False):
         super().__init__()
         self.point_encoder = PointcloudEncoder(
             trans_dim, embed_dim, num_group, group_size, encoder_dim, depth,
-            num_heads, dtype=dtype)
+            num_heads, dtype=dtype, quantize=quantize)
 
     def forward(self, pc: torch.Tensor, return_attn: bool = False):
         out = self.point_encoder(pc[:, :, :3], pc[:, :, 3:],
@@ -135,13 +139,15 @@ def create_uni3d(cfg, device: torch.device | str,
 
     The weights are `state_dict` or random from `seed`, as
     `common.finish_model` draws them (cls_pos standard normal); every
-    Dense layer is stored in the compute dtype.
+    Dense layer is stored in the compute dtype (a `QuantDense` of the
+    int8 trunk, `cfg.quantize_int8`, in fp32).
     """
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     with torch.device(device):
         model = Uni3D(cfg.pc_feat_dim, cfg.embed_dim, cfg.num_group,
                       cfg.group_size, cfg.pc_encoder_dim, cfg.eva_depth,
-                      cfg.eva_heads, dtype=dtype)
+                      cfg.eva_heads, dtype=dtype,
+                      quantize=cfg.quantize_int8)
     return finish_model(
         model, device, dtype, seed, state_dict,
         lambda gen: nn.init.normal_(model.point_encoder.cls_pos,

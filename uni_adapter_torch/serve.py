@@ -1,0 +1,245 @@
+"""Online serving: many clients, each its own adaptation stream (mirror of
+`uni_adapter_tpu/serve.py`, its replicated mode).
+
+Each client is an independent online-adaptation stream with its own
+`engine.EngineState`: mixture, residuals or cache, step count and
+`torch.Generator`.  The requests of one tick (at most one a client) are
+cut greedily into chunks of the sizes of a ladder (9 → 8 + 1): a chunk of
+one request takes the single-stream step, a larger one stacks its
+clients' carries on the stream axis (`engine.stack_states`) for one step
+of the stream-axis path the corruption sweep runs (one encoder forward of
+all the chunk's clouds) and unstacks them after.  The clients of a chunk
+may stand at different points of their streams: every count is read per
+stream (engine module docstring).  So each client's logits are what a
+dedicated `engine.run_stream` of its stream gives (the step of one stream
+against the step of a stack: fp32 rounding apart).
+
+Only where the ladder cannot express the tick's remainder (no size 1)
+does the last chunk pad with an inert copy of its first request, whose
+state is dropped.  A tick is atomic: the clients' carries are committed
+only after every chunk has run, and every chunk steps on copies of the
+clients' generators (the port's generators advance in place, where JAX's
+keys are values), so a tick that fails leaves every client's tensors and
+generators as they were.
+
+The tick runs eagerly, on the device of the model and the anchors.
+Client i is seeded `seed + i` (the reference's seed+rank), and a seed slot
+is never reused.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from uni_adapter_torch import checkpoint, engine
+from uni_adapter_torch.config import Config
+
+
+def _own_generator(state: engine.EngineState) -> engine.EngineState:
+    """The carry with a copy of its generator: a step on it leaves the
+    original generator where it was."""
+    return dataclasses.replace(
+        state, generator=engine.copy_generator(state.generator))
+
+
+class TTAServer:
+    """Stateful multi-client test-time-adaptation server."""
+
+    def __init__(self, cfg: Config, model, text_features: torch.Tensor,
+                 sizes: Sequence[int] = (1, 2, 4, 8, 16), seed: int = 42,
+                 dist_mode: str = "replicated"):
+        """`model` and `text_features` lie on the device the server runs
+        on.  `dist_mode` 'ep' (class-sharded state) is ROADMAP M16's; the
+        trunk-parallel encoders of the JAX server are too."""
+        if dist_mode == "ep":
+            raise NotImplementedError(
+                "dist_mode 'ep' (class-sharded serving) is not ported yet "
+                "(ROADMAP M16)")
+        if dist_mode != "replicated":
+            raise ValueError(
+                f"dist_mode {dist_mode!r}: the serving loop supports "
+                "'replicated' (per-client vmap ladder) or 'ep' "
+                "(class-sharded state); stream sharding modes belong to "
+                "the sweep CLI")
+        self.cfg = cfg
+        self.text = text_features
+        self.device = text_features.device
+        self.seed = seed
+        self.sizes = sorted(sizes)
+        self._step = engine.make_step_fn(cfg, model)
+        self.states: Dict[str, engine.EngineState] = {}
+        self._next_client = 0
+        self._snapshotter: Optional[checkpoint.AsyncSnapshotter] = None
+
+    def warmup(self, npoints: int, batch: int = 1) -> None:
+        """One step of every ladder size (and the single-request path) on
+        a scratch state: every kernel of the path is built (nvcc runs at
+        its first launch) before the first request.  No client state is
+        touched; a kernel that fails to build raises here."""
+        pc = torch.zeros((batch, npoints, 3), device=self.device)
+        rgb = torch.ones_like(pc)
+        targets = torch.zeros((batch,), dtype=torch.int64, device=self.device)
+        scratch = engine.init_state(self.cfg, self.text, 0)
+        self._step(self.text, scratch, (pc, rgb, targets))
+        for size in self.sizes:
+            if size == 1:
+                continue   # a size-1 chunk takes the single-stream step
+            stacked = engine.stack_states(
+                [engine.init_state(self.cfg, self.text, 0)
+                 for _ in range(size)])
+            self._step(self.text, stacked,
+                       tuple(a.expand(size, *a.shape).contiguous()
+                             for a in (pc, rgb, targets)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        logging.info("warmed up the step for sizes %s (npoints=%d, "
+                     "batch=%d)", list(self.sizes), npoints, batch)
+
+    def register(self, client_id: str) -> None:
+        """Create a fresh adaptation stream for a client (seeded seed+i —
+        the reference's seed+rank convention)."""
+        if client_id in self.states:
+            raise ValueError(f"client {client_id!r} already registered")
+        self.states[client_id] = engine.init_state(
+            self.cfg, self.text, self.seed + self._next_client)
+        self._next_client += 1
+
+    def reset(self, client_id: str) -> None:
+        """Restart a client's adaptation from scratch (fresh seed — seed
+        slots are never reused, so restarted streams stay decorrelated)."""
+        if client_id not in self.states:
+            raise ValueError(f"client {client_id!r} is not registered "
+                             f"(known: {sorted(self.states)})")
+        del self.states[client_id]
+        self.register(client_id)
+
+    def submit(self, requests: List[Tuple[str, np.ndarray,
+                                          Optional[np.ndarray]]]
+               ) -> Dict[str, np.ndarray]:
+        """Process one tick of requests.
+
+        Args:
+          requests: list of (client_id, pc (B,N,3), rgb (B,N,3) or None).
+            At most one request per client per tick; clients must be
+            registered.
+        Returns:
+          {client_id: final_logits (B, K)} as numpy arrays.
+
+        Atomicity: no client state is written back until every chunk of
+        the tick has run.  If any chunk raises, every client's carry,
+        generator included, is left as it was: a client that retries
+        after an error cannot double-step its stream.
+        """
+        if not requests:
+            return {}
+        ids = [r[0] for r in requests]
+        if len(set(ids)) != len(ids):
+            raise ValueError("one request per client per tick")
+        for cid in ids:
+            if cid not in self.states:
+                raise KeyError(f"client {cid!r} not registered")
+
+        # greedy decomposition into ladder sizes: the largest size ≤ what
+        # remains, the smallest size (padded) only for a remainder the
+        # ladder cannot express
+        result: Dict[str, np.ndarray] = {}
+        new_states: Dict[str, engine.EngineState] = {}
+        i = 0
+        while i < len(requests):
+            rem = len(requests) - i
+            fit = [s for s in self.sizes if s <= rem]
+            size = max(fit) if fit else self.sizes[0]
+            chunk = requests[i:i + size]
+            states, logits = self._run_chunk(chunk, size)
+            new_states.update(states)
+            result.update(logits)
+            i += len(chunk)
+        self.states.update(new_states)   # commit only after all chunks ran
+        return result
+
+    def _inputs(self, pc, rgb) -> tuple:
+        pc = torch.as_tensor(np.asarray(pc, np.float32), device=self.device)
+        rgb = (torch.ones_like(pc) if rgb is None else torch.as_tensor(
+            np.asarray(rgb, np.float32), device=self.device))
+        return pc, rgb
+
+    def _run_chunk(self, requests, size: int):
+        """Run ≤ size requests as one step of width size.  Returns
+        ({client: new_state}, {client: logits}) without touching
+        self.states — submit() commits after the whole tick succeeds."""
+        if len(requests) == 1 and size == 1:
+            cid, pc, rgb = requests[0]
+            pc, rgb = self._inputs(pc, rgb)
+            targets = torch.zeros(pc.shape[0], dtype=torch.int64,
+                                  device=self.device)   # unused label
+            new_state, outs = self._step(
+                self.text, _own_generator(self.states[cid]),
+                (pc, rgb, targets))
+            return ({cid: new_state},
+                    {cid: outs.final_logits.cpu().numpy()})
+        ids = [r[0] for r in requests]
+        pad = size - len(requests)     # only a ladder-remainder chunk pads
+        inputs = [self._inputs(r[1], r[2]) for r in requests]
+        inputs += inputs[:1] * pad
+        # every slot steps on its own copy of a generator; the padding
+        # slot's is a second copy of the first client's, so that client's
+        # stream advances once
+        states = [_own_generator(self.states[c])
+                  for c in ids + ids[:1] * pad]
+        pcs = torch.stack([p for p, _ in inputs])
+        rgbs = torch.stack([r for _, r in inputs])
+        targets = torch.zeros(pcs.shape[:2], dtype=torch.int64,
+                              device=self.device)       # unused label
+        new, outs = self._step(self.text, engine.stack_states(states),
+                               (pcs, rgbs, targets))
+        logits = outs.final_logits.cpu().numpy()
+        return ({cid: engine.unstack_state(new, i)
+                 for i, cid in enumerate(ids)},
+                {cid: logits[i] for i, cid in enumerate(ids)})
+
+    def snapshot(self, client_id: str, path: str,
+                 blocking: bool = True) -> None:
+        """Persist one client's adaptation state (exact resume: the carry
+        holds the generator and the step count) as `checkpoint.save_state`
+        writes it.  With `blocking=False` the write runs on a background
+        thread from a copy taken now, and serving goes on (call
+        `drain_snapshots()` before reading it or shutting down)."""
+        state = self.states[client_id]
+        if blocking:
+            checkpoint.save_state(path, state)
+            return
+        if self._snapshotter is None:
+            self._snapshotter = checkpoint.AsyncSnapshotter()
+        self._snapshotter.save(path, state)
+
+    def drain_snapshots(self) -> None:
+        """Block until all non-blocking snapshots are on disk."""
+        if self._snapshotter is not None:
+            self._snapshotter.wait()
+
+    def restore(self, client_id: str, path: str) -> None:
+        """Load a client's carry from a snapshot.  Blocking and
+        non-blocking snapshots write one format, so the path names one
+        pair of files (no choice by modification time, as the JAX
+        server's between an orbax directory and an .npz); pending
+        non-blocking snapshots are drained first.  An unknown client is
+        registered first (the restarted-process case), and that is undone
+        if the load fails."""
+        self.drain_snapshots()
+        fresh = client_id not in self.states
+        if fresh:
+            self.register(client_id)
+        try:
+            loaded = checkpoint.restore_state(path, self.device)
+            if not isinstance(loaded, engine.EngineState):
+                raise ValueError(f"{path!r} holds no adaptation state")
+            self.states[client_id] = loaded
+        except Exception:
+            if fresh:
+                del self.states[client_id]
+            raise
+        logging.info("client %s state restored", client_id)
