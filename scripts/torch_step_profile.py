@@ -102,6 +102,9 @@ PORT_GROUPS = {
     "port: grouping (FPS, kNN, ball query)": (
         "fps_kernel", "fps_grid_kernel", "knn_kernel", "knn_gather_kernel",
         "ballquery_kernel"),
+    "port: EVA block backward": (
+        "eva_bwd_dq_kernel", "eva_bwd_dkdv_kernel", "eva_bwd_ln_kernel",
+        "eva_bwd_ln_sum_kernel"),
 }
 PROFILED_STEPS = 5
 #: Steps of the captured stream that `--scan` times and traces.

@@ -115,7 +115,9 @@ bad = sorted(n for n in new if n.split(".")[0] in
               "regex", "ftfy"))
 assert not bad, bad
 from uni_adapter_torch.ops import build
+from uni_adapter_torch.native import loader
 assert build.load.cache_info().currsize == 0
+assert loader._lib is None and not loader._build_failed
 print(" ".join(sorted(n for n in new if n.startswith("uni_adapter_torch"))))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
@@ -128,7 +130,9 @@ print(" ".join(sorted(n for n in new if n.startswith("uni_adapter_torch"))))
         "utils.profiling", "ops.pointnet", "utils.tokenizer",
         "models.clip_text", "models.loader", "cli.build_anchors",
         "checkpoint", "serve", "serve_http", "client", "cli.serve",
-        "utils.logging")} <= names
+        "utils.logging", "train", "models.losses", "models.dvae",
+        "models.dvae_train", "cli.pretrain", "data.streaming",
+        "data.augment", "data.synthetic_stream", "native.loader")} <= names
 
 
 def test_as_arrays_and_iter_batches_match_jax_on_ragged_clouds():

@@ -1,12 +1,15 @@
-"""Snapshots of adaptation state (mirror of `uni_adapter_tpu/checkpoint.py`).
+"""Snapshots of adaptation and training state (mirror of
+`uni_adapter_tpu/checkpoint.py`).
 
 A carry (`engine.EngineState`: every method's NamedTuple state, the
-residual state, the step count and each stream's `torch.Generator`), or
-a dict or list of carries, tensors and numbers (`engine.run_stream`'s
-resume point), is written as two files:
+residual state, the step count and each stream's `torch.Generator`), a
+trainer's state (`train.TrainState` with its AdamW moments and count,
+`models/dvae_train.DVAETrainState`), or a dict or list of these, tensors,
+numbers and strings (`engine.run_stream`'s resume point, the pretraining
+CLI's stamped checkpoint), is written as two files:
 
-  * `PATH.npz`: every tensor, number and generator state, as numpy
-    arrays (a generator's state is its `get_state()` bytes);
+  * `PATH.npz`: every tensor, number, string and generator state, as
+    numpy arrays (a generator's state is its `get_state()` bytes);
   * `PATH.json`: the structure alone: the types, field names, the device
     of each tensor and generator, and which array holds each.
 
@@ -39,12 +42,15 @@ FORMAT = "uni_adapter_torch.snapshot/1"
 
 def _named_tuples() -> dict:
     """The NamedTuple states a carry may hold, by name."""
+    from uni_adapter_torch import train
     from uni_adapter_torch.adapt import (adaptive, cache, dota, gmm,
                                          mode_dota, residual)
+    from uni_adapter_torch.models import dvae_train
 
     types = (mode_dota.ModeDotaState, cache.CacheState, dota.DOTAState,
              gmm.GMMDotaState, adaptive.AdaptiveState,
-             residual.ResidualState)
+             residual.ResidualState, train.TrainState, train.AdamWState,
+             dvae_train.DVAETrainState)
     return {t.__name__: t for t in types}
 
 
@@ -71,6 +77,8 @@ def _encode(obj: Any, arrays: dict) -> Any:
         return leaf("int", np.asarray(obj, np.int64))
     if isinstance(obj, float):
         return leaf("float", np.asarray(obj, np.float64))
+    if isinstance(obj, str):
+        return leaf("str", np.asarray(obj))
     if isinstance(obj, EngineState):
         return {"kind": "EngineState",
                 "fields": {f.name: _encode(getattr(obj, f.name), arrays)
@@ -106,8 +114,8 @@ def _decode(node: Any, arrays, device) -> Any:
         gen = torch.Generator(device=dev)
         gen.set_state(torch.from_numpy(arrays[node["key"]].copy()))
         return gen
-    if kind in ("bool", "int", "float"):
-        return {"bool": bool, "int": int, "float": float}[kind](
+    if kind in ("bool", "int", "float", "str"):
+        return {"bool": bool, "int": int, "float": float, "str": str}[kind](
             arrays[node["key"]].item())
     if kind in ("EngineState", "dict"):
         fields = {k: _decode(v, arrays, device)
@@ -157,13 +165,37 @@ def restore_state(path: str, device=None) -> Any:
         return _decode(meta["structure"], arrays, device)
 
 
+def copy_state(obj: Any) -> Any:
+    """A copy of what `save_state` takes that shares no tensor and no
+    generator with it (a carry through `engine.clone_state`)."""
+    from uni_adapter_torch.engine import EngineState, clone_state
+
+    if isinstance(obj, EngineState):
+        return clone_state(obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, torch.Generator):
+        gen = torch.Generator(device=obj.device)
+        gen.set_state(obj.get_state())
+        return gen
+    if isinstance(obj, dict):
+        return {k: copy_state(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(copy_state(v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(copy_state(v) for v in obj)
+    return obj
+
+
 class AsyncSnapshotter:
-    """Non-blocking snapshots of a carry: `save` takes a device-side copy
-    of it at the call (`engine.clone_state`, and an event recorded on the
-    card), then one background thread moves the copy to the host and
-    writes the same two files as `save_state`, in call order.  `wait()`
-    blocks until every save so far is on disk and raises the first error
-    a save met."""
+    """Non-blocking snapshots of a carry, or of anything `save_state`
+    takes: `save` takes a device-side copy of it at the call
+    (`copy_state`, and an event recorded on the card), then one background
+    thread moves the copy to the host and writes the same two files as
+    `save_state`, in call order.  The copy matters: PyTorch's tensors are
+    mutable, and a trainer updates its parameters in place while the
+    write is in flight.  `wait()` blocks until every save so far is on
+    disk and raises the first error a save met."""
 
     def __init__(self):
         self._pool = ThreadPoolExecutor(max_workers=1,
@@ -172,9 +204,7 @@ class AsyncSnapshotter:
         self._lock = threading.Lock()
 
     def save(self, path: str, state) -> None:
-        from uni_adapter_torch.engine import clone_state
-
-        copy = clone_state(state)
+        copy = copy_state(state)
         event = None
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             event = torch.cuda.Event()

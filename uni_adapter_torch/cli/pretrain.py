@@ -1,0 +1,312 @@
+"""CLI: contrastive pretraining of the Uni3D point encoder into CLIP space
+(mirror of `uni_adapter_tpu/cli/pretrain.py`, one process on one device).
+
+    python -m uni_adapter_torch.cli.pretrain --device cpu --steps 20 \
+        --batch-size 16 --depth 1 --out /tmp/pretrain
+
+  sharded corpus (data/streaming.ShardedCorpus, the native mmap reader)
+    → deterministic resumable StreamingLoader
+    → the batch on the device (streaming.global_batch)
+    → train.train_step (fp32 Uni3D; on the card the EVA blocks' attention
+      side through the hand-written kernels forward and backward)
+    → checkpoint.save_state every --ckpt-every steps, stamped with the
+      recipe; `--resume` continues the exact batch schedule and refuses a
+      checkpoint of another recipe.
+
+Runs on the GPU unless `--device cpu` is passed; asked for `cuda` on a
+host without one, it raises.  On the card the EVA blocks need head dim
+64 (`--trans-dim` = 64 × `--heads`: Uni3D-L's 1024 and 16), so the demo
+widths below (64 and 4, head dim 16) raise there by name; the CPU runs
+any width.  Without --pc-shards it writes a small synthetic corpus (the
+JAX CLI's, bitwise) under <out>/synthetic.  `--parallel pp|sp`, their
+`--pp-*` flags and a multi-process launch wait for ROADMAP M16 and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import logging
+import os
+import time
+
+
+def _synthetic_corpus(root: str, n_shards: int = 2, per_shard: int = 64,
+                      npoints: int = 128, dim: int = 64):
+    """Write a tiny random corpus (pc + frozen-tower embedding shards)."""
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(0)
+    pc, tx, im = [], [], []
+    for s in range(n_shards):
+        for tag, shape, group in (("pc", (per_shard, npoints, 6), pc),
+                                  ("text", (per_shard, dim), tx),
+                                  ("image", (per_shard, dim), im)):
+            # shape in the name: re-running with different --embed-dim /
+            # --npoints into the same --out never reuses stale shards
+            p = os.path.join(
+                root, f"{tag}_{'x'.join(map(str, shape[1:]))}_{s:03d}.npy")
+            if not os.path.exists(p):
+                np.save(p, rng.standard_normal(shape).astype(np.float32))
+            group.append(p)
+    return pc, tx, im
+
+
+_M16 = "(ROADMAP M16, parallelism)"
+#: The launchers' rank and world-size variables (the JAX package's
+#: `parallel/bootstrap.world_info_from_env`).
+_WORLD_VARS = (("RANK", "WORLD_SIZE"), ("SLURM_PROCID", "SLURM_NTASKS"),
+               ("OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE"))
+
+
+def _refuse_unported(args) -> None:
+    """What waits for M16 raises before anything runs."""
+    if args.parallel != "dp":
+        raise NotImplementedError(
+            f"--parallel {args.parallel} is not ported yet {_M16}; --parallel "
+            "dp runs on one process and one device")
+    pp = {"--pp-microbatches": (args.pp_microbatches, None),
+          "--pp-stages": (args.pp_stages, None),
+          "--pp-interleave": (args.pp_interleave, 1),
+          "--pp-tp-size": (args.pp_tp_size, 1)}
+    given = [flag for flag, (now, default) in pp.items() if now != default]
+    if given:
+        raise NotImplementedError(
+            f"{', '.join(given)}: pipeline parallelism is not ported yet "
+            f"{_M16}")
+    for _, world in _WORLD_VARS:
+        if int(os.environ.get(world, "1")) > 1:
+            raise NotImplementedError(
+                f"a multi-process launch ({world}={os.environ[world]}) is not "
+                f"ported yet {_M16}; run one process")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--pc-shards", default=None,
+                        help="glob of point-cloud .npy shards")
+    parser.add_argument("--text-shards", default=None)
+    parser.add_argument("--image-shards", default=None)
+    parser.add_argument("--out", default="outputs/pretrain")
+    parser.add_argument("--batch-size", type=int, default=64,
+                        help="GLOBAL batch (split across processes)")
+    parser.add_argument("--steps", type=int, default=100)
+    parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--warmup-steps", type=int, default=10)
+    parser.add_argument("--weight-decay", type=float, default=0.05)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--prefetch", type=int, default=2)
+    parser.add_argument("--ckpt-every", type=int, default=50)
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from <out>/ckpt if present")
+    parser.add_argument("--ckpt-async", action="store_true",
+                        help="write checkpoints on a background thread so "
+                             "the train loop never stalls on IO (a copy of "
+                             "the state is taken at the call: the step "
+                             "updates the parameters in place; the atomic "
+                             "tmp+rename in checkpoint.save_state still "
+                             "guarantees a consistent file pair)")
+    parser.add_argument("--log-every", type=int, default=10)
+    # model size (Uni3D point encoder; defaults are demo-sized — pass the
+    # EVA02-L numbers for a real run)
+    parser.add_argument("--depth", type=int, default=2)
+    parser.add_argument("--trans-dim", type=int, default=64)
+    parser.add_argument("--embed-dim", type=int, default=64,
+                        help="must match the frozen-tower embedding dim")
+    parser.add_argument("--num-group", type=int, default=16)
+    parser.add_argument("--group-size", type=int, default=8)
+    parser.add_argument("--encoder-dim", type=int, default=32)
+    parser.add_argument("--heads", type=int, default=4)
+    parser.add_argument("--parallel", default="dp",
+                        choices=["dp", "pp", "sp"],
+                        help="dp: one process on one device (pp and sp: "
+                             "not ported yet, ROADMAP M16)")
+    parser.add_argument("--pp-microbatches", type=int, default=None,
+                        help="not ported yet (ROADMAP M16)")
+    parser.add_argument("--pp-stages", type=int, default=None,
+                        help="not ported yet (ROADMAP M16)")
+    parser.add_argument("--pp-interleave", type=int, default=1,
+                        help="not ported yet (ROADMAP M16)")
+    parser.add_argument("--pp-tp-size", type=int, default=1,
+                        help="not ported yet (ROADMAP M16)")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda (needs a GPU) or cpu")
+    args = parser.parse_args(argv)
+    _refuse_unported(args)
+
+    import torch
+
+    from uni_adapter_torch import checkpoint
+    from uni_adapter_torch.cli.tta import resolve_device, set_numerics
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.data.streaming import (ShardedCorpus,
+                                                  StreamingLoader,
+                                                  global_batch)
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.train import (init_train_state, load_train_state,
+                                         make_optimizer, train_step)
+    from uni_adapter_torch.utils.logging import setup_logging
+
+    device = resolve_device(args.device)
+    set_numerics()
+    os.makedirs(args.out, exist_ok=True)
+    setup_logging(os.path.join(args.out, "pretrain.log"))
+
+    if args.pc_shards:
+        pc = sorted(glob.glob(args.pc_shards))
+        tx = sorted(glob.glob(args.text_shards)) if args.text_shards else None
+        im = (sorted(glob.glob(args.image_shards))
+              if args.image_shards else None)
+        if not pc:
+            raise FileNotFoundError(f"no shards match {args.pc_shards!r}")
+        if not tx:
+            raise ValueError(
+                "--text-shards is required with --pc-shards: the "
+                "contrastive objective distils into the frozen TEXT tower "
+                "embeddings (pc<->image alone is the masked secondary leg)")
+    else:
+        logging.info("no --pc-shards: synthetic corpus under %s/synthetic",
+                     args.out)
+        pc, tx, im = _synthetic_corpus(os.path.join(args.out, "synthetic"),
+                                       dim=args.embed_dim)
+    corpus = ShardedCorpus(pc, tx, im)
+    loader = StreamingLoader(corpus, args.batch_size, seed=args.seed,
+                             prefetch=args.prefetch)
+    logging.info("corpus: %d samples in %d shards; %d steps/epoch "
+                 "(global batch %d, local %d)", len(corpus), len(corpus.pc),
+                 loader.steps_per_epoch, args.batch_size,
+                 loader.local_batch_size)
+
+    cfg = ModelConfig(pc_feat_dim=args.trans_dim, embed_dim=args.embed_dim,
+                      num_group=args.num_group, group_size=args.group_size,
+                      pc_encoder_dim=args.encoder_dim, eva_depth=args.depth,
+                      eva_heads=args.heads, compute_dtype="float32")
+    model = create_uni3d(cfg, device, torch.float32, seed=args.seed,
+                         trainable=True)
+    tx_opt = make_optimizer(lr=args.lr, weight_decay=args.weight_decay,
+                            total_steps=args.steps,
+                            warmup_steps=args.warmup_steps)
+    state = init_train_state(model, tx_opt)
+
+    ckpt_path = os.path.join(args.out, "ckpt")
+    start_step = 0
+    if args.resume and os.path.exists(ckpt_path + ".npz"):
+        blob = checkpoint.restore_state(ckpt_path, device=device)
+        # refuse every silent-divergence vector, not just the batch
+        # schedule: a depth mismatch would drop or add trunk blocks, and a
+        # weight-decay-recipe change would silently alter the trajectory
+        checks = [("data_seed", args.seed), ("global_batch", args.batch_size),
+                  ("depth", args.depth),
+                  # the corpus SIZE shapes the schedule too: the epoch
+                  # permutation is rng.permutation(len(corpus)) and the
+                  # resume cursor derives from steps_per_epoch — shards
+                  # added/removed under the same glob would silently skip
+                  # or repeat samples
+                  ("corpus_size", len(corpus)),
+                  # the optimizer recipe shapes the whole trajectory: lr /
+                  # decay scale the updates, warmup reshapes the schedule.
+                  # --steps is deliberately NOT checked: continuing a run
+                  # with a longer horizon is the resume workflow, and it
+                  # re-stretches the cosine tail by documented design
+                  ("lr", args.lr), ("weight_decay", args.weight_decay),
+                  ("warmup_steps", args.warmup_steps)]
+        for key, now in checks:
+            if key not in blob:
+                # a missing stamp means unknown provenance — exactly when
+                # the guard matters most (consistent with the wd_mask
+                # refusal below)
+                raise ValueError(
+                    f"the checkpoint carries no {key!r} stamp, so the "
+                    f"resume guard cannot verify it matches {key}={now}; "
+                    "restart training or re-stamp the checkpoint if its "
+                    "recipe is known")
+            was = type(now)(blob[key])
+            if was != now:
+                raise ValueError(
+                    f"--resume with {key}={now} but the checkpoint was "
+                    f"trained with {key}={was}: the run would silently "
+                    "diverge (batch schedule, trunk-block layout, or "
+                    "optimizer trajectory)")
+        was_par = str(blob.get("parallel", "dp"))
+        if was_par != args.parallel:
+            raise ValueError(
+                f"--resume with --parallel {args.parallel} but the "
+                f"checkpoint was trained with {was_par}: the param trees "
+                "are laid out differently (PP stacks the trunk blocks)")
+        was_mask = str(blob.get("wd_mask", "unstamped"))
+        if was_mask != "name":
+            raise ValueError(
+                f"the checkpoint's weight-decay-mask recipe is "
+                f"{was_mask!r} (current: 'name', train.decay_mask); an "
+                "unstamped checkpoint may predate the name-based mask, and "
+                "resuming across a mask change silently alters which "
+                "params decay — restart training or re-stamp the "
+                "checkpoint if its recipe is known")
+        state = load_train_state(model, blob["train"])
+        # the cursor is DERIVED from the checkpointed step — one atomic
+        # artifact, nothing to desynchronize on a crash mid-save
+        start_step = int(state.step)
+        loader.load_state_dict({
+            "epoch": start_step // loader.steps_per_epoch,
+            "step": start_step % loader.steps_per_epoch,
+            "seed": args.seed})
+        logging.info("resumed at train step %d (loader %s)", start_step,
+                     loader.state_dict())
+
+    snapshotter = checkpoint.AsyncSnapshotter() if args.ckpt_async else None
+    last_saved_step = [start_step - 1]
+
+    def save(at_step: int):
+        if at_step == last_saved_step[0]:
+            return   # final save already landed on a --ckpt-every boundary
+        last_saved_step[0] = at_step
+        blob = {"train": state, "data_seed": args.seed,
+                "global_batch": args.batch_size, "parallel": args.parallel,
+                "depth": args.depth, "wd_mask": "name",
+                "corpus_size": len(corpus),
+                "lr": args.lr, "weight_decay": args.weight_decay,
+                "warmup_steps": args.warmup_steps}
+        if snapshotter is not None:
+            # at most one in-flight snapshot: wait for the previous first
+            # so writes land in order and a slow disk backpressures
+            # cleanly; a failed write raises here or at the final wait
+            snapshotter.wait()
+            snapshotter.save(ckpt_path, blob)
+        else:
+            checkpoint.save_state(ckpt_path, blob)
+
+    t0 = time.perf_counter()
+    try:
+        for step in range(start_step, args.steps):
+            batch = global_batch(next(loader), device)
+            state, metrics = train_step(model, tx_opt, state, batch["pc"],
+                                        batch["text_embed"],
+                                        batch["image_embed"], batch["mask"])
+            if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
+                loss = float(metrics["loss"])
+                dt = time.perf_counter() - t0
+                logging.info("step %d/%d  loss %.4f  scale %.2f  "
+                             "%.1f samples/s", step + 1, args.steps, loss,
+                             float(torch.exp(state.logit_scale)),
+                             args.batch_size * (step + 1 - start_step) / dt)
+            if (step + 1) % args.ckpt_every == 0:
+                save(step + 1)
+        save(args.steps)
+    finally:
+        if snapshotter is not None:
+            snapshotter.close()  # drain the in-flight write, surface failure
+        loader.close()
+    logging.info("done: %d steps, checkpoint at %s.npz", args.steps,
+                 ckpt_path)
+    return state
+
+
+def cli() -> int:
+    """Console-script entry: exit 0 on success — main()'s return value is
+    in-process API, not an exit code."""
+    main()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(cli())

@@ -68,6 +68,17 @@ def load_data(data_path: str, corruption: str, severity: int):
             np.load(label_file, allow_pickle=True))
 
 
+def open_native(data_path: str, corruption: str, severity: int,
+                prefetch: int = 8):
+    """`load_data`'s pair as mmap'd readers (`native.loader.NativeNpy`,
+    the C++ reader with a background prefetch ring; numpy where it is
+    out).  Returns (data reader, label reader)."""
+    from uni_adapter_torch.native.loader import NativeNpy
+
+    data_file, label_file = _npy_pair_paths(data_path, corruption, severity)
+    return (NativeNpy(data_file, prefetch=prefetch), NativeNpy(label_file))
+
+
 @dataclass
 class TTADataset:
     """One corruption stream: (pc, label, class_name, rgb) per item."""

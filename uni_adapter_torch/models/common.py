@@ -365,8 +365,11 @@ class ViTBlock(nn.Module):
 def finish_model(model: nn.Module, device: torch.device | str,
                  dtype: torch.dtype, seed: int, state_dict: Optional[dict],
                  init_bare: Callable[[torch.Generator], None],
-                 keep_fp32: tuple = ()) -> nn.Module:
-    """The weights of a freshly built backbone, then frozen in eval mode.
+                 keep_fp32: tuple = (), trainable: bool = False) -> nn.Module:
+    """The weights of a freshly built backbone, then frozen in eval mode
+    (with `trainable`, every parameter requires grad instead: the trainer's
+    parameters are the whole flax `params` tree, BatchNorm's mean and var
+    included, as optax updates them).
 
     The weights are `state_dict` (e.g. from `weights.from_jax_params`) or,
     without one, random from `seed`: every Dense kernel lecun-normal as
@@ -389,4 +392,4 @@ def finish_model(model: nn.Module, device: torch.device | str,
         if (isinstance(m, Dense) and not isinstance(m, QuantDense)
                 and not any(m is k for k in keep_fp32)):
             m.to(dtype)
-    return model.eval().requires_grad_(False)
+    return model.eval().requires_grad_(trainable)

@@ -134,8 +134,11 @@ class Uni3D(nn.Module):
 
 def create_uni3d(cfg, device: torch.device | str,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
-                 state_dict: Optional[dict] = None) -> Uni3D:
-    """Build Uni3D from a ModelConfig on `device`, frozen and in eval mode.
+                 state_dict: Optional[dict] = None,
+                 trainable: bool = False) -> Uni3D:
+    """Build Uni3D from a ModelConfig on `device`, frozen and in eval mode
+    (with `trainable`, every parameter requiring grad: the trainer's fp32
+    model).
 
     The weights are `state_dict` or random from `seed`, as
     `common.finish_model` draws them (cls_pos standard normal); every
@@ -151,4 +154,4 @@ def create_uni3d(cfg, device: torch.device | str,
     return finish_model(
         model, device, dtype, seed, state_dict,
         lambda gen: nn.init.normal_(model.point_encoder.cls_pos,
-                                    generator=gen))
+                                    generator=gen), trainable=trainable)

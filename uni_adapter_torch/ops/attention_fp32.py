@@ -76,6 +76,7 @@ def attention_fp32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * H > 65535:
         raise ValueError(f"attention_fp32: B·H = {B * H} exceeds the grid's "
                          f"65535")
+    build.require_no_grad("attention_fp32", q, k, v)
     scale = float(scale if scale is not None else hd ** -0.5)
     out = torch.empty_like(q)
     ran_tc = ctypes.c_int(0)

@@ -77,6 +77,7 @@ def attention_heads_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * H > 65535:
         raise ValueError(f"attention_heads: B·H = {B * H} exceeds the grid's "
                          f"65535")
+    build.require_no_grad("attention_heads", q, k, v)
     scale = float(scale if scale is not None else hd ** -0.5)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uni_adapter_torch"
 SOURCES = ("fps", "knn", "eva_attn_block", "ballquery", "eva_attention",
-           "attention_heads", "knn_gather", "fps_grid", "attention_fp32")
+           "attention_heads", "knn_gather", "fps_grid", "attention_fp32",
+           "eva_attn_block_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -146,6 +147,23 @@ def require_cuda(t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{what}: expected {ndim} dims, got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record an op on `tensors`: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def require_no_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel with no backward is asked for a value that
+    autograd would differentiate: its result would carry no gradient, and
+    the caller's backward would drop that part of it without a word."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input requires "
+            "grad with grad mode on; run it under torch.no_grad() or on "
+            "tensors that do not require grad")
 
 
 def kernel_for(what: str, kernels: dict, dtype: torch.dtype):

@@ -112,6 +112,8 @@ def _launch(entry: str, dtype: torch.dtype, q, k, v, ln, num_heads: int,
             if p.shape[0] != HEAD_DIM or p.device != q.device:
                 raise ValueError(f"eva_attention {name}: expected "
                                  f"({HEAD_DIM},) on {q.device}")
+    build.require_no_grad("eva_attention", q, k, v,
+                          *(p for p in ln if p is not None))
     scale = float(scale if scale is not None else HEAD_DIM ** -0.5)
     out = torch.empty(B, N, D, dtype=dtype, device=q.device)
     ptrs = [None if p is None else p.data_ptr() for p in ln]

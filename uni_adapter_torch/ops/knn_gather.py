@@ -78,6 +78,7 @@ def knn_gather_cuda(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
     if not 0 < k <= min(N, MAX_K) or C > MAX_CHANNELS:
         raise ValueError(f"knn_gather: unsupported k={k}, C={C} for N={N} "
                          f"(needs k ≤ min(N, {MAX_K}), C ≤ {MAX_CHANNELS})")
+    build.require_no_grad("knn_gather", values)   # indices need no gradient
     idx = torch.empty(B, S, k, dtype=torch.int64, device=xyz.device)
     gathered = torch.empty(B, S, k, C, dtype=torch.float32, device=xyz.device)
     with torch.cuda.device(xyz.device):

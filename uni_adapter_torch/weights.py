@@ -4,7 +4,8 @@ The port names its submodules after the flax tree, so the mapping is a
 flatten with these renames:
 
   * `blocks_{i}` (flax list naming) → `blocks.{i}`, except the CLIP text
-    block's LayerNorms `ln_1`/`ln_2`, whose digit is part of the name;
+    block's LayerNorms `ln_1`/`ln_2` and the dVAE's `dgcnn_1`/`dgcnn_2`,
+    whose digit is part of the name;
   * Dense `kernel` (in, out) → `weight` (out, in);
   * LayerNorm `scale` → `weight` (`bias` stays);
   * BatchNormInference `mean`/`var`/`scale`/`bias` and the bare
@@ -25,7 +26,7 @@ import torch
 
 _BN_KEYS = {"mean", "var", "scale", "bias"}
 #: Module names that end in `_{digit}` without being list elements.
-_NOT_LISTS = {"ln_1", "ln_2"}
+_NOT_LISTS = {"ln_1", "ln_2", "dgcnn_1", "dgcnn_2"}
 
 
 def _module_name(part: str) -> str:
