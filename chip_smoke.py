@@ -200,6 +200,33 @@ exits non-zero before the result line:
      then the dVAE at Point-BERT's widths: one step's loss and gradients
      card against CPU on the same weights and Gumbel draw, three train
      steps traced (FPS and kNN).
+ 11. data parallelism over torch.distributed and the cross-class
+     analysis (`run_dist_streams`, `run_dp_pretraining`,
+     `run_cross_class`): Uni3D-L bf16 MODE-DOTA with residuals on a
+     16-cloud stream, captured, at world 1 over NCCL (this process):
+     `--dist-mode sharded` and `psum` (the step captured in segments, the
+     all-reduces between their replays, traced) bitwise equal to the
+     plain scan; at world 2, two spawned processes sharing the card over
+     gloo (`parallel/bootstrap.py` picks it): sharded bitwise equal to
+     the two shards run here one by one (seeds 42, 43), psum (noise 0,
+     residuals off) in fp32 within tests/test_parallel.py's tolerances of
+     one process at batch 2 with acc@1 equal (targets that the reference
+     meets on half the clouds) and both ranks bitwise equal, the 16-stream
+     sweep's ranks bitwise equal to their 8 streams run here and its
+     per-stream acc@1 equal to the 16 run together; with two cards or
+     more the same again over NCCL; ms a step of each mode beside the
+     plain step, the all-reduces' share of the psum run from a trace, the
+     launches of FPS, kNN and the block a rank.  The data-parallel train
+     step: at world 1 over NCCL bitwise equal to `train_step` (Uni3D-L
+     fp32, full depth, batch 16, 2 steps, traced); at world 2 over gloo
+     (depth 2, global batch 16) the loss and gradient norm within 1e-5
+     and 99% of the parameters within 1e-2·lr of one process's;
+     `python -m torch.distributed.run --nproc-per-node 2 -m
+     uni_adapter_torch.cli.pretrain` stopped with rank 0's checkpoint and
+     resumed on both ranks.  The cross-class CLI on its synthetic class
+     set (Uni3D-L bf16, full depth, traced: FPS, kNN, the (B, H, N, hd)
+     attention), its centroids and distances card against CPU, its exact
+     t-SNE card against CPU from the same init.
 
 Phase 3 also holds the backward of the fp32 block's attention side
 (`csrc/eva_attn_block_bwd.cu` through `EvaAttnBlockFunction`) at Uni3D-L's
@@ -213,7 +240,14 @@ shapes and three general head dims, and phase 4 runs each backbone with
 plain forward, and the maps against the CPU's.
 
 The line before the last is a JSON object of per-kernel numbers; the last
-is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
+is `{"ok": true, "device": {...}}`.
+
+    python3 chip_smoke.py --dist-only
+
+builds the kernels and runs phase 11's distributed part alone
+(`run_dist_streams`, `run_dp_pretraining`): on a machine with two cards
+or more that is where the world of two runs over NCCL, a card a rank,
+besides gloo.  It prints the two phases' summary and the same last line.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
 """
@@ -3586,8 +3620,8 @@ def variant_errors(flag: str, got: dict, want: dict) -> tuple:
     return errs, same
 
 
-def dota_fit_rows_unweighted_delta(mu, c, sigma, x, y):
-    """A planted fault: `adapt/dota.fit_rows` with Δ summed without the
+def dota_fit_stats_unweighted_delta(mu, x, y):
+    """A planted fault: `adapt/dota.fit_stats` with Δ summed without the
     soft labels."""
     import torch
 
@@ -3595,12 +3629,7 @@ def dota_fit_rows_unweighted_delta(mu, c, sigma, x, y):
     sum_w = y.sum(dim=-2)
     weighted_x = torch.matmul(y.transpose(-1, -2), x)
     xm = (x[..., :, None, :] - mu[..., None, :, :]).movedim(-3, -2)
-    delta = torch.matmul(xm.transpose(-1, -2), xm)
-    new_mu = (weighted_x + c[..., None] * mu) / (sum_w[..., None]
-                                                 + c[..., None])
-    new_sigma = ((c[..., None, None] * sigma + delta)
-                 / (c + sum_w)[..., None, None])
-    return new_mu, c + sum_w, new_sigma, sum_w
+    return sum_w, weighted_x, torch.matmul(xm.transpose(-1, -2), xm)
 
 
 def gmm_fit_new_mu(fit):
@@ -3676,8 +3705,8 @@ def check_variants_card_vs_cpu(torch) -> dict:
 
     faults = {"use_dota": {"TF32 products": tf32,
                            "Δ without the soft labels": patched(
-                               dota, "fit_rows",
-                               lambda _: dota_fit_rows_unweighted_delta)},
+                               dota, "fit_stats",
+                               lambda _: dota_fit_stats_unweighted_delta)},
               "use_gmm_dota": {"covariance about the new means": patched(
                   gmm, "fit", gmm_fit_new_mu)},
               "use_adaptive_dota": {"the split check skipped": patched(
@@ -5175,9 +5204,795 @@ def run_dvae(torch) -> tuple:
                                          "knn": launches["knn"]}}
 
 
-def main() -> None:
+# ---- phase 11: data parallelism and the cross-class analysis -------------
+
+#: The distributed streams' tolerances (tests/test_parallel.py's): under
+#: psum at world 2 against one process at batch 2, the means within rtol
+#: 1e-3 and the soft counts within rtol 1e-4 (atol 1e-5 both).
+PSUM_MU_RTOL, PSUM_COUNT_RTOL, PSUM_ATOL = 1e-3, 1e-4, 1e-5
+#: The 15-corruption sweep over two ranks: 16 streams (15 does not divide
+#: over 2), 2 clouds a stream.
+DIST_SWEEP = (16, 2)
+#: The data-parallel train step at world 2 (depth 2, global batch 16)
+#: against one process on the same batch, fp32: the loss and the
+#: gradient norm within rtol 1e-5 (the same sums in other orders, two
+#: half batches through the kernels).  The parameters after two steps
+#: (lr 0 at the first under warmup, DP_LR at the second): Adam moves a
+#: coordinate by lr·m̂/√v̂, |m̂/√v̂| ≤ 1.05 at these two steps, whatever
+#: the size of its gradient, so a coordinate whose gradient is at the
+#: level of its rounding noise (the k LayerNorm's bias has a gradient of
+#: 0 in exact arithmetic) can land anywhere within 2.1·lr of the other
+#: run's, and no bound on the largest difference can fail.  What binds:
+#: the loss, the gradient norm, the ranks bitwise equal, and 99% of the
+#: coordinates within DP_PARAM_ATOL (a gradient not averaged over the
+#: ranks moves most coordinates by a sizeable fraction of lr); the
+#: largest difference is printed (0.575·lr on an H100 80GB HBM3 at
+#: 700 W, this script's run).
+DP_LOSS_RTOL, DP_LR = 1e-5, 1e-4
+DP_PARAM_ATOL = 1e-2 * DP_LR
+#: The cross-class analysis, card against CPU: bf16 at full depth, the
+#: centroids and distances within the extraction's MAP_ATOL; the t-SNE
+#: (fp64, the same init) within 1e-6 of the embedding's scale.
+TSNE_REL = 1e-6
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface (a rendezvous address)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_inputs(torch) -> dict:
+    """The distributed phases' inputs, numpy-seeded so that every process
+    reads the same bits: a 16-cloud ModelNet40-like stream (1024 points on
+    spheres, batch 1), the DIST_SWEEP streams (the last a repeat of the
+    first, as the 15 corruptions are padded to 16), and one global batch of 16
+    10,000-point clouds with 1024-d embeddings (a third of the image rows
+    masked out)."""
+    import numpy as np
+
+    rng = np.random.default_rng(20)
+
+    def spheres(*lead, n=1024):
+        x = rng.standard_normal((*lead, n, 3)).astype(np.float32)
+        return 0.5 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    pcs = spheres(16, 1)
+    C, T = DIST_SWEEP
+    sweep = spheres(C, T, 1)
+    sweep_targets = rng.integers(0, 40, (C, T, 1))
+    # 15 corruption streams and one repeated
+    sweep[C - 1], sweep_targets[C - 1] = sweep[0], sweep_targets[0]
+    cloud = spheres(16, n=10000) * rng.uniform(0.6, 1.4, (16, 1, 3)).astype(
+        np.float32)
+    batch = {"pc": np.concatenate([cloud, np.broadcast_to(
+                 rng.uniform(0, 1, (16, 1, 3)), cloud.shape)], -1)
+                 .astype(np.float32),
+             "text_embed": rng.standard_normal((16, 1024)).astype(np.float32),
+             "image_embed": rng.standard_normal((16, 1024))
+             .astype(np.float32),
+             "mask": (np.arange(16) % 3 != 2).astype(np.float32)}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return {"stream": (t(pcs), torch.ones(16, 1, 1024, 3),
+                       t(rng.integers(0, 40, (16, 1)))),
+            "sweep": (t(sweep), torch.ones(C, T, 1, 1024, 3),
+                      t(sweep_targets)),
+            "batch": {k: t(v) for k, v in batch.items()}}
+
+
+def half_met(torch, logits):
+    """Targets that a run's predictions meet on every other cloud: the
+    argmax of its final logits (..., K) on the even clouds, the next class
+    on the odd ones, so that its acc@1 is 50% and a run that predicts
+    otherwise shows it."""
+    pred = logits.argmax(-1).cpu()
+    odd = torch.arange(pred.numel()).reshape(pred.shape) % 2 == 1
+    return torch.where(odd, (pred + 1) % logits.shape[-1], pred)
+
+
+def engine_tensors(state) -> dict:
+    """An EngineState's tensors by name, on the CPU."""
+    out = {f"method.{n}": getattr(state.method_state, n).cpu()
+           for n in state.method_state._fields}
+    if state.res_state is not None:
+        out.update({f"res.{n}": getattr(state.res_state, n).cpu()
+                    for n in state.res_state._fields})
+    return out
+
+
+def stream_cfg(noise: bool = True, dtype: str = "bfloat16"):
+    """Uni3D-L at published width and depth in `dtype`, MODE-DOTA with
+    residual learning (the defaults); without noise: noise_std 0 and
+    residual learning off, the configuration of tests/test_parallel.py's
+    psum check (the residuals' Adam steps turn the last-bit differences
+    of two summation orders into steps of ±lr, which the PSUM_*
+    tolerances do not cover)."""
+    from uni_adapter_torch.config import Config, DotaConfig, ModelConfig
+
+    return Config(model=ModelConfig(compute_dtype=dtype),
+                  dota=DotaConfig() if noise else DotaConfig(
+                      noise_std=0.0, res_learning=False))
+
+
+def allreduce_share(torch, run) -> dict:
+    """run() under a CPU and CUDA trace: the wall ms of the run, the host
+    ms inside the outermost all-reduce events (gloo's or NCCL's), and
+    the device ms of NCCL's kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    def is_ar(name: str) -> bool:
+        return "allreduce" in name.lower() or "all_reduce" in name.lower()
+
+    cuda = torch.autograd.DeviceType.CUDA
+    device = sum(ev.duration_ns() / 1e6
+                 for ev in prof.profiler.kineto_results.events()
+                 if ev.device_type() == cuda and "nccl" in ev.name().lower())
+    host = 0.0
+    for ev in prof.events():
+        if ev.device_type == cuda or not is_ar(ev.name):
+            continue
+        parent = ev.cpu_parent
+        while parent is not None and not is_ar(parent.name):
+            parent = parent.cpu_parent
+        if parent is None:
+            host += ev.cpu_time_total / 1e3
+    return {"wall_ms": wall, "allreduce_host_ms": host,
+            "allreduce_share": host / wall, "nccl_device_ms": device}
+
+
+def grad_norm_recorder(train) -> tuple:
+    """Wrap `train.apply_grads` so that each call records the global norm
+    of the gradients it applies; returns (norms, restore)."""
     import torch
 
+    norms, apply = [], train.apply_grads
+
+    def recorded(state, tx, grads, decay):
+        norms.append(float(torch.sqrt(sum(torch.sum(g * g)
+                                          for g in grads.values()))))
+        return apply(state, tx, grads, decay)
+
+    train.apply_grads = recorded
+    return norms, lambda: setattr(train, "apply_grads", apply)
+
+
+def dp_depth2(torch, device, batch, rows=None, world=None) -> dict:
+    """Two steps of Uni3D (width 1024, depth 2, fp32, seed 0) on `batch`:
+    `train_step` in one process, or `make_dp_train_step` over `world` on
+    this rank's `rows`.  Returns losses, gradient norms, ms a step and
+    the parameters (CPU)."""
+    from uni_adapter_torch import train
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.uni3d import create_uni3d
+
+    model = create_uni3d(ModelConfig(eva_depth=2, compute_dtype="float32"),
+                         device, torch.float32, seed=0, trainable=True)
+    tx = train.make_optimizer(lr=DP_LR, total_steps=4, warmup_steps=1)
+    state = train.init_train_state(model, tx)
+    b = {k: v[rows if rows is not None else slice(None)].to(device)
+         for k, v in batch.items()}
+    args = (b["pc"], b["text_embed"], b["image_embed"], b["mask"])
+    if world is None:
+        step = lambda st: train.train_step(model, tx, st, *args)  # noqa: E731
+    else:
+        dp = train.make_dp_train_step(model, tx, world)
+        step = lambda st: dp(st, *args)  # noqa: E731
+    norms, restore = grad_norm_recorder(train)
+    losses, ms = [], []
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+    finally:
+        restore()
+    return {"losses": losses, "grad_norms": norms, "ms": ms,
+            "params": {n: p.detach().cpu() for n, p in state.params.items()},
+            "logit_scale": float(state.logit_scale)}
+
+
+def dist_rank(rank: int, world: int, tmp: str, mode: str, port: int) -> None:
+    """One rank of the world-2 phases, started by `run_dist_world`: joins
+    the group through `parallel/bootstrap.py` (mode 'gloo': every rank
+    sees card 0 alone, so the ranks share it over gloo; 'nccl': a card a
+    rank), runs the three stream modes, the sweep and the DP train step,
+    and writes its results to tmp/rank{rank}_{mode}.pt."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if mode == "gloo":
+        os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.cli.tta import set_numerics
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.parallel import mesh as pmesh
+    from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+
+    boot = init_distributed_device("cuda")
+    set_numerics()
+    try:
+        dev, world_ = boot["device"], pmesh.make_mesh()
+        inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+        out = {"backend": boot["backend"], "device": str(dev)}
+        text = load_precomputed("large", "modelnet").to(dev)
+        cfg, cfg32 = stream_cfg(), stream_cfg(False, "float32")
+        model, _, _ = build_backbone("uni3d", cfg.model, dev, seed=0)
+        model32, _, _ = build_backbone("uni3d", cfg32.model, dev, seed=0)
+        for mode_name, run, c, m in (
+                ("sharded", pmesh.run_stream_sharded, cfg, model),
+                ("psum", pmesh.run_stream_psum, stream_cfg(False), model),
+                ("psum_fp32", pmesh.run_stream_psum, cfg32, model32)):
+            counters = zeroed_counters()
+            scan_fn = engine.make_scan_fn(
+                c, m, axis_name=None if mode_name == "sharded"
+                else world_.group)
+            state, summary = run(c, m, text, *inputs["stream"], seed=42,
+                                 scan_fn=scan_fn)
+            out[mode_name] = {
+                "state": engine_tensors(state), "summary": summary,
+                "step_ms": list(scan_fn.step_ms),
+                "launches": {k: counters[k].launches for k in
+                             ("fps", "knn", "eva_attn_block")}}
+            if mode_name == "psum":
+                out["psum"]["trace"] = allreduce_share(torch, lambda: run(
+                    c, model, text, *inputs["stream"], seed=42,
+                    scan_fn=scan_fn))
+        scan_fn = engine.make_scan_fn(cfg, model)
+        state, summary = pmesh.run_streams_sharded(
+            cfg, model, text, *inputs["sweep"], seed=42, scan_fn=scan_fn)
+        out["streams"] = {"state": engine_tensors(state), "summary": summary,
+                          "step_ms": list(scan_fn.step_ms)}
+        del model, model32
+        torch.cuda.empty_cache()
+        half = 16 // world
+        out["dp"] = dp_depth2(torch, dev, inputs["batch"],
+                              slice(rank * half, (rank + 1) * half), world_)
+        torch.save(out, Path(tmp) / f"rank{rank}_{mode}.pt")
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def run_dist_world(tmp: Path, mode: str) -> list:
+    """The world-2 phases on two spawned processes (`dist_rank`); returns
+    each rank's results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    port = free_port()
+    t0 = time.perf_counter()
+    mp.start_processes(dist_rank, args=(2, str(tmp), mode, port), nprocs=2,
+                       join=True, start_method="spawn")
+    print(f"dist world 2 ({mode}): both ranks done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(tmp / f"rank{r}_{mode}.pt", weights_only=False)
+            for r in range(2)]
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def check_psum_close(what: str, got: dict, want: dict) -> None:
+    """Means and soft counts of a psum run against one process at the
+    global batch, PSUM_* tolerances."""
+    import torch
+
+    for name, rtol in (("method.mu", PSUM_MU_RTOL),
+                       ("method.c", PSUM_COUNT_RTOL)):
+        g, w = got[name].float(), want[name].float()
+        if not torch.allclose(g, w, rtol=rtol, atol=PSUM_ATOL):
+            fail(f"{what}: {name} max |Δ| {(g - w).abs().max().item():.3g} "
+                 f"outside rtol {rtol}, atol {PSUM_ATOL}")
+
+
+def run_dist_streams(tmp: Path, card: str, inputs: dict) -> tuple:
+    """Phase 11a: the stream modes over torch.distributed, Uni3D-L bf16,
+    MODE-DOTA with residuals, 16 clouds, captured.
+
+    (a) world 1 over NCCL (this process): `run_stream_sharded` and
+    `run_stream_psum` (the step in segments with the all-reduces between
+    their replays) bitwise equal to `run_stream_scan`; ms a step of each;
+    the psum run traced for its launches and for its all-reduces' share.
+    (b) world 2, two processes sharing the card over gloo: 'sharded'
+    bitwise equal to the two shards run one by one here (seeds 42, 43);
+    'psum' (noise 0, residuals off) in fp32 within PSUM_* of one process
+    at batch 2 with acc@1 equal (in bf16 its distance and acc@1 printed:
+    cuBLAS's bf16 GEMMs are not batch-invariant), both ranks' states
+    bitwise equal; `run_streams_sharded` on the DIST_SWEEP streams: every
+    stream's acc@1 equal to `run_streams_scan`'s and each rank's states to
+    its streams'.  The targets are met on half the clouds (`half_met`),
+    so no acc@1 compared is 0 by chance.  (c) with two cards or more,
+    (b) again over NCCL; with one, a line says so.  The world-2 ranks
+    also take two DP train steps (`dp_depth2`), which `run_dp_pretraining`
+    checks.  Returns (the world-1 psum run's launches, summary, {mode:
+    each rank's DP results})."""
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    text = load_precomputed("large", "modelnet").cuda()
+    cfg, cfg32 = stream_cfg(), stream_cfg(False, "float32")
+    model, _, _ = build_backbone("uni3d", cfg.model, "cuda", seed=0)
+    model32, _, _ = build_backbone("uni3d", cfg32.model, "cuda", seed=0)
+    ms = {}
+
+    # the targets, met on half the clouds by the fp32 run at batch 2
+    # (psum's reference) and by the 16 streams run together, so that
+    # every acc@1 comparison below can fail
+    batch2_runs = {dtype: (c, m, engine.make_scan_fn(c, m)) for dtype, c, m
+                   in (("bfloat16", stream_cfg(False), model),
+                       ("float32", cfg32, model32))}
+    in_pairs = lambda s: tuple(  # noqa: E731
+        a.reshape(8, 2, *a.shape[2:]) for a in s)
+    _, outs = engine.run_stream_scan(cfg32, model32, text,
+                                     *in_pairs(inputs["stream"]), seed=42,
+                                     scan_fn=batch2_runs["float32"][2])
+    inputs["stream"] = (*inputs["stream"][:2],
+                        half_met(torch, outs.final_logits).reshape(16, 1))
+    sweep_fn = engine.make_scan_fn(cfg, model)
+    _, outs = engine.run_streams_scan(cfg, model, text, *inputs["sweep"],
+                                      seed=42, scan_fn=sweep_fn)
+    inputs["sweep"] = (*inputs["sweep"][:2], half_met(
+        torch, outs.final_logits).transpose(0, 1).contiguous())
+    torch.save(inputs, tmp / "inputs.pt")
+    stream = inputs["stream"]
+
+    plain_fn = engine.make_scan_fn(cfg, model)
+    state_p, outs_p = engine.run_stream_scan(cfg, model, text, *stream,
+                                             seed=42, scan_fn=plain_fn)
+    want = engine.summarize(outs_p, 16)
+    ms["plain"] = statistics.median(plain_fn.step_ms[1:])
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        world = pmesh.make_mesh()
+        for name, run in (("sharded", pmesh.run_stream_sharded),
+                          ("psum", pmesh.run_stream_psum)):
+            scan_fn = engine.make_scan_fn(
+                cfg, model, axis_name=world.group if name == "psum" else None)
+            go = lambda: run(cfg, model, text, *stream, seed=42,  # noqa: E731
+                             scan_fn=scan_fn)
+            if name == "psum":
+                (state, summary), launches, wrapper = traced_run(
+                    torch, "the psum stream (world 1, NCCL)", go,
+                    ("fps", "knn", "eva_attn_block"))
+                trace1 = allreduce_share(torch, go)
+            else:
+                state, summary = go()
+            ms[f"{name}_world1"] = statistics.median(scan_fn.step_ms[1:])
+            same = states_equal(engine_tensors(state),
+                                engine_tensors(state_p))
+            accs = [summary[k] for k in ("acc1", "acc3", "acc5")]
+            print(f"dist {name} world 1 (NCCL): final state bitwise equal to "
+                  f"run_stream_scan's: {same}; acc@1/3/5 {accs} (scan "
+                  f"{[want[k] for k in ('acc1', 'acc3', 'acc5')]})")
+            if not same or accs != [want[k] for k in ("acc1", "acc3",
+                                                      "acc5")]:
+                fail(f"dist {name} at world 1 differs from run_stream_scan")
+        print(f"dist psum world 1 launches (traced): {launches}; wrappers "
+              f"{ {k: wrapper[k] for k in ('fps', 'knn', 'eva_attn_block')} }")
+        print(f"dist psum world 1: all-reduces {trace1['allreduce_host_ms']:.2f}"
+              f" ms of {trace1['wall_ms']:.1f} ms host time over 16 steps "
+              f"({trace1['allreduce_share']:.2%}); NCCL kernels "
+              f"{trace1['nccl_device_ms']:.3f} device ms")
+    finally:
+        dist.destroy_process_group()
+
+    # the references of world 2: the shards one by one, batch 2, the sweep
+    shards, correct = [], 0
+    for r in range(2):
+        st, outs = engine.run_stream_scan(
+            cfg, model, text, *(a[8 * r:8 * r + 8] for a in stream),
+            seed=42 + r, scan_fn=plain_fn)
+        shards.append(engine_tensors(st))
+        correct = correct + outs.correct.sum(0)
+    shards_acc1 = 100.0 * correct.tolist()[0] / 16
+    batch2, batch2_acc = {}, {}
+    for dtype, (c0, m0, b2_fn) in batch2_runs.items():
+        st, outs = engine.run_stream_scan(c0, m0, text, *in_pairs(stream),
+                                          seed=42, scan_fn=b2_fn)
+        batch2[dtype] = engine_tensors(st)
+        batch2_acc[dtype] = engine.summarize(outs, 16)["acc1"]
+        ms[f"plain_batch2_{dtype}"] = statistics.median(b2_fn.step_ms[1:])
+    del batch2_runs, model32, m0, b2_fn
+    # the sweep: each rank's 8 streams as one stack (the rank's shapes),
+    # and the 16 together
+    C, T = DIST_SWEEP
+    per = C // 2
+    sweep_parts = [engine_tensors(engine.run_streams_scan(
+        cfg, model, text, *(a[r * per:(r + 1) * per] for a in
+                            inputs["sweep"]), seed=42 + r * per,
+        scan_fn=sweep_fn)[0]) for r in range(2)]
+    st, outs = engine.run_streams_scan(cfg, model, text, *inputs["sweep"],
+                                       seed=42, scan_fn=sweep_fn)
+    sweep_state = engine_tensors(st)
+    sweep_acc = [s["acc1"] for s in engine.summarize_streams(outs, T)]
+    ms["plain_sweep16"] = statistics.median(sweep_fn.step_ms[1:])
+    runs = {"gloo": run_dist_world(tmp, "gloo")}
+    if torch.cuda.device_count() >= 2:
+        runs["nccl"] = run_dist_world(tmp, "nccl")
+    else:
+        print("dist world 2 over NCCL: not run, this machine has one card "
+              "(NCCL needs a card a rank; the two ranks shared it over gloo)")
+    summary = {"ms_a_step": ms, "trace_world1": trace1}
+    for mode, ranks in runs.items():
+        backends = {r["backend"] for r in ranks}
+        if backends != {mode}:
+            fail(f"dist world 2 ({mode}): the bootstrap chose {backends}")
+        for r, res in enumerate(ranks):
+            if not states_equal(res["sharded"]["state"], shards[r]):
+                fail(f"dist sharded world 2 ({mode}), rank {r}: the final "
+                     f"state differs from shard {r} run alone, max |Δ| "
+                     f"{max_abs_diff(res['sharded']['state'], shards[r]):.3g}")
+        for r, res in enumerate(ranks):
+            if res["sharded"]["summary"]["acc1"] != shards_acc1:
+                fail(f"dist sharded world 2 ({mode}), rank {r}: acc@1 "
+                     f"{res['sharded']['summary']['acc1']} against the "
+                     f"shards' {shards_acc1}")
+        for name in ("psum", "psum_fp32"):
+            if not states_equal(ranks[0][name]["state"],
+                                ranks[1][name]["state"]):
+                fail(f"dist {name} world 2 ({mode}): the ranks' states "
+                     f"differ")
+        check_psum_close(f"dist psum world 2 ({mode}), fp32",
+                         ranks[0]["psum_fp32"]["state"], batch2["float32"])
+        psum_acc = {"bfloat16": ranks[0]["psum"]["summary"]["acc1"],
+                    "float32": ranks[0]["psum_fp32"]["summary"]["acc1"]}
+        if psum_acc["float32"] != batch2_acc["float32"]:
+            fail(f"dist psum_fp32 world 2 ({mode}): acc@1 "
+                 f"{psum_acc['float32']} against batch 2's "
+                 f"{batch2_acc['float32']}")
+        psum_diff = {dtype: max_abs_diff(
+            {k: ranks[0][name]["state"][k] for k in ("method.mu",
+                                                     "method.c")},
+            {k: batch2[dtype][k] for k in ("method.mu", "method.c")})
+            for name, dtype in (("psum", "bfloat16"),
+                                ("psum_fp32", "float32"))}
+        sweep_same, sweep_diff = [], 0.0
+        for r, res in enumerate(ranks):
+            if res["streams"]["summary"]["acc1_per_stream"] != sweep_acc:
+                fail(f"dist streams world 2 ({mode}), rank {r}: acc@1 per "
+                     f"stream {res['streams']['summary']['acc1_per_stream']} "
+                     f"against run_streams_scan's {sweep_acc}")
+            if not states_equal(res["streams"]["state"], sweep_parts[r]):
+                fail(f"dist streams world 2 ({mode}), rank {r}: its streams' "
+                     f"states differ from the same 8 streams run here")
+            mine = {k: v[r * per:(r + 1) * per] for k, v in
+                    sweep_state.items() if v.dim() > 0 and v.shape[0] == C}
+            sweep_same.append(states_equal(
+                {k: res["streams"]["state"][k] for k in mine}, mine))
+            sweep_diff = max(sweep_diff, max_abs_diff(
+                {k: res["streams"]["state"][k] for k in mine}, mine))
+        ms[f"sharded_world2_{mode}"] = statistics.median(
+            ranks[0]["sharded"]["step_ms"][1:])
+        ms[f"psum_world2_{mode}"] = statistics.median(
+            ranks[0]["psum"]["step_ms"][1:])
+        ms[f"sweep16_world2_{mode}"] = statistics.median(
+            ranks[0]["streams"]["step_ms"][1:])
+        tr = ranks[0]["psum"]["trace"]
+        summary[f"trace_world2_{mode}"] = tr
+        print(f"dist world 2 ({mode}): sharded bitwise equal to the shards "
+              f"run alone (seeds 42, 43) on both ranks; psum (noise 0, "
+              f"residuals off), fp32: within rtol {PSUM_MU_RTOL} (means) / "
+              f"{PSUM_COUNT_RTOL} (counts) of one process at batch 2, max "
+              f"|Δ| {psum_diff['float32']:.3g}; bf16: max |Δ| "
+              f"{psum_diff['bfloat16']:.3g} (not held: cuBLAS's bf16 GEMMs "
+              f"round a batch of 2 and of 4 clouds differently); fp32 acc@1 "
+              f"equal (psum {psum_acc}, batch 2 {batch2_acc}), ranks bitwise"
+              f" equal; streams: each rank's "
+              f"8 streams bitwise equal to them run here as one stack, all 16"
+              f" streams' acc@1 equal to run_streams_scan's on the 16 (states"
+              f" bitwise {sweep_same}, max |Δ| {sweep_diff:.3g})")
+        print(f"dist world 2 ({mode}) launches a rank: "
+              + "; ".join(f"{m} {ranks[0][m]['launches']}"
+                          for m in ("sharded", "psum")))
+        print(f"dist world 2 ({mode}) psum: all-reduces "
+              f"{tr['allreduce_host_ms']:.1f} ms of {tr['wall_ms']:.1f} ms "
+              f"host time over 8 steps ({tr['allreduce_share']:.2%})")
+        summary[f"launches_world2_{mode}"] = {
+            m: ranks[0][m]["launches"] for m in ("sharded", "psum")}
+    print(f"dist ms a step ({card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()))
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"phase dist streams: {summary['seconds']:.1f} s")
+    return launches, summary, {mode: [r["dp"] for r in ranks]
+                               for mode, ranks in runs.items()}
+
+
+def run_dp_pretraining(tmp: Path, card: str, inputs: dict,
+                       dp_ranks: dict) -> tuple:
+    """Phase 11b: the data-parallel train step on the card.
+
+    (a) world 1 over NCCL: `make_dp_train_step` bitwise equal to
+    `train_step` over 2 steps, Uni3D-L fp32 at full width and depth, batch
+    16 (10,000-point clouds, a third of the image rows masked), traced for
+    its launches.  (b) world 2 sharing the card over gloo (the ranks of
+    `run_dist_streams`, depth 2, global batch 16): the loss and the
+    gradient norm within DP_LOSS_RTOL of one process on the same batch,
+    99% of the parameters after 2 steps within DP_PARAM_ATOL, the ranks
+    bitwise equal; with two cards or more the same over NCCL.  (c) a two-rank
+    `python -m torch.distributed.run -m uni_adapter_torch.cli.pretrain`
+    (depth 2, 1024-point clouds) for 2 steps, then `--resume` to 4: rank 0 wrote the
+    checkpoint, both ranks resumed from it.  Returns (the world-1 DP
+    run's launches, summary)."""
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import train
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    batch = {k: v.cuda() for k, v in inputs["batch"].items()}
+    args = (batch["pc"], batch["text_embed"], batch["image_embed"],
+            batch["mask"])
+    cfg = ModelConfig(eva_depth=PRETRAIN_DEPTH, compute_dtype="float32")
+
+    def fresh():
+        model = create_uni3d(cfg, "cuda", torch.float32, seed=0,
+                             trainable=True)
+        tx = train.make_optimizer(lr=1e-4, total_steps=4, warmup_steps=1)
+        return model, tx, train.init_train_state(model, tx)
+
+    model, tx, state = fresh()
+    ms = {"train_step": []}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = train.train_step(model, tx, state, *args)
+        torch.cuda.synchronize()
+        ms["train_step"].append((time.perf_counter() - t0) * 1e3)
+    want = train.TrainState({n: p.detach().clone() for n, p in
+                             state.params.items()},
+                            state.logit_scale.clone(), state.opt_state,
+                            state.step)
+    del model, state
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        model, tx, state = fresh()
+        dp = train.make_dp_train_step(model, tx, pmesh.make_mesh())
+        holder, times = [state], []
+
+        def two_steps():
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                holder[0] = dp(holder[0], *args)[0]
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+
+        _, launches, wrapper = traced_run(
+            torch, "the DP train step (world 1, NCCL)", two_steps,
+            ("fps_grid", "knn_gather", "eva_attn_block_fp32", "attn_f32_tc",
+             "eva_attn_block_bwd"))
+        ms["dp_world1"] = times
+        assert_states_equal("DP train step at world 1 (NCCL) against "
+                            "train_step, 2 steps, Uni3D-L fp32 depth 24",
+                            holder[0], want)
+        got = {k: wrapper[k] for k in PRETRAIN_PER_STEP}
+        if got != {k: 2 * n for k, n in PRETRAIN_PER_STEP.items()}:
+            fail(f"DP train step launches {got}, expected twice "
+                 f"{PRETRAIN_PER_STEP}")
+        print(f"DP train step world 1 launches (traced): "
+              f"{ {k: launches[k] for k in PRETRAIN_PER_STEP} }; wrappers "
+              f"{got}")
+    finally:
+        dist.destroy_process_group()
+    del model, holder, want
+    torch.cuda.empty_cache()
+
+    ref = dp_depth2(torch, "cuda", inputs["batch"])
+    ms["train_step_depth2"] = ref["ms"]
+    summary = {"ms": ms}
+    for mode, ranks in dp_ranks.items():
+        for r, res in enumerate(ranks):
+            for key in ("losses", "grad_norms"):
+                for g, w in zip(res[key], ref[key]):
+                    if abs(g - w) > DP_LOSS_RTOL * abs(w):
+                        fail(f"DP world 2 ({mode}), rank {r}: {key} {res[key]}"
+                             f" against one process's {ref[key]}")
+            for name, p in res["params"].items():
+                if not torch.equal(p, ranks[0]["params"][name]):
+                    fail(f"DP world 2 ({mode}): the ranks' {name} differ")
+        d = torch.cat([(p - ref["params"][n]).abs().flatten()
+                       for n, p in ranks[0]["params"].items()])
+        worst, above = float(d.max()), float((d > DP_PARAM_ATOL)
+                                             .float().mean())
+        tiny = float((d > 1e-4 * DP_LR).float().mean())
+        print(f"DP world 2 ({mode}, depth 2, global batch 16): losses "
+              f"{ranks[0]['losses']} (one process {ref['losses']}), gradient "
+              f"norms {ranks[0]['grad_norms']} ({ref['grad_norms']}); "
+              f"parameters after 2 steps ({d.numel()} coordinates): max |Δ| "
+              f"{worst:.3g} ({worst / DP_LR:.3g}·lr), {above:.3%} above "
+              f"{DP_PARAM_ATOL:.3g} (limit 1%), {tiny:.3%} above "
+              f"{1e-4 * DP_LR:.3g}; ranks bitwise equal")
+        if above > 0.01:
+            fail(f"DP world 2 ({mode}): the parameters after two steps are "
+                 f"not within the stated tolerance of one process's")
+        ms[f"dp_world2_{mode}"] = ranks[0]["ms"]
+        summary[f"world2_{mode}"] = {"losses": ranks[0]["losses"],
+                                     "grad_norms": ranks[0]["grad_norms"],
+                                     "param_max_diff": worst,
+                                     "share_above_param_atol": above}
+    summary["world1_depth2"] = {"losses": ref["losses"],
+                                "grad_norms": ref["grad_norms"]}
+
+    # (c) two ranks through the CLI, stopped and resumed
+    out = tmp / "pretrain_dp"
+    cli = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "uni_adapter_torch.cli.pretrain",
+           *[a if a != str(PRETRAIN_DEPTH) else "2" for a in PRETRAIN_ARGS],
+           *write_corpus(tmp / "corpus_dp", n_points=1024), "--out",
+           str(out)]
+    repo = Path(__file__).resolve().parent
+    runs_s = []
+    for extra in (["--steps", "2", "--ckpt-every", "2"],
+                  ["--steps", "4", "--resume"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cli + extra, cwd=repo, capture_output=True,
+                              text=True, timeout=600)
+        runs_s.append(time.perf_counter() - t0)
+        if proc.returncode != 0:
+            fail(f"the two-rank pretraining run exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log = (out / "pretrain.log").read_text()
+    losses = logged_losses(out / "pretrain.log")
+    # a card a rank takes NCCL; ranks that share one card, gloo
+    backend, where = (("nccl", "a card each") if torch.cuda.device_count()
+                      >= 2 else ("gloo", "sharing the card"))
+    if ("resumed at train step 2" not in log or f"backend {backend}" not in
+            log or len(losses) != 4 or not all(map(math.isfinite, losses))):
+        fail(f"the two-rank pretraining run: losses {losses}, log tail "
+             f"{log[-1500:]}")
+    print(f"DP pretraining CLI, 2 ranks {where} over {backend} (depth 2,"
+          f" batch 16): 2 steps + rank 0's checkpoint in {runs_s[0]:.1f} s, "
+          f"both ranks resumed to step 4 in {runs_s[1]:.1f} s; losses "
+          f"{losses}")
+    summary["cli_s"] = runs_s
+    print(f"DP ms a step ({card}): " + "; ".join(
+        f"{k} {[round(x, 1) for x in v]}" for k, v in ms.items()))
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"phase DP pretraining: {summary['seconds']:.1f} s")
+    return launches, summary
+
+
+def run_cross_class(tmp: Path, card: str) -> tuple:
+    """Phase 11c: `python -m uni_adapter_torch.cli.cross_class` on the
+    synthetic class set, Uni3D-L bf16 at full width and depth, severities
+    1 and 2 (the figures only where matplotlib imports), traced: FPS, kNN
+    and the (B, H, N, hd) attention launched, nothing else of the port's.
+    Then the clean centroids of three classes (a cloud each) and their
+    distance matrices on the card against the same model on the CPU, within
+    MAP_ATOL, and the severity-1 t-SNE on the card against its CPU run
+    from the same PCA init, within TSNE_REL of the embedding's scale.
+    Returns (launches, summary)."""
+    import numpy as np
+    import torch
+
+    from uni_adapter_torch.analysis import cross_class as X
+    from uni_adapter_torch.cli import cross_class as cli
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.utils import tsne
+
+    t_phase = time.perf_counter()
+    out = tmp / "cross_class"
+    t0 = time.perf_counter()
+    res, launches, wrapper = traced_run(
+        torch, "the cross-class analysis", lambda: cli.main(
+            ["--out", str(out), "--device", "cuda", "--severities", "1", "2",
+             "--max-per-class", "2"]), ("fps", "knn", "attention_heads"))
+    run_s = time.perf_counter() - t0
+    files = sorted(p.name for p in out.iterdir())
+    need = {"centroids_clean.npy", "centroids_s1.npy", "centroids_s2.npy",
+            "tsne_s1.npy", "tsne_s2.npy", "analysis.json", "analysis.log"}
+    if not need <= set(files):
+        fail(f"cross-class: files {files}")
+    clean = res["clean"]
+    embs = [res["severities"][s][3] for s in (1, 2)]
+    if clean.shape != (6, 512) or not np.isfinite(clean).all() or any(
+            e.shape != (6, 2, 2) or not np.isfinite(e).all() for e in embs):
+        fail(f"cross-class: centroids {clean.shape}, embeddings "
+             f"{[e.shape for e in embs]}")
+    drawn = ("figures drawn" if res["figures"] else
+             "matplotlib does not import here: figures not drawn")
+    print(f"cross-class (Uni3D-L bf16, depth 24): {len(files)} files; "
+          f"{drawn}; {run_s:.1f} s; launches (traced) "
+          f"{ {k: launches[k] for k in ('fps', 'knn', 'attention_heads')} }, "
+          f"wrappers { {k: wrapper[k] for k in ('fps', 'knn', 'attention_heads')} }")
+
+    pcs, labels = X._subsample_per_class(*cli.synthetic_class_set(), 1)
+    pcs, labels = pcs[labels < 3], labels[labels < 3]
+    cents = {}
+    for dev in ("cuda", "cpu"):
+        model, g, m = build_backbone("uni3d", ModelConfig(), dev,
+                                     seed=cli.WEIGHT_SEED)
+        an = X.CrossClassAttentionAnalyzer(
+            model, [f"class_{i}" for i in range(3)], num_group=g,
+            group_size=m)
+        t0 = time.perf_counter()
+        cents[dev] = an.class_centroids(pcs, labels)
+        print(f"cross-class clean centroids (3 clouds) on the {dev}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        del model
+    cent_err = float(np.abs(cents["cuda"] - cents["cpu"]).max())
+    dists = [X._cosine_distance_matrix(cents[d]) for d in ("cuda", "cpu")]
+    dist_err = float(np.abs(dists[0] - dists[1]).max())
+    print(f"cross-class card vs CPU: centroids max |Δ| {cent_err:.3g}, "
+          f"distances {dist_err:.3g} (tolerance {MAP_ATOL})")
+    if cent_err > MAP_ATOL or dist_err > MAP_ATOL:
+        fail("cross-class: the card's centroids or distances differ from "
+             "the CPU's")
+    joint = np.concatenate([clean, res["severities"][1][0]], 0)
+    x = torch.from_numpy(joint)
+    init = tsne.pca_init(x)
+    emb = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        r = tsne.tsne(x.to(dev), perplexity=5, init=init.to(dev))
+        emb[dev] = r["embedding"].cpu()
+        print(f"t-SNE on the {dev}: {time.perf_counter() - t0:.2f} s, "
+              f"{r['n_iter'] + 1} iterations, KL {r['kl_divergence']:.6f}")
+    scale = float(emb["cpu"].abs().max())
+    tsne_err = float((emb["cuda"] - emb["cpu"]).abs().max())
+    print(f"t-SNE card vs CPU from the same init: max |Δ| {tsne_err:.3g} of "
+          f"scale {scale:.3g} (tolerance {TSNE_REL} of the scale)")
+    if tsne_err > TSNE_REL * scale:
+        fail("cross-class: the t-SNE on the card differs from the CPU's")
+    summary = {"run_s": run_s, "centroid_err": cent_err,
+               "distance_err": dist_err, "tsne_err": tsne_err,
+               "tsne_scale": scale,
+               "seconds": time.perf_counter() - t_phase}
+    print(f"phase cross-class: {summary['seconds']:.1f} s")
+    return launches, summary
+
+
+def main() -> None:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dist-only", action="store_true",
+                    help="build the kernels and run only the distributed "
+                         "phases (the world of two over NCCL where the "
+                         "machine has two cards or more)")
+    dist_only = ap.parse_args().dist_only
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -5204,6 +6019,22 @@ def main() -> None:
     from uni_adapter_torch.cli.tta import set_numerics
 
     set_numerics()
+    if dist_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            inputs = dist_inputs(torch)
+            launches, dist_run, dp_ranks = run_dist_streams(Path(tmp), card,
+                                                            inputs)
+            dp_launches, dp_run = run_dp_pretraining(Path(tmp), card, inputs,
+                                                     dp_ranks)
+        print(f"chip_smoke --dist-only total: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"dist_streams": dist_run, "dp_pretraining": dp_run,
+                          "launches": {"dist_psum_world1": launches,
+                                       "dp_pretrain_world1": dp_launches}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = check_kernels(torch, gen)
     kernels.append(check_ballquery(torch, gen))
@@ -5273,6 +6104,12 @@ def main() -> None:
         by_path["pretrain_uni3d"], pretraining = run_pretraining(Path(tmp),
                                                                  card)
         by_path["dvae"], dvae_run = run_dvae(torch)
+        inputs = dist_inputs(torch)
+        by_path["dist_psum_world1"], dist_run, dp_ranks = run_dist_streams(
+            Path(tmp), card, inputs)
+        by_path["dp_pretrain_world1"], dp_run = run_dp_pretraining(
+            Path(tmp), card, inputs, dp_ranks)
+        by_path["cross_class"], cross_run = run_cross_class(Path(tmp), card)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -5281,7 +6118,8 @@ def main() -> None:
                       "scan_ms": scan_ms, "dota_update_ms": dota_update_ms,
                       "text_tower": text_ms, "checkpoint_load_s": load_s,
                       "serving": serving, "pretraining": pretraining,
-                      "dvae": dvae_run,
+                      "dvae": dvae_run, "dist_streams": dist_run,
+                      "dp_pretraining": dp_run, "cross_class": cross_run,
                       "uni3d_int8_ms": {"uni3d_int8": int8_ms,
                                         "uni3d": batch1_ms["uni3d"]}}))
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,7 @@
 size: its synthetic corpus bitwise the JAX CLI's, a resumed run (sync and
 `--ckpt-async`) bitwise equal to an uninterrupted one, every refusal of
 the resume guard word for word the JAX CLI's, and the paths that wait
-for ROADMAP M16 raising."""
+for ROADMAP M16 part 2 raising."""
 import os
 from pathlib import Path
 
@@ -140,10 +140,16 @@ def test_parallel_modes_wait_for_m16(tmp_path, flags):
 
 
 def test_multi_process_launch_waits_for_m16(tmp_path, monkeypatch):
+    """A multi-process launch runs `--parallel dp` (two ranks:
+    tests/test_torch_dp_train.py); under one, the pipeline and sequence
+    modes still raise, naming M16, before any process group is set up."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")
-    with pytest.raises(NotImplementedError, match="M16"):
-        pretrain.main(COMMON + ["--out", str(tmp_path)])
+    for flags in (["--parallel", "pp"], ["--parallel", "sp"],
+                  ["--pp-stages", "2"]):
+        with pytest.raises(NotImplementedError, match="M16"):
+            pretrain.main(COMMON + flags + ["--out", str(tmp_path)])
+    assert not torch.distributed.is_initialized()
 
 
 def test_cuda_without_a_gpu_raises_and_cli_returns_0(tmp_path, monkeypatch):

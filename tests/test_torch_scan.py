@@ -43,8 +43,9 @@ def fed_scan(pcfg, pmodel, noises):
     """The port's scan with its step's noise taken from `noises` in turn."""
     scan_fn = pengine.make_scan_fn(pcfg, pmodel)
     step, it = scan_fn.step, iter(noises)
-    scan_fn.step = lambda text, state, batch: step(text, state, batch,
-                                                   noise=_t(next(it)))
+    scan_fn.step = pengine.Step(
+        lambda text, state, batch, noise=None: step.parts(
+            text, state, batch, _t(next(it))))
     return scan_fn
 
 

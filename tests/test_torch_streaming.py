@@ -196,12 +196,15 @@ def test_no_image_shards_zero_mask(shards):
 
 
 def test_global_batch_moves_arrays_and_refuses_a_mesh(shards):
+    """The local batch as tensors: over a world of ranks, the rows this
+    rank's loader read, its slice of the global batch.  It takes no mesh:
+    the JAX package's `global_batch(local, mesh)` raises here."""
     port, _ = both(shards)
     local = next(StreamingLoader(port, 4, seed=0, prefetch=0))
     out = global_batch(local, torch.device("cpu"))
     assert isinstance(out["pc"], torch.Tensor) and out["step"] == 0
     np.testing.assert_array_equal(out["pc"].numpy(), local["pc"])
-    with pytest.raises(NotImplementedError, match="M16"):
+    with pytest.raises(TypeError, match="mesh"):
         global_batch(local, "cpu", mesh=object())
 
 

@@ -75,10 +75,30 @@ def test_loss_values_and_input_gradients_match_jax(masked):
                                    atol=1e-7)
 
 
-def test_loss_axis_name_waits_for_m16():
-    x = torch.ones(2, 4)
-    with pytest.raises(NotImplementedError, match="M16"):
-        uni3d_text_image_loss(x, x, x, torch.tensor(1.0), axis_name="dp")
+def test_loss_axis_name_waits_for_m16(tmp_path):
+    """`axis_name` is a process group (the gathered loss at world 2:
+    tests/test_torch_dp_train.py): in a world of one process it gives the
+    loss, metrics and gradients of the plain loss, bitwise."""
+    import torch.distributed as dist
+
+    rng = np.random.default_rng(2)
+    args = [t(rng.standard_normal((6, 16)), True) for _ in range(3)]
+    mask = t(np.array([1, 0, 1, 1, 0, 1]))
+    scale = torch.tensor(8.5)
+    want = uni3d_text_image_loss(*args, scale, mask=mask)
+    want_g = torch.autograd.grad(want["loss"], args)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        got = uni3d_text_image_loss(*args, scale, mask=mask,
+                                    axis_name=dist.group.WORLD)
+        got_g = torch.autograd.grad(got["loss"], args)
+    finally:
+        dist.destroy_process_group()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    for g, w in zip(got_g, want_g):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------- attention backward

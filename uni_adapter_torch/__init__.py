@@ -9,7 +9,11 @@ their attention maps through `python -m
 uni_adapter_torch.cli.extract_attention`; their CLIP text towers build
 anchor banks (`python -m uni_adapter_torch.cli.build_anchors`), and
 reference-layout torch checkpoints load into either (`models/loader.py`,
-with its report `python -m uni_adapter_torch.models.loader`).
+with its report `python -m uni_adapter_torch.models.loader`).  It serves
+(`cli/serve.py`), pretrains (`cli/pretrain.py`), runs data-parallel over
+torch.distributed (`parallel/`: `--dist-mode sharded|psum`, `--parallel
+dp` under `python -m torch.distributed.run`) and compares clean and
+corrupted attention across classes (`cli/cross_class.py`).
 
 Importing the package, or any module in it, builds nothing: each CUDA
 kernel is compiled by `nvcc` at its first launch (ops/build.py).

@@ -139,17 +139,11 @@ def check_and_split(state: AdaptiveState, split_threshold: float,
                                child_slot))
 
 
-def fit(state: AdaptiveState, x: torch.Tensor, gamma_class: torch.Tensor,
-        epsilon: float, split_threshold: float,
-        min_count_to_split: float = 5.0,
-        split_check_interval: int = 50) -> AdaptiveState:
-    """One masked streaming EM step, then the split check if the fit
-    counter is a multiple of `split_check_interval`.
-
-    Args:
-      x: ([S,] B, D) features; gamma_class: ([S,] B, K) class
-        probabilities.
-    """
+def fit_stats(state: AdaptiveState, x: torch.Tensor,
+              gamma_class: torch.Tensor, epsilon: float) -> tuple:
+    """The masked E-step and the batch's additive statistics (Σγ, Σγx,
+    Σγx², the class sums): what a data-parallel step sums over its ranks
+    before `fit_merge`."""
     x = x.to(torch.float32)
     gamma_class = gamma_class.to(torch.float32)
     log_joint = _log_joint(state, x, epsilon)                 # (.., B, K, M)
@@ -160,6 +154,16 @@ def fit(state: AdaptiveState, x: torch.Tensor, gamma_class: torch.Tensor,
     gamma_perm = gamma.movedim(-3, -1)                        # (.., K, M, B)
     weighted_x = torch.matmul(gamma_perm, x[..., None, :, :])
     weighted_x_sq = torch.matmul(gamma_perm, (x * x)[..., None, :, :])
+    return sum_gamma, weighted_x, weighted_x_sq, gamma_class.sum(dim=-2)
+
+
+def fit_merge(state: AdaptiveState, stats: tuple, n: int,
+              split_threshold: float, min_count_to_split: float = 5.0,
+              split_check_interval: int = 50) -> AdaptiveState:
+    """The masked streaming M-step on `fit_stats`'s statistics of `n`
+    samples, then the split check if the fit counter is a multiple of
+    `split_check_interval`."""
+    sum_gamma, weighted_x, weighted_x_sq, class_sum = stats
     c_new = state.c + sum_gamma
     mask3 = state.mask[..., None]
     mu_new = (state.c[..., None] * state.mu + weighted_x) / (
@@ -174,13 +178,29 @@ def fit(state: AdaptiveState, x: torch.Tensor, gamma_class: torch.Tensor,
         mu=torch.where(mask3, mu_new, state.mu),
         var=torch.where(mask3, var_new, state.var),
         pi=c / (c.sum(dim=-1, keepdim=True) + 1e-10), c=c,
-        class_counts=state.class_counts + gamma_class.sum(dim=-2),
-        t=state.t + x.shape[-2], fit_calls=state.fit_calls + 1)
+        class_counts=state.class_counts + class_sum,
+        t=state.t + n, fit_calls=state.fit_calls + 1)
     split = check_and_split(new, split_threshold, min_count_to_split)
     due = new.fit_calls % split_check_interval == 0
     return AdaptiveState(*(
-        torch.where(due.reshape(due.shape + (1,) * (n.dim() - due.dim())),
-                    s, n) if n.dim() else n for s, n in zip(split, new)))
+        torch.where(due.reshape(due.shape + (1,) * (b.dim() - due.dim())),
+                    a, b) if b.dim() else b for a, b in zip(split, new)))
+
+
+def fit(state: AdaptiveState, x: torch.Tensor, gamma_class: torch.Tensor,
+        epsilon: float, split_threshold: float,
+        min_count_to_split: float = 5.0,
+        split_check_interval: int = 50) -> AdaptiveState:
+    """One masked streaming EM step, then the split check if the fit
+    counter is a multiple of `split_check_interval`.
+
+    Args:
+      x: ([S,] B, D) features; gamma_class: ([S,] B, K) class
+        probabilities.
+    """
+    return fit_merge(state, fit_stats(state, x, gamma_class, epsilon),
+                     x.shape[-2], split_threshold, min_count_to_split,
+                     split_check_interval)
 
 
 def predict(state: AdaptiveState, x: torch.Tensor,

@@ -52,14 +52,12 @@ def init(epsilon: float, sigma: float, input_dim: int, num_classes: int,
         prior_step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def fit_rows(mu: torch.Tensor, c: torch.Tensor, sigma: torch.Tensor,
-             x: torch.Tensor, y: torch.Tensor):
-    """The streaming mean and covariance update on the soft-label weighted
-    batch: returns (new mu, new c, new sigma, Σ_b y).
+def fit_stats(mu: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> tuple:
+    """The soft-label weighted batch's additive statistics (Σ_b y, Σ_b y·x,
+    Δ): what a data-parallel step sums over its ranks before `fit_merge`.
 
     Args:
-      mu ([S,] K, D), c ([S,] K), sigma ([S,] K, D, D); x ([S,] B, D)
-      features, y ([S,] B, K) soft labels.
+      mu ([S,] K, D); x ([S,] B, D) features, y ([S,] B, K) soft labels.
     """
     x = x.to(torch.float32)
     y = y.to(torch.float32)
@@ -69,21 +67,28 @@ def fit_rows(mu: torch.Tensor, c: torch.Tensor, sigma: torch.Tensor,
     xm = (x[..., :, None, :] - mu[..., None, :, :]).movedim(-3, -2)
     delta = torch.matmul((y.transpose(-1, -2)[..., None] * xm)
                          .transpose(-1, -2), xm)                # (.., K, D, D)
-    new_mu = (weighted_x + c[..., None] * mu) / (sum_w[..., None]
-                                                 + c[..., None])
-    denom = (c + sum_w)[..., None, None]
-    new_sigma = (c[..., None, None] * sigma + delta) / denom
-    return new_mu, c + sum_w, new_sigma, sum_w
+    return sum_w, weighted_x, delta
+
+
+def fit_merge(state: DOTAState, stats: tuple, n: int) -> DOTAState:
+    """`fit`'s streaming mean and covariance update on `fit_stats`'s
+    statistics of `n` samples."""
+    sum_w, weighted_x, delta = stats
+    c = state.c
+    mu = (weighted_x + c[..., None] * state.mu) / (sum_w[..., None]
+                                                   + c[..., None])
+    sigma = (c[..., None, None] * state.sigma + delta) / (
+        (c + sum_w)[..., None, None])
+    return state._replace(mu=mu, c=c + sum_w, sigma=sigma,
+                          cum_soft_labels=(state.cum_soft_labels
+                                           + sum_w[..., None, :]),
+                          prior_step=state.prior_step + n)
 
 
 def fit(state: DOTAState, x: torch.Tensor, y: torch.Tensor) -> DOTAState:
     """Soft-label-weighted streaming update; the prior's evidence sums y
     over the batch and `prior_step` counts the samples fitted."""
-    mu, c, sigma, sum_w = fit_rows(state.mu, state.c, state.sigma, x, y)
-    return state._replace(mu=mu, c=c, sigma=sigma,
-                          cum_soft_labels=(state.cum_soft_labels
-                                           + sum_w[..., None, :]),
-                          prior_step=state.prior_step + x.shape[-2])
+    return fit_merge(state, fit_stats(state.mu, x, y), x.shape[-2])
 
 
 @contextlib.contextmanager

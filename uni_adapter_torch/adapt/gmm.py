@@ -91,13 +91,11 @@ def _log_gauss_diag(x: torch.Tensor, mu: torch.Tensor,
     return -0.5 * ((diff * diff / s).sum(dim=-1) + torch.log(s).sum(dim=-1))
 
 
-def fit(state: GMMDotaState, x: torch.Tensor,
-        y_zs_prob: torch.Tensor) -> GMMDotaState:
-    """One streaming EM step; the covariance update uses the OLD means.
-
-    Args:
-      x: ([S,] B, D) features; y_zs_prob: ([S,] B, K) class probabilities.
-    """
+def fit_stats(state: GMMDotaState, x: torch.Tensor,
+              y_zs_prob: torch.Tensor) -> tuple:
+    """The E-step and the batch's additive statistics (Σγ, Σγx, Σγ(x−μ)²
+    about the OLD means, the class sums): what a data-parallel step sums
+    over its ranks before `fit_merge`."""
     x = x.to(torch.float32)
     y = y_zs_prob.to(torch.float32)
     log_l = _log_gauss_diag(x, state.mu, state.sigma)           # (.., B, K, M)
@@ -110,6 +108,12 @@ def fit(state: GMMDotaState, x: torch.Tensor,
                               x).reshape(*lead, K, M, D)
     diff = x[..., :, None, None, :] - state.mu[..., None, :, :, :]
     wdsq = (gamma[..., None] * (diff * diff)).sum(dim=-4)   # (.., K, M, D)
+    return sum_gamma, weighted_x, wdsq, y.sum(dim=-2)
+
+
+def fit_merge(state: GMMDotaState, stats: tuple, n: int) -> GMMDotaState:
+    """The streaming M-step on `fit_stats`'s statistics of `n` samples."""
+    sum_gamma, weighted_x, wdsq, class_sum = stats
     new_C = state.C + sum_gamma
     denom = torch.clamp(new_C[..., None], min=1e-10)
     return state._replace(
@@ -117,8 +121,18 @@ def fit(state: GMMDotaState, x: torch.Tensor,
         sigma=torch.clamp((state.C[..., None] * state.sigma + wdsq) / denom,
                           min=_FLOOR),
         pi=new_C / torch.clamp(new_C.sum(dim=-1, keepdim=True), min=1e-10),
-        C=new_C, class_counts=state.class_counts + y.sum(dim=-2),
-        total_samples=state.total_samples + x.shape[-2])
+        C=new_C, class_counts=state.class_counts + class_sum,
+        total_samples=state.total_samples + n)
+
+
+def fit(state: GMMDotaState, x: torch.Tensor,
+        y_zs_prob: torch.Tensor) -> GMMDotaState:
+    """One streaming EM step; the covariance update uses the OLD means.
+
+    Args:
+      x: ([S,] B, D) features; y_zs_prob: ([S,] B, K) class probabilities.
+    """
+    return fit_merge(state, fit_stats(state, x, y_zs_prob), x.shape[-2])
 
 
 def update(state: GMMDotaState, epsilon: float) -> GMMDotaState:

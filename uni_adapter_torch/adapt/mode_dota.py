@@ -97,29 +97,28 @@ def log_likelihood(x: torch.Tensor, mu: torch.Tensor,
     return -0.5 * (log_det[..., None, :, :] + maha)
 
 
-def fit(state: ModeDotaState, x: torch.Tensor, gamma_class: torch.Tensor,
-        epsilon: float) -> ModeDotaState:
-    """One streaming EM step.
-
-    Args:
-      x: ([S,] B, D) L2-normalised features; gamma_class: ([S,] B, K)
-        zero-shot class probabilities.
-    """
+def fit_stats(state: ModeDotaState, x: torch.Tensor,
+              gamma_class: torch.Tensor, epsilon: float) -> tuple:
+    """The E-step and the batch's additive sufficient statistics (Σγ, Σγx,
+    Σγx², the class sums): what a data-parallel step sums over its ranks
+    before `fit_merge`."""
     x = x.to(torch.float32)
     gamma_class = gamma_class.to(torch.float32)
     *lead, K, M, D = state.mu.shape
-    # E-step
     log_lik = log_likelihood(x, state.mu, regularized_var(state, epsilon))
     log_joint = torch.log(state.pi + 1e-10)[..., None, :, :] + log_lik
     log_r = log_joint - torch.logsumexp(log_joint, dim=-1, keepdim=True)
     gamma = gamma_class[..., None] * torch.exp(log_r)            # (.., B, K, M)
-    # sufficient statistics
     sum_gamma = gamma.sum(dim=-3)                                # ([S,] K, M)
     gamma_perm = gamma.movedim(-3, -1).reshape(*lead, K * M, -1)  # (.., KM, B)
     weighted_x = torch.matmul(gamma_perm, x).reshape(*lead, K, M, D)
     weighted_x_sq = torch.matmul(gamma_perm, x * x).reshape(*lead, K, M, D)
-    class_sum = gamma_class.sum(dim=-2)
-    # streaming M-step
+    return sum_gamma, weighted_x, weighted_x_sq, gamma_class.sum(dim=-2)
+
+
+def fit_merge(state: ModeDotaState, stats: tuple, n: int) -> ModeDotaState:
+    """The streaming M-step on `fit_stats`'s statistics of `n` samples."""
+    sum_gamma, weighted_x, weighted_x_sq, class_sum = stats
     c_new = state.c + sum_gamma
     mu_new = (state.c[..., None] * state.mu + weighted_x) / (
         c_new[..., None] + 1e-10)
@@ -131,7 +130,19 @@ def fit(state: ModeDotaState, x: torch.Tensor, gamma_class: torch.Tensor,
     pi_new = c_new / (c_new.sum(dim=-1, keepdim=True) + 1e-10)
     return ModeDotaState(mu=mu_new, var=var, pi=pi_new, c=c_new,
                          class_counts=state.class_counts + class_sum,
-                         t=state.t + x.shape[-2])
+                         t=state.t + n)
+
+
+def fit(state: ModeDotaState, x: torch.Tensor, gamma_class: torch.Tensor,
+        epsilon: float) -> ModeDotaState:
+    """One streaming EM step.
+
+    Args:
+      x: ([S,] B, D) L2-normalised features; gamma_class: ([S,] B, K)
+        zero-shot class probabilities.
+    """
+    return fit_merge(state, fit_stats(state, x, gamma_class, epsilon),
+                     x.shape[-2])
 
 
 def predict(state: ModeDotaState, x: torch.Tensor,

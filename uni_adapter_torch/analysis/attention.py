@@ -72,6 +72,20 @@ class AttentionExtractor:
         self.num_layers = len(attns)
         return self.attention_maps
 
+    def cls_attention_of(self, point_cloud, layer_idx: int = -1) -> np.ndarray:
+        """One forward's attention from the CLS token to the group tokens
+        at one layer, (B, H, G): what `extract` then
+        `get_cls_attention(layer_idx)` give, with only that row of that
+        layer brought to the host (the cross-class analysis needs no
+        more)."""
+        pc = self._cloud(point_cloud)
+        if pc.shape[-1] == 3:
+            pc = torch.cat([pc, torch.ones_like(pc)], dim=-1)
+        with torch.no_grad():
+            _, attns = self._forward(pc)
+            row = attns[layer_idx][:, :, 0, 1:]
+            return row.to(torch.float32).cpu().numpy()
+
     def _layer_map(self, layer_idx: int) -> np.ndarray:
         if not self.attention_maps:
             raise ValueError("No attention maps. Run extract() first.")

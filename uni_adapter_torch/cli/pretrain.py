@@ -1,14 +1,18 @@
 """CLI: contrastive pretraining of the Uni3D point encoder into CLIP space
-(mirror of `uni_adapter_tpu/cli/pretrain.py`, one process on one device).
+(mirror of `uni_adapter_tpu/cli/pretrain.py`, its data-parallel path).
 
     python -m uni_adapter_torch.cli.pretrain --device cpu --steps 20 \
         --batch-size 16 --depth 1 --out /tmp/pretrain
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m uni_adapter_torch.cli.pretrain --batch-size 16 ...
 
   sharded corpus (data/streaming.ShardedCorpus, the native mmap reader)
     → deterministic resumable StreamingLoader
     → the batch on the device (streaming.global_batch)
     → train.train_step (fp32 Uni3D; on the card the EVA blocks' attention
-      side through the hand-written kernels forward and backward)
+      side through the hand-written kernels forward and backward), or
+      under a multi-process launch train.make_dp_train_step (negatives
+      gathered over the ranks, gradients averaged)
     → checkpoint.save_state every --ckpt-every steps, stamped with the
       recipe; `--resume` continues the exact batch schedule and refuses a
       checkpoint of another recipe.
@@ -18,8 +22,16 @@ host without one, it raises.  On the card the EVA blocks need head dim
 64 (`--trans-dim` = 64 × `--heads`: Uni3D-L's 1024 and 16), so the demo
 widths below (64 and 4, head dim 16) raise there by name; the CPU runs
 any width.  Without --pc-shards it writes a small synthetic corpus (the
-JAX CLI's, bitwise) under <out>/synthetic.  `--parallel pp|sp`, their
-`--pp-*` flags and a multi-process launch wait for ROADMAP M16 and raise.
+JAX CLI's, bitwise) under <out>/synthetic, written by rank 0.
+
+A multi-process launch (`torch.distributed.run`, or SLURM's or Open
+MPI's variables) joins one process group before anything touches the
+device (`parallel/bootstrap.py`: NCCL where each rank has a card of its
+own, gloo for CPU ranks and ranks that share a card); each rank reads
+only its rows of every global `--batch-size` batch, only rank 0 logs and
+writes checkpoints, and `--resume` restores on every rank (`--out` on a
+filesystem all ranks share).  `--parallel pp|sp` and their `--pp-*` flags
+wait for ROADMAP M16 part 2 and raise.
 """
 from __future__ import annotations
 
@@ -53,10 +65,6 @@ def _synthetic_corpus(root: str, n_shards: int = 2, per_shard: int = 64,
 
 
 _M16 = "(ROADMAP M16, parallelism)"
-#: The launchers' rank and world-size variables (the JAX package's
-#: `parallel/bootstrap.world_info_from_env`).
-_WORLD_VARS = (("RANK", "WORLD_SIZE"), ("SLURM_PROCID", "SLURM_NTASKS"),
-               ("OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE"))
 
 
 def _refuse_unported(args) -> None:
@@ -64,7 +72,7 @@ def _refuse_unported(args) -> None:
     if args.parallel != "dp":
         raise NotImplementedError(
             f"--parallel {args.parallel} is not ported yet {_M16}; --parallel "
-            "dp runs on one process and one device")
+            "dp runs data-parallel over the launched processes")
     pp = {"--pp-microbatches": (args.pp_microbatches, None),
           "--pp-stages": (args.pp_stages, None),
           "--pp-interleave": (args.pp_interleave, 1),
@@ -74,11 +82,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"{', '.join(given)}: pipeline parallelism is not ported yet "
             f"{_M16}")
-    for _, world in _WORLD_VARS:
-        if int(os.environ.get(world, "1")) > 1:
-            raise NotImplementedError(
-                f"a multi-process launch ({world}={os.environ[world]}) is not "
-                f"ported yet {_M16}; run one process")
 
 
 def main(argv=None):
@@ -119,8 +122,10 @@ def main(argv=None):
     parser.add_argument("--heads", type=int, default=4)
     parser.add_argument("--parallel", default="dp",
                         choices=["dp", "pp", "sp"],
-                        help="dp: one process on one device (pp and sp: "
-                             "not ported yet, ROADMAP M16)")
+                        help="dp: data-parallel over the launched "
+                             "processes (negatives gathered, gradients "
+                             "averaged; one process: the plain step).  pp "
+                             "and sp: not ported yet, ROADMAP M16")
     parser.add_argument("--pp-microbatches", type=int, default=None,
                         help="not ported yet (ROADMAP M16)")
     parser.add_argument("--pp-stages", type=int, default=None,
@@ -143,14 +148,28 @@ def main(argv=None):
                                                   StreamingLoader,
                                                   global_batch)
     from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import collectives
+    from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+    from uni_adapter_torch.parallel.mesh import make_mesh
     from uni_adapter_torch.train import (init_train_state, load_train_state,
-                                         make_optimizer, train_step)
+                                         make_dp_train_step, make_optimizer,
+                                         train_step)
     from uni_adapter_torch.utils.logging import setup_logging
 
-    device = resolve_device(args.device)
+    # before anything touches the device (one process: a no-op); without
+    # it every process of a launch would stream the same rows
+    boot = init_distributed_device(args.device)
+    device = boot["device"] or resolve_device(args.device)
     set_numerics()
+    world = make_mesh()
+    primary = world.rank == 0
     os.makedirs(args.out, exist_ok=True)
-    setup_logging(os.path.join(args.out, "pretrain.log"))
+    setup_logging(os.path.join(args.out, "pretrain.log") if primary else None,
+                  level=logging.INFO if primary else logging.WARNING)
+    if boot["distributed"]:
+        logging.info("distributed: process %d/%d, backend %s, device %s",
+                     boot["rank"], boot["world_size"], boot["backend"],
+                     device)
 
     if args.pc_shards:
         pc = sorted(glob.glob(args.pc_shards))
@@ -167,8 +186,15 @@ def main(argv=None):
     else:
         logging.info("no --pc-shards: synthetic corpus under %s/synthetic",
                      args.out)
-        pc, tx, im = _synthetic_corpus(os.path.join(args.out, "synthetic"),
-                                       dim=args.embed_dim)
+        synth_root = os.path.join(args.out, "synthetic")
+        # one writer on a shared filesystem; the others wait, then derive
+        # the (now existing) shard paths
+        if primary:
+            pc, tx, im = _synthetic_corpus(synth_root, dim=args.embed_dim)
+        if world.group is not None:
+            torch.distributed.barrier(world.group)
+        if not primary:
+            pc, tx, im = _synthetic_corpus(synth_root, dim=args.embed_dim)
     corpus = ShardedCorpus(pc, tx, im)
     loader = StreamingLoader(corpus, args.batch_size, seed=args.seed,
                              prefetch=args.prefetch)
@@ -253,10 +279,29 @@ def main(argv=None):
         logging.info("resumed at train step %d (loader %s)", start_step,
                      loader.state_dict())
 
+    if world.group is not None:
+        # ranks must agree on the resume point: a disagreement (an --out
+        # that not every rank sees) would run mismatched step ranges whose
+        # collectives deadlock; fail loudly instead
+        steps = collectives.all_gather_rows(
+            torch.tensor([start_step], device=device), world.group)
+        if int(steps.min()) != int(steps.max()):
+            raise ValueError(
+                f"ranks disagree on the resume step ({steps.tolist()}): "
+                "--out must be a SHARED filesystem so every process sees "
+                "the rank-0 checkpoint")
+        step_fn = make_dp_train_step(model, tx_opt, world)
+    else:
+        def step_fn(state, pc, text_embed, image_embed, mask):
+            return train_step(model, tx_opt, state, pc, text_embed,
+                              image_embed, mask)
+
     snapshotter = checkpoint.AsyncSnapshotter() if args.ckpt_async else None
     last_saved_step = [start_step - 1]
 
     def save(at_step: int):
+        if not primary:
+            return   # replicated state: one writer (shared-filesystem safe)
         if at_step == last_saved_step[0]:
             return   # final save already landed on a --ckpt-every boundary
         last_saved_step[0] = at_step
@@ -279,9 +324,8 @@ def main(argv=None):
     try:
         for step in range(start_step, args.steps):
             batch = global_batch(next(loader), device)
-            state, metrics = train_step(model, tx_opt, state, batch["pc"],
-                                        batch["text_embed"],
-                                        batch["image_embed"], batch["mask"])
+            state, metrics = step_fn(state, batch["pc"], batch["text_embed"],
+                                     batch["image_embed"], batch["mask"])
             if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
                 loss = float(metrics["loss"])
                 dt = time.perf_counter() - t0
@@ -296,6 +340,10 @@ def main(argv=None):
         if snapshotter is not None:
             snapshotter.close()  # drain the in-flight write, surface failure
         loader.close()
+    if world.group is not None:
+        # the ranks leave together, once rank 0's checkpoint is on disk: a
+        # `--resume` launched next finds it on every rank
+        torch.distributed.barrier(world.group)
     logging.info("done: %d steps, checkpoint at %s.npz", args.steps,
                  ckpt_path)
     return state

@@ -10,6 +10,8 @@
 
     python -m uni_adapter_torch.cli.tta --corruption all \
         --vmap-corruptions true ...
+    python -m torch.distributed.run --nproc-per-node N \
+        -m uni_adapter_torch.cli.tta --dist-mode sharded|psum ...
 
 `--vlm3d` picks the backbone: uni3d (Uni3D-L, the default), ulip
 (ULIP-2 Point-BERT, 512-d features) or openshape (PPTA, `vitg14` 1280-d
@@ -54,6 +56,18 @@ as `vis_{corruption}_batch_0.html` into the run's directory;
 into DIR.  Without `--checkpoint-path` the point backbone's weights are
 random from `--seed` (a warning says so), so the accuracies only show
 that the pipeline ran.
+
+Under a multi-process launch (`torch.distributed.run`, or SLURM's or
+Open MPI's variables) the ranks join one process group
+(`parallel/bootstrap.py`: NCCL where each has a card of its own, gloo for
+CPU ranks and ranks that share a card).  `--dist-mode sharded` splits
+each stream into contiguous shards, one a rank, each adapted on its own
+from seed + rank (with `--vmap-corruptions`, the streams over the ranks);
+`--dist-mode psum` gives each step one batch a rank and sums the fits'
+statistics over the ranks (`parallel/mesh.py`).  Both run the stream's
+scan, and write results.json only (the JAX CLI's files); only rank 0
+logs and writes.  `--dist-mode ep` and `--trunk-parallel` wait for
+ROADMAP M16 part 2 and raise.
 """
 from __future__ import annotations
 
@@ -74,6 +88,8 @@ from uni_adapter_torch.config import CORRUPTIONS, parse_args, unported_paths
 from uni_adapter_torch.data.datasets import load_tta_dataset
 from uni_adapter_torch.models.clip_text import create_text_encoder
 from uni_adapter_torch.models.loader import build_backbone, load_checkpoint
+from uni_adapter_torch.parallel import mesh as pmesh
+from uni_adapter_torch.parallel.bootstrap import init_distributed_device
 from uni_adapter_torch.utils import profiling
 from uni_adapter_torch.utils.logging import setup_logging
 from uni_adapter_torch.visualize import visualize_pointclouds_plotly
@@ -112,15 +128,19 @@ def feature_width(m) -> int:
 
 
 def finish(summary: dict) -> dict:
-    """Log the per-corruption top-1 and write results.json and
-    results_zs.json into the run's log_dir."""
+    """Log the per-corruption top-1 and write results.json and, where the
+    run has the frozen anchors' counts, results_zs.json into the run's
+    log_dir (rank 0 alone under a multi-process launch)."""
     logging.info("Summary of Results: %s", summary["acc1"])
     logging.info("Average Top-1: %.3f",
                  float(np.mean(list(summary["acc1"].values()))))
+    if not pmesh.is_primary():
+        return summary
     for name, key in (("results.json", "acc1"), ("results_zs.json",
                                                   "zs_acc1")):
-        with open(os.path.join(summary["log_dir"], name), "w") as f:
-            json.dump(summary[key], f, indent=2)
+        if summary[key]:
+            with open(os.path.join(summary["log_dir"], name), "w") as f:
+                json.dump(summary[key], f, indent=2)
     return summary
 
 
@@ -154,6 +174,9 @@ def run_all_vmapped(cfg, model, text, corruptions, log_dir,
                        for i in range(3))
     logging.info("vmapped sweep: %d streams × %d steps", len(stacks), T)
     t0 = time.perf_counter()
+    if cfg.run.dist_mode == "sharded":
+        return finish(sharded_streams(cfg, model, text, corruptions, log_dir,
+                                      scan_fn, (pcs, rgbs, tgts), t0))
     if scan_fn is not None:
         state, outs = engine.run_streams_scan(cfg, model, text, pcs, rgbs,
                                               tgts, seed=cfg.run.seed,
@@ -185,6 +208,40 @@ def run_all_vmapped(cfg, model, text, corruptions, log_dir,
     return finish(summary)
 
 
+def sharded_streams(cfg, model, text, corruptions, log_dir, scan_fn,
+                    stream, t0) -> dict:
+    """The corruption streams over the ranks (`mesh.run_streams_sharded`):
+    per-stream top-1 only, as the JAX CLI's sharded sweep reports."""
+    pcs = stream[0]
+    state, res = pmesh.run_streams_sharded(cfg, model, text, *stream,
+                                           seed=cfg.run.seed,
+                                           scan_fn=scan_fn)
+    dt = time.perf_counter() - t0
+    T, B = pcs.shape[1], pcs.shape[2]
+    total = pcs.shape[0] * T * B
+    logging.info("Total time: %.1f ms (%.1f pc/s over %d samples)",
+                 dt * 1e3, total / dt, total)
+    return {"acc1": dict(zip(corruptions, res["acc1_per_stream"])),
+            "zs_acc1": {}, "step_ms": dict.fromkeys(corruptions,
+                                                    scan_fn.step_ms),
+            "finite": dict.fromkeys(corruptions),
+            "steps": dict.fromkeys(corruptions, [0, state.step]),
+            "n": dict.fromkeys(corruptions, T * B),
+            "cg_iters": dict.fromkeys(corruptions), "log_dir": log_dir}
+
+
+def distributed_stream(cfg, model, text, pcs, rgbs, targets, scan_fn) -> dict:
+    """One stream over the ranks, `--dist-mode sharded` or `psum`
+    (`parallel/mesh.py`), summarised as the JAX CLI summarises it: the
+    accuracies over the whole stream, no zero-shot counts."""
+    run = (pmesh.run_stream_sharded if cfg.run.dist_mode == "sharded"
+           else pmesh.run_stream_psum)
+    state, res = run(cfg, model, text, pcs, rgbs, targets,
+                     seed=cfg.run.seed, scan_fn=scan_fn)
+    return {**res, "n": res["n_samples"], "step_ms": scan_fn.step_ms,
+            "finite": None, "cg_iters": None, "state": state}
+
+
 def scan_stream(cfg, model, text, pcs, rgbs, targets, initial_state,
                 scan_fn) -> dict:
     """One stream through `engine.run_stream_scan`, summarised as
@@ -214,16 +271,26 @@ def main(argv=None) -> dict:
     missing = unported_paths(cfg)
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    device = resolve_device(cfg.run.device)
+    # a multi-process launch joins its process group before anything
+    # touches the device; one process is a no-op
+    boot = init_distributed_device(cfg.run.device)
+    device = boot["device"] or resolve_device(cfg.run.device)
     set_numerics()
+    primary = pmesh.is_primary()
     name = cfg.run.name or datetime.now().strftime("%Y_%m_%d-%H_%M_%S")
     log_dir = os.path.join(cfg.run.output_dir, name)
-    os.makedirs(log_dir, exist_ok=True)
-    setup_logging(os.path.join(log_dir, "out.log"))
+    if primary:
+        os.makedirs(log_dir, exist_ok=True)
+    setup_logging(os.path.join(log_dir, "out.log") if primary else None,
+                  level=logging.INFO if primary else logging.WARNING)
     logging.info("Running Experiment: %s on %s, compute dtype %s", name,
                  torch.cuda.get_device_name(device) if device.type == "cuda"
                  else "cpu", cfg.model.compute_dtype)
     logging.info("Config: %s", cfg)
+    if boot["distributed"]:
+        logging.info("distributed: process %d/%d (%s), dist mode %s",
+                     boot["rank"], boot["world_size"], boot["backend"],
+                     cfg.run.dist_mode)
 
     model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,
                                  seed=cfg.run.seed,
@@ -239,8 +306,15 @@ def main(argv=None) -> dict:
                          f"--vlm3d {cfg.model.vlm3d} gives {width}-d "
                          f"features")
     # one scan (one set of captured graphs) for every corruption, as the
-    # JAX CLI jits one scan_fn
-    scan_fn = engine.make_scan_fn(cfg, model) if cfg.run.use_scan else None
+    # JAX CLI jits one scan_fn; the distributed modes always scan
+    dist_mode = cfg.run.dist_mode
+    if dist_mode == "psum" and not cfg.run.vmap_corruptions:
+        scan_fn = engine.make_scan_fn(cfg, model,
+                                      axis_name=pmesh.make_mesh().group)
+    elif cfg.run.use_scan or dist_mode != "replicated":
+        scan_fn = engine.make_scan_fn(cfg, model)
+    else:
+        scan_fn = None
     step_fn = None if scan_fn is not None else engine.make_step_fn(cfg,
                                                                     model)
 
@@ -296,9 +370,13 @@ def run_sequential(cfg, model, text, corruptions, log_dir, step_fn,
         dataset = load_tta_dataset(c)
         pcs, rgbs, targets = dataset.as_arrays(
             c.data.batch_size, npoints=c.data.npoints, seed=c.run.seed)
-        write_batch0_figure(log_dir, corr, dataset, pcs, targets)
+        if pmesh.is_primary():
+            write_batch0_figure(log_dir, corr, dataset, pcs, targets)
         t0 = time.perf_counter()
-        if scan_fn is not None:
+        if cfg.run.dist_mode in ("sharded", "psum"):
+            res = distributed_stream(c, model, text, pcs, rgbs, targets,
+                                     scan_fn)
+        elif scan_fn is not None:
             res = scan_stream(c, model, text, pcs, rgbs, targets,
                               carry_state, scan_fn)
         else:
@@ -311,13 +389,14 @@ def run_sequential(cfg, model, text, corruptions, log_dir, step_fn,
         dt = time.perf_counter() - t0
         logging.info("Final Results: Acc@1 %.3f Acc@3 %.3f Acc@5 %.3f",
                      res["acc1"], res["acc3"], res["acc5"])
-        logging.info("Zero-shot baseline (same run): Acc@1 %.3f "
-                     "(adaptation %+0.3f)", res["zs_acc1"],
-                     res["acc1"] - res["zs_acc1"])
+        if "zs_acc1" in res:
+            logging.info("Zero-shot baseline (same run): Acc@1 %.3f "
+                         "(adaptation %+0.3f)", res["zs_acc1"],
+                         res["acc1"] - res["zs_acc1"])
+            summary["zs_acc1"][corr] = float(res["zs_acc1"])
         logging.info("Total time: %.3f ms (%.1f pc/s)", dt * 1e3,
                      res["n"] / dt)
         summary["acc1"][corr] = float(res["acc1"])
-        summary["zs_acc1"][corr] = float(res["zs_acc1"])
         summary["step_ms"][corr] = res["step_ms"]
         summary["finite"][corr] = res["finite"]
         summary["n"][corr] = res["n"]

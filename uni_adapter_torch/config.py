@@ -147,6 +147,8 @@ class RunConfig:
     use_scan: bool = True
     vmap_corruptions: bool = False
     continual: bool = False
+    # replicated | sharded | psum (parallel/mesh.py, under a multi-process
+    # launch); ep: ROADMAP M16 part 2
     dist_mode: str = "replicated"
     trunk_parallel: str = "none"
     # a torch.profiler trace (CPU and CUDA) of the corruption loop, written
@@ -235,7 +237,7 @@ def unported_paths(cfg: Config) -> list[str]:
     out = []
     if m.vlm3d not in ("uni3d", "ulip", "openshape"):
         out.append(f"--vlm3d {m.vlm3d}")
-    if r.dist_mode != "replicated":
+    if r.dist_mode not in ("replicated", "sharded", "psum"):
         out.append(f"--dist-mode {r.dist_mode} (ROADMAP M16)")
     if r.trunk_parallel != "none":
         out.append(f"--trunk-parallel {r.trunk_parallel} (ROADMAP M16)")
@@ -294,8 +296,12 @@ def parse_args(argv=None) -> Config:
     )
     if cfg.run.device not in ("cuda", "cpu"):
         raise ValueError(f"--device {cfg.run.device!r}: expected cuda or cpu")
-    # the JAX parser's checks of --vmap-corruptions and --continual
+    # the JAX parser's checks of --dist-mode, --vmap-corruptions and
+    # --continual
     r = cfg.run
+    if r.dist_mode not in ("replicated", "sharded", "psum", "ep"):
+        raise ValueError(f"--dist-mode {r.dist_mode!r}: expected "
+                         "replicated, sharded, psum, or ep")
     if r.trunk_parallel != "none" and r.vmap_corruptions:
         raise ValueError("--trunk-parallel does not compose with "
                          "--vmap-corruptions (vmap over the trunk's "

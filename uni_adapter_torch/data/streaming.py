@@ -14,11 +14,12 @@
    slices is the single-process batch stream.  A background thread keeps
    `prefetch` assembled batches ahead of the consumer; `state_dict()` /
    `load_state_dict()` resume mid-epoch exactly.
- * **global_batch**: a process's numpy batch as tensors on its device.
+ * **global_batch**: a process's numpy batch as tensors on its device:
+   over a world of ranks, its slice of the global batch.
 
-One process for now: `process_index` / `process_count` default to 0 / 1
-(the JAX package reads them from jax); launching several, and a batch
-sharded over a mesh, wait for ROADMAP M16.
+`process_index` / `process_count` default to the torch.distributed rank
+and world size (the JAX package reads them from jax): each rank of a
+data-parallel launch reads only its own rows.
 """
 from __future__ import annotations
 
@@ -148,7 +149,8 @@ class StreamingLoader:
         process, so the rank-order concatenation of local slices equals
         the single-host batch stream.
       process_index/process_count: this process's rank and the number of
-        processes; one process (0, 1) by default.
+        processes; by default the torch.distributed rank and world size
+        (0 and 1 without a process group).
       prefetch: batches assembled ahead by the background thread
         (0 = fully synchronous).
     """
@@ -158,7 +160,10 @@ class StreamingLoader:
                  process_count: Optional[int] = None,
                  prefetch: int = 2):
         if process_index is None or process_count is None:
-            process_index, process_count = 0, 1
+            from uni_adapter_torch.parallel.mesh import make_mesh
+
+            world = make_mesh()
+            process_index, process_count = world.rank, world.size
         if global_batch_size % process_count:
             raise ValueError(
                 f"global batch {global_batch_size} not divisible by "
@@ -322,16 +327,15 @@ class StreamingLoader:
             pass
 
 
-def global_batch(local: Dict[str, np.ndarray], device,
-                 mesh=None) -> dict:
+def global_batch(local: Dict[str, np.ndarray], device) -> dict:
     """A process's local batch as tensors on `device` (its numpy arrays;
-    the epoch/step bookkeeping ints pass through).  A batch sharded over a
-    mesh of devices waits for ROADMAP M16."""
+    the epoch/step bookkeeping ints pass through).  Over a world of
+    processes the global batch is the rank-order concatenation of the
+    ranks' rows, and this rank's slice of it is the rows its loader read:
+    each rank contributes exactly those, nothing is replicated or re-read.
+    So it takes no mesh (the JAX package's sharding of the global array
+    is the process group's rank order here)."""
     import torch
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "a batch sharded over a device mesh is not ported yet (ROADMAP "
-            "M16, parallelism)")
     return {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
             else v for k, v in local.items()}

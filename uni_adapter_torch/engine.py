@@ -19,6 +19,17 @@ The MODE-DOTA noise comes from a `torch.Generator` carried in the state;
 `step(..., noise=...)` takes it from the caller instead, which is how the
 tests feed both packages the same draw.
 
+With `make_step_fn(..., axis_name=group)` (a torch.distributed process
+group; the JAX package's `axis_name` inside `shard_map`) each rank feeds
+its own batch and the fits' additive statistics are summed over the
+ranks, so the replicated state takes the global batch's update
+(`parallel/mesh.run_stream_psum`).  A step is a generator of parts
+(`Step.parts`) that yields each fit's packed statistics: calling the
+step all-reduces them in place as they come; the captured step
+(`_StreamRunner`) records one CUDA graph a part and issues the
+all-reduces between their replays, gloo's (which cannot be captured) and
+NCCL's alike.
+
 S independent streams (the JAX package's `run_streams_vmapped`, the
 15-corruption sweep) run as one: the state from `init_states_streams`
 carries a leading stream axis and one generator a stream, and the same
@@ -46,10 +57,12 @@ from dataclasses import dataclass
 from typing import Callable, Iterable, NamedTuple, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from uni_adapter_torch.adapt import adaptive, cache, dota, fusion, gmm
 from uni_adapter_torch.adapt import mode_dota, residual
 from uni_adapter_torch.config import Config
+from uni_adapter_torch.parallel import collectives
 from uni_adapter_torch.utils.math import (normalized_entropy, run_cg,
                                           softmax_entropy)
 from uni_adapter_torch.utils.metrics import topk_correct
@@ -223,7 +236,49 @@ def _select_streams(gates: tuple, new, old):
         for n, o in zip(new, old)))
 
 
-def make_step_fn(cfg: Config, model: Callable) -> Callable:
+def _fit(group, merge: Callable, stats: tuple, n: int):
+    """A fit's merge of its statistics of n samples, the statistics first
+    summed over `group`'s ranks: a generator that yields their packed
+    buffer for its caller to all-reduce in place (`Step`, or a captured
+    step's segments), and returns the merged state.  Without a group it
+    yields nothing."""
+    if group is not None:
+        flat = collectives.pack(stats)
+        yield flat
+        stats = collectives.unpack(flat, stats)
+        n *= dist.get_world_size(group)
+    return merge(stats, n)
+
+
+def drive(parts, group):
+    """Run a step's parts generator to its end, each buffer it yields
+    all-reduced over `group` in place; returns its result."""
+    try:
+        while True:
+            collectives.psum_(next(parts), group)
+    except StopIteration as done:
+        return done.value
+
+
+class Step:
+    """A DOTA-family step, step(text_init, state, batch, noise=None) ->
+    (state, StepOutput).  `parts(...)` is the same step as a generator
+    that yields each fit's packed statistics where `group` (the
+    `axis_name` of `make_step_fn`) sums them: calling the step runs it
+    with the all-reduces issued in place, and a captured step
+    (`_StreamRunner`) replays its segments with the all-reduces between
+    them.  Without a group the generator yields nothing."""
+
+    def __init__(self, parts: Callable, group=None):
+        self.parts, self.group = parts, group
+
+    def __call__(self, text_init: torch.Tensor, state: EngineState, batch,
+                 noise: Optional[torch.Tensor] = None):
+        return drive(self.parts(text_init, state, batch, noise), self.group)
+
+
+def make_step_fn(cfg: Config, model: Callable,
+                 axis_name=None) -> Callable:
     """step(text_init, state, batch, noise=None) -> (state, StepOutput),
     with batch = (pc ([S,] B, N, 3), rgb ([S,] B, N, 3), target ([S,] B))
     and noise, if given, of pc's shape.  With a leading stream axis the
@@ -231,20 +286,33 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
     clouds of streams 0..S−1 and then their noisy ones as one 2·S·B
     batch, and each stream's noise comes from its own generator.  The
     cache path's step (`CacheStep`) and the other variants' (`variant_step`)
-    take no noise."""
+    take no noise.
+
+    With `axis_name` (a process group) each rank feeds its local batch and
+    the fits' sufficient statistics are summed over the ranks: the state
+    stays replicated and takes the exact global streaming update, and the
+    fusion weight divides by the global batch.  The prototype cache has
+    no such form and raises."""
     encode = encode_with(cfg.model.vlm3d, model)
     dc = cfg.dota
     if uses_cache(cfg):
+        if axis_name is not None:
+            raise ValueError(
+                "axis_name requires an adaptation method with additive "
+                "sufficient statistics (DOTA family); the prototype cache "
+                "cannot be psum-merged — run it sharded (independent "
+                "per-device state) instead")
         return CacheStep(cfg, encode)
     if not dc.use_mode_dota:
-        return variant_step(cfg, encode)
+        return variant_step(cfg, encode, axis_name)
     use_res = dc.res_learning
     if use_res:
         residual.check_precision(dc.residual_precision)
+    group = axis_name
 
     @torch.no_grad()
-    def step(text_init: torch.Tensor, state: EngineState, batch,
-             noise: Optional[torch.Tensor] = None):
+    def parts(text_init: torch.Tensor, state: EngineState, batch,
+              noise: Optional[torch.Tensor] = None):
         pc, rgb, target = batch
         text_init = text_init.to(torch.float32)
         if use_res:
@@ -275,9 +343,13 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
         ms = state.method_state
         dota_logits = mode_dota.predict(
             ms, _predict_input(feat, dc.fp16_predict_input), dc.epsilon)
-        ms = mode_dota.fit(ms, feat, prob_map, dc.epsilon)
+        ms = yield from _fit(
+            group, functools.partial(mode_dota.fit_merge, ms),
+            mode_dota.fit_stats(ms, feat, prob_map, dc.epsilon), B)
         # the noise-augmented fit uses the CLEAN prob_map
-        ms = mode_dota.fit(ms, feat_aug, prob_map, dc.epsilon)
+        ms = yield from _fit(
+            group, functools.partial(mode_dota.fit_merge, ms),
+            mode_dota.fit_stats(ms, feat_aug, prob_map, dc.epsilon), B)
 
         res_state = state.res_state
         gates = _gates(state.step)
@@ -291,7 +363,8 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
                                             state.res_state)
 
         w = fusion.dota_fusion_weight(dc.rho, dc.eta,
-                                      ms.c.mean(dim=(-2, -1)), float(B))
+                                      ms.c.mean(dim=(-2, -1)),
+                                      float(B * _size(group)))
         final = fusion.fuse_mode_dota(
             clip_logits, dota_logits, w,
             fix_normalization=dc.fix_fusion_normalization)
@@ -306,7 +379,11 @@ def make_step_fn(cfg: Config, model: Callable) -> Callable:
         return EngineState(ms, res_state, _next_step(state.step),
                            state.generator), out
 
-    return step
+    return Step(parts, group)
+
+
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def _predict_input(f: torch.Tensor, fp16: bool) -> torch.Tensor:
@@ -316,11 +393,12 @@ def _predict_input(f: torch.Tensor, fp16: bool) -> torch.Tensor:
     return m.to(torch.float16).to(torch.float32) if fp16 else m
 
 
-def variant_step(cfg: Config, encode: Callable) -> Callable:
+def variant_step(cfg: Config, encode: Callable, axis_name=None) -> Step:
     """The step of plain DOTA, GMM-DOTA or adaptive-modes DOTA,
     step(text_init, state, batch) -> (state, StepOutput): one encoder
     forward of the B clouds (S·B with a stream axis), the scores of the
-    batch's mean feature from the state before the fit, the fit, then the
+    batch's mean feature from the state before the fit, the fit (its
+    statistics summed over `axis_name`'s ranks where given), then the
     fusion with the clip logits (DOTA's additive, the others' inverse
     entropy).  The JAX engine's branches of the three."""
     dc, scale = cfg.dota, cfg.model.logit_scale
@@ -330,9 +408,12 @@ def variant_step(cfg: Config, encode: Callable) -> Callable:
         kind = "gmm"
     else:
         kind = "adaptive"
+    group = axis_name
 
     @torch.no_grad()
-    def step(text_init: torch.Tensor, state: EngineState, batch):
+    def parts(text_init: torch.Tensor, state: EngineState, batch,
+              noise=None):
+        del noise           # the variants draw none
         pc, rgb, target = batch
         text_init = text_init.to(torch.float32)
         *lead, B, N, _ = pc.shape
@@ -346,20 +427,27 @@ def variant_step(cfg: Config, encode: Callable) -> Callable:
             scores = dota.predict(ms, _predict_input(feat,
                                                      dc.fp16_predict_input),
                                   prior_pre_steps=dc.prior_pre_steps)
-            ms = dota.update(dota.fit(ms, feat, prob_map), dc.epsilon)
+            ms = yield from _fit(group, functools.partial(dota.fit_merge, ms),
+                                 dota.fit_stats(ms.mu, feat, prob_map), B)
+            ms = dota.update(ms, dc.epsilon)
             counts = ms.c.mean(dim=-1)
         elif kind == "gmm":
             scores = gmm.predict(ms, mean_feat, alpha_max=dc.alpha_max)
-            ms = gmm.update(gmm.fit(ms, feat, prob_map), dc.epsilon)
+            ms = yield from _fit(group, functools.partial(gmm.fit_merge, ms),
+                                 gmm.fit_stats(ms, feat, prob_map), B)
+            ms = gmm.update(ms, dc.epsilon)
             counts = gmm.class_counts_per_class(ms).mean(dim=-1)
         else:
             sigma_init = mode_dota.resolve_sigma_init(dc.sigma,
                                                       text_init.shape[1])
             scores = adaptive.predict(ms, mean_feat, dc.epsilon)
-            ms = adaptive.fit(ms, feat, prob_map, dc.epsilon,
-                              split_threshold=10.0 * sigma_init)
+            ms = yield from _fit(
+                group, functools.partial(adaptive.fit_merge, ms,
+                                         split_threshold=10.0 * sigma_init),
+                adaptive.fit_stats(ms, feat, prob_map, dc.epsilon), B)
             counts = ms.c.mean(dim=(-2, -1))
-        w = fusion.dota_fusion_weight(dc.rho, dc.eta, counts, float(B))
+        w = fusion.dota_fusion_weight(dc.rho, dc.eta, counts,
+                                      float(B * _size(group)))
         if kind == "dota":
             final = fusion.fuse_dota(clip_logits, scores, w)
         else:
@@ -372,7 +460,7 @@ def variant_step(cfg: Config, encode: Callable) -> Callable:
         return EngineState(ms, None, _next_step(state.step),
                            state.generator), out
 
-    return step
+    return Step(parts, group)
 
 
 class _CacheContext(NamedTuple):
@@ -679,13 +767,67 @@ class _Segment:
         return self.out
 
 
+class _Done(NamedTuple):
+    value: object
+
+
+def _advance(parts):
+    """The parts generator run to its next all-reduce: the buffer it
+    yields, or `_Done` with its result."""
+    try:
+        return next(parts)
+    except StopIteration as done:
+        return _Done(done.value)
+
+
+class _Parted:
+    """A step's parts generator, `make_parts()`, on static tensors: run
+    eagerly (its buffers all-reduced over `group` in place as they come)
+    until `capture` records it as one CUDA graph for each part between
+    two all-reduces; then each call replays them in turn, the buffer of
+    each all-reduced before the next part reads it.  `generators` are
+    registered with the first part's graph, which draws the noise."""
+
+    def __init__(self, make_parts: Callable, generators: tuple = (),
+                 group=None):
+        self.make_parts, self.generators = make_parts, generators
+        self.group = group
+        self.segments: list = []
+
+    @property
+    def graph(self):
+        return self.segments[0].graph if self.segments else None
+
+    def capture(self) -> None:
+        parts = self.make_parts()
+        while True:
+            seg = _Segment(functools.partial(_advance, parts),
+                           () if self.segments else self.generators)
+            seg.capture()
+            self.segments.append(seg)
+            if isinstance(seg.out, _Done):
+                seg.out = seg.out.value
+                return
+
+    def __call__(self):
+        if not self.segments:
+            return drive(self.make_parts(), self.group)
+        for seg in self.segments[:-1]:
+            collectives.psum_(seg(), self.group)
+        return self.segments[-1]()
+
+
 class _StreamRunner:
     """One configuration's step on static tensors of one shape: the carry,
     the anchors and an input slot.  The step reads the slot and the
     carry and writes the new carry into it in place.  On the card each of
     its parts is captured once (per residual gate) and replayed; on the
     CPU the same parts run eagerly.  `noise`: the step draws from the
-    carry's generators (MODE-DOTA), whose states each replay advances."""
+    carry's generators (MODE-DOTA), whose states each replay advances.
+    A step with a process group (`make_step_fn(axis_name=...)`) is
+    captured in segments, with its all-reduces issued between their
+    replays: gloo's collectives cannot be captured, and one design serves
+    both backends."""
 
     def __init__(self, step: Callable, gated: bool, noise: bool,
                  text: torch.Tensor, state: EngineState, slot: tuple):
@@ -704,16 +846,18 @@ class _StreamRunner:
                 _Segment(lambda: step.iteration(self.ctx)),
                 _Segment(self._cache_tail))}
         else:
-            # one part: MODE-DOTA's (a program per residual gate) or
-            # another variant's (no gate, no generator)
+            # MODE-DOTA's step (a program per residual gate) or another
+            # variant's (no gate, no generator), in parts where a group
+            # sums the fits' statistics
             gens = _generators(self.state) if noise else ()
-            self.programs = {gate: (_Segment(
-                functools.partial(self._body, gate), gens),)
+            self.parts = step.parts
+            self.programs = {gate: (_Parted(
+                functools.partial(self._body, gate), gens, step.group),)
                 for gate in ((False, True) if gated else (True,))}
 
-    def _body(self, gate: bool) -> StepOutput:
+    def _body(self, gate: bool):
         # the residual gate `step > 0` is the graph's, not the carry's
-        new, out = self.step(self.text, dataclasses.replace(
+        new, out = yield from self.parts(self.text, dataclasses.replace(
             self.state, step=int(gate)), self.slot)
         _load_state_tensors(self.state, new)
         return out
@@ -809,10 +953,12 @@ class ScanFn:
     (T, [S,] B, ...) device tensors.  It keeps one `_StreamRunner` (one
     set of captured graphs on the card) per shape and reuses it across
     calls, as the JAX CLI reuses one jitted scan across corruptions.
-    `step_ms` holds the last call's ms a step."""
+    `step_ms` holds the last call's ms a step.  `axis_name`: a process
+    group over which the step sums the fits' statistics
+    (`make_step_fn`)."""
 
-    def __init__(self, cfg: Config, model: Callable):
-        self.step = make_step_fn(cfg, model)
+    def __init__(self, cfg: Config, model: Callable, axis_name=None):
+        self.step = make_step_fn(cfg, model, axis_name=axis_name)
         self.noise = cfg.dota.use_mode_dota
         self.gated = self.noise and cfg.dota.res_learning
         self.runners: dict = {}
@@ -831,10 +977,11 @@ class ScanFn:
         return state, outs
 
 
-def make_scan_fn(cfg: Config, model: Callable) -> ScanFn:
+def make_scan_fn(cfg: Config, model: Callable, axis_name=None) -> ScanFn:
     """The stream's scan for `cfg`; pass one to every `run_stream_scan` of
-    a run to reuse its captured step."""
-    return ScanFn(cfg, model)
+    a run to reuse its captured step.  With `axis_name` (a process group)
+    its step is the psum step of `make_step_fn`."""
+    return ScanFn(cfg, model, axis_name)
 
 
 def run_stream_scan(cfg: Config, model: Callable,

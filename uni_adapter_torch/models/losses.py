@@ -3,29 +3,28 @@
 The pc↔text plus masked pc↔image InfoNCE of Uni3D's pretraining
 (`Uni3d_Text_Image_Loss`).  Products run in fp32 with TF32 off (the
 process's setting, `cli.tta.set_numerics`), the counterpart of the JAX
-package's `precision=HIGHEST`.  One process, one device: gathering the
-other ranks' features (the JAX package's `axis_name`, an all-gather over
-the mesh) waits for ROADMAP M16 and raises.
+package's `precision=HIGHEST`.  With `axis_name` (a process group) the
+features of every rank are gathered as the negatives, each rank's rows
+labelled at its offset, and the masked leg's numerator and denominator
+summed over the ranks; the gathers carry their gradients as JAX's AD
+transposes its collectives (`parallel/collectives.py`).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from uni_adapter_torch.parallel import collectives
 
 
-def _no_axis(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: gathering features across processes "
-            "is not ported yet (ROADMAP M16, parallelism)")
-
-
-def all_gather_batch(tensors, axis_name: Optional[str] = None):
-    """Gather batches from all processes along the batch axis: the
-    identity on one process."""
-    _no_axis(axis_name)
-    return tensors
+def all_gather_batch(tensors, axis_name=None):
+    """Gather batches from all ranks along the batch axis (rank order,
+    differentiable); the identity without a group."""
+    if axis_name is None:
+        return tensors
+    return [collectives.gather_rows(t, axis_name) for t in tensors]
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -51,7 +50,7 @@ def uni3d_text_image_loss(pc_embed: torch.Tensor, text_embed: torch.Tensor,
                           image_embed: torch.Tensor,
                           logit_scale: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          axis_name: Optional[str] = None) -> dict:
+                          axis_name=None) -> dict:
     """pc↔text + (masked) pc↔image contrastive loss.
 
     Args:
@@ -59,11 +58,11 @@ def uni3d_text_image_loss(pc_embed: torch.Tensor, text_embed: torch.Tensor,
       logit_scale: the scale itself (exp of the learnt log-scale).
       mask: (B,) 0/1 image-validity mask: rows without a render count in
         neither direction of the image leg.
+      axis_name: a process group: the negatives are every rank's rows, and
+        the masked leg is normalised by the global mask count.
     Returns:
       dict with loss, uni3d_loss, pc_text_acc and pc_image_acc (in %).
     """
-    _no_axis(axis_name)
-
     def norm(x):
         return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True)
                     + 1e-12)
@@ -71,7 +70,8 @@ def uni3d_text_image_loss(pc_embed: torch.Tensor, text_embed: torch.Tensor,
     pc, tx, im = norm(pc_embed), norm(text_embed), norm(image_embed)
     pc_g, tx_g, im_g = all_gather_batch([pc, tx, im], axis_name)
     B = pc.shape[0]
-    labels = torch.arange(B, device=pc.device)
+    offset = 0 if axis_name is None else dist.get_rank(axis_name) * B
+    labels = offset + torch.arange(B, device=pc.device)
 
     loss_pt = info_nce(pc, tx, logit_scale, labels,
                        feat_a_gathered=pc_g, feat_b_gathered=tx_g)
@@ -85,7 +85,11 @@ def uni3d_text_image_loss(pc_embed: torch.Tensor, text_embed: torch.Tensor,
         def masked_ce(logits):
             logp = torch.log_softmax(logits, dim=-1)
             per = -torch.take_along_dim(logp, labels[:, None], dim=1)[:, 0]
-            return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+            # the GLOBAL mask count normalises: ranks with different
+            # numbers of valid images weigh their rows as one device would
+            num = collectives.sum_across((per * m).sum(), axis_name)
+            den = collectives.sum_across(m.sum(), axis_name)
+            return num / torch.clamp(den, min=1.0)
 
         loss_pi = 0.5 * (masked_ce(logits_pi) + masked_ce(logits_ip))
     else:

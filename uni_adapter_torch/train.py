@@ -19,8 +19,14 @@ mask=decay_mask))` written out in PyTorch to its arithmetic:
 
 Parameters and moments are updated in place (PyTorch's tensors are
 mutable; the JAX state is rebuilt each step): `TrainState.params` holds
-the model's own parameter tensors.  The data-parallel step (the JAX
-package's `make_dp_train_step`) waits for ROADMAP M16.
+the model's own parameter tensors.
+
+`make_dp_train_step` is the data-parallel step over a `torch.distributed`
+process group, one rank a process: each rank's batch, the negatives
+gathered over the ranks inside the loss, the gradients and metrics
+averaged over the ranks (JAX's `pmean`), then the same clipped AdamW
+update on every rank, so the replicated parameters stay equal.  With
+equal local batches it is the single-device step on the global batch.
 """
 from __future__ import annotations
 
@@ -183,10 +189,12 @@ def load_train_state(model: nn.Module, saved: TrainState) -> TrainState:
                       saved.step)
 
 
-def _loss_fn(model, logit_scale, pc, text_embed, image_embed, mask):
+def _loss_fn(model, logit_scale, pc, text_embed, image_embed, mask,
+             axis_name=None):
     pc_embed = model(pc)
     out = uni3d_text_image_loss(pc_embed, text_embed, image_embed,
-                                torch.exp(logit_scale), mask=mask)
+                                torch.exp(logit_scale), mask=mask,
+                                axis_name=axis_name)
     return out["loss"], out
 
 
@@ -206,6 +214,21 @@ def apply_grads(state: TrainState, tx: AdamW, grads: dict,
                       state.step + 1)
 
 
+def _grads(model, state: TrainState, pc, text_embed, image_embed, mask,
+           axis_name=None) -> tuple:
+    """(the loss's gradients by name, its metrics, detached)."""
+    names = [*state.params, LOGIT_SCALE]
+    logit_scale = state.logit_scale.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = _loss_fn(model, logit_scale, pc, text_embed,
+                                 image_embed, mask, axis_name)
+        grads = torch.autograd.grad(
+            loss, [*state.params.values(), logit_scale], allow_unused=True,
+            materialize_grads=True)
+    return dict(zip(names, grads)), {k: v.detach() for k, v in
+                                     metrics.items()}
+
+
 def train_step(model: nn.Module, tx: AdamW, state: TrainState,
                pc: torch.Tensor, text_embed: torch.Tensor,
                image_embed: torch.Tensor,
@@ -213,14 +236,42 @@ def train_step(model: nn.Module, tx: AdamW, state: TrainState,
     """One contrastive step on one device.  pc: (B, N, C); embeds: (B, D).
     Returns (the state, updated in place, with step + 1; the loss's
     metrics, detached)."""
-    names = [*state.params, LOGIT_SCALE]
-    logit_scale = state.logit_scale.detach().requires_grad_(True)
-    with torch.enable_grad():
-        loss, metrics = _loss_fn(model, logit_scale, pc, text_embed,
-                                 image_embed, mask)
-        grads = torch.autograd.grad(
-            loss, [*state.params.values(), logit_scale], allow_unused=True,
-            materialize_grads=True)
-    state = apply_grads(state, tx, dict(zip(names, grads)),
+    grads, metrics = _grads(model, state, pc, text_embed, image_embed, mask)
+    state = apply_grads(state, tx, grads,
                         decay_mask(model) if tx.masked else None)
-    return state, {k: v.detach() for k, v in metrics.items()}
+    return state, metrics
+
+
+def make_dp_train_step(model: nn.Module, tx: AdamW, mesh=None):
+    """The data-parallel step over `mesh` (a `parallel.mesh.World`, a
+    process group, or None for the default group):
+    dp_step(state, pc, text_embed, image_embed, mask=None) -> (state,
+    metrics) on this rank's rows.  The loss gathers every rank's
+    features as negatives; the gradients and the metrics are averaged
+    over the ranks (one all-reduce each, of their packed fp32 buffer);
+    then `apply_grads`, the same update on every rank.  Without a mask
+    the image leg runs masked by ones (the JAX wrapper's default)."""
+    from uni_adapter_torch.parallel import collectives
+    from uni_adapter_torch.parallel.mesh import World, make_mesh
+
+    group = (mesh.group if isinstance(mesh, World)
+             else make_mesh(mesh).group)
+    if group is None:
+        raise ValueError("make_dp_train_step needs an initialised "
+                         "torch.distributed process group")
+    decay = decay_mask(model) if tx.masked else None
+
+    def dp_step(state: TrainState, pc: torch.Tensor,
+                text_embed: torch.Tensor, image_embed: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> tuple:
+        if mask is None:
+            mask = torch.ones(pc.shape[0], device=pc.device)
+        grads, metrics = _grads(model, state, pc, text_embed, image_embed,
+                                mask, axis_name=group)
+        grads = dict(zip(grads, collectives.pmean(list(grads.values()),
+                                                  group)))
+        metrics = dict(zip(metrics, collectives.pmean(
+            list(metrics.values()), group)))
+        return apply_grads(state, tx, grads, decay), metrics
+
+    return dp_step
