@@ -227,6 +227,27 @@ exits non-zero before the result line:
      set (Uni3D-L bf16, full depth, traced: FPS, kNN, the (B, H, N, hd)
      attention), its centroids and distances card against CPU, its exact
      t-SNE card against CPU from the same init.
+ 12. class-sharded adaptation (`run_ep`, `parallel/ep.py`): at world 1
+     over NCCL in this process, Uni3D-L bf16 on 16 10,000-point clouds
+     with a seeded (1156, 1024) bank, MODE-DOTA captured in segments:
+     residuals off bitwise equal to the plain scan, residuals on within
+     the residual envelope, traced (fps_grid, knn_gather, the block); at
+     world 2 (two processes sharing the card over gloo) the same runs
+     held to the plain scan (residuals on: acc@1 equal, the distance
+     printed beside the plain scan's with the classes permuted), one
+     gradient of the sharded residual loop within 1e-5 of the
+     replicated one's largest entry (a planted fault, the dx sum
+     skipped, must fail it), every method at K 15 (1024-point clouds, full
+     depth; MODE-DOTA with `shard_encoder` in fp32, plain DOTA, GMM-DOTA,
+     adaptive, the cache dense and prototype) at tests/test_ep_*.py's
+     tolerances, plain DOTA at K 1156 with each
+     rank's peak memory beside one process's, and
+     `TTAServer(dist_mode='ep')` against its clients' streams; at world 4
+     `run_streams_ep` on a 2 × 2 grid against `run_streams_scan`; the CLI
+     (`torch.distributed.run ... --dist-mode ep` with `--continual` and
+     with `--vmap-corruptions`) and `cli.serve --dist-mode ep` over HTTP
+     on two ranks.  ms a step, peak memory, segments a step and the
+     launches of FPS, kNN and the block a rank are printed.
 
 Phase 3 also holds the backward of the fp32 block's attention side
 (`csrc/eva_attn_block_bwd.cu` through `EvaAttnBlockFunction`) at Uni3D-L's
@@ -243,11 +264,13 @@ The line before the last is a JSON object of per-kernel numbers; the last
 is `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --dist-only
+    python3 chip_smoke.py --ep-only
 
-builds the kernels and runs phase 11's distributed part alone
-(`run_dist_streams`, `run_dp_pretraining`): on a machine with two cards
-or more that is where the world of two runs over NCCL, a card a rank,
-besides gloo.  It prints the two phases' summary and the same last line.  Without a CUDA device, or without the
+builds the kernels and runs phase 11's distributed part and phase 12
+alone (`run_dist_streams`, `run_dp_pretraining`, `run_ep`): on a machine
+with two cards or more that is where the worlds of two run over NCCL, a
+card a rank, besides gloo.  `--ep-only` builds the kernels and runs
+phase 12 alone.  Each prints its phases' summary and the same last line.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
 """
@@ -4679,14 +4702,20 @@ def check_quant(torch, tmp: Path, uni3d_ms: float) -> tuple:
     if not (torch.isfinite(f_gpu).all() and 1 - c32 < 1e-4 and c8 > 0.99):
         fail("the quantised Uni3D disagrees with the CPU or the bf16 trunk")
     del gpu, cpu, bf16, plain
-    launches, step_ms = run_main_path(tmp, "uni3d_int8", spec=INT8_PATH)
     # the captured MODE-DOTA step with residuals: two programs (the gate
     # closed at step 0, open after), each run WARMUP_RUNS times eagerly
-    # before its capture, and 16 replays
+    # before its capture, and 16 replays.  A trace that lost a launch (one
+    # of this script's runs on an H100 counted 479 of 480) is taken again,
+    # up to three times, as `check_replayed_kernels` does
     forwards = 16 + 2 * WARMUP_RUNS
-    if launches["attention_heads"] != 24 * forwards:
+    for _ in range(3):
+        launches, step_ms = run_main_path(tmp, "uni3d_int8", spec=INT8_PATH)
+        if launches["attention_heads"] == 24 * forwards:
+            break
+    else:
         fail(f"uni3d_int8: {launches['attention_heads']} attention_heads "
-             f"launches over {forwards} forwards, expected 24 each")
+             f"launches over {forwards} forwards, expected 24 each, in "
+             f"three traces")
     print(f"main path uni3d_int8: {step_ms:.2f} ms/step against uni3d's "
           f"{uni3d_ms:.2f} (bf16 block kernel); attention_heads 24 a "
           f"forward, eva_attn_block 0")
@@ -5982,6 +6011,917 @@ def run_cross_class(tmp: Path, card: str) -> tuple:
     return launches, summary
 
 
+# ---- phase 12: class-sharded adaptation (parallel/ep.py) ------------------
+
+#: tests/test_ep.py's tolerances: with residuals off the mixture within
+#: rtol 1e-5, atol 1e-7 of the run it is held to.  The sharded residual
+#: gradient within 1e-5 of the replicated gradient's largest entry
+#: (tests/test_ep.py's 1e-5, taken relative: at K 1156 the entries are
+#: about 1e-4, so an absolute 1e-5 would pass a gradient a tenth off),
+#: which the gradient with its dx sum skipped must fail.  With residuals
+#: on the trajectory is held as ROADMAP's "Trajectories" holds it: that
+#: one gradient, and acc@1 equal; its distance from the plain scan is
+#: printed beside tests/test_ep.py's envelope (residuals atol 1e-2, means
+#: rtol 1e-3, atol 1e-4), which 16 steps at K 1156 on the card exceed in
+#: a few elements (Adam moves an element whose gradient is near zero by
+#: ±lr on a last-bit difference, 160 times; the medians stay near 1e-6),
+#: and beside the distance of the plain scan with the classes permuted
+#: (the same arithmetic, its sums over the classes in another order).
+#: `shard_encoder` in fp32: atol 1e-6, since each rank encodes one cloud
+#: where one process encodes two, and cuBLAS's fp32 GEMMs are not
+#: batch-invariant in the last bits (the features of the two ways are
+#: printed, in bf16 and fp32).
+EP_RTOL, EP_ATOL = 1e-5, 1e-7
+EP_RES_ATOL, EP_MU_RTOL, EP_MU_ATOL = 1e-2, 1e-3, 1e-4
+EP_GRAD_REL = 1e-5
+EP_SE_ATOL = 1e-6
+#: tests/test_ep_{dota,gmm,adaptive,cache}.py's (rtol, atol) of the state
+#: (plain DOTA's Λ, an ill-conditioned inverse, at rtol 2e-3, atol 1).
+EP_METHOD_TOL = {"dota": (1e-4, 1e-5), "gmm": (1e-5, 1e-6),
+                 "adaptive": (1e-4, 1e-5), "cache": (1e-5, 1e-6)}
+EP_LAM_TOL = (2e-3, 1.0)
+#: The K = 15 methods (ScanObjectNN's class count, padded to 16 over two
+#: ranks): name -> DotaConfig overrides, cache overrides, shard_encoder.
+EP_METHODS = {
+    "mode_se": (dict(res_learning=False), {}, True),
+    "mode_se_fp32": (dict(res_learning=False), {}, True),
+    "dota": (dict(use_dota=True, use_mode_dota=False), {}, False),
+    "gmm": (dict(use_gmm_dota=True, use_mode_dota=False), {}, False),
+    "adaptive": (dict(use_adaptive_dota=True, use_mode_dota=False), {},
+                 False),
+    "cache_dense": (dict(use_mode_dota=False),
+                    dict(graph_mode="dense", shot_capacity=3), False),
+    "cache_prototype": (dict(use_mode_dota=False),
+                        dict(graph_mode="prototype", shot_capacity=3),
+                        False)}
+#: The fields held per method, and those held exactly.
+EP_FIELDS = {"mode": (("mu", "var", "pi", "c", "class_counts"), ("t",)),
+             "dota": (("mu", "c", "sigma", "cum_soft_labels"),
+                      ("prior_step",)),
+             "gmm": (("mu", "sigma", "sigma_reg", "pi", "C", "class_counts"),
+                     ("total_samples",)),
+             "adaptive": (("mu", "var", "pi", "c", "class_counts"),
+                          ("mask", "t", "fit_calls")),
+             "cache": (("feats", "conf", "probs"), ("valid", "counts"))}
+#: The EP kernels: rows 1, 2, 3, 6, 8 of PERF.md's table.
+EP_KERNELS = ("fps", "knn", "eva_attn_block", "knn_gather", "fps_grid")
+
+
+def ep_cfg(dota: dict = None, cache: dict = None, depth: int = 24,
+           dataset: str = "modelnet", dtype: str = "bfloat16"):
+    """Uni3D-L in `dtype` at depth `depth`, the DotaConfig defaults
+    (MODE-DOTA with residuals at 'high') with `dota` over them."""
+    from uni_adapter_torch.config import (CacheConfig, Config, DataConfig,
+                                          DotaConfig, ModelConfig)
+
+    return Config(model=ModelConfig(eva_depth=depth, compute_dtype=dtype),
+                  dota=DotaConfig(**(dota or {})),
+                  cache=CacheConfig(**(cache or {})),
+                  data=DataConfig(dataset_name=dataset)).resolve()
+
+
+def ep_method_cfg(name: str):
+    """The configuration of an EP_METHODS entry: ScanObjectNN's table,
+    fp32 where the name says so."""
+    dota, cache, _ = EP_METHODS[name]
+    return ep_cfg(dota, cache, dataset="scanobjectnn",
+                  dtype="float32" if name.endswith("fp32") else "bfloat16")
+
+
+def ep_kind(name: str) -> str:
+    return ("mode" if name.startswith("mode") else
+            "cache" if name.startswith("cache") else name)
+
+
+def ep_inputs(torch, tmp: Path) -> dict:
+    """Phase 12's streams and banks, numpy-seeded: 16 Objaverse-LVIS-like
+    clouds of 10,000 points with a seeded (1156, 1024) bank, 16
+    ScanObjectNN-like clouds of 1024 points with a seeded (15, 1024) bank,
+    4 streams of 4 1024-point clouds for DP × EP (ModelNet40's bank)."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+
+    def spheres(*lead, n=1024):
+        x = rng.standard_normal((*lead, n, 3)).astype(np.float32)
+        x = 0.5 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+        return x * rng.uniform(0.6, 1.4, (*lead, 1, 3)).astype(np.float32)
+
+    def bank(k):
+        b = rng.standard_normal((k, 1024)).astype(np.float32)
+        return torch.from_numpy(b / np.linalg.norm(b, axis=1, keepdims=True))
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    lvis, sonn, sweep = spheres(16, 1, n=10000), spheres(16, 1), \
+        spheres(4, 4, 1)
+    return {"lvis": (t(lvis), torch.ones(16, 1, 10000, 3),
+                     torch.zeros(16, 1, dtype=torch.int64)),
+            "sonn": (t(sonn), torch.ones(16, 1, 1024, 3),
+                     torch.zeros(16, 1, dtype=torch.int64)),
+            "sweep": (t(sweep), torch.ones(4, 4, 1, 1024, 3),
+                      torch.zeros(4, 4, 1, dtype=torch.int64)),
+            "bank_lvis": bank(1156), "bank_sonn": bank(15)}
+
+
+def ep_state(state) -> dict:
+    """A carry's tensors by field name ('res.residuals' for the
+    residuals), on the CPU."""
+    out = {n: getattr(state.method_state, n).cpu()
+           for n in state.method_state._fields}
+    if state.res_state is not None:
+        out.update({f"res.{n}": getattr(state.res_state, n).cpu()
+                    for n in state.res_state._fields})
+    return out
+
+
+def ep_diff(got: dict, want: dict, names) -> float:
+    return max(float((got[n].double() - want[n].double()).abs().max())
+               for n in names)
+
+
+def ep_check(what: str, got: dict, want: dict, kind: str,
+             tol=None, report=fail) -> float:
+    """`got` within the method's tolerance of `want` (its exact fields
+    equal), each miss passed to `report`; returns the largest
+    difference."""
+    import torch
+
+    close, exact = EP_FIELDS[kind]
+    rtol, atol = tol or EP_METHOD_TOL.get(kind, (EP_RTOL, EP_ATOL))
+    for n in exact:
+        if not torch.equal(got[n], want[n]):
+            report(f"{what}: {n} differs")
+    for n in close:
+        if not torch.allclose(got[n], want[n], rtol=rtol, atol=atol):
+            report(f"{what}: {n} max |Δ| {ep_diff(got, want, [n]):.3g} outside"
+                 f" rtol {rtol}, atol {atol}")
+    if kind == "dota" and not torch.allclose(got["lam"], want["lam"],
+                                             rtol=EP_LAM_TOL[0],
+                                             atol=EP_LAM_TOL[1]):
+        report(f"{what}: lam outside rtol {EP_LAM_TOL[0]}, atol "
+             f"{EP_LAM_TOL[1]}")
+    return ep_diff(got, want, close)
+
+
+def ep_segments(scan_fn) -> dict:
+    """The captured segments of each program of a scan (by residual
+    gate; the cache's head, iteration and tail)."""
+    out = {}
+    for runner in scan_fn.runners.values():
+        for gate, program in runner.programs.items():
+            out[str(gate)] = [len(getattr(p, "segments", [p]))
+                              for p in program]
+    return out
+
+
+def ep_peak(torch, run):
+    """run()'s result and the device memory it peaked at (GB) above what
+    was allocated when it started."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9, \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def ep_rank(rank: int, world: int, tmp: str, port: int, mode: str) -> None:
+    """One rank of phase 12's worlds of 2 and 4, started by
+    `run_ep_world`: mode 'gloo', every rank on card 0 (the bootstrap
+    picks gloo), or 'nccl', a card a rank; writes
+    tmp/ep_rank{rank}_w{world}_{mode}.pt."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if mode == "gloo":
+        os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.cli.tta import set_numerics
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.parallel import collectives, ep, mesh as pmesh
+    from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+
+    boot = init_distributed_device("cuda")
+    set_numerics()
+    try:
+        inp = torch.load(Path(tmp) / "ep_inputs.pt", weights_only=False)
+        out = {"backend": boot["backend"]}
+        world_ = pmesh.make_mesh()
+        if world == 4:
+            cfg = ep_cfg(dict(res_learning=False), depth=2)
+            model, _, _ = build_backbone("uni3d", cfg.model, "cuda", seed=0)
+            text = load_precomputed("large", "modelnet").cuda()
+            grid = ep.make_grid(2)
+            state, summary = ep.run_streams_ep(cfg, model, text,
+                                               *inp["sweep"], grid=grid,
+                                               seed=42)
+            out["dp_ep"] = {"summary": summary, "state": ep_state(state)}
+            torch.save(out, Path(tmp) / f"ep_rank{rank}_w{world}_{mode}.pt")
+            return
+        model, _, _ = build_backbone("uni3d", ep_cfg().model, "cuda", seed=0)
+        lvis = [a.cuda() for a in inp["lvis"]]
+        sonn = [a.cuda() for a in inp["sonn"]]
+        blvis, bsonn = inp["bank_lvis"].cuda(), inp["bank_sonn"].cuda()
+        for name, dota in (("lvis_off", dict(res_learning=False)),
+                           ("lvis_on", dict(residual_precision="high")),
+                           ("lvis_highest",
+                            dict(residual_precision="highest"))):
+            cfg = ep_cfg(dota, dataset="objaverse_lvis")
+            shard = ep.class_shard(world_, 1156)
+            scan_fn = ep.make_ep_scan_fn(cfg, model, shard)
+            counters = zeroed_counters()
+            (state, summary), peak, _ = ep_peak(torch, lambda: ep.run_stream_ep(
+                cfg, model, blvis, *lvis[:2], inp["targets"]["lvis"],
+                seed=42, scan_fn=scan_fn))
+            out[name] = {"state": ep_state(state), "summary": summary,
+                         "ms": list(scan_fn.step_ms), "peak_gb": peak,
+                         "segments": ep_segments(scan_fn),
+                         "launches": {k: counters[k].launches
+                                      for k in EP_KERNELS}}
+        # one gradient of the sharded residual loop at K = 1156 ('highest')
+        g = inp["grad"]
+        shard = ep.class_shard(world_, 1156)
+        rows = slice(shard.offset, shard.offset + shard.k_local)
+        from uni_adapter_torch.adapt import mode_dota, residual
+        mix = mode_dota.ModeDotaState(*(t.cuda()[rows] if t.dim() else
+                                        t.cuda() for t in g["mixture"]))
+        terms = residual.frozen_mixture_terms(mix, g["epsilon"])
+        text_l = ep.pad_classes(blvis, shard.n)[0][rows]
+        grads = engine.drive(ep.residual_gradient_sharded(
+            g["residuals"].cuda()[rows], text_l, terms, shard, "highest"),
+            shard.group)
+        out["grad"] = grads.cpu()
+        # the planted fault: the same parts with the dx sum not issued
+        parts = ep.residual_gradient_sharded(
+            g["residuals"].cuda()[rows], text_l, terms, shard, "highest")
+        try:
+            while True:
+                req = next(parts)
+                if req.kind != "sum":
+                    collectives.issue(req, shard.group)
+        except StopIteration as done:
+            out["grad_fault"] = done.value.cpu()
+        # the K = 15 methods on 1024-point clouds, and plain DOTA at 1156
+        model32, _, _ = build_backbone(
+            "uni3d", ep_cfg(dtype="float32").model, "cuda", seed=0)
+        for name, (dota, cache, se) in EP_METHODS.items():
+            cfg = ep_method_cfg(name)
+            shard = ep.class_shard(world_, 15)
+            m = model32 if cfg.model.compute_dtype == "float32" else model
+            scan_fn = ep.make_ep_scan_fn(cfg, m, shard, se)
+            counters = zeroed_counters()
+            state, summary = ep.run_stream_ep(
+                cfg, m, bsonn, *sonn[:2], inp["targets"][name], seed=42,
+                shard_encoder=se, scan_fn=scan_fn)
+            out[name] = {"state": ep_state(state), "summary": summary,
+                         "ms": list(scan_fn.step_ms),
+                         "segments": ep_segments(scan_fn),
+                         "launches": {k: counters[k].launches
+                                      for k in EP_KERNELS}}
+        del model32
+        torch.cuda.empty_cache()
+        # plain DOTA at K = 1156: the steps' peak memory (the carry's block
+        # and the scan's copy of it), then the gather of the full carry
+        cfg = ep_cfg(dict(use_dota=True, use_mode_dota=False),
+                     dataset="objaverse_lvis")
+        shard = ep.class_shard(world_, 1156)
+        scan_fn = ep.make_ep_scan_fn(cfg, model, shard)
+        rows = slice(shard.offset, shard.offset + shard.k_local)
+        st0 = ep.local_padded_state(cfg, blvis, shard, 42)
+        (state, outs), peak, top = ep_peak(torch, lambda: scan_fn(
+            ep.pad_classes(blvis, shard.n)[0][rows], st0, *sonn[:2],
+            inp["targets"]["dota_lvis"].cuda()))
+        del st0
+        state = ep.gather_state(state, shard)
+        out["dota_lvis"] = {"mu": state.method_state.mu.cpu(),
+                            "acc1": 100.0 * outs.correct.sum(0)[0].item() / 16,
+                            "ms": list(scan_fn.step_ms), "peak_gb": peak,
+                            "top_gb": top}
+        del state, scan_fn
+        torch.cuda.empty_cache()
+        out["serve"] = ep_serve_rank(torch, model, bsonn, sonn[0].cpu(),
+                                     Path(tmp))
+        torch.save(out, Path(tmp) / f"ep_rank{rank}_w{world}_{mode}.pt")
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def ep_serve_rank(torch, model, text, clouds, tmp: Path) -> dict:
+    """`TTAServer(dist_mode='ep')` in a world of two: rank 0 serves two
+    clients 4 ticks (a 16-cloud stream's first and second 4 clouds), a
+    snapshot of one restored as a third client, one more tick; rank 1
+    follows.  Then each client's stream through `run_stream_ep` (its
+    logits).  Returns rank 0's ticks and the streams' logits."""
+    from uni_adapter_torch import serve
+    from uni_adapter_torch.parallel import ep
+
+    cfg = ep_cfg(dict(res_learning=False), dataset="scanobjectnn")
+    streams = [clouds[:5].numpy(), clouds[5:10].numpy()]
+    srv = serve.TTAServer(cfg, model, text, seed=42, dist_mode="ep")
+    out = {}
+    if srv.primary:
+        for cid in ("a", "b"):
+            srv.register(cid)
+        ticks = [srv.submit([(c, s[t], None) for c, s in
+                             zip(("a", "b"), streams)]) for t in range(4)]
+        path = str(tmp / "ep_snapshot")
+        srv.snapshot("a", path)
+        srv.restore("c", path)
+        ticks.append(srv.submit([("a", streams[0][4], None),
+                                 ("c", streams[0][4], None)]))
+        srv.stop()
+        out["ticks"] = ticks
+    else:
+        serve.follow(srv)
+    for i, s in enumerate(streams):
+        pcs = torch.from_numpy(s).cuda()
+        _, _, outs = ep.run_stream_ep(
+            cfg, model, text, pcs, torch.ones_like(pcs),
+            torch.zeros(pcs.shape[:2], dtype=torch.int64, device="cuda"),
+            seed=42 + i, return_outputs=True)
+        out[f"stream{i}"] = outs.final_logits.cpu()
+    return out
+
+
+def run_ep_world(tmp: Path, world: int, mode: str = "gloo") -> list:
+    """Phase 12's world of `world` ranks (`ep_rank`): over gloo on card 0,
+    or over NCCL, a card a rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.start_processes(ep_rank, args=(world, str(tmp), free_port(), mode),
+                       nprocs=world, join=True, start_method="spawn")
+    print(f"ep world {world} ({mode}): all ranks done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(tmp / f"ep_rank{r}_w{world}_{mode}.pt",
+                       weights_only=False) for r in range(world)]
+
+
+def run_ep_cli(tmp: Path, torch) -> dict:
+    """(d) the CLI and the HTTP server at world 2 over gloo on card 0:
+    `python -m torch.distributed.run --nproc-per-node 2 -m
+    uni_adapter_torch.cli.tta --dist-mode ep` with `--continual true` and
+    with `--vmap-corruptions true` (15 corruptions of 2 clouds, Uni3D-L
+    width, depth 2, residuals off), each results.json equal to the same
+    run in this process without EP; then `cli.serve --dist-mode ep` on
+    two ranks (rank 0 the HTTP front end), one client posting 3 clouds
+    whose logits equal a replicated server's here, rank 0 interrupted,
+    both ranks exiting 0."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from uni_adapter_torch.cli import tta
+    from uni_adapter_torch.client import TTAClient
+    from uni_adapter_torch.config import CORRUPTIONS
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.serve import TTAServer
+
+    root = tmp / "ep_cli_data"
+    write_stream(root, 1024, 40, 2, CORRUPTIONS)
+    common = ["--root", str(root), "--corruption", "all", "--eva-depth",
+              "2", "--dota-res-learning", "false",
+              "--precomputed-text-features", "large", "--name", "run"]
+    # the labels: met by the sweep's first stream on its first cloud only
+    # (the clouds the CLI reads, its weights: seed 42)
+    import dataclasses
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.data.datasets import load_tta_dataset
+
+    cfg = dataclasses.replace(ep_cfg(dict(res_learning=False), depth=2),
+                              data=dataclasses.replace(
+                                  ep_cfg().data, root=str(root)))
+    stacks = [load_tta_dataset(dataclasses.replace(cfg, data=dataclasses
+              .replace(cfg.data, corruption=c))).as_arrays(
+                  1, npoints=1024, seed=42) for c in CORRUPTIONS]
+    pcs, rgbs, tgts = (np.stack([s[i] for s in stacks]) for i in range(3))
+    model, _, _ = build_backbone("uni3d", cfg.model, "cuda", seed=42)
+    text40 = load_precomputed("large", "modelnet").cuda()
+    _, outs = engine.run_streams_scan(cfg, model, text40, pcs, rgbs, tgts,
+                                      seed=42)
+    np.save(root / "label.npy", half_met(torch, outs.final_logits[:, 0, 0])
+            .numpy().astype(np.int64))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    out, secs = {}, {}
+    for name, flags in (("continual", ["--continual", "true"]),
+                        ("vmap", ["--vmap-corruptions", "true"])):
+        want = tta.main([*common, *flags, "--output-dir",
+                         str(tmp / f"ep_cli_{name}_base")])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "uni_adapter_torch.cli.tta",
+             *common, *flags, "--dist-mode", "ep", "--output-dir",
+             str(tmp / f"ep_cli_{name}")], env=env, capture_output=True,
+            text=True, timeout=300)
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode:
+            fail(f"ep CLI ({name}): exit {proc.returncode}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        got = json.loads((tmp / f"ep_cli_{name}" / "run" / "results.json")
+                         .read_text())
+        if got != want["acc1"]:
+            fail(f"ep CLI ({name}): results.json {got} against the run "
+                 f"without EP {want['acc1']}")
+        log = (tmp / f"ep_cli_{name}" / "run" / "out.log").read_text()
+        if "dist mode ep" not in log:
+            fail(f"ep CLI ({name}): out.log does not say it ran ep")
+        out[name] = got
+    # the HTTP server on two ranks
+    port, mport = free_port(), free_port()
+    argv = ["--port", str(port), "--gather-ms", "0", "--eva-depth", "2",
+            "--dota-res-learning", "false", "--precomputed-text-features",
+            "large", "--dist-mode", "ep", "--output-dir",
+            str(tmp / "ep_serve")]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "uni_adapter_torch.cli.serve", *argv],
+        env=dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                 LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(mport)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        t0 = time.perf_counter()
+        client = TTAClient("127.0.0.1", port, "x")
+        while True:
+            try:
+                client.register()
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 180:
+                    raise
+                time.sleep(1.0)
+        clouds = np.load(root / "data_uniform_5.npy")
+        clouds = np.concatenate([clouds, clouds[:1]])[:, None]
+        logits = [client.submit(c) for c in clouds]
+        health = client.healthz()
+        procs[0].send_signal(signal.SIGINT)
+        codes = [p.wait(timeout=60) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0, 0]:
+        fail(f"ep serve CLI: exit codes {codes}\n"
+             + "\n".join(p.stderr.read()[-2000:] for p in procs))
+    ref = TTAServer(cfg, model, text40, seed=42)
+    ref.register("x")
+    want = [ref.submit([("x", c, None)])["x"] for c in clouds]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(logits, want))
+    if diff > 1e-3 or health["clients"] != 1 or health["sizes"] != [1]:
+        fail(f"ep serve CLI: logits max |Δ| {diff:.3g} against a replicated "
+             f"server, healthz {health}")
+    print(f"ep CLI: --continual and --vmap-corruptions at world 2 wrote the "
+          f"runs' results.json without EP ({secs['continual']:.1f} s, "
+          f"{secs['vmap']:.1f} s with the launch); cli.serve --dist-mode ep:"
+          f" 3 requests over HTTP, logits max |Δ| {diff:.3g} against a "
+          f"replicated server, both ranks exited 0")
+    return {"cli_s": secs, "serve_logits_max_abs_diff": diff}
+
+
+def run_ep(tmp: Path, card: str) -> tuple:
+    """Phase 12: class-sharded adaptation (`parallel/ep.py`).
+
+    (a) world 1 over NCCL in this process: Uni3D-L bf16, full depth,
+    16 10,000-point clouds, the seeded (1156, 1024) bank, MODE-DOTA,
+    captured: with residuals off `run_stream_ep`'s state bitwise equal to
+    `run_stream_scan`'s, acc@1 equal; with residuals on ('high') within
+    the residual envelope; traced: FPS (fps_grid), kNN (knn_gather) and the
+    block, no other kernel.  (b) world 2, two processes sharing the card
+    over gloo: the same runs held to (a)'s plain scans (residuals off at
+    EP_RTOL with acc@1 equal; on, at 'high' and 'highest', acc@1 equal,
+    the distance printed beside tests/test_ep.py's envelope), one
+    gradient of the sharded residual loop against the replicated one
+    (EP_GRAD_REL; the dx sum skipped must fail it), each method at K = 15 (1024-point clouds, full depth;
+    MODE-DOTA with `shard_encoder` in bf16 printed, in fp32 held) against
+    its plain scan here, plain DOTA at K = 1156 with each rank's peak memory beside
+    this process's, and `TTAServer(dist_mode='ep')` (two clients, a
+    snapshot restored as a third) against each client's stream through
+    `run_stream_ep`.  (c) world 4 over gloo: `run_streams_ep` on a 2 × 2
+    grid, 4 streams of 4 clouds, depth 2, every stream's acc@1 equal to
+    `run_streams_scan` here.  (d) the CLI and the HTTP server at world 2
+    (`run_ep_cli`).  With two cards or more, (b)'s checks run again over
+    NCCL, a card a rank (the K 15 methods, K 1156 with residuals off and
+    on, the gradient and its planted fault, plain DOTA's means).  Targets are met on half the clouds
+    by the reference runs (`half_met`).  Prints ms a step, peak memory,
+    segments and launches; returns (the traced world-1 run's launches,
+    summary)."""
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.adapt import residual
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.parallel import ep
+    from uni_adapter_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    times, problems = {}, []
+
+    def bad(msg: str) -> None:
+        print(f"ep check failed: {msg}")
+        problems.append(msg)
+
+    inp = ep_inputs(torch, tmp)
+    model, _, _ = build_backbone("uni3d", ep_cfg().model, "cuda", seed=0)
+    lvis = [a.cuda() for a in inp["lvis"]]
+    sonn = [a.cuda() for a in inp["sonn"]]
+    blvis, bsonn = inp["bank_lvis"].cuda(), inp["bank_sonn"].cuda()
+    ms, targets, refs = {}, {}, {}
+
+    # the plain scans (world 1, no process group): the references
+    t0 = time.perf_counter()
+    cfgs = {"lvis_off": ep_cfg(dict(res_learning=False),
+                               dataset="objaverse_lvis"),
+            "lvis_on": ep_cfg(dict(residual_precision="high"),
+                              dataset="objaverse_lvis")}
+    highest = ep_cfg(dict(residual_precision="highest"),
+                     dataset="objaverse_lvis")
+    for name, cfg in (*cfgs.items(), ("lvis_highest", highest)):
+        scan_fn = engine.make_scan_fn(cfg, model)
+        if name == "lvis_off":
+            _, outs = engine.run_stream_scan(cfg, model, blvis, *lvis,
+                                             seed=42, scan_fn=scan_fn)
+            targets["lvis"] = half_met(torch, outs.final_logits).cuda()
+        (state, outs), peak, _ = ep_peak(torch, lambda: engine.run_stream_scan(
+            cfg, model, blvis, *lvis[:2], targets["lvis"], seed=42,
+            scan_fn=scan_fn))
+        refs[name] = (ep_state(state), engine.summarize(outs, 16), peak)
+        ms[f"plain_{name}"] = statistics.median(scan_fn.step_ms[1:])
+    # the witness of the residual drift's cause: the plain scan with the
+    # classes permuted (bank rows and targets), its state permuted back
+    perm = torch.randperm(1156, generator=torch.Generator().manual_seed(5))
+    inv = torch.argsort(perm)
+    drift = {}
+    for name, cfg in (("high", cfgs["lvis_on"]), ("highest", highest)):
+        state, _ = engine.run_stream_scan(
+            cfg, model, blvis[perm.cuda()], *lvis[:2],
+            inv.cuda()[targets["lvis"]], seed=42)
+        st = {n: t[inv] if t.dim() else t
+              for n, t in ep_state(state).items()}
+        want = refs["lvis_on" if name == "high" else "lvis_highest"][0]
+        drift[name] = {n: ep_diff(st, want, [n])
+                       for n in ("res.residuals", "mu")}
+    model32, _, _ = build_backbone("uni3d", ep_cfg(dtype="float32").model,
+                                   "cuda", seed=0)
+    for name in EP_METHODS:
+        cfg = ep_method_cfg(name)
+        m = model32 if cfg.model.compute_dtype == "float32" else model
+        scan_fn = engine.make_scan_fn(cfg, m)
+        _, outs = engine.run_stream_scan(cfg, m, bsonn, *sonn, seed=42,
+                                         scan_fn=scan_fn)
+        targets[name] = half_met(torch, outs.final_logits).cuda()
+        state, outs = engine.run_stream_scan(cfg, m, bsonn, *sonn[:2],
+                                             targets[name], seed=42,
+                                             scan_fn=scan_fn)
+        refs[name] = (ep_state(state), engine.summarize(outs, 16), None)
+        ms[f"plain_{name}"] = statistics.median(scan_fn.step_ms[1:])
+    # shard_encoder's split: each rank encodes one of MODE-DOTA's two
+    # fused rows (a cloud and its noisy copy) where one process encodes
+    # both
+    pc = sonn[0][0]
+    pcs2 = torch.cat([pc, pc + 0.05 * torch.randn(
+        pc.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(4))])
+    rgbs2 = torch.ones_like(pcs2)
+    enc_split = {}
+    with torch.no_grad():
+        for dtype, m in (("bfloat16", model), ("float32", model32)):
+            encode = engine.encode_with("uni3d", m)
+            both = encode(pcs2, rgbs2).float()
+            alone = torch.cat([encode(pcs2[i:i + 1], rgbs2[i:i + 1])
+                               for i in range(2)]).float()
+            enc_split[dtype] = (float((both - alone).abs().max()),
+                                float(both.abs().max()))
+    del model32, scan_fn
+    torch.cuda.empty_cache()
+    cfg = ep_cfg(dict(use_dota=True, use_mode_dota=False),
+                 dataset="objaverse_lvis")
+    scan_fn = engine.make_scan_fn(cfg, model)
+    _, outs = engine.run_stream_scan(cfg, model, blvis, *sonn, seed=42,
+                                     scan_fn=scan_fn)
+    targets["dota_lvis"] = half_met(torch, outs.final_logits).cuda()
+    del scan_fn, outs
+    torch.cuda.empty_cache()
+    # the steps' peak memory: a fresh scan (its copy of the carry) from an
+    # init made before
+    scan_fn = engine.make_scan_fn(cfg, model)
+    st0 = engine.init_state(cfg, blvis, 42)
+    (state, outs), peak, top = ep_peak(torch, lambda: scan_fn(
+        blvis, st0, *sonn[:2], targets["dota_lvis"]))
+    refs["dota_lvis"] = (state.method_state.mu.cpu(),
+                         engine.summarize(outs, 16), (peak, top))
+    ms["plain_dota_lvis"] = statistics.median(scan_fn.step_ms[1:])
+    del state, st0, scan_fn
+    torch.cuda.empty_cache()
+    # (c)'s reference: 4 streams of 4 clouds at depth 2, ModelNet40's bank
+    cfg2 = ep_cfg(dict(res_learning=False), depth=2)
+    m2, _, _ = build_backbone("uni3d", cfg2.model, "cuda", seed=0)
+    text40 = load_precomputed("large", "modelnet").cuda()
+    sweep = [a.cuda() for a in inp["sweep"]]
+    _, outs = engine.run_streams_scan(cfg2, m2, text40, *sweep, seed=42)
+    inp["sweep"] = (*inp["sweep"][:2], half_met(
+        torch, outs.final_logits).transpose(0, 1).contiguous())
+    _, outs = engine.run_streams_scan(cfg2, m2, text40, *inp["sweep"],
+                                      seed=42)
+    want_dp = [s["acc1"] for s in engine.summarize_streams(outs, 4)]
+    del m2, outs
+    # the residual gradient's reference: the res-on run's mixture, a
+    # seeded residual
+    on = refs["lvis_on"][0]
+    mixture = tuple(on[n].cuda() for n in ("mu", "var", "pi", "c",
+                                           "class_counts", "t"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    res0 = 1e-3 * torch.randn(1156, 1024, device="cuda", generator=gen)
+    from uni_adapter_torch.adapt import mode_dota
+    terms = residual.frozen_mixture_terms(mode_dota.ModeDotaState(*mixture),
+                                          cfgs["lvis_on"].dota.epsilon)
+    with torch.enable_grad():
+        r = res0.clone().requires_grad_(True)
+        loss = residual._loss_from_terms(residual._normalize_rows(blvis + r),
+                                         terms, "highest")
+        (grad_ref,) = torch.autograd.grad(loss, r)
+    times["references"] = time.perf_counter() - t0
+
+    # (a) world 1 over NCCL
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    a = {}
+    try:
+        shard = ep.class_shard(pmesh.make_mesh(), 1156)
+        for name, cfg in cfgs.items():
+            scan_fn = ep.make_ep_scan_fn(cfg, model, shard)
+            go = lambda: ep.run_stream_ep(  # noqa: E731
+                cfg, model, blvis, *lvis[:2], targets["lvis"], seed=42,
+                scan_fn=scan_fn)
+            if name == "lvis_off":
+                (state, summary), launches, wrapper = traced_run(
+                    torch, "the EP stream (world 1, NCCL)", go,
+                    ("fps_grid", "knn_gather", "eva_attn_block"))
+                peak = None
+            else:
+                (state, summary), peak, _ = ep_peak(torch, go)
+            a[name] = (ep_state(state), summary, peak,
+                       ep_segments(scan_fn))
+            ms[f"ep_world1_{name}"] = statistics.median(scan_fn.step_ms[1:])
+    finally:
+        dist.destroy_process_group()
+    want, want_sum, _ = refs["lvis_off"]
+    got, got_sum, _, seg = a["lvis_off"]
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    if got_sum["acc1"] != want_sum["acc1"]:
+        bad(f"ep world 1: acc@1 {got_sum['acc1']} against run_stream_scan's"
+             f" {want_sum['acc1']}")
+    d_off = ep_check("ep world 1, residuals off", got, want, "mode",
+                     report=bad)
+    print(f"ep world 1 (NCCL), K 1156, residuals off: state bitwise equal to "
+          f"run_stream_scan's: {same} (max |Δ| {d_off:.3g}); acc@1 "
+          f"{got_sum['acc1']} (scan {want_sum['acc1']}); segments a step "
+          f"{seg}")
+    if not same:
+        bad("ep world 1: the state differs from run_stream_scan's")
+    got, got_sum, peak_on, seg_on = a["lvis_on"]
+    want, want_sum, peak_plain = refs["lvis_on"]
+    ep_check("ep world 1, residuals on", got, want, "mode",
+             (EP_MU_RTOL, EP_MU_ATOL), report=bad)
+    d_res = ep_diff(got, want, ["res.residuals"])
+    if d_res > EP_RES_ATOL:
+        bad(f"ep world 1, residuals on: residuals max |Δ| {d_res:.3g}")
+    print(f"ep world 1 (NCCL), K 1156, residuals on ('high'): residuals max "
+          f"|Δ| {d_res:.3g} (≤ {EP_RES_ATOL}), acc@1 {got_sum['acc1']} "
+          f"(scan {want_sum['acc1']}); peak {peak_on:.2f} GB (scan "
+          f"{peak_plain:.2f}); segments a step {seg_on}")
+    print(f"ep world 1 launches (traced): {launches}; wrappers "
+          f"{ {k: wrapper[k] for k in EP_KERNELS} }")
+    times["a"] = time.perf_counter() - t0
+
+    # (b) and (c): the worlds of 2 and 4 over gloo
+    t0 = time.perf_counter()
+    torch.save({"lvis": inp["lvis"], "sonn": inp["sonn"],
+                "sweep": inp["sweep"], "bank_lvis": inp["bank_lvis"],
+                "bank_sonn": inp["bank_sonn"],
+                "targets": {k: v.cpu() for k, v in targets.items()},
+                "grad": {"mixture": tuple(t.cpu() for t in mixture),
+                         "residuals": res0.cpu(),
+                         "epsilon": cfgs["lvis_on"].dota.epsilon}},
+               tmp / "ep_inputs.pt")
+    del model
+    torch.cuda.empty_cache()
+    ranks = run_ep_world(tmp, 2)
+    times["b"] = time.perf_counter() - t0
+    summary = {"ms_a_step": ms, "segments": {}, "peak_gb": {},
+               "launches": {}, "permuted_drift": drift,
+               "encoder_split": enc_split}
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo":
+            bad(f"ep world 2: rank {r} runs {res['backend']}, not gloo")
+        got = res["lvis_off"]
+        d = ep_check(f"ep world 2 rank {r}, K 1156, residuals off",
+                     got["state"], refs["lvis_off"][0], "mode", report=bad)
+        if got["summary"]["acc1"] != refs["lvis_off"][1]["acc1"]:
+            bad(f"ep world 2 rank {r}: acc@1 {got['summary']['acc1']} "
+                 f"against {refs['lvis_off'][1]['acc1']}")
+        print(f"ep world 2 rank {r} (gloo), K 1156: residuals off within "
+              f"rtol {EP_RTOL}, atol {EP_ATOL} of the plain scan (max |Δ| "
+              f"{d:.3g}), acc@1 {got['summary']['acc1']}; launches "
+              f"{got['launches']}")
+        for name in ("lvis_highest", "lvis_on"):
+            got_on, (want_on, want_sum, _) = res[name], refs[name]
+            d_res = ep_diff(got_on["state"], want_on, ["res.residuals"])
+            d_mu = ep_diff(got_on["state"], want_on, ["mu"])
+            acc = (got_on["summary"]["acc1"], want_sum["acc1"])
+            dist_ = {}
+            for n in ("res.residuals", "mu", "c"):
+                dd = (got_on["state"][n] - want_on[n]).abs().flatten()
+                dist_[n] = (dd.median().item(), dd.quantile(0.9).item()
+                            if dd.numel() <= 16_000_000 else None)
+            within = (d_res <= EP_RES_ATOL and torch.allclose(
+                got_on["state"]["mu"], want_on["mu"], rtol=EP_MU_RTOL,
+                atol=EP_MU_ATOL))
+            print(f"ep world 2 rank {r}, K 1156, residuals on ({name}): "
+                  f"residuals max |Δ| {d_res:.3g}, means max |Δ| {d_mu:.3g}"
+                  f" (tests/test_ep.py's envelope: {within}), acc@1 "
+                  f"{acc[0]} (scan {acc[1]}); |Δ| median / 90th pct "
+                  f"{dist_}; peak {got_on['peak_gb']:.2f} GB; segments "
+                  f"{got_on['segments']}")
+            if acc[0] != acc[1]:
+                bad(f"ep world 2 rank {r}, residuals on ({name}): acc@1 "
+                    f"{acc[0]} against the plain scan's {acc[1]}")
+    g_max = float(grad_ref.abs().max())
+
+    def check_gradient(ranks: list, tag: str) -> dict:
+        d_grad, d_fault = (float((torch.cat([res[k] for res in ranks])[:1156]
+                                  - grad_ref.cpu()).abs().max())
+                           for k in ("grad", "grad_fault"))
+        if d_grad > EP_GRAD_REL * g_max:
+            bad(f"ep world 2{tag}: the sharded residual gradient max |Δ| "
+                f"{d_grad:.3g} > {EP_GRAD_REL} of |g| max {g_max:.3g}")
+        if d_fault <= EP_GRAD_REL * g_max:
+            bad(f"ep world 2{tag}: the gradient with its dx sum skipped "
+                f"passes (max |Δ| {d_fault:.3g})")
+        print(f"ep world 2{tag}: one gradient of the sharded residual loop at "
+              f"K 1156 ('highest') max |Δ| {d_grad:.3g} from the replicated "
+              f"one, {d_grad / g_max:.3g} of |g| max {g_max:.4g} (tolerance "
+              f"{EP_GRAD_REL}); the planted fault (the dx sum skipped) max "
+              f"|Δ| {d_fault:.3g}, {d_fault / g_max:.3g} of it")
+        return {"max_abs": d_grad, "g_max": g_max, "fault_max_abs": d_fault}
+
+    summary["gradient"] = check_gradient(ranks, "")
+    print(f"ep witness: the plain scan with the classes permuted, K 1156, "
+          f"residuals on, from the unpermuted scan: {drift}")
+    print(f"ep witness: shard_encoder's split, two clouds encoded together "
+          f"against each alone (features max |Δ|, |feature| max): "
+          f"{enc_split}")
+    for name in EP_METHODS:
+        kind = ep_kind(name)
+        for r, res in enumerate(ranks):
+            got = res[name]
+            # bf16 with the encoder's batch split: cuBLAS's bf16 GEMMs and
+            # the block's attention shape change with the rows a rank
+            # encodes (one cloud, not two), so the state is printed, not
+            # held; fp32 holds it
+            d = ep_check(f"ep world 2 rank {r}, {name}", got["state"],
+                         refs[name][0], kind,
+                         (EP_RTOL, EP_SE_ATOL) if name == "mode_se_fp32"
+                         else None,
+                         report=print if name == "mode_se" else bad)
+            if got["summary"]["acc1"] != refs[name][1]["acc1"]:
+                bad(f"ep world 2 rank {r}, {name}: acc@1 "
+                     f"{got['summary']['acc1']} against "
+                     f"{refs[name][1]['acc1']}")
+        if kind == "cache" and float(got["state"]["counts"].max()) < 2:
+            bad(f"ep world 2, {name}: the cache never merged")
+        ms[f"ep_world2_{name}"] = statistics.median(got["ms"][1:])
+        summary["segments"][name] = got["segments"]
+        summary["launches"][name] = got["launches"]
+        print(f"ep world 2, K 15 {name}: max |Δ| {d:.3g} from the plain "
+              f"scan, acc@1 {got['summary']['acc1']}, pad rows "
+              f"{got['summary']['padded_classes']}; segments "
+              f"{got['segments']}; launches {got['launches']}")
+    dl = [res["dota_lvis"] for res in ranks]
+    d = max(float((x["mu"] - refs["dota_lvis"][0]).abs().max()) for x in dl)
+    if not all(torch.allclose(x["mu"], refs["dota_lvis"][0], rtol=1e-4,
+                              atol=1e-5) for x in dl):
+        bad(f"ep world 2, plain DOTA at K 1156: means max |Δ| {d:.3g}")
+    if any(x["acc1"] != refs["dota_lvis"][1]["acc1"] for x in dl):
+        bad(f"ep world 2, plain DOTA at K 1156: acc@1 "
+             f"{[x['acc1'] for x in dl]} against "
+             f"{refs['dota_lvis'][1]['acc1']}")
+    peak_plain, top_plain = refs["dota_lvis"][2]
+    print(f"ep world 2, plain DOTA K 1156: means max |Δ| {d:.3g}; peak above "
+          f"the start a rank {[round(x['peak_gb'], 3) for x in dl]} GB, "
+          f"one process {peak_plain:.3f} GB ({card})")
+    summary["peak_gb"] = {"dota_lvis_world1": peak_plain,
+                          "dota_lvis_world2": [x["peak_gb"] for x in dl],
+                          "mode_res_lvis_world1": refs["lvis_on"][2],
+                          "mode_res_lvis_world2": [
+                              res["lvis_on"]["peak_gb"] for res in ranks]}
+    ms["ep_world2_lvis_off"] = statistics.median(
+        ranks[0]["lvis_off"]["ms"][1:])
+    ms["ep_world2_lvis_on"] = statistics.median(ranks[0]["lvis_on"]["ms"][1:])
+    ms["ep_world2_dota_lvis"] = statistics.median(dl[0]["ms"][1:])
+    summary["segments"]["lvis_off_world1"] = a["lvis_off"][3]
+    summary["segments"]["lvis_on_world1"] = a["lvis_on"][3]
+    summary["segments"]["lvis_on_world2"] = ranks[0]["lvis_on"]["segments"]
+    summary["launches"]["lvis_world2"] = ranks[0]["lvis_off"]["launches"]
+    sv = ranks[0]["serve"]
+    worst = 0.0
+    for t in range(4):
+        for i, cid in enumerate("ab"):
+            worst = max(worst, float(abs(torch.from_numpy(
+                sv["ticks"][t][cid]) - sv[f"stream{i}"][t]).max()))
+    last = sv["ticks"][4]
+    if worst > 1e-3 or not (last["a"] == last["c"]).all():
+        bad(f"ep serving: logits max |Δ| {worst:.3g} from the streams' "
+             f"run_stream_ep, or the restored client differs")
+    print(f"ep serving (world 2): two clients' logits max |Δ| {worst:.3g} "
+          f"from their streams through run_stream_ep; the client restored "
+          f"from a snapshot equal to its source's")
+
+    if torch.cuda.device_count() >= 2:
+        nccl = run_ep_world(tmp, 2, "nccl")
+        for r, res in enumerate(nccl):
+            if res["backend"] != "nccl":
+                bad(f"ep world 2 (nccl): rank {r} runs {res['backend']}")
+            for name in EP_METHODS:
+                ep_check(f"ep world 2 (nccl) rank {r}, {name}",
+                         res[name]["state"], refs[name][0], ep_kind(name),
+                         (EP_RTOL, EP_SE_ATOL) if name == "mode_se_fp32"
+                         else None,
+                         report=print if name == "mode_se" else bad)
+            # K 1156: MODE-DOTA as over gloo, plain DOTA's means
+            ep_check(f"ep world 2 (nccl) rank {r}, K 1156, residuals off",
+                     res["lvis_off"]["state"], refs["lvis_off"][0], "mode",
+                     report=bad)
+            for name in ("lvis_off", "lvis_on", "lvis_highest"):
+                if res[name]["summary"]["acc1"] != refs[name][1]["acc1"]:
+                    bad(f"ep world 2 (nccl) rank {r}, {name}: acc@1 "
+                        f"{res[name]['summary']['acc1']} against "
+                        f"{refs[name][1]['acc1']}")
+            if not torch.allclose(res["dota_lvis"]["mu"], refs["dota_lvis"][0],
+                                  rtol=1e-4, atol=1e-5):
+                bad(f"ep world 2 (nccl) rank {r}, plain DOTA at K 1156: "
+                    f"means outside rtol 1e-4, atol 1e-5")
+        summary["gradient_nccl"] = check_gradient(nccl, " (nccl)")
+        r0 = nccl[0]
+        nms = {k: statistics.median(r0[k]["ms"][1:])
+               for k in ("lvis_off", "lvis_on", "lvis_highest", "dota_lvis",
+                         *EP_METHODS)}
+        summary["ms_world2_nccl"] = nms
+        print(f"ep world 2 over NCCL (a card a rank): every K 15 method and "
+              f"K 1156 within tolerance of its plain scan; ms a step ({card}): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in nms.items())
+              + f"; plain DOTA K 1156 peak a rank "
+              f"{r0['dota_lvis']['peak_gb']:.3f} GB")
+    else:
+        print("ep world 2 over NCCL: not run, this machine has one card "
+              "(the two ranks shared it over gloo)")
+
+    # (c) DP × EP on a 2 × 2 grid
+    t0 = time.perf_counter()
+    ranks4 = run_ep_world(tmp, 4)
+    for r, res in enumerate(ranks4):
+        got = res["dp_ep"]["summary"]["acc1_per_stream"]
+        if got != want_dp:
+            bad(f"ep DP × EP rank {r}: acc@1 per stream {got} against "
+                 f"run_streams_scan's {want_dp}")
+    print(f"ep DP × EP (2 × 2 grid, gloo): every stream's acc@1 equal to "
+          f"run_streams_scan's on every rank ({want_dp})")
+    times["c"] = time.perf_counter() - t0
+
+    # (d) the CLI and the HTTP server at world 2
+    t0 = time.perf_counter()
+    summary["cli"] = run_ep_cli(tmp, torch)
+    times["d"] = time.perf_counter() - t0
+    summary["seconds"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = times
+    print(f"ep ms a step ({card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()))
+    print(f"phase ep: {summary['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in times.items()) + ")")
+    if problems:
+        fail(f"phase ep: {len(problems)} checks failed: "
+             + "; ".join(problems))
+    return launches, summary
+
+
 def main() -> None:
     import argparse
 
@@ -5992,7 +6932,11 @@ def main() -> None:
                     help="build the kernels and run only the distributed "
                          "phases (the world of two over NCCL where the "
                          "machine has two cards or more)")
-    dist_only = ap.parse_args().dist_only
+    ap.add_argument("--ep-only", action="store_true",
+                    help="build the kernels and run only phase 12, the "
+                         "class-sharded adaptation")
+    args = ap.parse_args()
+    dist_only = args.dist_only
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -6019,6 +6963,17 @@ def main() -> None:
     from uni_adapter_torch.cli.tta import set_numerics
 
     set_numerics()
+    if args.ep_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            ep_launches, ep_run = run_ep(Path(tmp), card)
+        print(f"chip_smoke --ep-only total: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ep": ep_run, "launches": {"ep_world1":
+                                                     ep_launches}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if dist_only:
         with tempfile.TemporaryDirectory() as tmp:
             inputs = dist_inputs(torch)
@@ -6026,11 +6981,14 @@ def main() -> None:
                                                             inputs)
             dp_launches, dp_run = run_dp_pretraining(Path(tmp), card, inputs,
                                                      dp_ranks)
+            ep_launches, ep_run = run_ep(Path(tmp), card)
         print(f"chip_smoke --dist-only total: "
               f"{time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"dist_streams": dist_run, "dp_pretraining": dp_run,
+                          "ep": ep_run,
                           "launches": {"dist_psum_world1": launches,
-                                       "dp_pretrain_world1": dp_launches}}))
+                                       "dp_pretrain_world1": dp_launches,
+                                       "ep_world1": ep_launches}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -6110,6 +7068,7 @@ def main() -> None:
         by_path["dp_pretrain_world1"], dp_run = run_dp_pretraining(
             Path(tmp), card, inputs, dp_ranks)
         by_path["cross_class"], cross_run = run_cross_class(Path(tmp), card)
+        by_path["ep_world1"], ep_run = run_ep(Path(tmp), card)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -6120,6 +7079,7 @@ def main() -> None:
                       "serving": serving, "pretraining": pretraining,
                       "dvae": dvae_run, "dist_streams": dist_run,
                       "dp_pretraining": dp_run, "cross_class": cross_run,
+                      "ep": ep_run,
                       "uni3d_int8_ms": {"uni3d_int8": int8_ms,
                                         "uni3d": batch1_ms["uni3d"]}}))
     print(json.dumps({"kernels": kernels}))

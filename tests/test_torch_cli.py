@@ -86,21 +86,51 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dist-mode", "ep"], "M16"),
-    (["--vmap-corruptions", "true", "--dist-mode", "ep"], "M16"),
-    (["--continual", "true", "--dist-mode", "ep"], "M16"),
     (["--trunk-parallel", "pp"], "M16"),
     (["--trunk-parallel", "tp"], "M16"),
     (["--trunk-parallel", "sp"], "M16"),
 ])
 def test_unported_paths_raise_and_name_their_roadmap_item(flags, item,
                                                           stream_dir):
-    """What waits for ROADMAP M16 part 2 raises by name: the class-sharded
-    'ep' mode and the trunk's model parallelism.  (`--dist-mode sharded`
-    and `psum` run: tests/test_torch_parallel.py.)"""
+    """What waits for ROADMAP M16 part 2 raises by name: the trunk's model
+    parallelism.  (`--dist-mode sharded` and `psum` run:
+    tests/test_torch_parallel.py; `ep`: test_torch_ep.py and below.)"""
     with pytest.raises(NotImplementedError, match=item):
         tta.main(["--device", "cpu", "--root", str(stream_dir), *SMALL_ARGS,
                   *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--corruption", "uniform"],
+    ["--corruption", "all", "--vmap-corruptions", "true"],
+    ["--corruption", "all", "--continual", "true"],
+])
+def test_dist_mode_ep_runs_where_it_was_refused(flags, tmp_path):
+    """`--dist-mode ep` alone, with `--vmap-corruptions` and with
+    `--continual`, in a world of this process alone: results.json is the
+    replicated run's, the continual carry's step counters chain, and there
+    is no results_zs.json (the JAX CLI writes none under ep).  (Two ranks:
+    tests/test_torch_ep.py.)"""
+    from uni_adapter_torch.config import CORRUPTIONS
+
+    rng = np.random.default_rng(0)
+    for corr in CORRUPTIONS:
+        np.save(tmp_path / f"data_{corr}_5.npy",
+                rng.standard_normal((2, 128, 3)).astype(np.float32))
+    np.save(tmp_path / "label.npy", rng.integers(0, 40, (2,)).astype(np.int64))
+    common = ["--device", "cpu", "--root", str(tmp_path), *SMALL_ARGS,
+              *flags, "--dota-res-learning", "false"]
+    base = tta.main([*common, "--output-dir", str(tmp_path / "base"),
+                     "--name", "run"])
+    got = tta.main([*common, "--output-dir", str(tmp_path / "ep"),
+                    "--name", "run", "--dist-mode", "ep"])
+    assert got["acc1"] == base["acc1"]
+    assert json.loads((tmp_path / "ep" / "run" / "results.json")
+                      .read_text()) == base["acc1"]
+    assert not (tmp_path / "ep" / "run" / "results_zs.json").exists()
+    if "--continual" in flags:
+        assert got["steps"] == base["steps"]
+        assert got["steps"][CORRUPTIONS[-1]] == [28, 30]
 
 
 def test_port_imports_no_jax_and_builds_nothing():

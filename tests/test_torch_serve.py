@@ -326,11 +326,21 @@ def test_guards_and_jax_messages(setup):
 
 
 def test_dist_modes(setup):
-    """'ep' is ROADMAP M16's; any other unknown mode raises JAX's
-    ValueError."""
+    """'ep' serves (here a world of this process alone: the ladder is [1]
+    and a client's logits are the replicated server's); any other
+    unknown mode raises JAX's ValueError.  (EP over two ranks:
+    tests/test_torch_ep_serve.py.)"""
     _, cfg = configs()
-    with pytest.raises(NotImplementedError, match="M16"):
-        TTAServer(cfg, setup[2], setup[3], dist_mode="ep")
+    streams = setup[-1]
+    srv = TTAServer(cfg, setup[2], setup[3], dist_mode="ep")
+    ref = TTAServer(cfg, setup[2], setup[3], sizes=[1])
+    assert srv.sizes == [1] and srv.primary
+    for s in (srv, ref):
+        s.register("a")
+    for t in range(2):
+        got = srv.submit([("a", streams[0, t], None)])["a"]
+        want = ref.submit([("a", streams[0, t], None)])["a"]
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="sweep CLI"):
         TTAServer(cfg, setup[2], setup[3], dist_mode="psum")
 

@@ -227,7 +227,278 @@ def dp_train_program(inputs: dict, rank: int) -> dict:
                       "cli": cli})
 
 
-PROGRAMS = {"parallel": parallel_program, "dp_train": dp_train_program}
+def _ep_fed_scan(cfg, model, shard, noises, shard_encoder=False):
+    """The class-sharded scan whose MODE-DOTA step takes its noise from
+    `noises` in turn (JAX's draws)."""
+    import torch
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.parallel import ep
+
+    scan_fn = ep.make_ep_scan_fn(cfg, model, shard, shard_encoder)
+    step, it = scan_fn.step, iter(noises)
+    scan_fn.step = engine.Step(
+        lambda t, s, b, noise=None: step.parts(
+            t, s, b, torch.from_numpy(next(it))), step.group)
+    return scan_fn
+
+
+def _full_state(state) -> dict:
+    """A carry's tensors by name ('mu', ..., 'res.residuals'), and its
+    step count."""
+    out = {name: getattr(state.method_state, name).numpy()
+           for name in state.method_state._fields}
+    if state.res_state is not None:
+        out.update({f"res.{n}": getattr(state.res_state, n).numpy()
+                    for n in state.res_state._fields})
+    out["step"] = state.step
+    return out
+
+
+def _patched_cli(tta, model, corruptions):
+    """`tta.main` on `model`'s weights over `corruptions` only."""
+    def run(argv):
+        built, corrs = tta.build_backbone, tta.CORRUPTIONS
+        tta.build_backbone = lambda *a, **k: (model, None, None)
+        tta.CORRUPTIONS = corruptions
+        try:
+            return tta.main(argv)
+        finally:
+            tta.build_backbone, tta.CORRUPTIONS = built, corrs
+    return run
+
+
+def ep_program(inputs: dict, rank: int) -> dict:
+    """Class-sharded MODE-DOTA, the residual loop's gradient, the CLI and
+    DP × EP (tests/test_torch_ep.py)."""
+    import torch
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.adapt import mode_dota, residual
+    from uni_adapter_torch.cli import tta
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import ep
+    from uni_adapter_torch.parallel import mesh as pmesh
+
+    model = create_uni3d(inputs["model_cfg"], "cpu",
+                         state_dict=inputs["state_dict"])
+    world = pmesh.make_mesh()
+
+    def stream_case(name):
+        def case():
+            c = inputs["cases"][name]
+            text = torch.from_numpy(c["text"])
+            shard = ep.class_shard(world, text.shape[0])
+            out, carry, rcarry = {}, None, None
+            for part, (pcs, rgbs, tgts, noise, se) in enumerate(c["runs"]):
+                scan_fn = _ep_fed_scan(c["cfg"], model, shard, noise, se)
+                carry, summary = ep.run_stream_ep(
+                    c["cfg"], model, text, pcs, rgbs, tgts, seed=42,
+                    shard_encoder=se, scan_fn=scan_fn, initial_state=carry)
+                out[part] = {"state": _full_state(carry), "summary": summary}
+                if rank == 0:       # the replicated run, one process
+                    rcarry, _ = engine.run_stream_scan(
+                        c["cfg"], model, text, pcs, rgbs, tgts, seed=42,
+                        initial_state=rcarry,
+                        scan_fn=_fed_scan(c["cfg"], model, noise))
+                    out[part]["replicated"] = _full_state(rcarry)
+            return out
+        return case
+
+    def grad_parity():
+        g = inputs["grad"]
+        K, M = g["K"], g["M"]
+        shard = ep.class_shard(world, K)
+        rows = slice(shard.offset, shard.offset + shard.k_local)
+        t = {k: torch.from_numpy(v[rows]) for k, v in g["padded"].items()}
+        mix = mode_dota.ModeDotaState(t["mu"], t["var"], t["pi"], t["c"],
+                                      t["cc"], torch.zeros((), dtype=torch.int32))
+        z = torch.zeros_like(t["res"])
+        rs = residual.ResidualState(t["res"], z, z.clone(),
+                                    torch.zeros((), dtype=torch.int32))
+        out = engine.drive(ep.optimize_residuals_sharded(
+            rs, t["text"], mix, 1e-3, 1e-3, shard, num_steps=1),
+            shard.group)
+        return out.residuals.numpy()
+
+    def dp_ep():
+        d = inputs["dp_ep"]
+        grid = ep.make_grid(2)
+        shard = ep.ClassShard(grid.cls_group, grid.cls_rank, grid.n_cls,
+                              d["text"].shape[0])
+        scan_fn = _ep_fed_scan(d["cfg"], model, shard,
+                               d["noise"][grid.data_index])
+        state, summary = ep.run_streams_ep(
+            d["cfg"], model, torch.from_numpy(d["text"]), *d["streams"],
+            grid=grid, seed=42, scan_fn=scan_fn)
+        return {"summary": summary, "mu": state.method_state.mu.numpy(),
+                "grid": tuple(grid[:4])}
+
+    def cli(name):
+        def case():
+            return _patched_cli(tta, model, inputs["cli_corruptions"])(
+                inputs["cli"][name])
+        return case
+
+    if world.size == 4:
+        return run_cases({"dp_ep": dp_ep})
+    return run_cases({
+        **{name: stream_case(name) for name in inputs["cases"]},
+        "grad_parity": grad_parity,
+        **{f"cli_{name}": cli(name) for name in inputs["cli"]}})
+
+
+def ep_methods_program(inputs: dict, rank: int) -> dict:
+    """The other methods class-sharded (tests/test_torch_ep_methods.py):
+    each case's stream through `run_stream_ep` from the given full-K
+    initial state (JAX's GMM init) or a fresh one."""
+    import torch
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import ep
+
+    model = create_uni3d(inputs["model_cfg"], "cpu",
+                         state_dict=inputs["state_dict"])
+
+    def case(c):
+        def run():
+            text = torch.from_numpy(c["text"])
+            init = None
+            if c.get("init") is not None:
+                fresh = engine.init_state(c["cfg"], text, 42)
+                init = engine.EngineState(type(fresh.method_state)(*(
+                    torch.from_numpy(c["init"][f])
+                    for f in fresh.method_state._fields)), None, 0,
+                    fresh.generator)
+            out, rcarry = {}, init
+            for part, (pcs, rgbs, tgts) in enumerate(c["runs"]):
+                state, summary = ep.run_stream_ep(
+                    c["cfg"], model, text, pcs, rgbs, tgts, seed=42,
+                    initial_state=init)
+                init = state
+                out[part] = {"state": _full_state(state), "summary": summary}
+                if rank == 0:       # the replicated run, one process
+                    rcarry, _ = engine.run_stream_scan(
+                        c["cfg"], model, text, pcs, rgbs, tgts, seed=42,
+                        initial_state=rcarry)
+                    out[part]["replicated"] = _full_state(rcarry)
+            return out
+        return run
+
+    return run_cases({name: case(c) for name, c in inputs["cases"].items()})
+
+
+def ep_serve_program(inputs: dict, rank: int) -> dict:
+    """`TTAServer(dist_mode='ep')` over two ranks, and the serve CLI's
+    EP front end over HTTP (tests/test_torch_ep_serve.py).  Rank 0 drives
+    each server; rank 1 follows it."""
+    import numpy as np
+    import torch
+
+    from uni_adapter_torch import serve
+    from uni_adapter_torch.cli import serve as serve_cli
+    from uni_adapter_torch.client import TTAClient
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import ep
+
+    model = create_uni3d(inputs["model_cfg"], "cpu",
+                         state_dict=inputs["state_dict"])
+    text = torch.from_numpy(inputs["text"])
+    streams = inputs["streams"]
+
+    def server():
+        srv = serve.TTAServer(inputs["cfg"], model, text, dist_mode="ep")
+        if not srv.primary:
+            serve.follow(srv)
+            return {"followed": True}
+        out = {"sizes": srv.sizes, "ticks": []}
+        for cid in ("a", "b"):
+            srv.register(cid)
+        for t in range(2):
+            out["ticks"].append(srv.submit(
+                [(cid, streams[i, t], None)
+                 for i, cid in enumerate(("a", "b"))]))
+        path = inputs["snapshot"]
+        srv.snapshot("a", path)
+        srv.restore("c", path)           # a new client from a's snapshot
+        t = 2
+        out["ticks"].append(srv.submit(
+            [("a", streams[0, t], None), ("b", streams[1, t], None),
+             ("c", streams[0, t], None)]))
+        try:
+            srv.submit([("nobody", streams[0, 0], None)])
+            out["refused"] = None
+        except KeyError as e:
+            out["refused"] = str(e)
+        for cid, p in inputs["final_snapshots"].items():
+            srv.snapshot(cid, p)
+        srv.stop()
+        return out
+
+    def faults():
+        """Restores that fail on every rank (a missing snapshot for a
+        known and for a new client, an unreadable one), then a step and a
+        snapshot, which need rank 1 still following."""
+        srv = serve.TTAServer(inputs["cfg"], model, text, dist_mode="ep")
+        if not srv.primary:
+            serve.follow(srv)
+            return {"followed": True}
+        srv.register("a")
+        errors = []
+        for cid, path in (("a", inputs["missing"]), ("z", inputs["missing"]),
+                          ("a", inputs["garbled"])):
+            try:
+                srv.restore(cid, path)
+                errors.append(None)
+            except Exception as e:
+                errors.append(type(e).__name__)
+        logits = srv.submit([("a", streams[0, 0], None)])["a"]
+        srv.snapshot("a", inputs["fault_snapshot"])
+        srv.stop()
+        return {"errors": errors, "logits": logits,
+                "clients": sorted(srv.states)}
+
+    def by_stream():
+        """Each client's stream through `run_stream_ep` alone."""
+        out = {}
+        for i in range(2):
+            pcs = streams[i, :3]
+            st, _ = ep.run_stream_ep(inputs["cfg"], model, text, pcs,
+                                     np.ones_like(pcs),
+                                     np.zeros(pcs.shape[:2], np.int64),
+                                     seed=42 + i)
+            out[i] = _full_state(st)
+        return out
+
+    def http():
+        from uni_adapter_torch.models import loader
+
+        built = loader.build_backbone
+        loader.build_backbone = lambda *a, **k: (model, None, None)
+        try:
+            http_srv = serve_cli.main([*inputs["serve_argv"], "--port", "0"])
+        finally:
+            loader.build_backbone = built
+        if http_srv is None:
+            return {"followed": True}
+        try:
+            c = TTAClient("127.0.0.1", http_srv.port, "x")
+            c.register()
+            logits = [c.submit(streams[0, t]) for t in range(2)]
+            health = c.healthz()
+        finally:
+            http_srv.close()
+            http_srv.server.stop()
+        return {"logits": logits, "health": health}
+
+    return run_cases({"server": server, "faults": faults,
+                      "by_stream": by_stream, "http": http})
+
+
+PROGRAMS = {"parallel": parallel_program, "dp_train": dp_train_program,
+            "ep": ep_program, "ep_methods": ep_methods_program,
+            "ep_serve": ep_serve_program}
 
 
 def main() -> None:

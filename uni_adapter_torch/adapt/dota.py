@@ -70,10 +70,16 @@ def fit_stats(mu: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> tuple:
     return sum_w, weighted_x, delta
 
 
-def fit_merge(state: DOTAState, stats: tuple, n: int) -> DOTAState:
+def fit_merge(state: DOTAState, stats: tuple, n: int,
+              prior_sum: Optional[torch.Tensor] = None) -> DOTAState:
     """`fit`'s streaming mean and covariance update on `fit_stats`'s
-    statistics of `n` samples."""
+    statistics of `n` samples.  `prior_sum` is what the prior's evidence
+    gains (the soft labels summed over the batch: Σ_b y by default; the
+    class-sharded step passes all classes' where the statistics are of
+    its block of them)."""
     sum_w, weighted_x, delta = stats
+    if prior_sum is None:
+        prior_sum = sum_w
     c = state.c
     mu = (weighted_x + c[..., None] * state.mu) / (sum_w[..., None]
                                                    + c[..., None])
@@ -81,7 +87,7 @@ def fit_merge(state: DOTAState, stats: tuple, n: int) -> DOTAState:
         (c + sum_w)[..., None, None])
     return state._replace(mu=mu, c=c + sum_w, sigma=sigma,
                           cum_soft_labels=(state.cum_soft_labels
-                                           + sum_w[..., None, :]),
+                                           + prior_sum[..., None, :]),
                           prior_step=state.prior_step + n)
 
 
@@ -106,14 +112,20 @@ def _cusolver(on_card: bool):
         torch.backends.cuda.preferred_linalg_library(saved)
 
 
+def shared_precision(mean_sigma: torch.Tensor,
+                     epsilon: float) -> torch.Tensor:
+    """Λ = ((1 − ε)·Σ̄ + ε·I)⁻¹ of the classes' mean covariance Σ̄."""
+    d = mean_sigma.shape[-1]
+    reg = ((1.0 - epsilon) * mean_sigma
+           + epsilon * torch.eye(d, device=mean_sigma.device))
+    with _cusolver(reg.is_cuda):
+        return torch.cholesky_inverse(torch.linalg.cholesky_ex(reg)[0])
+
+
 def update(state: DOTAState, epsilon: float) -> DOTAState:
     """The shared precision Λ = ((1 − ε)·mean_k Σ_k + ε·I)⁻¹."""
-    d = state.mu.shape[-1]
-    reg = ((1.0 - epsilon) * state.sigma.mean(dim=-3)
-           + epsilon * torch.eye(d, device=state.mu.device))
-    with _cusolver(reg.is_cuda):
-        lam = torch.cholesky_inverse(torch.linalg.cholesky_ex(reg)[0])
-    return state._replace(lam=lam)
+    return state._replace(lam=shared_precision(state.sigma.mean(dim=-3),
+                                                epsilon))
 
 
 def predict(state: DOTAState, x: torch.Tensor,

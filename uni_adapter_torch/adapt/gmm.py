@@ -142,17 +142,21 @@ def update(state: GMMDotaState, epsilon: float) -> GMMDotaState:
 
 
 def predict(state: GMMDotaState, x: torch.Tensor,
-            alpha_max: float = 0.6) -> torch.Tensor:
+            alpha_max: float = 0.6, num_classes: Optional[int] = None,
+            total_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Class scores logsumexp_m[log π + log N(x; μ, σ_reg)] plus the log of
     the prior (1 − α_t)·uniform + α_t·(class counts / their sum), α_t =
     min(alpha_max, t/(t + 100)) after t samples (uniform at t = 0):
-    ([S,] B, K)."""
+    ([S,] B, K).  A state that holds a block of the classes scores them
+    against all `num_classes`, whose counts sum to `total_counts`
+    (([S],); `parallel/ep.py`)."""
     x = x.to(torch.float32)
-    K = state.mu.shape[-3]
+    K = state.mu.shape[-3] if num_classes is None else num_classes
     f_km = _log_gauss_diag(x, state.mu, state.sigma_reg)
     log_pi = torch.log(torch.clamp(state.pi, min=1e-10))
     log_class_lik = torch.logsumexp(log_pi[..., None, :, :] + f_km, dim=-1)
-    total = state.class_counts.sum(dim=-1, keepdim=True)
+    total = (state.class_counts.sum(dim=-1, keepdim=True)
+             if total_counts is None else total_counts[..., None])
     t = state.total_samples.to(torch.float32)[..., None]       # over K
     est = state.class_counts / torch.clamp(total, min=1e-10)
     alpha_t = torch.clamp(t / (t + 100.0), max=alpha_max)

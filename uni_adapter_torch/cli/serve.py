@@ -17,8 +17,19 @@ source of model and data flags; `--help` prints both.  Runs on the GPU
 unless `--device cpu` is passed (asked for `cuda` without one, it
 raises).  `--warmup` runs one step of every ladder size at start-up, so
 every kernel is built before the first request; a build that fails stops
-the server from starting.  `--dist-mode ep` and `--trunk-parallel` raise
+the server from starting.  `--trunk-parallel` raises
 `NotImplementedError` (ROADMAP M16).
+
+`--dist-mode ep` splits every client's classes over the ranks of a
+multi-process launch (`serve.TTAServer(dist_mode='ep')`):
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m uni_adapter_torch.cli.serve --dist-mode ep ...
+
+Rank 0 serves HTTP; every other rank follows it (`serve.follow`) until
+rank 0 stops (an interrupt: it closes the listener, then stops the
+followers).  Ranks that share a card run over gloo, ranks with a card
+each over NCCL (`parallel/bootstrap.py`).
 """
 from __future__ import annotations
 
@@ -29,7 +40,9 @@ import os
 
 def main(argv=None):
     """Start the server; returns the running `HTTPTTAServer` (the caller
-    owns its lifetime: `close()`)."""
+    owns its lifetime: `close()`, then `server.stop()` under EP), or None
+    on an EP rank other than 0, after it has followed rank 0 to its
+    stop."""
     ap = argparse.ArgumentParser(
         prog="uni-adapter-serve",
         description="Serving flags (all other flags: evaluation parser "
@@ -56,7 +69,8 @@ def main(argv=None):
                                            resolve_device, set_numerics)
     from uni_adapter_torch.config import parse_args, unported_paths
     from uni_adapter_torch.models.loader import build_backbone
-    from uni_adapter_torch.serve import TTAServer
+    from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+    from uni_adapter_torch.serve import TTAServer, follow
     from uni_adapter_torch.serve_http import HTTPTTAServer
     from uni_adapter_torch.utils.logging import setup_logging
 
@@ -64,10 +78,14 @@ def main(argv=None):
     missing = unported_paths(cfg)
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    device = resolve_device(cfg.run.device)
+    boot = init_distributed_device(cfg.run.device)
+    device = boot["device"] or resolve_device(cfg.run.device)
     set_numerics()
+    primary = boot["rank"] == 0
     os.makedirs(cfg.run.output_dir, exist_ok=True)
-    setup_logging(os.path.join(cfg.run.output_dir, "serve.log"))
+    setup_logging(os.path.join(cfg.run.output_dir, "serve.log")
+                  if primary else None,
+                  level=logging.INFO if primary else logging.WARNING)
 
     model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,
                                  seed=cfg.run.seed,
@@ -83,6 +101,9 @@ def main(argv=None):
     sizes = tuple(int(s) for s in serve_args.sizes.split(","))
     server = TTAServer(cfg, model, text, sizes=sizes, seed=cfg.run.seed,
                        dist_mode=cfg.run.dist_mode)
+    if not server.primary:
+        follow(server)          # until rank 0 stops
+        return None
     if serve_args.warmup:
         logging.info("warming up %d step sizes ...",
                      len(server.sizes) + (0 if 1 in server.sizes else 1))
@@ -99,13 +120,16 @@ def main(argv=None):
 
 
 def cli() -> int:
-    """Serve until interrupted."""
+    """Serve until interrupted (rank 0; the other ranks of an EP server
+    return when rank 0 stops them)."""
     http_srv = main()
-    try:
-        http_srv.wait()
-    except KeyboardInterrupt:
-        logging.info("shutting down")
-        http_srv.close()
+    if http_srv is not None:
+        try:
+            http_srv.wait()
+        except KeyboardInterrupt:
+            logging.info("shutting down")
+            http_srv.close()
+            http_srv.server.stop()
     return 0
 
 

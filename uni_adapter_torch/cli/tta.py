@@ -64,10 +64,15 @@ CPU ranks and ranks that share a card).  `--dist-mode sharded` splits
 each stream into contiguous shards, one a rank, each adapted on its own
 from seed + rank (with `--vmap-corruptions`, the streams over the ranks);
 `--dist-mode psum` gives each step one batch a rank and sums the fits'
-statistics over the ranks (`parallel/mesh.py`).  Both run the stream's
-scan, and write results.json only (the JAX CLI's files); only rank 0
-logs and writes.  `--dist-mode ep` and `--trunk-parallel` wait for
-ROADMAP M16 part 2 and raise.
+statistics over the ranks (`parallel/mesh.py`); `--dist-mode ep` splits
+the class axis of the adaptation state and of the anchors over the ranks,
+every rank consuming the whole stream (`parallel/ep.py`; with
+`--continual` the full-K carry goes on from one corruption to the next,
+with `--vmap-corruptions` the streams run together on a grid of one data
+row; `--ep-shard-encoder` also splits MODE-DOTA's fused encoder batch).
+All three run the stream's scan, and write results.json only (the JAX
+CLI's files); only rank 0 logs and writes.  `--trunk-parallel` waits for
+ROADMAP M16 part 2 and raises.
 """
 from __future__ import annotations
 
@@ -88,6 +93,7 @@ from uni_adapter_torch.config import CORRUPTIONS, parse_args, unported_paths
 from uni_adapter_torch.data.datasets import load_tta_dataset
 from uni_adapter_torch.models.clip_text import create_text_encoder
 from uni_adapter_torch.models.loader import build_backbone, load_checkpoint
+from uni_adapter_torch.parallel import ep as pep
 from uni_adapter_torch.parallel import mesh as pmesh
 from uni_adapter_torch.parallel.bootstrap import init_distributed_device
 from uni_adapter_torch.utils import profiling
@@ -174,7 +180,7 @@ def run_all_vmapped(cfg, model, text, corruptions, log_dir,
                        for i in range(3))
     logging.info("vmapped sweep: %d streams × %d steps", len(stacks), T)
     t0 = time.perf_counter()
-    if cfg.run.dist_mode == "sharded":
+    if cfg.run.dist_mode in ("sharded", "ep"):
         return finish(sharded_streams(cfg, model, text, corruptions, log_dir,
                                       scan_fn, (pcs, rgbs, tgts), t0))
     if scan_fn is not None:
@@ -210,12 +216,22 @@ def run_all_vmapped(cfg, model, text, corruptions, log_dir,
 
 def sharded_streams(cfg, model, text, corruptions, log_dir, scan_fn,
                     stream, t0) -> dict:
-    """The corruption streams over the ranks (`mesh.run_streams_sharded`):
-    per-stream top-1 only, as the JAX CLI's sharded sweep reports."""
+    """The corruption streams over the ranks: `--dist-mode sharded`
+    splits them (`mesh.run_streams_sharded`), `ep` runs them all on a
+    grid of one data row, each stream's classes over every rank
+    (`ep.run_streams_ep`); per-stream top-1 only, as the JAX CLI's
+    distributed sweeps report."""
     pcs = stream[0]
-    state, res = pmesh.run_streams_sharded(cfg, model, text, *stream,
-                                           seed=cfg.run.seed,
-                                           scan_fn=scan_fn)
+    if cfg.run.dist_mode == "ep":
+        logging.info("DP × EP: one data row, each stream's classes over "
+                     "%d ranks", pmesh.make_mesh().size)
+        state, res = pep.run_streams_ep(
+            cfg, model, text, *stream, seed=cfg.run.seed,
+            shard_encoder=cfg.run.ep_shard_encoder, scan_fn=scan_fn)
+    else:
+        state, res = pmesh.run_streams_sharded(cfg, model, text, *stream,
+                                               seed=cfg.run.seed,
+                                               scan_fn=scan_fn)
     dt = time.perf_counter() - t0
     T, B = pcs.shape[1], pcs.shape[2]
     total = pcs.shape[0] * T * B
@@ -238,6 +254,19 @@ def distributed_stream(cfg, model, text, pcs, rgbs, targets, scan_fn) -> dict:
            else pmesh.run_stream_psum)
     state, res = run(cfg, model, text, pcs, rgbs, targets,
                      seed=cfg.run.seed, scan_fn=scan_fn)
+    return {**res, "n": res["n_samples"], "step_ms": scan_fn.step_ms,
+            "finite": None, "cg_iters": None, "state": state}
+
+
+def ep_stream(cfg, model, text, pcs, rgbs, targets, initial_state,
+              scan_fn) -> dict:
+    """One stream with its classes over the ranks, `--dist-mode ep`
+    (`ep.run_stream_ep`, from the full-K carry `initial_state` under
+    `--continual`), summarised as the JAX CLI summarises it."""
+    state, res = pep.run_stream_ep(
+        cfg, model, text, pcs, rgbs, targets, seed=cfg.run.seed,
+        initial_state=initial_state,
+        shard_encoder=cfg.run.ep_shard_encoder, scan_fn=scan_fn)
     return {**res, "n": res["n_samples"], "step_ms": scan_fn.step_ms,
             "finite": None, "cg_iters": None, "state": state}
 
@@ -308,7 +337,11 @@ def main(argv=None) -> dict:
     # one scan (one set of captured graphs) for every corruption, as the
     # JAX CLI jits one scan_fn; the distributed modes always scan
     dist_mode = cfg.run.dist_mode
-    if dist_mode == "psum" and not cfg.run.vmap_corruptions:
+    if dist_mode == "ep":
+        scan_fn = pep.make_ep_scan_fn(
+            cfg, model, pep.class_shard(pmesh.make_mesh(), text.shape[0]),
+            cfg.run.ep_shard_encoder)
+    elif dist_mode == "psum" and not cfg.run.vmap_corruptions:
         scan_fn = engine.make_scan_fn(cfg, model,
                                       axis_name=pmesh.make_mesh().group)
     elif cfg.run.use_scan or dist_mode != "replicated":
@@ -376,6 +409,9 @@ def run_sequential(cfg, model, text, corruptions, log_dir, step_fn,
         if cfg.run.dist_mode in ("sharded", "psum"):
             res = distributed_stream(c, model, text, pcs, rgbs, targets,
                                      scan_fn)
+        elif cfg.run.dist_mode == "ep":
+            res = ep_stream(c, model, text, pcs, rgbs, targets, carry_state,
+                            scan_fn)
         elif scan_fn is not None:
             res = scan_stream(c, model, text, pcs, rgbs, targets,
                               carry_state, scan_fn)

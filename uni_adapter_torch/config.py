@@ -148,8 +148,14 @@ class RunConfig:
     vmap_corruptions: bool = False
     continual: bool = False
     # replicated | sharded | psum (parallel/mesh.py, under a multi-process
-    # launch); ep: ROADMAP M16 part 2
+    # launch) | ep (the class axis over the ranks, parallel/ep.py)
     dist_mode: str = "replicated"
+    # ep: each rank also encodes ⌈2B/n⌉ rows of MODE-DOTA's fused batch
+    ep_shard_encoder: bool = False
+    # the JAX mesh's data axis name: accepted for the JAX command line and
+    # ignored (the port's DP × EP grid is of process groups,
+    # `parallel/ep.make_grid`)
+    data_axis: str = "data"
     trunk_parallel: str = "none"
     # a torch.profiler trace (CPU and CUDA) of the corruption loop, written
     # into this directory (`utils/profiling.trace`); None: no trace
@@ -237,8 +243,6 @@ def unported_paths(cfg: Config) -> list[str]:
     out = []
     if m.vlm3d not in ("uni3d", "ulip", "openshape"):
         out.append(f"--vlm3d {m.vlm3d}")
-    if r.dist_mode not in ("replicated", "sharded", "psum"):
-        out.append(f"--dist-mode {r.dist_mode} (ROADMAP M16)")
     if r.trunk_parallel != "none":
         out.append(f"--trunk-parallel {r.trunk_parallel} (ROADMAP M16)")
     return out
@@ -302,6 +306,18 @@ def parse_args(argv=None) -> Config:
     if r.dist_mode not in ("replicated", "sharded", "psum", "ep"):
         raise ValueError(f"--dist-mode {r.dist_mode!r}: expected "
                          "replicated, sharded, psum, or ep")
+    if r.dist_mode == "ep":
+        # every adaptation method class-shards (parallel/ep.py); only the
+        # encoder-sharding lever is MODE-DOTA's
+        if r.ep_shard_encoder and not cfg.dota.use_mode_dota:
+            raise ValueError(
+                "--ep-shard-encoder splits MODE-DOTA's fused 2-forward "
+                "batch; the cache, plain-DOTA, GMM-DOTA, and adaptive "
+                "paths run one forward per step — nothing to split")
+    elif r.ep_shard_encoder:
+        raise ValueError(
+            "--ep-shard-encoder splits the fused encoder batch over the EP "
+            "class axis; it has no effect unless --dist-mode ep")
     if r.trunk_parallel != "none" and r.vmap_corruptions:
         raise ValueError("--trunk-parallel does not compose with "
                          "--vmap-corruptions (vmap over the trunk's "

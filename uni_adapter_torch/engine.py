@@ -24,11 +24,12 @@ group; the JAX package's `axis_name` inside `shard_map`) each rank feeds
 its own batch and the fits' additive statistics are summed over the
 ranks, so the replicated state takes the global batch's update
 (`parallel/mesh.run_stream_psum`).  A step is a generator of parts
-(`Step.parts`) that yields each fit's packed statistics: calling the
-step all-reduces them in place as they come; the captured step
-(`_StreamRunner`) records one CUDA graph a part and issues the
-all-reduces between their replays, gloo's (which cannot be captured) and
-NCCL's alike.
+(`Step.parts`) that yields a sum request of each fit's packed
+statistics (`collectives.Collective`; the class-sharded steps of
+`parallel/ep.py` also yield gathers): calling the step issues them as
+they come; the captured step (`_StreamRunner`) records one CUDA graph a
+part and issues the collectives between their replays, gloo's (which
+cannot be captured) and NCCL's alike.
 
 S independent streams (the JAX package's `run_streams_vmapped`, the
 15-corruption sweep) run as one: the state from `init_states_streams`
@@ -238,24 +239,24 @@ def _select_streams(gates: tuple, new, old):
 
 def _fit(group, merge: Callable, stats: tuple, n: int):
     """A fit's merge of its statistics of n samples, the statistics first
-    summed over `group`'s ranks: a generator that yields their packed
-    buffer for its caller to all-reduce in place (`Step`, or a captured
+    summed over `group`'s ranks: a generator that yields a sum request of
+    their packed buffer for its caller to issue (`Step`, or a captured
     step's segments), and returns the merged state.  Without a group it
     yields nothing."""
     if group is not None:
         flat = collectives.pack(stats)
-        yield flat
+        yield collectives.Collective("sum", flat)
         stats = collectives.unpack(flat, stats)
         n *= dist.get_world_size(group)
     return merge(stats, n)
 
 
 def drive(parts, group):
-    """Run a step's parts generator to its end, each buffer it yields
-    all-reduced over `group` in place; returns its result."""
+    """Run a step's parts generator to its end, each collective it yields
+    (`collectives.Collective`) issued over `group`; returns its result."""
     try:
         while True:
-            collectives.psum_(next(parts), group)
+            collectives.issue(next(parts), group)
     except StopIteration as done:
         return done.value
 
@@ -485,15 +486,20 @@ class CacheStep:
     `head` (the forward, the cache update, the graph's system and the
     CG's start, or the explicit solve), the CG's `iteration`, run until
     every system has stopped (the host reads the stop flags after each),
-    and `tail` (the readout and the fusion)."""
+    and `tail` (the readout and the fusion).  Each part is a parts
+    generator, as `Step.parts` is; here they yield nothing (the
+    class-sharded cache's, `parallel/ep.ShardedCacheStep`, yield the
+    collectives of its `group`)."""
+
+    group = None
 
     def __init__(self, cfg: Config, encode: Callable):
         self.cc, self.scale = cfg.cache, cfg.model.logit_scale
         self.encode = encode
 
     @torch.no_grad()
-    def head(self, text_init: torch.Tensor, state: EngineState,
-             batch) -> _CacheContext:
+    def head(self, text_init: torch.Tensor, state: EngineState, batch):
+        yield from ()
         cc, scale = self.cc, self.scale
         pc, rgb, target = batch
         *lead, B, N, _ = pc.shape
@@ -519,11 +525,13 @@ class CacheStep:
                                  cc.use_new_approximation, cc.graph_mode))
 
     @torch.no_grad()
-    def iteration(self, ctx: _CacheContext) -> torch.Tensor:
+    def iteration(self, ctx: _CacheContext):
+        yield from ()
         return cache.refinement_iteration(ctx.ref)
 
     @torch.no_grad()
     def tail(self, state: EngineState, ctx: _CacheContext):
+        yield from ()
         final = fusion.fuse_cache(
             ctx.clip_logits, cache.graph_readout(ctx.feat, ctx.ref),
             logit_scale=self.scale)
@@ -536,10 +544,11 @@ class CacheStep:
                            state.generator), out
 
     def __call__(self, text_init: torch.Tensor, state: EngineState, batch):
-        ctx = self.head(text_init, state, batch)
+        ctx = drive(self.head(text_init, state, batch), self.group)
         if ctx.ref.cg is not None:
-            run_cg(lambda: self.iteration(ctx), self.cc.cg_max_iter)
-        return self.tail(state, ctx)
+            run_cg(lambda: drive(self.iteration(ctx), self.group),
+                   self.cc.cg_max_iter)
+        return drive(self.tail(state, ctx), self.group)
 
 
 def _sync(device: torch.device) -> None:
@@ -782,10 +791,10 @@ def _advance(parts):
 
 class _Parted:
     """A step's parts generator, `make_parts()`, on static tensors: run
-    eagerly (its buffers all-reduced over `group` in place as they come)
+    eagerly (the collectives it yields issued over `group` as they come)
     until `capture` records it as one CUDA graph for each part between
-    two all-reduces; then each call replays them in turn, the buffer of
-    each all-reduced before the next part reads it.  `generators` are
+    two collectives; then each call replays them in turn, the request of
+    each issued before the next part reads its buffer.  `generators` are
     registered with the first part's graph, which draws the noise."""
 
     def __init__(self, make_parts: Callable, generators: tuple = (),
@@ -809,11 +818,16 @@ class _Parted:
                 seg.out = seg.out.value
                 return
 
+    @property
+    def out(self):
+        """The captured parts' result (the last segment's)."""
+        return self.segments[-1].out
+
     def __call__(self):
         if not self.segments:
             return drive(self.make_parts(), self.group)
         for seg in self.segments[:-1]:
-            collectives.psum_(seg(), self.group)
+            collectives.issue(seg(), self.group)
         return self.segments[-1]()
 
 
@@ -840,11 +854,14 @@ class _StreamRunner:
         self.ctx = None
         if isinstance(step, CacheStep):
             # the cache draws no noise and has no gate: one program of
-            # three parts
+            # three parts (each in segments where its group's collectives
+            # split it: the class-sharded cache, parallel/ep.py)
+            g = step.group
             self.programs = {True: (
-                _Segment(lambda: step.head(self.text, self.state, self.slot)),
-                _Segment(lambda: step.iteration(self.ctx)),
-                _Segment(self._cache_tail))}
+                _Parted(lambda: step.head(self.text, self.state, self.slot),
+                        (), g),
+                _Parted(lambda: step.iteration(self.ctx), (), g),
+                _Parted(self._cache_tail, (), g))}
         else:
             # MODE-DOTA's step (a program per residual gate) or another
             # variant's (no gate, no generator), in parts where a group
@@ -862,8 +879,8 @@ class _StreamRunner:
         _load_state_tensors(self.state, new)
         return out
 
-    def _cache_tail(self) -> StepOutput:
-        new, out = self.step.tail(self.state, self.ctx)
+    def _cache_tail(self):
+        new, out = yield from self.step.tail(self.state, self.ctx)
         _load_state_tensors(self.state, new)
         return out
 
@@ -955,10 +972,13 @@ class ScanFn:
     calls, as the JAX CLI reuses one jitted scan across corruptions.
     `step_ms` holds the last call's ms a step.  `axis_name`: a process
     group over which the step sums the fits' statistics
-    (`make_step_fn`)."""
+    (`make_step_fn`); `step`: another step of `cfg`'s method to scan
+    (the class-sharded steps of `parallel/ep.py`)."""
 
-    def __init__(self, cfg: Config, model: Callable, axis_name=None):
-        self.step = make_step_fn(cfg, model, axis_name=axis_name)
+    def __init__(self, cfg: Config, model: Callable, axis_name=None,
+                 step: Optional[Callable] = None):
+        self.step = (step if step is not None
+                     else make_step_fn(cfg, model, axis_name=axis_name))
         self.noise = cfg.dota.use_mode_dota
         self.gated = self.noise and cfg.dota.res_learning
         self.runners: dict = {}

@@ -7,10 +7,14 @@ A group is any process group (the default one after
 the same (NCCL's or gloo's copy), but for the loss's gathers, which are
 the identity there (`gather_rows`, `sum_across`).
 
-  * `psum_` sums a tuple of tensors, packed into one flat fp32 buffer
-    (`pack`, `unpack`), over the group in one all-reduce in place, as a
-    data-parallel step merges its fits' sufficient statistics
-    (`engine._fit`) and the train step averages its gradients (`pmean`);
+  * `Collective` is what a step's parts generator yields between two of
+    its parts (`engine.drive`, a captured step's segments): a sum in
+    place, or a gather of the ranks' rows into a buffer the part
+    allocated; `issue` runs it on the step's group.  A sum takes a tuple
+    of tensors packed into one flat fp32 buffer (`pack`, `unpack`), one
+    all-reduce, as a data-parallel step merges its fits' sufficient
+    statistics (`engine._fit`) and the train step averages its gradients
+    (`pmean`);
   * `gather_rows` and `sum_across` carry their gradient, as JAX's AD
     transposes its collectives: the gathered rows' gradient is summed
     over the ranks and each rank keeps its own rows (all_gather's
@@ -22,7 +26,7 @@ how ranks that share one card run; NCCL needs a card a rank.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -44,16 +48,47 @@ def unpack(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> tuple:
     return tuple(out)
 
 
-def psum_(flat: torch.Tensor, group) -> torch.Tensor:
-    """Sum `flat` over the group, in place (one all-reduce)."""
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    return flat
+class Collective(NamedTuple):
+    """A request of a step's parts, issued between two parts: `kind`
+    'sum' sums `buf` over the group in place; 'gather' writes the ranks'
+    `buf`s, concatenated on axis 0 in rank order, into `out` (the part
+    allocates both, so that a captured part's buffers stay where the
+    next part reads them)."""
+    kind: str
+    buf: torch.Tensor
+    out: Optional[torch.Tensor] = None
+
+
+def gather_request(buf: torch.Tensor, n: int) -> Collective:
+    """A gather of `n` ranks' `buf`s on axis 0 (`buf` made contiguous)."""
+    buf = buf.contiguous()
+    return Collective("gather", buf,
+                      buf.new_empty((n * buf.shape[0], *buf.shape[1:])))
+
+
+def issue(req: Collective, group) -> None:
+    """Run a part's request over `group` (None: a world of this process
+    alone, where a sum is the identity and a gather a copy)."""
+    if req.kind == "sum":
+        if group is not None:
+            dist.all_reduce(req.buf, op=dist.ReduceOp.SUM, group=group)
+        return
+    if req.kind != "gather":
+        raise ValueError(f"unknown collective {req.kind!r}")
+    if group is None:
+        req.out.copy_(req.buf)
+    elif dist.get_backend(group) == "nccl":
+        dist.all_gather_into_tensor(req.out, req.buf, group=group)
+    else:
+        dist.all_gather(list(req.out.chunk(dist.get_world_size(group))),
+                        req.buf, group=group)
 
 
 def pmean(tensors: Sequence[torch.Tensor], group) -> tuple:
     """The tensors averaged over the group: their sum divided by the
     group's size, in fp32 (JAX's pmean)."""
-    flat = psum_(pack(tensors), group)
+    flat = pack(tensors)
+    issue(Collective("sum", flat), group)
     return unpack(flat / dist.get_world_size(group), tensors)
 
 

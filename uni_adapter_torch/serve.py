@@ -25,18 +25,38 @@ generators as they were.
 The tick runs eagerly, on the device of the model and the anchors.
 Client i is seeded `seed + i` (the reference's seed+rank), and a seed slot
 is never reused.
+
+`dist_mode='ep'` serves with every client's classes over the ranks of a
+process group (`parallel/ep.py`): each rank holds its block of every
+client's padded carry, the ladder is [1] (the class group already works
+on every request), and snapshots hold the full-K carry, gathered from
+the ranks, which `restore` pads onto this world again (so a snapshot
+moves between worlds and to a replicated server).  The JAX server is one
+process over a mesh; here each rank is a process, so rank 0 serves (the
+HTTP front end and its batcher call it) and every other rank runs
+`follow`: before each operation rank 0 broadcasts it (step, register,
+reset, warmup, snapshot, restore, stop) over a gloo control group with a
+timeout, and the followers run the same operation, collectives and all.
+Rank 0 sends a heartbeat while idle, so a follower whose rank 0 has
+stopped answering raises at the timeout instead of waiting for ever.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
+import time
+from datetime import timedelta
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from uni_adapter_torch import checkpoint, engine
 from uni_adapter_torch.config import Config
+from uni_adapter_torch.parallel import ep as pep
+from uni_adapter_torch.parallel.mesh import World, make_mesh
 
 
 def _own_generator(state: engine.EngineState) -> engine.EngineState:
@@ -46,20 +66,64 @@ def _own_generator(state: engine.EngineState) -> engine.EngineState:
         state, generator=engine.copy_generator(state.generator))
 
 
+class _Control:
+    """Rank 0's channel to the other ranks of an EP server: operations
+    broadcast over a gloo group of the world's ranks (its own timeout),
+    one at a time, and a heartbeat from rank 0 when it has sent nothing
+    for `heartbeat_s` seconds."""
+
+    def __init__(self, world: World, timeout_s: float = 120.0,
+                 heartbeat_s: float = 20.0):
+        self.group = dist.new_group(backend="gloo",
+                                    timeout=timedelta(seconds=timeout_s))
+        self.primary = world.rank == 0
+        self.lock = threading.RLock()
+        self._heartbeat_s = heartbeat_s
+        self._last = time.monotonic()
+        self._stop = threading.Event()
+        self._beat = None
+        if self.primary:
+            self._beat = threading.Thread(target=self._beats, daemon=True,
+                                          name="tta-ep-heartbeat")
+            self._beat.start()
+
+    def send(self, op: tuple) -> None:
+        with self.lock:
+            dist.broadcast_object_list([op], src=0, group=self.group)
+            self._last = time.monotonic()
+
+    def receive(self) -> tuple:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def _beats(self) -> None:
+        while not self._stop.wait(self._heartbeat_s / 4):
+            with self.lock:
+                if self._stop.is_set():
+                    return
+                if time.monotonic() - self._last >= self._heartbeat_s:
+                    self.send(("noop",))
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._beat is not None:
+            self._beat.join(timeout=10)
+
+
 class TTAServer:
     """Stateful multi-client test-time-adaptation server."""
 
     def __init__(self, cfg: Config, model, text_features: torch.Tensor,
                  sizes: Sequence[int] = (1, 2, 4, 8, 16), seed: int = 42,
-                 dist_mode: str = "replicated"):
+                 dist_mode: str = "replicated",
+                 mesh: Optional[World] = None):
         """`model` and `text_features` lie on the device the server runs
-        on.  `dist_mode` 'ep' (class-sharded state) is ROADMAP M16's; the
-        trunk-parallel encoders of the JAX server are too."""
-        if dist_mode == "ep":
-            raise NotImplementedError(
-                "dist_mode 'ep' (class-sharded serving) is not ported yet "
-                "(ROADMAP M16)")
-        if dist_mode != "replicated":
+        on.  `dist_mode` 'ep' splits the clients' classes over the ranks
+        of `mesh` (default: the initialised process group, else this
+        process alone); the trunk-parallel encoders of the JAX server are
+        ROADMAP M16's."""
+        if dist_mode not in ("replicated", "ep"):
             raise ValueError(
                 f"dist_mode {dist_mode!r}: the serving loop supports "
                 "'replicated' (per-client vmap ladder) or 'ep' "
@@ -70,12 +134,58 @@ class TTAServer:
         self.device = text_features.device
         self.seed = seed
         self.sizes = sorted(sizes)
-        self._step = engine.make_step_fn(cfg, model)
         self.states: Dict[str, engine.EngineState] = {}
         self._next_client = 0
         self._snapshotter: Optional[checkpoint.AsyncSnapshotter] = None
+        self._ep: Optional[pep.ClassShard] = None
+        self._control: Optional[_Control] = None
+        if dist_mode == "ep":
+            world = mesh or make_mesh()
+            shard = pep.class_shard(world, text_features.shape[0])
+            self._ep, self._full_text = shard, text_features
+            self.text = pep.pad_classes(text_features, shard.n)[0][
+                shard.offset:shard.offset + shard.k_local]
+            self._step = pep.make_ep_step_fn(cfg, model, shard)
+            self.sizes = [1]
+            if world.group is not None:
+                self._control = _Control(world)
+            logging.info("EP serving: K=%d over %d ranks (%d classes a "
+                         "rank; ladder [1])", shard.num_classes, shard.n,
+                         shard.k_local)
+        else:
+            self._step = engine.make_step_fn(cfg, model)
+
+    @property
+    def primary(self) -> bool:
+        """Whether this process serves (rank 0, or a world of one)."""
+        return self._control is None or self._control.primary
+
+    def _call(self, name: str, *args):
+        """Run operation `name`: on rank 0 of an EP world, first sent to
+        the other ranks (which run it in `follow`)."""
+        if self._control is None or not self._control.primary:
+            return getattr(self, "_" + name)(*args)
+        with self._control.lock:
+            self._control.send((name, *args))
+            return getattr(self, "_" + name)(*args)
+
+    def stop(self) -> None:
+        """End the other ranks' `follow` loops (rank 0 of an EP world; a
+        no-op otherwise)."""
+        if self._control is not None and self._control.primary:
+            self._control.close()
+            self._control.send(("stop",))
+
+    def _new_state(self, seed: int) -> engine.EngineState:
+        if self._ep is not None:
+            return pep.local_padded_state(self.cfg, self._full_text,
+                                          self._ep, seed)
+        return engine.init_state(self.cfg, self.text, seed)
 
     def warmup(self, npoints: int, batch: int = 1) -> None:
+        self._call("warmup", npoints, batch)
+
+    def _warmup(self, npoints: int, batch: int = 1) -> None:
         """One step of every ladder size (and the single-request path) on
         a scratch state: every kernel of the path is built (nvcc runs at
         its first launch) before the first request.  No client state is
@@ -83,8 +193,7 @@ class TTAServer:
         pc = torch.zeros((batch, npoints, 3), device=self.device)
         rgb = torch.ones_like(pc)
         targets = torch.zeros((batch,), dtype=torch.int64, device=self.device)
-        scratch = engine.init_state(self.cfg, self.text, 0)
-        self._step(self.text, scratch, (pc, rgb, targets))
+        self._step(self.text, self._new_state(0), (pc, rgb, targets))
         for size in self.sizes:
             if size == 1:
                 continue   # a size-1 chunk takes the single-stream step
@@ -102,20 +211,26 @@ class TTAServer:
     def register(self, client_id: str) -> None:
         """Create a fresh adaptation stream for a client (seeded seed+i —
         the reference's seed+rank convention)."""
+        self._call("register", client_id)
+
+    def _register(self, client_id: str) -> None:
         if client_id in self.states:
             raise ValueError(f"client {client_id!r} already registered")
-        self.states[client_id] = engine.init_state(
-            self.cfg, self.text, self.seed + self._next_client)
+        self.states[client_id] = self._new_state(self.seed
+                                                 + self._next_client)
         self._next_client += 1
 
     def reset(self, client_id: str) -> None:
         """Restart a client's adaptation from scratch (fresh seed — seed
         slots are never reused, so restarted streams stay decorrelated)."""
+        self._call("reset", client_id)
+
+    def _reset(self, client_id: str) -> None:
         if client_id not in self.states:
             raise ValueError(f"client {client_id!r} is not registered "
                              f"(known: {sorted(self.states)})")
         del self.states[client_id]
-        self.register(client_id)
+        self._register(client_id)
 
     def submit(self, requests: List[Tuple[str, np.ndarray,
                                           Optional[np.ndarray]]]
@@ -134,6 +249,9 @@ class TTAServer:
         generator included, is left as it was: a client that retries
         after an error cannot double-step its stream.
         """
+        return self._call("submit", requests)
+
+    def _submit(self, requests) -> Dict[str, np.ndarray]:
         if not requests:
             return {}
         ids = [r[0] for r in requests]
@@ -207,8 +325,17 @@ class TTAServer:
         holds the generator and the step count) as `checkpoint.save_state`
         writes it.  With `blocking=False` the write runs on a background
         thread from a copy taken now, and serving goes on (call
-        `drain_snapshots()` before reading it or shutting down)."""
+        `drain_snapshots()` before reading it or shutting down).  An EP
+        server writes the full-K carry, gathered from the ranks (rank 0
+        writes)."""
+        self._call("snapshot", client_id, path, blocking)
+
+    def _snapshot(self, client_id: str, path: str, blocking: bool) -> None:
         state = self.states[client_id]
+        if self._ep is not None:
+            state = pep.gather_state(state, self._ep)
+            if not self.primary:
+                return
         if blocking:
             checkpoint.save_state(path, state)
             return
@@ -228,18 +355,47 @@ class TTAServer:
         server's between an orbax directory and an .npz); pending
         non-blocking snapshots are drained first.  An unknown client is
         registered first (the restarted-process case), and that is undone
-        if the load fails."""
+        if the load fails.  An EP server pads the full-K carry onto its
+        ranks (every rank reads the file)."""
         self.drain_snapshots()
+        self._call("restore", client_id, path)
+
+    def _restore(self, client_id: str, path: str) -> None:
         fresh = client_id not in self.states
         if fresh:
-            self.register(client_id)
+            self._register(client_id)
         try:
             loaded = checkpoint.restore_state(path, self.device)
             if not isinstance(loaded, engine.EngineState):
                 raise ValueError(f"{path!r} holds no adaptation state")
+            if self._ep is not None:
+                loaded = pep.local_padded_state(
+                    self.cfg, self._full_text, self._ep, self.seed,
+                    initial_state=loaded)
             self.states[client_id] = loaded
         except Exception:
             if fresh:
                 del self.states[client_id]
             raise
         logging.info("client %s state restored", client_id)
+
+
+def follow(server: TTAServer) -> None:
+    """The loop of an EP server's rank other than 0: run each operation
+    rank 0 sends, until it sends 'stop'.  An operation that raises is
+    logged and the loop goes on, as rank 0 goes on serving after it:
+    what an operation checks (the clients, the request, the snapshot's
+    files) every rank holds alike and checks before its first
+    collective, so the ranks raise alike (an unknown client, a missing
+    or unreadable snapshot)."""
+    control = server._control
+    while True:
+        name, *args = control.receive()
+        if name == "stop":
+            return
+        if name == "noop":
+            continue
+        try:
+            getattr(server, "_" + name)(*args)
+        except Exception as e:
+            logging.warning("EP follower: %s failed: %r", name, e)

@@ -58,7 +58,13 @@ def cg_iteration_(A: torch.Tensor, s: CGState,
     """One CG iteration of every system that has not stopped, written into
     `s` in place (a captured iteration replays on the same tensors);
     returns whether every system has now stopped, a () bool tensor."""
-    Ap = torch.matmul(A, s.p)
+    return cg_update_(s, torch.matmul(A, s.p), tol)
+
+
+def cg_update_(s: CGState, Ap: torch.Tensor,
+               tol: float = 1e-5) -> torch.Tensor:
+    """`cg_iteration_` after its product Ap = A·p (a class-sharded cache
+    gathers Ap from the ranks' row blocks of A)."""
     alpha = (s.rz / (torch.sum(s.p * Ap, dim=-2) + 1e-8)).unsqueeze(-2)
     run = ~s.done
     keep = run[..., None, None]
