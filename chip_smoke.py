@@ -248,6 +248,29 @@ exits non-zero before the result line:
      with `--vmap-corruptions`) and `cli.serve --dist-mode ep` over HTTP
      on two ranks.  ms a step, peak memory, segments a step and the
      launches of FPS, kNN and the block a rank are printed.
+ 13. the tensor-parallel trunk (`run_tp`, `parallel/tp.py`): at world 1
+     over NCCL in this process, Uni3D-L bf16 at full width and depth,
+     MODE-DOTA with residuals, 16 clouds captured through
+     `prepare_trunk_parallel`'s encoder, bitwise equal to the plain scan
+     and traced (FPS, kNN, the block); at world 2 (two processes sharing
+     the card over gloo) Uni3D-L's features in bf16 and fp32 (the
+     block's fp32 entry) against one process's, its captured bf16 stream
+     traced (every block launch the head-sharded entry; segments a step,
+     the all-reduces' share of host time, ms a step), the fp32 MODE-DOTA
+     trajectory's logits within 1e-4 with acc@1 equal, two planted
+     faults (`bo` added on every rank, one `fc2` sum skipped) failing
+     the fp32 tolerance, OpenShape-G's and ULIP-2's features (the natural
+     layout on the rank's heads); at world 4 EP × TP on a (classes,
+     model) = (2, 2) grid against the plain scan and Uni3D-L refusing 4
+     ranks (SwiGLU width 2730); the CLI (`torch.distributed.run ...
+     --trunk-parallel tp`) and `cli.serve --trunk-parallel tp` over
+     HTTP on two ranks.
+
+Phase 3 also holds the block's head-sharded entry (a tensor-parallel
+rank's heads: q/k/v (64H, D), out projection (D, 64H), no `bo`: the fp32
+partial sum) at (2, 513, 1024) with 8 and 4 heads, bf16 and fp32,
+against the plain version with the planted fault 'last K tile skipped',
+timed per call and per launch beside cuBLAS's GEMMs.
 
 Phase 3 also holds the backward of the fp32 block's attention side
 (`csrc/eva_attn_block_bwd.cu` through `EvaAttnBlockFunction`) at Uni3D-L's
@@ -265,18 +288,21 @@ is `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py --dist-only
     python3 chip_smoke.py --ep-only
+    python3 chip_smoke.py --tp-only
 
-builds the kernels and runs phase 11's distributed part and phase 12
-alone (`run_dist_streams`, `run_dp_pretraining`, `run_ep`): on a machine
-with two cards or more that is where the worlds of two run over NCCL, a
-card a rank, besides gloo.  `--ep-only` builds the kernels and runs
-phase 12 alone.  Each prints its phases' summary and the same last line.  Without a CUDA device, or without the
+builds the kernels and runs phase 11's distributed part and phases 12
+and 13 alone (`run_dist_streams`, `run_dp_pretraining`, `run_ep`,
+`run_tp`): on a machine with two cards or more that is where the worlds
+of two run over NCCL, a card a rank, besides gloo (with four, phase 13's
+world of four too).  `--ep-only` builds the kernels and runs phase 12
+alone, `--tp-only` phase 13.  Each prints its phases' summary and the same last line.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import json
 import math
@@ -1910,6 +1936,121 @@ def block_inputs(torch, gen, shape, dtype) -> tuple:
           BLOCK_LN_GAMMA + rnd(64, std=0.1, dt=torch.float32),
           rnd(64, std=0.1, dt=torch.float32)]
     return (rnd(*shape), w[0], b[0], w[1], w[2], b[1], *ln, w[3], b[2])
+
+
+#: The head-sharded entry's shapes: a rank's heads of Uni3D-L's block
+#: under tensor parallelism over 2 and 4 ranks, (B, N, D, heads), D the
+#: block's input and output width, 64 · heads the rank's q/k/v width.
+BLOCK_HEAD_SHARDS = ((2, 513, 1024, 8), (2, 513, 1024, 4))
+
+
+def head_shard_inputs(torch, gen, shape, dtype) -> tuple:
+    """A head shard's twelve arguments for (B, N, D, H): q/k/v weights
+    (64H, D) of std D^-1/2, biases (64H,) of std 0.02, the out projection
+    (D, 64H) of std (64H)^-1/2, peaked per-head LayerNorms, and no `bo`
+    (the partial sum)."""
+    B, N, D, H = shape
+    Dh = 64 * H
+
+    def rnd(*size, std=1.0, dt=dtype):
+        return (torch.randn(*size, generator=gen, device="cuda") * std).to(dt)
+
+    w = [rnd(Dh, D, std=D ** -0.5) for _ in range(3)]
+    b = [rnd(Dh, std=0.02) for _ in range(2)]
+    ln = [BLOCK_LN_GAMMA + rnd(64, std=0.1, dt=torch.float32),
+          rnd(64, std=0.1, dt=torch.float32),
+          BLOCK_LN_GAMMA + rnd(64, std=0.1, dt=torch.float32),
+          rnd(64, std=0.1, dt=torch.float32)]
+    return (rnd(B, N, D), w[0], b[0], w[1], w[2], b[1], *ln,
+            rnd(D, Dh, std=Dh ** -0.5), None)
+
+
+def check_block_head_shards(torch, gen) -> dict:
+    """The block's head-sharded entry (no `bo`: the out projection's fp32
+    partial sum, unrounded) in bf16 and fp32 at BLOCK_HEAD_SHARDS,
+    against the plain version: bf16 within rtol BLOCK_RTOL and atol
+    BLOCK_ATOL_RMS, fp32 within the fp32 tolerance, the planted fault
+    'last K tile skipped' outside each.  Timed per call (device ms)
+    beside its bound, and per launch: its two GEMMs (q/k/v M x 3Dh x D,
+    out M x D x Dh) beside their bounds and cuBLAS's `F.linear` of the
+    same product (a yardstick the port never calls)."""
+    import torch.nn.functional as F
+
+    from uni_adapter_torch.ops import attention
+
+    out = {}
+    for name, kernel, dtype, peak in (
+            ("eva_attn_block", attention.eva_attn_block_cuda,
+             torch.bfloat16, PEAK_BF16),
+            ("eva_attn_block_fp32", attention.eva_attn_block_fp32_cuda,
+             torch.float32, PEAK_FP32)):
+        for shape in BLOCK_HEAD_SHARDS:
+            B, N, D, H = shape
+            Dh, M = 64 * H, B * N
+            args = head_shard_inputs(torch, gen, shape, dtype)
+            got = kernel(*args, num_heads=H)
+            want = attention.eva_attn_block_plain(*args, num_heads=H)
+            short_k = attention.eva_attn_block_plain(
+                skip_last_k_tile(args[0]), *args[1:], num_heads=H)
+            torch.cuda.synchronize()
+            what = f"{name} head shard {shape}"
+            if got.dtype != torch.float32 or tuple(got.shape) != (B, N, D):
+                fail(f"{what}: returned {got.dtype} {tuple(got.shape)}, not "
+                     f"the fp32 partial sum {(B, N, D)}")
+            if dtype == torch.bfloat16:
+                err = (got - want).abs().max().item()
+                r, rf = block_err(got, want), block_err(short_k, want)
+                print(f"{what}: max abs err {err:.3g}, err/tolerance "
+                      f"{r:.4f}; planted fault 'last K tile skipped': "
+                      f"err/tolerance {rf:.1f}")
+                if not torch.isfinite(got).all() or r > 1:
+                    fail(f"{what}: outside the bf16 block tolerance")
+                if rf <= 1:
+                    fail(f"{what}: the tolerance passes the planted fault")
+            else:
+                err = check_f32(what, got, want, {
+                    "last K tile skipped": (short_k, want)})
+            call = lambda: kernel(*args, num_heads=H)  # noqa: E731
+            size = args[0].element_size()
+            flops = 2 * M * D * 3 * Dh + 4 * B * H * N * N * 64 \
+                + 2 * M * Dh * D
+            n_bytes = (M * D + 4 * Dh * D + 2 * Dh) * size + 4 * 64 * 4 \
+                + M * D * 4
+            b_ms, b_by = bound(n_bytes, flops, peak)
+            rec = {"max_abs_err": err, "ms": time_ms(call),
+                   "device_ms": device_ms(call),
+                   "plain_ms": time_ms(lambda: attention.eva_attn_block_plain(
+                       *args, num_heads=H)),
+                   "bound_ms": b_ms, "bound_by": b_by, "per_launch": {}}
+            launches = device_ms_by_launch(call, 3)
+            x2 = args[0].reshape(M, D)
+            cat = torch.randn(M, Dh, generator=gen, device="cuda").to(dtype)
+            for part, (kname, ms), a, w, n_out in (
+                    ("qkv", launches[0], x2,
+                     torch.cat([args[1], args[3], args[4]]), 3 * Dh),
+                    ("out", launches[2], cat, args[10], D)):
+                k_in = a.shape[1]
+                g_flops = 2 * M * k_in * n_out
+                g_ms, g_by = bound((M * k_in + n_out * k_in) * size
+                                   + M * n_out * (4 if part == "out"
+                                                  else size), g_flops, peak)
+                rec["per_launch"][part] = {
+                    "kernel": kname[:70], "device_ms": ms, "bound_ms": g_ms,
+                    "bound_by": g_by, "tflops": g_flops / ms / 1e9,
+                    "cublas_device_ms": device_ms(lambda: F.linear(a, w))}
+            rec["per_launch"]["attention"] = {"kernel": launches[1][0][:70],
+                                              "device_ms": launches[1][1]}
+            print(f"{what}: device {rec['device_ms']:.4f} ms a call (bound "
+                  f"{b_ms:.5f} ms by {b_by}, plain {rec['plain_ms']:.3f} ms);"
+                  + "".join(f" {k} GEMM {v['device_ms']:.4f} ms "
+                            f"({v['tflops']:.1f} TFLOP/s, bound "
+                            f"{v['bound_ms']:.5f} ms, cuBLAS "
+                            f"{v['cublas_device_ms']:.4f} ms);"
+                            for k, v in rec["per_launch"].items()
+                            if k != "attention")
+                  + f" attention {launches[1][1]:.4f} ms")
+            out[f"{name} {shape}"] = rec
+    return out
 
 
 def check_block_shapes(torch, gen) -> dict:
@@ -6394,8 +6535,6 @@ def run_ep_cli(tmp: Path, torch) -> dict:
               "--precomputed-text-features", "large", "--name", "run"]
     # the labels: met by the sweep's first stream on its first cloud only
     # (the clouds the CLI reads, its weights: seed 42)
-    import dataclasses
-
     from uni_adapter_torch import engine
     from uni_adapter_torch.anchors import load_precomputed
     from uni_adapter_torch.data.datasets import load_tta_dataset
@@ -6922,6 +7061,631 @@ def run_ep(tmp: Path, card: str) -> tuple:
     return launches, summary
 
 
+# ---- phase 13: the tensor-parallel trunk (parallel/tp.py) -----------------
+
+#: Phase 13's tolerances.  bf16: each cloud's features within cosine
+#: TP_COS_BF16 of one process's (the ranks' partial sums are summed in
+#: fp32 and rounded once, one process's rounding points, but bf16
+#: roundings upstream of a sum flip with its order and 24 blocks carry
+#: them on); fp32 (the block's fp32 entry): cosine TP_COS_F32, the
+#: MODE-DOTA trajectory's logits within TP_LOGITS (rtol and atol) with
+#: acc@1 equal, as tests/test_tp.py's trajectory; EP × TP (fp32) the
+#: state within tests/test_ep.py's EP × TP rtol 2e-4, atol 2e-5.  The two
+#: planted faults (`bo` added on every rank, one `fc2` sum skipped) must
+#: each take some cloud's fp32 features outside TP_COS_F32.
+TP_COS_BF16 = 0.99
+TP_COS_F32 = 1 - 1e-4
+TP_LOGITS = 1e-4
+TP_EP_RTOL, TP_EP_ATOL = 2e-4, 2e-5
+#: Steps of the fp32 trajectory and of the EP × TP stream; clouds whose
+#: features are compared (and steps timed for the all-reduces' share):
+#: over gloo on one card a forward of 16 clouds moves 2.4 GB (bf16 model,
+#: fp32 partial sums) through the host a rank.
+TP_FP32_STEPS = 8
+TP_CLOUDS = 4
+#: The TP paths' kernels on 1024-point clouds: rows 1, 2 and 3.
+TP_KERNELS = ("fps", "knn", "eva_attn_block")
+
+
+def tp_cfg(dtype: str = "bfloat16", depth: int = 24, dota=None):
+    """Uni3D-L at published width, `depth` blocks, in `dtype`, MODE-DOTA
+    (with residual learning unless `dota` says otherwise), the trunk
+    tensor-parallel."""
+    from uni_adapter_torch.config import (Config, DotaConfig, ModelConfig,
+                                          RunConfig)
+
+    return Config(model=ModelConfig(compute_dtype=dtype, eva_depth=depth),
+                  dota=DotaConfig(**(dota or {})),
+                  run=RunConfig(trunk_parallel="tp"))
+
+
+def tp_model(torch, cfg, kind: str = "uni3d"):
+    """The backbone of `cfg` from seed 0 on the card, its Dense biases
+    drawn normal(0, 0.1) from a seeded generator: flax's zero biases would
+    hide a bias added on every rank (a planted fault)."""
+    from uni_adapter_torch.models.common import Dense
+    from uni_adapter_torch.models.loader import build_backbone
+
+    model, _, _ = build_backbone(kind, cfg.model, "cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Dense) and m.bias is not None:
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen,
+                                               device="cuda"))
+    return model
+
+
+def tp_backbone_cfg(kind: str):
+    """ULIP-2 or OpenShape-G at published widths and depths, bf16, the
+    trunk tensor-parallel."""
+    from uni_adapter_torch.config import Config, ModelConfig, RunConfig
+
+    return Config(model=ModelConfig(vlm3d=kind),
+                  run=RunConfig(trunk_parallel="tp"))
+
+
+def tp_inputs(torch) -> dict:
+    """Phase 13's clouds and banks, numpy-seeded: 16 1024-point clouds on
+    spheres (batch 1), ModelNet40's bank, a seeded (15, 1024) bank for
+    EP × TP."""
+    import numpy as np
+
+    from uni_adapter_torch.anchors import load_precomputed
+
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((16, 1, 1024, 3)).astype(np.float32)
+    x = 0.5 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+    x *= rng.uniform(0.6, 1.4, (16, 1, 1, 3)).astype(np.float32)
+    b = rng.standard_normal((15, 1024)).astype(np.float32)
+    return {"pcs": torch.from_numpy(x), "rgbs": torch.ones(16, 1, 1024, 3),
+            "bank": load_precomputed("large", "modelnet").float(),
+            "bank15": torch.from_numpy(b / np.linalg.norm(b, axis=1,
+                                                          keepdims=True))}
+
+
+def tp_features(torch, encode, pcs, rgbs):
+    """The features of the (TP_CLOUDS, 1024) clouds through `encode` (a
+    plain encoder or a parts one, its collectives issued), fp32 on the
+    CPU."""
+    from uni_adapter_torch import engine
+
+    with torch.no_grad():
+        feat = engine.drive(engine.encoded(encode, pcs, rgbs), None)
+    return feat.float().cpu()
+
+
+def tp_min_cos(got, want) -> float:
+    import torch.nn.functional as F
+
+    return float(F.cosine_similarity(got.double(), want.double(), -1).min())
+
+
+def tp_fault_bo(torch, encode, pcs, rgbs):
+    """The planted fault 'bo added on every rank': the head shards' partial
+    sums biased before the sum (each rank adds the out projection's bias),
+    the forward otherwise the same."""
+    from uni_adapter_torch.models import common
+    from uni_adapter_torch.parallel.collectives import Collective
+
+    def parts(self, x):
+        if self.tp_group is None:
+            return self(x)
+        part = self._block(x, None) + self.proj.bias
+        yield Collective("sum", part, group=self.tp_group)
+        return part.to(x.dtype)
+
+    saved = common.EvaAttention.parts
+    common.EvaAttention.parts = parts
+    try:
+        return tp_features(torch, encode, pcs, rgbs)
+    finally:
+        common.EvaAttention.parts = saved
+
+
+def tp_fault_fc2(torch, encode, pcs, rgbs):
+    """The planted fault 'one fc2 sum skipped': the third collective of
+    the forward (block 0's `fc2` partial product) not issued."""
+    from uni_adapter_torch.parallel import collectives
+
+    parts, i = encode(pcs, rgbs), 0
+    with torch.no_grad():
+        try:
+            while True:
+                req = next(parts)
+                if i != 2:
+                    collectives.issue(req, None)
+                i += 1
+        except StopIteration as done:
+            return done.value.float().cpu()
+
+
+def tp_rank(rank: int, world: int, tmp: str, port: int, mode: str) -> None:
+    """One rank of phase 13's worlds of 2 and 4, started by `run_tp_world`:
+    mode 'gloo', every rank on card 0 (the bootstrap picks gloo), or
+    'nccl', a card a rank; writes tmp/tp_rank{rank}_w{world}_{mode}.pt."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if mode == "gloo":
+        os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.cli.tta import set_numerics
+    from uni_adapter_torch.ops import attention
+    from uni_adapter_torch.parallel import ep, tp, trunk
+    from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+
+    boot = init_distributed_device("cuda")
+    set_numerics()
+    try:
+        inp = torch.load(Path(tmp) / "tp_inputs.pt", weights_only=False)
+        out = {"backend": boot["backend"]}
+        pcs, rgbs = inp["pcs"].cuda(), inp["rgbs"].cuda()
+        flat = (pcs[:TP_CLOUDS, 0], rgbs[:TP_CLOUDS, 0])
+        if world == 4:
+            cfg = tp_cfg("float32", depth=2, dota=dict(res_learning=False))
+            model = tp_model(torch, cfg)
+            try:
+                trunk.prepare_trunk_parallel(tp_cfg(depth=2), model)
+                out["indivisible"] = None
+            except ValueError as e:
+                out["indivisible"] = str(e)
+            # EP × TP: (classes, model) = (2, 2)
+            grid = tp.make_tp_grid(2)
+            rank_model, encode = tp.make_tp_encode_fn(
+                model, grid.model_group, "uni3d")
+            counters = zeroed_counters()
+            state, summary = ep.run_stream_ep(
+                cfg, rank_model, inp["bank15"].cuda(),
+                pcs[:TP_FP32_STEPS], rgbs[:TP_FP32_STEPS],
+                inp["targets_ep"].cuda(), mesh=grid.outer_world, seed=42,
+                encode_fn=encode)
+            out["ep_tp"] = {"state": ep_state(state), "summary": summary,
+                            "grid": tuple(grid[:4]),
+                            "launches": {k: c.launches for k, c in
+                                         counters.items() if c.launches}}
+            if mode == "nccl":
+                c = tp_backbone_cfg("openshape")
+                _, encode = trunk.prepare_trunk_parallel(
+                    c, tp_model(torch, c, "openshape"))
+                out["openshape"] = tp_features(torch, encode, *flat)
+            torch.save(out, Path(tmp) / f"tp_rank{rank}_w{world}_{mode}.pt")
+            return
+        # Uni3D-L bf16: features, the traced captured stream, its timing
+        cfg = tp_cfg()
+        model, encode = trunk.prepare_trunk_parallel(cfg, tp_model(torch,
+                                                                   cfg))
+        out["uni3d"] = tp_features(torch, encode, *flat)
+        scan_fn = engine.make_scan_fn(cfg, model, encode_fn=encode)
+        attention.eva_attn_block.head_shard_launches = 0
+        go = lambda: engine.run_stream_scan(  # noqa: E731
+            cfg, model, inp["bank"].cuda(), pcs, rgbs,
+            inp["targets"].cuda(), seed=42, scan_fn=scan_fn)
+        (state, outs), launches, wrapper = traced_run(
+            torch, f"the TP stream (world {world}, {mode})", go, TP_KERNELS)
+        out["stream"] = {"state": engine_tensors(state),
+                         "acc1": engine.summarize(outs, 16)["acc1"],
+                         "ms": list(scan_fn.step_ms),
+                         "launches": launches,
+                         "head_shard_launches":
+                             attention.eva_attn_block.head_shard_launches,
+                         "wrapper": wrapper["eva_attn_block"],
+                         "segments": ep_segments(scan_fn)}
+        out["allreduce"] = allreduce_share(torch, lambda: (
+            engine.run_stream_scan(
+                cfg, model, inp["bank"].cuda(), pcs[:TP_CLOUDS],
+                rgbs[:TP_CLOUDS], inp["targets"][:TP_CLOUDS].cuda(),
+                seed=42, scan_fn=scan_fn)))
+        del model, encode, scan_fn, state, outs
+        torch.cuda.empty_cache()
+        # Uni3D-L fp32 (row 3f): features, the trajectory, the faults
+        cfg = tp_cfg("float32")
+        model, encode = trunk.prepare_trunk_parallel(cfg, tp_model(torch,
+                                                                   cfg))
+        out["uni3d_fp32"] = tp_features(torch, encode, *flat)
+        attention.eva_attn_block_fp32_cuda.head_shard_launches = 0
+        state, outs = engine.run_stream_scan(
+            cfg, model, inp["bank"].cuda(), pcs[:TP_FP32_STEPS],
+            rgbs[:TP_FP32_STEPS], inp["targets_fp32"].cuda(), seed=42,
+            scan_fn=engine.make_scan_fn(cfg, model, encode_fn=encode))
+        out["trajectory"] = {
+            "final_logits": outs.final_logits.cpu(),
+            "acc1": engine.summarize(outs, TP_FP32_STEPS)["acc1"],
+            "head_shard_launches":
+                attention.eva_attn_block_fp32_cuda.head_shard_launches}
+        out["fault_bo"] = tp_fault_bo(torch, encode, *flat)
+        out["fault_fc2"] = tp_fault_fc2(torch, encode, *flat)
+        del model, encode, state, outs
+        torch.cuda.empty_cache()
+        # OpenShape-G and ULIP-2 (rows 4 and 5 / 2 on the rank's heads)
+        for kind in ("openshape", "ulip"):
+            c = tp_backbone_cfg(kind)
+            model, encode = trunk.prepare_trunk_parallel(
+                c, tp_model(torch, c, kind))
+            counters = zeroed_counters()
+            out[kind] = tp_features(torch, encode, *flat)
+            out[f"{kind}_launches"] = {k: n.launches
+                                       for k, n in counters.items()
+                                       if n.launches}
+            del model, encode
+            torch.cuda.empty_cache()
+        torch.save(out, Path(tmp) / f"tp_rank{rank}_w{world}_{mode}.pt")
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def run_tp_world(tmp: Path, world: int, mode: str = "gloo") -> list:
+    """Phase 13's world of `world` ranks (`tp_rank`): over gloo on card 0,
+    or over NCCL, a card a rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.start_processes(tp_rank, args=(world, str(tmp), free_port(), mode),
+                       nprocs=world, join=True, start_method="spawn")
+    print(f"tp world {world} ({mode}): all ranks done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(tmp / f"tp_rank{r}_w{world}_{mode}.pt",
+                       weights_only=False) for r in range(world)]
+
+
+def run_tp_cli(tmp: Path, torch) -> dict:
+    """The CLI and the HTTP server at world 2 over gloo on card 0:
+    `python -m torch.distributed.run --nproc-per-node 2 -m
+    uni_adapter_torch.cli.tta --trunk-parallel tp` (Uni3D-L width, depth 2,
+    fp32, residuals off, 16 clouds) writing the results.json of the same
+    run in this process without TP; then `cli.serve --trunk-parallel tp`
+    on two ranks (rank 0 the HTTP front end), one client posting 3 clouds
+    whose logits are within 1e-3 of a replicated server's here, rank 0
+    interrupted, both ranks exiting 0."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.cli import tta
+    from uni_adapter_torch.client import TTAClient
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.serve import TTAServer
+
+    root = tmp / "tp_cli_data"
+    write_stream(root, 1024, 40)
+    common = ["--root", str(root), "--corruption", "uniform", "--eva-depth",
+              "2", "--compute-dtype", "float32", "--dota-res-learning",
+              "false", "--precomputed-text-features", "large", "--name",
+              "run"]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    want = tta.main([*common, "--output-dir", str(tmp / "tp_cli_base")])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "uni_adapter_torch.cli.tta",
+         *common, "--trunk-parallel", "tp", "--output-dir",
+         str(tmp / "tp_cli")], env=env, capture_output=True, text=True,
+        timeout=300)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"tp CLI: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    got = json.loads((tmp / "tp_cli" / "run" / "results.json").read_text())
+    if got != want["acc1"]:
+        fail(f"tp CLI: results.json {got} against the run without TP "
+             f"{want['acc1']}")
+    log = (tmp / "tp_cli" / "run" / "out.log").read_text()
+    if "trunk parallelism: tensor (Megatron), 2-way" not in log:
+        fail("tp CLI: out.log does not say it ran the TP trunk")
+    port, mport = free_port(), free_port()
+    argv = ["--port", str(port), "--gather-ms", "0", "--eva-depth", "2",
+            "--compute-dtype", "float32", "--dota-res-learning", "false",
+            "--precomputed-text-features", "large", "--trunk-parallel", "tp",
+            "--output-dir", str(tmp / "tp_serve")]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "uni_adapter_torch.cli.serve", *argv],
+        env=dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                 LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(mport)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        t0 = time.perf_counter()
+        client = TTAClient("127.0.0.1", port, "x")
+        while True:
+            try:
+                client.register()
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 180:
+                    raise
+                time.sleep(1.0)
+        clouds = np.load(root / "data_uniform_5.npy")[:3, None]
+        logits = [client.submit(c) for c in clouds]
+        health = client.healthz()
+        procs[0].send_signal(signal.SIGINT)
+        codes = [p.wait(timeout=60) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0, 0]:
+        fail(f"tp serve CLI: exit codes {codes}\n"
+             + "\n".join(p.stderr.read()[-2000:] for p in procs))
+    cfg = tp_cfg("float32", depth=2, dota=dict(res_learning=False))
+    model, _, _ = build_backbone("uni3d", cfg.model, "cuda", seed=42)
+    ref = TTAServer(cfg, model, load_precomputed("large", "modelnet").cuda(),
+                    seed=42)
+    ref.register("x")
+    want_l = [ref.submit([("x", c, None)])["x"] for c in clouds]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(logits, want_l))
+    if diff > 1e-3 or health["clients"] != 1:
+        fail(f"tp serve CLI: logits max |Δ| {diff:.3g} against a replicated "
+             f"server, healthz {health}")
+    print(f"tp CLI: --trunk-parallel tp at world 2 wrote the run's "
+          f"results.json without TP ({cli_s:.1f} s with the launch); "
+          f"cli.serve --trunk-parallel tp: 3 requests over HTTP, logits max "
+          f"|Δ| {diff:.3g} against a replicated server, both ranks exited 0")
+    return {"cli_s": cli_s, "serve_logits_max_abs_diff": diff}
+
+
+def run_tp(tmp: Path, card: str) -> tuple:
+    """Phase 13: the tensor-parallel trunk (`parallel/tp.py`).
+
+    (a) world 1 over NCCL in this process: Uni3D-L bf16 at full width and
+    depth, MODE-DOTA with residuals, 16 clouds, captured, through
+    `prepare_trunk_parallel`'s encoder (a group of one holds the whole
+    model): state and outputs bitwise equal to the plain scan's; traced:
+    FPS, kNN and the block, no other kernel.  (b) world 2, two processes
+    sharing the card over gloo: Uni3D-L bf16 features within TP_COS_BF16
+    of one process's and its captured stream traced (rows 1, 2 and the
+    head-sharded row 3 on each rank; segments a step, the all-reduces'
+    share of host time, ms a step beside the plain scan), Uni3D-L fp32
+    features within TP_COS_F32, the fp32 trajectory's logits within
+    TP_LOGITS with acc@1 equal, the two planted faults outside
+    TP_COS_F32, and OpenShape-G and ULIP-2 features within TP_COS_BF16
+    (row 4 on the rank's heads).  (c) world 4 over gloo: EP × TP on a
+    (classes, model) = (2, 2) grid (fp32, depth 2, residuals off, K 15)
+    within TP_EP_RTOL, TP_EP_ATOL of the plain scan with acc@1 equal, and
+    Uni3D-L's SwiGLU width 2730 raising the 4-device error.  (d) the CLI
+    and the HTTP server at world 2 (`run_tp_cli`).  With two cards or
+    more (b) runs again over NCCL, a card a rank; with four, (c) too, and
+    OpenShape-G's features at world 4.  Returns (the world-1 run's
+    launches, summary)."""
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.parallel import trunk
+
+    t_phase = time.perf_counter()
+    times, problems, summary = {}, [], {"ms_a_step": {}}
+
+    def bad(msg: str) -> None:
+        print(f"tp check failed: {msg}")
+        problems.append(msg)
+
+    inp = tp_inputs(torch)
+    pcs, rgbs = inp["pcs"].cuda(), inp["rgbs"].cuda()
+    flat = (pcs[:TP_CLOUDS, 0], rgbs[:TP_CLOUDS, 0])
+    bank = inp["bank"].cuda()
+
+    # (a) the references, and world 1 over NCCL
+    t0 = time.perf_counter()
+    cfg = tp_cfg()
+    model = tp_model(torch, cfg)
+    ref = {"uni3d": tp_features(torch, engine.encode_with("uni3d", model),
+                                *flat)}
+    _, outs = engine.run_stream_scan(cfg, model, bank, pcs, rgbs,
+                                     torch.zeros(16, 1, dtype=torch.int64),
+                                     seed=42)
+    inp["targets"] = half_met(torch, outs.final_logits)
+    scan_fn = engine.make_scan_fn(cfg, model)
+    state, outs = engine.run_stream_scan(cfg, model, bank, pcs, rgbs,
+                                         inp["targets"].cuda(), seed=42,
+                                         scan_fn=scan_fn)
+    want = (engine_tensors(state), outs.final_logits.cpu(),
+            engine.summarize(outs, 16)["acc1"])
+    summary["ms_a_step"]["plain_bf16"] = statistics.median(
+        scan_fn.step_ms[1:])
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        rank_model, encode = trunk.prepare_trunk_parallel(cfg, model)
+        scan_fn = engine.make_scan_fn(cfg, rank_model, encode_fn=encode)
+        (state, outs), launches, wrapper = traced_run(
+            torch, "the TP stream (world 1, NCCL)",
+            lambda: engine.run_stream_scan(
+                cfg, rank_model, bank, pcs, rgbs, inp["targets"].cuda(),
+                seed=42, scan_fn=scan_fn), TP_KERNELS)
+    finally:
+        dist.destroy_process_group()
+    got = engine_tensors(state)
+    same = all(torch.equal(got[k], want[0][k]) for k in want[0]) and \
+        torch.equal(outs.final_logits.cpu(), want[1])
+    if not same:
+        bad("tp world 1: the state or the logits differ from the plain scan")
+    summary["ms_a_step"]["world1_bf16"] = statistics.median(
+        scan_fn.step_ms[1:])
+    print(f"tp world 1 (NCCL), Uni3D-L bf16, MODE-DOTA with residuals, 16 "
+          f"clouds captured: state and logits bitwise equal to the plain "
+          f"scan's: {same}; acc@1 {engine.summarize(outs, 16)['acc1']} "
+          f"(plain {want[2]}); launches {launches}")
+    del model, rank_model, encode, scan_fn, state, outs
+    torch.cuda.empty_cache()
+    cfg32 = tp_cfg("float32")
+    model = tp_model(torch, cfg32)
+    ref["uni3d_fp32"] = tp_features(torch, engine.encode_with("uni3d", model),
+                                    *flat)
+    fp = (pcs[:TP_FP32_STEPS], rgbs[:TP_FP32_STEPS])
+    _, outs = engine.run_stream_scan(
+        cfg32, model, bank, *fp, torch.zeros(TP_FP32_STEPS, 1,
+                                             dtype=torch.int64), seed=42)
+    inp["targets_fp32"] = half_met(torch, outs.final_logits)
+    scan_fn = engine.make_scan_fn(cfg32, model)
+    _, outs = engine.run_stream_scan(cfg32, model, bank, *fp,
+                                     inp["targets_fp32"].cuda(), seed=42,
+                                     scan_fn=scan_fn)
+    ref["trajectory"] = (outs.final_logits.cpu(),
+                         engine.summarize(outs, TP_FP32_STEPS)["acc1"])
+    summary["ms_a_step"]["plain_fp32"] = statistics.median(
+        scan_fn.step_ms[1:])
+    del model, scan_fn, outs
+    torch.cuda.empty_cache()
+    for kind in ("openshape", "ulip"):
+        m = tp_model(torch, tp_backbone_cfg(kind), kind)
+        ref[kind] = tp_features(torch, engine.encode_with(kind, m), *flat)
+        del m
+    cfg_ep = tp_cfg("float32", depth=2, dota=dict(res_learning=False))
+    m = tp_model(torch, cfg_ep)
+    bank15 = inp["bank15"].cuda()
+    ep_in = (pcs[:TP_FP32_STEPS], rgbs[:TP_FP32_STEPS])
+    _, outs = engine.run_stream_scan(
+        cfg_ep, m, bank15, *ep_in, torch.zeros(TP_FP32_STEPS, 1,
+                                               dtype=torch.int64), seed=42)
+    inp["targets_ep"] = half_met(torch, outs.final_logits)
+    state, outs = engine.run_stream_scan(cfg_ep, m, bank15, *ep_in,
+                                         inp["targets_ep"].cuda(), seed=42)
+    ref["ep_tp"] = (ep_state(state), engine.summarize(outs,
+                                                      TP_FP32_STEPS)["acc1"])
+    del m, state, outs
+    torch.cuda.empty_cache()
+    times["a"] = time.perf_counter() - t0
+
+    # (b) world 2 over gloo
+    t0 = time.perf_counter()
+    torch.save({k: (v.cpu() if hasattr(v, "cpu") else v)
+                for k, v in inp.items()}, tmp / "tp_inputs.pt")
+
+    def check_world2(ranks: list, tag: str) -> dict:
+        res = {}
+        for r, out in enumerate(ranks):
+            want_backend = "nccl" if "nccl" in tag else "gloo"
+            if out["backend"] != want_backend:
+                bad(f"tp world 2{tag}: rank {r} runs {out['backend']}")
+            cos = {k: tp_min_cos(out[k], ref[k])
+                   for k in ("uni3d", "uni3d_fp32", "openshape", "ulip")}
+            for k, c in cos.items():
+                tol = TP_COS_F32 if k == "uni3d_fp32" else TP_COS_BF16
+                if c < tol:
+                    bad(f"tp world 2{tag} rank {r}, {k}: features' least "
+                        f"cosine {c:.6f} < {tol}")
+            faults = {k: tp_min_cos(out[k], ref["uni3d_fp32"])
+                      for k in ("fault_bo", "fault_fc2")}
+            for k, c in faults.items():
+                if c >= TP_COS_F32:
+                    bad(f"tp world 2{tag} rank {r}: the planted fault {k} "
+                        f"passes (least cosine {c:.6f})")
+            tr = out["trajectory"]
+            d = float((tr["final_logits"] - ref["trajectory"][0]).abs().max())
+            if not torch.allclose(tr["final_logits"], ref["trajectory"][0],
+                                  rtol=TP_LOGITS, atol=TP_LOGITS) or \
+                    tr["acc1"] != ref["trajectory"][1]:
+                bad(f"tp world 2{tag} rank {r}: fp32 logits max |Δ| {d:.3g}"
+                    f" (tolerance {TP_LOGITS}), acc@1 {tr['acc1']} against "
+                    f"{ref['trajectory'][1]}")
+            st = out["stream"]
+            heads_ok = (st["head_shard_launches"] == st["wrapper"] > 0
+                        and tr["head_shard_launches"] > 0)
+            if not heads_ok:
+                bad(f"tp world 2{tag} rank {r}: head-sharded block launches "
+                    f"{st['head_shard_launches']} of {st['wrapper']} (fp32 "
+                    f"{tr['head_shard_launches']})")
+            for kind in ("openshape", "ulip"):
+                if not out[f"{kind}_launches"].get("eva_attention"):
+                    bad(f"tp world 2{tag} rank {r}: {kind} did not launch "
+                        f"eva_attention on its heads")
+            print(f"tp world 2{tag} rank {r}: least cosine to one process "
+                  f"{ {k: round(c, 7) for k, c in cos.items()} }; planted "
+                  f"faults {faults}; fp32 trajectory logits max |Δ| {d:.3g},"
+                  f" acc@1 {tr['acc1']} (one process "
+                  f"{ref['trajectory'][1]}); bf16 stream acc@1 {st['acc1']} "
+                  f"(one process {want[2]}), launches {st['launches']}, "
+                  f"head-sharded {st['head_shard_launches']} of "
+                  f"{st['wrapper']}; segments a step {st['segments']}; "
+                  f"all-reduce {out['allreduce']}; OpenShape-G launches "
+                  f"{out['openshape_launches']}, ULIP-2 "
+                  f"{out['ulip_launches']}")
+            res[f"rank{r}"] = {"cos": cos, "faults": faults,
+                               "logits_max_abs": d,
+                               "segments": st["segments"],
+                               "allreduce": out["allreduce"]}
+        summary["ms_a_step"][f"world2_bf16{tag}"] = statistics.median(
+            ranks[0]["stream"]["ms"][1:])
+        return res
+
+    summary["world2"] = check_world2(run_tp_world(tmp, 2), "")
+    times["b"] = time.perf_counter() - t0
+
+    # (c) world 4 over gloo: EP × TP, the indivisible width
+    t0 = time.perf_counter()
+
+    def check_world4(ranks: list, tag: str) -> None:
+        want_st, want_acc = ref["ep_tp"]
+        for r, out in enumerate(ranks):
+            got = out["ep_tp"]
+            if got["grid"] != (2, 2, r // 2, r % 2):
+                bad(f"tp EP × TP{tag} rank {r}: grid {got['grid']}")
+            d = ep_check(f"tp EP × TP{tag} rank {r}", got["state"], want_st,
+                         "mode", (TP_EP_RTOL, TP_EP_ATOL), report=bad)
+            if got["summary"]["acc1"] != want_acc:
+                bad(f"tp EP × TP{tag} rank {r}: acc@1 "
+                    f"{got['summary']['acc1']} against {want_acc}")
+            text = out["indivisible"] or ""
+            if "don't divide over the 4-device mesh" not in text or \
+                    "2730" not in text:
+                bad(f"tp world 4{tag} rank {r}: Uni3D-L did not raise the "
+                    f"indivisible error: {text!r}")
+            if "openshape" in out and tp_min_cos(out["openshape"],
+                                                 ref["openshape"]) \
+                    < TP_COS_BF16:
+                bad(f"tp world 4{tag} rank {r}: OpenShape-G features")
+            print(f"tp EP × TP{tag} (classes 2 × model 2) rank {r}: state "
+                  f"max |Δ| {d:.3g} from the plain scan (rtol {TP_EP_RTOL}, "
+                  f"atol {TP_EP_ATOL}), acc@1 {got['summary']['acc1']}; "
+                  f"launches {got['launches']}"
+                  + (f"; OpenShape-G at world 4 least cosine "
+                     f"{tp_min_cos(out['openshape'], ref['openshape']):.6f}"
+                     if "openshape" in out else ""))
+        print(f"tp world 4{tag}: Uni3D-L raised: {ranks[0]['indivisible']}")
+
+    check_world4(run_tp_world(tmp, 4), "")
+    times["c"] = time.perf_counter() - t0
+
+    # (d) the CLI and the HTTP server at world 2
+    t0 = time.perf_counter()
+    summary["cli"] = run_tp_cli(tmp, torch)
+    times["d"] = time.perf_counter() - t0
+
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        summary["world2_nccl"] = check_world2(run_tp_world(tmp, 2, "nccl"),
+                                              " (nccl)")
+        if torch.cuda.device_count() >= 4:
+            check_world4(run_tp_world(tmp, 4, "nccl"), " (nccl)")
+        times["nccl"] = time.perf_counter() - t0
+    else:
+        print("tp worlds over NCCL: not run, this machine has one card (the "
+              "ranks shared it over gloo)")
+    summary["seconds"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = times
+    print(f"tp ms a step ({card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in summary["ms_a_step"].items()))
+    print(f"phase tp: {summary['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in times.items()) + ")")
+    if problems:
+        fail(f"phase tp: {len(problems)} checks failed: "
+             + "; ".join(problems))
+    return launches, summary
+
+
 def main() -> None:
     import argparse
 
@@ -6935,6 +7699,9 @@ def main() -> None:
     ap.add_argument("--ep-only", action="store_true",
                     help="build the kernels and run only phase 12, the "
                          "class-sharded adaptation")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build the kernels and run only phase 13, the "
+                         "tensor-parallel trunk")
     args = ap.parse_args()
     dist_only = args.dist_only
     t_start = time.perf_counter()
@@ -6963,6 +7730,17 @@ def main() -> None:
     from uni_adapter_torch.cli.tta import set_numerics
 
     set_numerics()
+    if args.tp_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            tp_launches, tp_run = run_tp(Path(tmp), card)
+        print(f"chip_smoke --tp-only total: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"tp": tp_run, "launches": {"tp_world1":
+                                                     tp_launches}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if args.ep_only:
         with tempfile.TemporaryDirectory() as tmp:
             ep_launches, ep_run = run_ep(Path(tmp), card)
@@ -6982,13 +7760,15 @@ def main() -> None:
             dp_launches, dp_run = run_dp_pretraining(Path(tmp), card, inputs,
                                                      dp_ranks)
             ep_launches, ep_run = run_ep(Path(tmp), card)
+            tp_launches, tp_run = run_tp(Path(tmp), card)
         print(f"chip_smoke --dist-only total: "
               f"{time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"dist_streams": dist_run, "dp_pretraining": dp_run,
-                          "ep": ep_run,
+                          "ep": ep_run, "tp": tp_run,
                           "launches": {"dist_psum_world1": launches,
                                        "dp_pretrain_world1": dp_launches,
-                                       "ep_world1": ep_launches}}))
+                                       "ep_world1": ep_launches,
+                                       "tp_world1": tp_launches}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -7010,9 +7790,16 @@ def main() -> None:
     kernels.append(check_attention_f32_tc(torch, gen))
     check_f32_routes(torch, gen)
     block_errs = check_block_shapes(torch, gen)
+    head_shards = check_block_head_shards(torch, gen)
     for k in kernels:
         if k["name"] in block_errs:
             k["max_abs_err"] = max(k["max_abs_err"], block_errs[k["name"]])
+        shards = {shape: rec for shape, rec in head_shards.items()
+                  if shape.split(" ")[0] == k["name"]}
+        if shards:
+            k["head_shards"] = shards
+            k["max_abs_err"] = max(k["max_abs_err"], *(
+                rec["max_abs_err"] for rec in shards.values()))
     check_float16_raises(torch)
     check_sweep_batch(torch, gen, kernels)
     for k in kernels:
@@ -7069,6 +7856,7 @@ def main() -> None:
             Path(tmp), card, inputs, dp_ranks)
         by_path["cross_class"], cross_run = run_cross_class(Path(tmp), card)
         by_path["ep_world1"], ep_run = run_ep(Path(tmp), card)
+        by_path["tp_world1"], tp_run = run_tp(Path(tmp), card)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -7079,7 +7867,7 @@ def main() -> None:
                       "serving": serving, "pretraining": pretraining,
                       "dvae": dvae_run, "dist_streams": dist_run,
                       "dp_pretraining": dp_run, "cross_class": cross_run,
-                      "ep": ep_run,
+                      "ep": ep_run, "tp": tp_run,
                       "uni3d_int8_ms": {"uni3d_int8": int8_ms,
                                         "uni3d": batch1_ms["uni3d"]}}))
     print(json.dumps({"kernels": kernels}))

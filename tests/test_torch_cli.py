@@ -87,14 +87,14 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 
 @pytest.mark.parametrize("flags,item", [
     (["--trunk-parallel", "pp"], "M16"),
-    (["--trunk-parallel", "tp"], "M16"),
     (["--trunk-parallel", "sp"], "M16"),
 ])
 def test_unported_paths_raise_and_name_their_roadmap_item(flags, item,
                                                           stream_dir):
-    """What waits for ROADMAP M16 part 2 raises by name: the trunk's model
-    parallelism.  (`--dist-mode sharded` and `psum` run:
-    tests/test_torch_parallel.py; `ep`: test_torch_ep.py and below.)"""
+    """What waits for ROADMAP M16 part 2 raises by name: the pipeline and
+    sequence-parallel trunks.  (`--dist-mode sharded` and `psum` run:
+    tests/test_torch_parallel.py; `ep`: test_torch_ep.py and below;
+    `--trunk-parallel tp`: test_torch_tp_cli.py.)"""
     with pytest.raises(NotImplementedError, match=item):
         tta.main(["--device", "cpu", "--root", str(stream_dir), *SMALL_ARGS,
                   *flags])

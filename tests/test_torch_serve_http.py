@@ -278,4 +278,4 @@ def test_serve_cli_starts_and_serves(tmp_path):
     assert (tmp_path / "serve.log").exists()
     with pytest.raises(NotImplementedError, match="M16"):
         serve_cli.main(["--device", "cpu", "--output-dir", str(tmp_path),
-                        "--trunk-parallel", "tp"])
+                        "--trunk-parallel", "sp"])

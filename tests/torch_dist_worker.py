@@ -79,19 +79,26 @@ def run_cases(cases: dict) -> dict:
 # the programs
 # --------------------------------------------------------------------------
 
-def _fed_scan(cfg, model, noises, group=None):
-    """A scan whose step takes its noise from `noises` in turn (the JAX
-    run's draws), keeping the step's process group."""
+def _fed(scan_fn, noises):
+    """`scan_fn` with its step's noise taken from `noises` in turn (the
+    JAX run's draws), its encoder and process group kept."""
     import torch
 
     from uni_adapter_torch import engine
 
-    scan_fn = engine.make_scan_fn(cfg, model, axis_name=group)
     step, it = scan_fn.step, iter(noises)
     scan_fn.step = engine.Step(
         lambda t, s, b, noise=None: step.parts(
             t, s, b, torch.from_numpy(next(it))), step.group)
     return scan_fn
+
+
+def _fed_scan(cfg, model, noises, group=None):
+    """A scan whose step takes its noise from `noises` in turn, keeping
+    the step's process group."""
+    from uni_adapter_torch import engine
+
+    return _fed(engine.make_scan_fn(cfg, model, axis_name=group), noises)
 
 
 def _state_arrays(state) -> dict:
@@ -230,17 +237,9 @@ def dp_train_program(inputs: dict, rank: int) -> dict:
 def _ep_fed_scan(cfg, model, shard, noises, shard_encoder=False):
     """The class-sharded scan whose MODE-DOTA step takes its noise from
     `noises` in turn (JAX's draws)."""
-    import torch
-
-    from uni_adapter_torch import engine
     from uni_adapter_torch.parallel import ep
 
-    scan_fn = ep.make_ep_scan_fn(cfg, model, shard, shard_encoder)
-    step, it = scan_fn.step, iter(noises)
-    scan_fn.step = engine.Step(
-        lambda t, s, b, noise=None: step.parts(
-            t, s, b, torch.from_numpy(next(it))), step.group)
-    return scan_fn
+    return _fed(ep.make_ep_scan_fn(cfg, model, shard, shard_encoder), noises)
 
 
 def _full_state(state) -> dict:
@@ -496,9 +495,191 @@ def ep_serve_program(inputs: dict, rank: int) -> dict:
                       "by_stream": by_stream, "http": http})
 
 
+def _counted(forward, *inputs) -> tuple:
+    """A parts forward's output and its collectives' kinds, each issued
+    over its own group."""
+    from uni_adapter_torch.parallel import collectives
+
+    parts, kinds = forward(*inputs), []
+    try:
+        while True:
+            req = next(parts)
+            kinds.append(req.kind)
+            collectives.issue(req, None)
+    except StopIteration as done:
+        return done.value, kinds
+
+
+def tp_program(inputs: dict, rank: int) -> dict:
+    """The tensor-parallel trunk (tests/test_torch_tp.py): each backbone's
+    forward at worlds 2 and 4, its shards and collectives, the MODE-DOTA
+    trajectory (world 2), DP × TP and EP × TP on 2 × 2 grids and the
+    indivisible widths' error (world 4)."""
+    import torch
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.models import pointbert, ppta, uni3d
+    from uni_adapter_torch.parallel import ep, tp, trunk
+    from uni_adapter_torch.parallel import mesh as pmesh
+
+    world = pmesh.make_mesh()
+    t = torch.from_numpy
+
+    def build(kind, dims, state_dict):
+        if kind.startswith("uni3d"):
+            m = uni3d.Uni3D(**dims, dtype=torch.float32)
+        elif kind == "ulip":
+            m = pointbert.ULIP(**dims, dtype=torch.float32)
+        else:
+            m = ppta.Projected(ppta.PPTAPreset(**dims["preset"]),
+                               dims["out"], dtype=torch.float32,
+                               rel_pe=dims["rel_pe"])
+        m.load_state_dict(state_dict)
+        return m.eval().requires_grad_(False)
+
+    models = {k: build(k, *inputs["models"][k]) for k in inputs["models"]}
+
+    def forward(kind):
+        def case():
+            rank_model = tp.shard_model_tp(models[kind], world.group)
+            with torch.no_grad():
+                feat, kinds = _counted(
+                    tp.make_tp_forward(rank_model, world.group),
+                    *(t(x) for x in inputs["clouds"][kind]))
+            return {"feat": feat.numpy(), "collectives": kinds,
+                    "shapes": {n: tuple(p.shape) for n, p in
+                               rank_model.named_parameters()},
+                    "params": {n: p.numpy().copy() for n, p in
+                               rank_model.named_parameters()
+                               if n.endswith("blocks.0.attn.qkv.weight")}}
+        return case
+
+    def trajectory():
+        c = inputs["trajectory"]
+        model = build("uni3d", inputs["models"]["uni3d"][0],
+                      c["state_dict"])
+        rank_model, encode = tp.make_tp_encode_fn(model, world.group,
+                                                  "uni3d")
+        scan_fn = _fed(engine.make_scan_fn(c["cfg"], rank_model,
+                                           encode_fn=encode), c["noise"])
+        _, outs = engine.run_stream_scan(c["cfg"], rank_model,
+                                         t(c["text"]), *c["stream"],
+                                         seed=42, scan_fn=scan_fn)
+        # the replicated run, one process
+        _, rep = engine.run_stream_scan(
+            c["cfg"], model, t(c["text"]), *c["stream"], seed=42,
+            scan_fn=_fed(engine.make_scan_fn(c["cfg"], model), c["noise"]))
+        return {"final_logits": outs.final_logits.numpy(),
+                "correct": outs.correct.numpy(),
+                "replicated": rep.final_logits.numpy(),
+                "replicated_correct": rep.correct.numpy()}
+
+    def dp_tp():
+        grid = tp.make_tp_grid(2)
+        rank_model = tp.shard_model_tp(models["uni3d"], grid.model_group)
+        fwd = tp.make_tp_forward(rank_model, grid.model_group,
+                                 data_group=grid.outer_group)
+        with torch.no_grad():
+            feat, kinds = _counted(fwd, t(inputs["dp_clouds"]))
+        return {"feat": feat.numpy(), "collectives": kinds,
+                "grid": tuple(grid[:4])}
+
+    def ep_tp(name):
+        def case():
+            c = inputs["ep_tp"][name]
+            grid = tp.make_tp_grid(2)
+            rank_model, encode = tp.make_tp_encode_fn(
+                models["uni3d"], grid.model_group, "uni3d")
+            shard = ep.class_shard(grid.outer_world, c["text"].shape[0])
+            scan_fn = ep.make_ep_scan_fn(c["cfg"], rank_model, shard,
+                                         encode_fn=encode)
+            if c["noise"] is not None:
+                scan_fn = _fed(scan_fn, c["noise"])
+            state, summary = ep.run_stream_ep(
+                c["cfg"], rank_model, t(c["text"]), *c["stream"],
+                mesh=grid.outer_world, seed=42, scan_fn=scan_fn)
+            return {"state": _full_state(state), "summary": summary}
+        return case
+
+    def indivisible():
+        try:
+            trunk.prepare_trunk_parallel(inputs["tp_cfg"],
+                                         models["uni3d_odd"])
+        except ValueError as e:
+            return str(e)
+        return None
+
+    cases = {f"forward_{k}": forward(k) for k in ("uni3d", "ulip",
+                                                  "openshape")}
+    if world.size == 2:
+        cases["trajectory"] = trajectory
+    else:
+        cases.update({"dp_tp": dp_tp, "ep_tp_mode": ep_tp("mode"),
+                      "ep_tp_cache": ep_tp("cache"),
+                      "indivisible": indivisible})
+    return run_cases(cases)
+
+
+def tp_cli_program(inputs: dict, rank: int) -> dict:
+    """`--trunk-parallel tp` through the CLI, with int8 layers, and
+    `TTAServer(encode_fn=...)` at world 2, with the indivisible heads'
+    error (tests/test_torch_tp_cli.py).  Rank 0 serves; rank 1 follows."""
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import serve
+    from uni_adapter_torch.cli import tta
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import tp, trunk
+
+    models = {name: create_uni3d(mcfg, "cpu", state_dict=sd)
+              for name, (mcfg, sd) in inputs["models"].items()}
+
+    def cli(name):
+        def case():
+            argv, model = inputs["cli"][name]
+            return _patched_cli(tta, models[model],
+                                inputs["cli_corruptions"])(argv)
+        return case
+
+    def server():
+        rank_model, encode = tp.make_tp_encode_fn(
+            models["small"], dist.group.WORLD, "uni3d")
+        srv = serve.TTAServer(inputs["cfg"], rank_model,
+                              torch.from_numpy(inputs["text"]),
+                              sizes=(1, 2), encode_fn=encode)
+        if not srv.primary:
+            serve.follow(srv)
+            return {"followed": True}
+        streams = inputs["streams"]
+        for cid in ("a", "b"):
+            srv.register(cid)
+        ticks = [srv.submit([(cid, streams[i, s], None)
+                             for i, cid in enumerate(("a", "b"))])
+                 for s in range(2)]
+        ticks.append(srv.submit([("a", streams[0, 2], None)]))
+        srv.snapshot("a", inputs["snapshot"])
+        srv.restore("c", inputs["snapshot"])
+        last = srv.submit([("a", streams[0, 3], None),
+                           ("c", streams[0, 3], None)])
+        srv.stop()
+        return {"ticks": ticks, "last": last}
+
+    def indivisible():
+        try:
+            trunk.prepare_trunk_parallel(inputs["tp_cfg"], models["odd"])
+        except ValueError as e:
+            return str(e)
+        return None
+
+    return run_cases({**{f"cli_{n}": cli(n) for n in inputs["cli"]},
+                      "server": server, "indivisible": indivisible})
+
+
 PROGRAMS = {"parallel": parallel_program, "dp_train": dp_train_program,
             "ep": ep_program, "ep_methods": ep_methods_program,
-            "ep_serve": ep_serve_program}
+            "ep_serve": ep_serve_program, "tp": tp_program,
+            "tp_cli": tp_cli_program}
 
 
 def main() -> None:

@@ -17,7 +17,10 @@ source of model and data flags; `--help` prints both.  Runs on the GPU
 unless `--device cpu` is passed (asked for `cuda` without one, it
 raises).  `--warmup` runs one step of every ladder size at start-up, so
 every kernel is built before the first request; a build that fails stops
-the server from starting.  `--trunk-parallel` raises
+the server from starting.  `--trunk-parallel tp` under a multi-process
+launch shards the encoder trunk over the world's ranks
+(`parallel/trunk.py`, `serve.TTAServer(encode_fn=...)`), the clients'
+carries replicated on every rank; `--trunk-parallel pp|sp` raise
 `NotImplementedError` (ROADMAP M16).
 
 `--dist-mode ep` splits every client's classes over the ranks of a
@@ -26,9 +29,9 @@ multi-process launch (`serve.TTAServer(dist_mode='ep')`):
     python -m torch.distributed.run --nproc-per-node 2 \
         -m uni_adapter_torch.cli.serve --dist-mode ep ...
 
-Rank 0 serves HTTP; every other rank follows it (`serve.follow`) until
-rank 0 stops (an interrupt: it closes the listener, then stops the
-followers).  Ranks that share a card run over gloo, ranks with a card
+With either, rank 0 serves HTTP; every other rank follows it
+(`serve.follow`) until rank 0 stops (an interrupt: it closes the
+listener, then stops the followers).  Ranks that share a card run over gloo, ranks with a card
 each over NCCL (`parallel/bootstrap.py`).
 """
 from __future__ import annotations
@@ -40,9 +43,9 @@ import os
 
 def main(argv=None):
     """Start the server; returns the running `HTTPTTAServer` (the caller
-    owns its lifetime: `close()`, then `server.stop()` under EP), or None
-    on an EP rank other than 0, after it has followed rank 0 to its
-    stop."""
+    owns its lifetime: `close()`, then `server.stop()` under EP or TP),
+    or None on a rank other than 0 of an EP or TP server, after it has
+    followed rank 0 to its stop."""
     ap = argparse.ArgumentParser(
         prog="uni-adapter-serve",
         description="Serving flags (all other flags: evaluation parser "
@@ -70,6 +73,7 @@ def main(argv=None):
     from uni_adapter_torch.config import parse_args, unported_paths
     from uni_adapter_torch.models.loader import build_backbone
     from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+    from uni_adapter_torch.parallel.trunk import prepare_trunk_parallel
     from uni_adapter_torch.serve import TTAServer, follow
     from uni_adapter_torch.serve_http import HTTPTTAServer
     from uni_adapter_torch.utils.logging import setup_logging
@@ -93,6 +97,10 @@ def main(argv=None):
     if cfg.model.checkpoint_path is None:
         logging.warning("No checkpoint configured — random weights; "
                         "served logits are not meaningful.")
+    # --trunk-parallel tp: the encoder over the world's ranks
+    encode_fn = None
+    if cfg.run.trunk_parallel != "none":
+        model, encode_fn = prepare_trunk_parallel(cfg, model)
     text = get_text_anchors_with_fallback(cfg, device)
     width = feature_width(cfg.model)
     if text.shape[1] != width:
@@ -100,7 +108,7 @@ def main(argv=None):
                          f"{cfg.model.vlm3d} gives {width}-d features")
     sizes = tuple(int(s) for s in serve_args.sizes.split(","))
     server = TTAServer(cfg, model, text, sizes=sizes, seed=cfg.run.seed,
-                       dist_mode=cfg.run.dist_mode)
+                       dist_mode=cfg.run.dist_mode, encode_fn=encode_fn)
     if not server.primary:
         follow(server)          # until rank 0 stops
         return None

@@ -71,8 +71,21 @@ every rank consuming the whole stream (`parallel/ep.py`; with
 with `--vmap-corruptions` the streams run together on a grid of one data
 row; `--ep-shard-encoder` also splits MODE-DOTA's fused encoder batch).
 All three run the stream's scan, and write results.json only (the JAX
-CLI's files); only rank 0 logs and writes.  `--trunk-parallel` waits for
-ROADMAP M16 part 2 and raises.
+CLI's files); only rank 0 logs and writes.
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m uni_adapter_torch.cli.tta --trunk-parallel tp ...
+
+`--trunk-parallel tp` shards the encoder trunk over the whole world
+(`parallel/trunk.py`, `parallel/tp.py`: each rank its heads and hidden
+columns, the blocks' sums over the ranks) while every rank runs the
+replicated adaptation on the whole stream; it writes results.json and
+results_zs.json as the run without it does (rank 0).  It takes
+`--dist-mode replicated` only and not `--vmap-corruptions`, as the JAX
+CLI; `--use-scan`, `--continual` and `--quantize-int8` run with it.  A
+model whose heads or MLP hidden width do not divide over the world
+raises the JAX CLI's ValueError.  `--trunk-parallel pp|sp` raise
+NotImplementedError (ROADMAP M16).
 """
 from __future__ import annotations
 
@@ -96,6 +109,7 @@ from uni_adapter_torch.models.loader import build_backbone, load_checkpoint
 from uni_adapter_torch.parallel import ep as pep
 from uni_adapter_torch.parallel import mesh as pmesh
 from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+from uni_adapter_torch.parallel.trunk import prepare_trunk_parallel
 from uni_adapter_torch.utils import profiling
 from uni_adapter_torch.utils.logging import setup_logging
 from uni_adapter_torch.visualize import visualize_pointclouds_plotly
@@ -317,9 +331,10 @@ def main(argv=None) -> dict:
                  else "cpu", cfg.model.compute_dtype)
     logging.info("Config: %s", cfg)
     if boot["distributed"]:
-        logging.info("distributed: process %d/%d (%s), dist mode %s",
-                     boot["rank"], boot["world_size"], boot["backend"],
-                     cfg.run.dist_mode)
+        logging.info("distributed: process %d/%d (%s), dist mode %s, trunk "
+                     "parallel %s", boot["rank"], boot["world_size"],
+                     boot["backend"], cfg.run.dist_mode,
+                     cfg.run.trunk_parallel)
 
     model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,
                                  seed=cfg.run.seed,
@@ -327,6 +342,11 @@ def main(argv=None) -> dict:
     if cfg.model.checkpoint_path is None:
         logging.warning("No checkpoint configured — random weights; "
                         "accuracy numbers are not meaningful.")
+    # the trunk over the world's ranks (--trunk-parallel tp); the
+    # adaptation stays replicated
+    encode_fn = None
+    if cfg.run.trunk_parallel != "none":
+        model, encode_fn = prepare_trunk_parallel(cfg, model)
     text = get_text_anchors_with_fallback(cfg, device)
     width = feature_width(cfg.model)
     if text.shape[1] != width:
@@ -345,11 +365,11 @@ def main(argv=None) -> dict:
         scan_fn = engine.make_scan_fn(cfg, model,
                                       axis_name=pmesh.make_mesh().group)
     elif cfg.run.use_scan or dist_mode != "replicated":
-        scan_fn = engine.make_scan_fn(cfg, model)
+        scan_fn = engine.make_scan_fn(cfg, model, encode_fn=encode_fn)
     else:
         scan_fn = None
-    step_fn = None if scan_fn is not None else engine.make_step_fn(cfg,
-                                                                    model)
+    step_fn = (None if scan_fn is not None
+               else engine.make_step_fn(cfg, model, encode_fn=encode_fn))
 
     corruptions = (list(CORRUPTIONS) if cfg.data.corruption == "all"
                    else [cfg.data.corruption])

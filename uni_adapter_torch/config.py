@@ -16,7 +16,8 @@ changes the function (Uni3D's trunk on int8 `QuantDense` layers,
 
 Flags that select a path this package does not have yet parse as in the
 JAX package and raise `NotImplementedError` naming their ROADMAP item
-(`unported_paths`).  The combinations of `--vmap-corruptions` and
+(`unported_paths`: `--trunk-parallel pp|sp`).  The combinations of
+`--dist-mode`, `--trunk-parallel`, `--vmap-corruptions` and
 `--continual` that the JAX parser rejects raise its `ValueError` here.
 """
 from __future__ import annotations
@@ -156,6 +157,9 @@ class RunConfig:
     # ignored (the port's DP × EP grid is of process groups,
     # `parallel/ep.make_grid`)
     data_axis: str = "data"
+    # none | tp: the encoder trunk tensor-parallel over the whole world
+    # (parallel/tp.py; every backbone), the adaptation replicated; pp and
+    # sp parse and raise (ROADMAP M16)
     trunk_parallel: str = "none"
     # a torch.profiler trace (CPU and CUDA) of the corruption loop, written
     # into this directory (`utils/profiling.trace`); None: no trace
@@ -238,12 +242,13 @@ def load_templates(cfg: Config) -> list[str]:
 
 def unported_paths(cfg: Config) -> list[str]:
     """What `cfg` asks for that this package does not run yet, each with
-    the ROADMAP item that ports it."""
+    the ROADMAP item that ports it: the pipeline and sequence-parallel
+    trunks (`--trunk-parallel pp|sp`); 'tp' runs (`parallel/tp.py`)."""
     m, r = cfg.model, cfg.run
     out = []
     if m.vlm3d not in ("uni3d", "ulip", "openshape"):
         out.append(f"--vlm3d {m.vlm3d}")
-    if r.trunk_parallel != "none":
+    if r.trunk_parallel in ("pp", "sp"):
         out.append(f"--trunk-parallel {r.trunk_parallel} (ROADMAP M16)")
     return out
 
@@ -300,8 +305,8 @@ def parse_args(argv=None) -> Config:
     )
     if cfg.run.device not in ("cuda", "cpu"):
         raise ValueError(f"--device {cfg.run.device!r}: expected cuda or cpu")
-    # the JAX parser's checks of --dist-mode, --vmap-corruptions and
-    # --continual
+    # the JAX parser's checks of --dist-mode, --trunk-parallel,
+    # --vmap-corruptions and --continual
     r = cfg.run
     if r.dist_mode not in ("replicated", "sharded", "psum", "ep"):
         raise ValueError(f"--dist-mode {r.dist_mode!r}: expected "
@@ -318,10 +323,19 @@ def parse_args(argv=None) -> Config:
         raise ValueError(
             "--ep-shard-encoder splits the fused encoder batch over the EP "
             "class axis; it has no effect unless --dist-mode ep")
-    if r.trunk_parallel != "none" and r.vmap_corruptions:
-        raise ValueError("--trunk-parallel does not compose with "
-                         "--vmap-corruptions (vmap over the trunk's "
-                         "shard_map); run corruptions sequentially")
+    if r.trunk_parallel not in ("none", "tp", "pp", "sp"):
+        raise ValueError(f"--trunk-parallel {r.trunk_parallel!r}: "
+                         "expected none, tp, pp, or sp")
+    if r.trunk_parallel != "none":
+        if r.dist_mode != "replicated":
+            raise ValueError(
+                "--trunk-parallel shards the trunk over ALL devices; it "
+                "cannot compose with --dist-mode stream sharding from the "
+                "CLI (use the library API for 2-D meshes)")
+        if r.vmap_corruptions:
+            raise ValueError("--trunk-parallel does not compose with "
+                             "--vmap-corruptions (vmap over the trunk's "
+                             "shard_map); run corruptions sequentially")
     if r.continual:
         if r.vmap_corruptions:
             raise ValueError(

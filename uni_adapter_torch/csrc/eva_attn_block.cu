@@ -69,13 +69,20 @@
 //
 // Both take any M = B*N >= 1 (the ragged last tile's rows are zero-filled
 // on load and not stored, and a warp or warpgroup whose rows are all past
-// M only loads) and D = 64*H for any H >= 1 (K = D, a multiple of the K
-// steps; column tiles past 3D or D are zero-filled and not stored).  No
+// M only loads), any input width D that is a multiple of 64 and any H >= 1
+// heads of 64 columns, Dh = 64*H: the q/k/v GEMM is M x 3Dh x D (K = D),
+// the out GEMM M x D x Dh (K = Dh), both multiples of the K steps; column
+// tiles past 3Dh or D are zero-filled and not stored.  D == Dh is the
+// whole attention of a block; D > Dh is a rank's head shard under tensor
+// parallelism (q/k/v weights (Dh, D), the out projection (D, Dh)), whose
+// out GEMM is called with no bias and writes its partial sum in fp32,
+// unrounded, for the caller to sum over the ranks, round and bias.  No
 // atomics: every output's sum runs in the same order on every run.  The
 // tiles are compile-time constants (UAT_*_TILE below, chosen by
 // scripts/gemm_tiles.py on the card); cudaFuncSetAttribute for dynamic
 // shared memory runs once per device.
 #include <atomic>
+#include <type_traits>
 
 #include "attention_core.cuh"
 #include "attention_core_f32.cuh"
@@ -110,6 +117,7 @@ struct GemmArgs {
   const float* ln_g[3];     // nullptr: no LayerNorm
   const float* ln_b[3];
   T* C;
+  float* C32;               // non-null: C's fp32 partial sums, unrounded
   int n, seg_n;             // columns of C; columns of a segment
   float eps;
 };
@@ -352,6 +360,20 @@ __global__ void __launch_bounds__(128 * kWG)
   for (int h = 0; h < kBN / 64; ++h) {
     const int col0 = n0 + 64 * h;
     if (col0 >= g.n) break;  // block-uniform
+    if (g.C32 != nullptr) {  // block-uniform: the partial sums, unrounded
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = row0 + 8 * r;
+        if (m >= g.M) continue;
+        float* c = g.C32 + static_cast<size_t>(m) * g.n + col0 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(c + 8 * j) =
+              make_float2(acc[(8 * h + j) * 4 + 2 * r],
+                          acc[(8 * h + j) * 4 + 2 * r + 1]);
+      }
+      continue;
+    }
     const int seg = col0 / g.seg_n, nl = col0 - seg * g.seg_n;
     const bf16* bias = g.bias[seg];
     const float* ln_g = g.ln_g[seg];
@@ -643,13 +665,13 @@ cudaError_t launch(const GemmArgs<float>& g, cudaStream_t stream) {
 
 }  // namespace sg
 
-// The q/k/v GEMM's arguments: xn by [Wq|Wk|Wv] into qkv (M, 3D), bias on
-// q and v, LayerNorm on q and k.
+// The q/k/v GEMM's arguments: xn (M, D) by [Wq|Wk|Wv] (each (Dh, D)) into
+// qkv (M, 3Dh), bias on q and v, LayerNorm on q and k.
 template <typename T>
 GemmArgs<T> qkv_args(const T* xn, const T* wq, const T* bq, const T* wk,
                      const T* wv, const T* bv, const float* gq,
                      const float* bqn, const float* gk, const float* bkn,
-                     T* qkv, int M, int D, float eps) {
+                     T* qkv, int M, int D, int Dh, float eps) {
   GemmArgs<T> a{};
   a.A = xn;
   a.M = M;
@@ -659,94 +681,105 @@ GemmArgs<T> qkv_args(const T* xn, const T* wq, const T* bq, const T* wk,
   a.ln_g[0] = gq; a.ln_b[0] = bqn;
   a.ln_g[1] = gk; a.ln_b[1] = bkn;
   a.C = qkv;
-  a.n = 3 * D;
-  a.seg_n = D;
+  a.n = 3 * Dh;
+  a.seg_n = Dh;
   a.eps = eps;
   return a;
 }
 
-// The out projection's: attn by Wo plus bo into out (M, D).
+// The out projection's: attn (M, Dh) by Wo (D, Dh) plus bo into out (M, D)
+// of T; with no bo, the partial sums into out (M, D) of fp32, unrounded.
 template <typename T>
-GemmArgs<T> out_args(const T* attn, const T* wo, const T* bo, T* out, int M,
-                     int D) {
+GemmArgs<T> out_args(const T* attn, const T* wo, const T* bo, void* out,
+                     int M, int D, int Dh) {
   GemmArgs<T> p{};
   p.A = attn;
   p.M = M;
-  p.K = D;
+  p.K = Dh;
   p.W[0] = wo;
   p.bias[0] = bo;
-  p.C = out;
+  if (bo == nullptr && !std::is_same<T, float>::value)
+    p.C32 = static_cast<float*>(out);
+  else
+    p.C = static_cast<T*>(out);
   p.n = D;
   p.seg_n = D;
   return p;
 }
 
-// The attention step's operands: the q/k/v column slices of qkv.
+// The attention step's operands: the q/k/v column slices of qkv (M, 3Dh).
 template <typename Args, typename T>
-Args attn_args(const T* qkv, T* attn, int N, int D, float scale, float eps) {
+Args attn_args(const T* qkv, T* attn, int N, int Dh, float scale, float eps) {
   Args t{};
   t.q = qkv;
-  t.k = qkv + D;
-  t.v = qkv + 2 * D;
-  t.ld_q = t.ld_k = t.ld_v = 3 * D;
-  t.bs_q = t.bs_k = t.bs_v = static_cast<int64_t>(N) * 3 * D;
+  t.k = qkv + Dh;
+  t.v = qkv + 2 * Dh;
+  t.ld_q = t.ld_k = t.ld_v = 3 * Dh;
+  t.bs_q = t.bs_k = t.bs_v = static_cast<int64_t>(N) * 3 * Dh;
   t.out = attn;
   t.N = N;
-  t.D = D;
+  t.D = Dh;
   t.scale = scale;
   t.eps = eps;
   return t;
 }
 
+// The entries' shapes: D a multiple of 64, H >= 1 heads, B, N >= 1.
+bool valid_shape(int B, int N, int D, int H) {
+  return B > 0 && N > 0 && H > 0 && D > 0 && D % kHead == 0;
+}
+
 }  // namespace
 
-// xn: (B*N, D) bf16; wq/wk/wv/wo: (D, D) bf16 in (out, in) layout;
-// bq/bv/bo: (D,) bf16 (k has no bias); gq/bqn/gk/bkn: (64,) fp32 per-head
-// LayerNorm; qkv: (B*N, 3D) and attn: (B*N, D) bf16 workspaces; out:
-// (B*N, D) bf16; xn and the weights 16-byte aligned.  Needs D == 64*H.
-// Returns cudaGetLastError() after the last launch (0 on success).
+// xn: (B*N, D) bf16; wq/wk/wv: (Dh, D) and wo: (D, Dh) bf16 in (out, in)
+// layout, Dh = 64*H; bq/bv: (Dh,) bf16 (k has no bias); bo: (D,) bf16 or
+// null; gq/bqn/gk/bkn: (64,) fp32 per-head LayerNorm; qkv: (B*N, 3Dh) and
+// attn: (B*N, Dh) bf16 workspaces; out: (B*N, D), bf16 with bo, or with a
+// null bo fp32, the out projection's partial sums unrounded and unbiased
+// (a head shard's, D > Dh); xn and the weights 16-byte aligned, out
+// 8-byte aligned.  D must be a multiple of 64.  Returns cudaGetLastError()
+// after the last launch (0 on success).
 extern "C" int uat_eva_attn_block(
     const bf16* xn, const bf16* wq, const bf16* bq, const bf16* wk,
     const bf16* wv, const bf16* bv, const float* gq, const float* bqn,
     const float* gk, const float* bkn, const bf16* wo, const bf16* bo,
-    bf16* qkv, bf16* attn, bf16* out, int B, int N, int D, int H, float scale,
+    bf16* qkv, bf16* attn, void* out, int B, int N, int D, int H, float scale,
     float eps, cudaStream_t stream) {
-  if (D != H * kHead || B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int M = B * N;
+  if (!valid_shape(B, N, D, H)) return static_cast<int>(cudaErrorInvalidValue);
+  const int M = B * N, Dh = H * kHead;
   cudaError_t e = wg::launch<UAT_BF16_QKV_TILE>(
-      qkv_args(xn, wq, bq, wk, wv, bv, gq, bqn, gk, bkn, qkv, M, D, eps),
+      qkv_args(xn, wq, bq, wk, wv, bv, gq, bqn, gk, bkn, qkv, M, D, Dh, eps),
       stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_attention<false>(attn_args<AttnArgs>(qkv, attn, N, D, scale, eps),
-                              B, H, stream);  // q/k LayerNorm'd above
+  e = launch_attention<false>(
+      attn_args<AttnArgs>(qkv, attn, N, Dh, scale, eps), B, H,
+      stream);  // q/k LayerNorm'd above
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(wg::launch<UAT_BF16_OUT_TILE>(
-      out_args(attn, wo, bo, out, M, D), stream));
+      out_args(attn, wo, bo, out, M, D, Dh), stream));
 }
 
-// The fp32 entry: xn (B*N, D), wq/wk/wv/wo (D, D) in (out, in) layout,
-// bq/bv/bo (D,), gq/bqn/gk/bkn (64,), qkv (B*N, 3D) and attn (B*N, D)
-// workspaces and out (B*N, D), all fp32, xn and the weights 16-byte
-// aligned.  Needs D == 64*H.  *ran_tc is set to 1 when the attention
-// step ran attn_f32_tc_kernel, else 0.  Returns cudaGetLastError() after
-// the last launch (0 on success).
+// The fp32 entry: the bf16 entry's shapes, all fp32 (with a null bo, out
+// holds the partial sums, unbiased).  *ran_tc is set to 1 when the
+// attention step ran attn_f32_tc_kernel, else 0.  Returns
+// cudaGetLastError() after the last launch (0 on success).
 extern "C" int uat_eva_attn_block_fp32(
     const float* xn, const float* wq, const float* bq, const float* wk,
     const float* wv, const float* bv, const float* gq, const float* bqn,
     const float* gk, const float* bkn, const float* wo, const float* bo,
-    float* qkv, float* attn, float* out, int B, int N, int D, int H,
+    float* qkv, float* attn, void* out, int B, int N, int D, int H,
     float scale, float eps, cudaStream_t stream, int* ran_tc) {
-  if (D != H * kHead || B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int M = B * N;
+  if (!valid_shape(B, N, D, H)) return static_cast<int>(cudaErrorInvalidValue);
+  const int M = B * N, Dh = H * kHead;
   cudaError_t e = sg::launch<UAT_F32_QKV_TILE>(
-      qkv_args(xn, wq, bq, wk, wv, bv, gq, bqn, gk, bkn, qkv, M, D, eps),
+      qkv_args(xn, wq, bq, wk, wv, bv, gq, bqn, gk, bkn, qkv, M, D, Dh, eps),
       stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  auto t = attn_args<f32::AttnArgs>(qkv, attn, N, D, scale, eps);
+  auto t = attn_args<f32::AttnArgs>(qkv, attn, N, Dh, scale, eps);
   t.hd = kHead;
   // q/k LayerNorm'd above
   e = f32::launch_attention<false>(t, B, H, stream, ran_tc);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(sg::launch<UAT_F32_OUT_TILE>(
-      out_args(attn, wo, bo, out, M, D), stream));
+      out_args(attn, wo, bo, out, M, D, Dh), stream));
 }

@@ -19,6 +19,11 @@ The MODE-DOTA noise comes from a `torch.Generator` carried in the state;
 `step(..., noise=...)` takes it from the caller instead, which is how the
 tests feed both packages the same draw.
 
+`make_step_fn(..., encode_fn=...)` replaces the model's forward, as
+the JAX package's does: a tensor-parallel trunk (`parallel/tp.py`)
+whose forward is a parts generator, each of its sums over the model
+group yielded with the step's own collectives.
+
 With `make_step_fn(..., axis_name=group)` (a torch.distributed process
 group; the JAX package's `axis_name` inside `shard_map`) each rank feeds
 its own batch and the fits' additive statistics are summed over the
@@ -48,9 +53,11 @@ keeps its residual state bitwise.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
+import inspect
 import logging
 import os
 import time
@@ -92,22 +99,57 @@ class StepOutput(NamedTuple):
     cg_iters: Optional[torch.Tensor] = None   # ([S,]) the cache's CG
 
 
-def encode_with(kind: str, model: Callable) -> Callable:
-    """(pc, rgb) -> L2-normalised (B, D) features for a backbone: uni3d
-    takes xyz‖color, ulip xyz only, openshape (xyz, xyz‖color)."""
+def _backbone_inputs(kind: str, pc: torch.Tensor, rgb: torch.Tensor):
+    """A backbone's inputs: uni3d takes xyz‖color, ulip xyz only,
+    openshape (xyz, xyz‖color)."""
+    if kind == "uni3d":
+        return (torch.cat([pc, rgb], dim=-1),)
+    if kind == "ulip":
+        return (pc,)
+    return pc, torch.cat([pc, rgb], dim=-1)
+
+
+def _normalized(feat: torch.Tensor) -> torch.Tensor:
+    return feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-12)
+
+
+def _check_kind(kind: str) -> None:
     if kind not in ("uni3d", "ulip", "openshape"):
         raise ValueError(f"unknown backbone {kind!r}")
 
+
+def encode_with(kind: str, model: Callable) -> Callable:
+    """(pc, rgb) -> L2-normalised (B, D) features for a backbone: uni3d
+    takes xyz‖color, ulip xyz only, openshape (xyz, xyz‖color)."""
+    _check_kind(kind)
+
     def encode(pc: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
-        if kind == "uni3d":
-            feat = model(torch.cat([pc, rgb], dim=-1))
-        elif kind == "ulip":
-            feat = model(pc)
-        else:
-            feat = model(pc, torch.cat([pc, rgb], dim=-1))
-        return feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-12)
+        return _normalized(model(*_backbone_inputs(kind, pc, rgb)))
 
     return encode
+
+
+def encode_parts(kind: str, forward: Callable) -> Callable:
+    """`encode_with`'s contract for a forward that is a parts generator
+    (`parallel/tp.make_tp_forward`): encode(pc, rgb) is a generator that
+    yields the forward's collectives and returns the features.  Pass it
+    as `encode_fn` to the steps; they take it with `encoded`."""
+    _check_kind(kind)
+
+    def encode(pc: torch.Tensor, rgb: torch.Tensor):
+        feat = yield from forward(*_backbone_inputs(kind, pc, rgb))
+        return _normalized(feat)
+
+    return encode
+
+
+def encoded(encode: Callable, pc: torch.Tensor, rgb: torch.Tensor):
+    """Parts: the features `encode(pc, rgb)`; an encoder made by
+    `encode_parts` has its collectives yielded."""
+    feat = encode(pc, rgb)
+    if inspect.isgenerator(feat):
+        feat = yield from feat
+    return feat
 
 
 def clip_logits_from(feat: torch.Tensor, clip_weights: torch.Tensor,
@@ -278,8 +320,8 @@ class Step:
         return drive(self.parts(text_init, state, batch, noise), self.group)
 
 
-def make_step_fn(cfg: Config, model: Callable,
-                 axis_name=None) -> Callable:
+def make_step_fn(cfg: Config, model: Callable, axis_name=None,
+                 encode_fn: Optional[Callable] = None) -> Callable:
     """step(text_init, state, batch, noise=None) -> (state, StepOutput),
     with batch = (pc ([S,] B, N, 3), rgb ([S,] B, N, 3), target ([S,] B))
     and noise, if given, of pc's shape.  With a leading stream axis the
@@ -293,8 +335,13 @@ def make_step_fn(cfg: Config, model: Callable,
     the fits' sufficient statistics are summed over the ranks: the state
     stays replicated and takes the exact global streaming update, and the
     fusion weight divides by the global batch.  The prototype cache has
-    no such form and raises."""
-    encode = encode_with(cfg.model.vlm3d, model)
+    no such form and raises.
+
+    `encode_fn` replaces the model's forward (`encode_with`'s contract,
+    or `encode_parts`': a tensor-parallel trunk, `parallel/tp.py`, whose
+    sums the step yields with its own)."""
+    encode = (encode_fn if encode_fn is not None
+              else encode_with(cfg.model.vlm3d, model))
     dc = cfg.dota
     if uses_cache(cfg):
         if axis_name is not None:
@@ -332,7 +379,8 @@ def make_step_fn(cfg: Config, model: Callable,
                                   for g in state.generator]) if lead
                      else draw(state.generator, pc.shape))
         pc_aug = pc + dc.noise_std * noise
-        feat_both = encode(
+        feat_both = yield from encoded(
+            encode,
             torch.cat([pc.reshape(-1, N, 3), pc_aug.reshape(-1, N, 3)]),
             torch.cat([rgb.reshape(-1, N, 3)] * 2))
         n = feat_both.shape[0] // 2
@@ -418,8 +466,9 @@ def variant_step(cfg: Config, encode: Callable, axis_name=None) -> Step:
         pc, rgb, target = batch
         text_init = text_init.to(torch.float32)
         *lead, B, N, _ = pc.shape
-        feat = encode(pc.reshape(-1, N, 3),
-                      rgb.reshape(-1, N, 3)).reshape(*lead, B, -1)
+        feat = yield from encoded(encode, pc.reshape(-1, N, 3),
+                                  rgb.reshape(-1, N, 3))
+        feat = feat.reshape(*lead, B, -1)
         clip_logits, _, prob_map, _ = clip_logits_from(feat, text_init.T,
                                                        scale=scale)
         ms = state.method_state
@@ -499,7 +548,6 @@ class CacheStep:
 
     @torch.no_grad()
     def head(self, text_init: torch.Tensor, state: EngineState, batch):
-        yield from ()
         cc, scale = self.cc, self.scale
         pc, rgb, target = batch
         *lead, B, N, _ = pc.shape
@@ -508,8 +556,9 @@ class CacheStep:
                 f"the prototype-cache path requires batch_size=1 (got {B}): "
                 f"one sample a step enters the cache")
         clip_weights = text_init.to(torch.float32).T
-        feat = self.encode(pc.reshape(-1, N, 3),
-                           rgb.reshape(-1, N, 3)).reshape(*lead, B, -1)
+        feat = yield from encoded(self.encode, pc.reshape(-1, N, 3),
+                                  rgb.reshape(-1, N, 3))
+        feat = feat.reshape(*lead, B, -1)
         clip_logits, ent, prob_map, pred = clip_logits_from(
             feat, clip_weights, scale=scale)
         cs, _ = cache.update_cache(
@@ -742,6 +791,22 @@ def _load_state_tensors(dst: EngineState, src: EngineState) -> None:
         d.copy_(s)
 
 
+@contextlib.contextmanager
+def _collected_then_paused():
+    """A graph destroyed while another is captured invalidates the capture,
+    and an earlier runner's graphs are freed by the cyclic collector (a
+    runner and its segments refer to each other): collect once before a
+    capture, and none during it (nor between the segments of one step)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _Segment:
     """A part of a step on static tensors, `fn()`: run eagerly until
     `capture` records it as a CUDA graph, replayed after that."""
@@ -750,23 +815,16 @@ class _Segment:
         self.fn, self.generators = fn, generators
         self.graph = self.out = None
 
-    def capture(self) -> None:
+    def capture(self, paused: bool = False) -> None:
+        """Record `fn` as a graph; `paused`: the caller already collected
+        and holds the collector off (`_collected_then_paused`)."""
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:   # each replay draws the generator's next
             graph.register_generator_state(g)
-        # a graph destroyed while another is captured invalidates the
-        # capture, and an earlier runner's graphs are freed by the cyclic
-        # collector (a runner and its segments refer to each other): collect
-        # before the capture, and none during it
-        gc.collect()
-        enabled = gc.isenabled()
-        gc.disable()
-        try:
+        with contextlib.nullcontext() if paused else \
+                _collected_then_paused():
             with torch.cuda.graph(graph):
                 self.out = self.fn()
-        finally:
-            if enabled:
-                gc.enable()
         self.graph = graph
 
     def __call__(self):
@@ -809,14 +867,15 @@ class _Parted:
 
     def capture(self) -> None:
         parts = self.make_parts()
-        while True:
-            seg = _Segment(functools.partial(_advance, parts),
-                           () if self.segments else self.generators)
-            seg.capture()
-            self.segments.append(seg)
-            if isinstance(seg.out, _Done):
-                seg.out = seg.out.value
-                return
+        with _collected_then_paused():
+            while True:
+                seg = _Segment(functools.partial(_advance, parts),
+                               () if self.segments else self.generators)
+                seg.capture(paused=True)
+                self.segments.append(seg)
+                if isinstance(seg.out, _Done):
+                    seg.out = seg.out.value
+                    return
 
     @property
     def out(self):
@@ -972,13 +1031,16 @@ class ScanFn:
     calls, as the JAX CLI reuses one jitted scan across corruptions.
     `step_ms` holds the last call's ms a step.  `axis_name`: a process
     group over which the step sums the fits' statistics
-    (`make_step_fn`); `step`: another step of `cfg`'s method to scan
-    (the class-sharded steps of `parallel/ep.py`)."""
+    (`make_step_fn`); `encode_fn`: the step's encoder (`make_step_fn`);
+    `step`: another step of `cfg`'s method to scan (the class-sharded
+    steps of `parallel/ep.py`)."""
 
     def __init__(self, cfg: Config, model: Callable, axis_name=None,
-                 step: Optional[Callable] = None):
+                 step: Optional[Callable] = None,
+                 encode_fn: Optional[Callable] = None):
         self.step = (step if step is not None
-                     else make_step_fn(cfg, model, axis_name=axis_name))
+                     else make_step_fn(cfg, model, axis_name=axis_name,
+                                       encode_fn=encode_fn))
         self.noise = cfg.dota.use_mode_dota
         self.gated = self.noise and cfg.dota.res_learning
         self.runners: dict = {}
@@ -997,11 +1059,14 @@ class ScanFn:
         return state, outs
 
 
-def make_scan_fn(cfg: Config, model: Callable, axis_name=None) -> ScanFn:
+def make_scan_fn(cfg: Config, model: Callable, axis_name=None,
+                 encode_fn: Optional[Callable] = None) -> ScanFn:
     """The stream's scan for `cfg`; pass one to every `run_stream_scan` of
     a run to reuse its captured step.  With `axis_name` (a process group)
-    its step is the psum step of `make_step_fn`."""
-    return ScanFn(cfg, model, axis_name)
+    its step is the psum step of `make_step_fn`; with `encode_fn` its
+    encoder is that one (a tensor-parallel trunk's sums then split the
+    captured step into segments, as the psum step's do)."""
+    return ScanFn(cfg, model, axis_name, encode_fn=encode_fn)
 
 
 def run_stream_scan(cfg: Config, model: Callable,

@@ -7,6 +7,15 @@ and round before their bias; LayerNorm and BatchNorm keep fp32 parameters
 and fp32 arithmetic and round their output to the compute dtype.  Module
 and parameter names follow the flax tree (`q_proj`, `k_norm`, `fc1_g`,
 ...) so `weights.from_jax_params` is a flatten plus a transpose.
+
+Tensor parallelism (`parallel/tp.py`): `EvaAttention`, `SwiGLU`,
+`ViTAttention` and `Mlp` hold a rank's shards once `tp_group` is set
+(their heads, their hidden columns, the rows of the consumer layers that
+read them), and the blocks' `parts(x)` are generators that yield each
+sum over the group as a `collectives.Collective` where one is due: the
+attention's partial out projection, the SwiGLU hidden LayerNorm's row
+statistics and `fc2`'s partial product (`Dense.row_parts`).  A block
+without a group yields nothing and computes `forward`.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from torch import nn
 from uni_adapter_torch.ops.attention import eva_attn_block
 from uni_adapter_torch.ops.attention_heads import attention_heads
 from uni_adapter_torch.ops.eva_attention import eva_attention_fused
+from uni_adapter_torch.parallel.collectives import Collective
 
 #: flax's lecun_normal: a normal truncated at ±2σ, rescaled to unit variance.
 _TRUNC_STD = 0.87962566103423978
@@ -51,6 +61,27 @@ class Dense(nn.Module):
         y = F.linear(x, self.weight)
         return y if self.bias is None else y + self.bias
 
+    def row_parts(self, x: torch.Tensor, group):
+        """Parts: this layer on a row shard (its input features split over
+        `group`, `x` holding this rank's): the fp32 partial sums of x·Wᵀ
+        summed over the group, then rounded to x's dtype and biased, one
+        process's rounding points up to the summation order."""
+        part = partial_product(x, self.weight)
+        yield Collective("sum", part, group=group)
+        y = part.to(x.dtype)
+        return y if self.bias is None else y + self.bias
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x·wᵀ summed in fp32 and not rounded: bf16 operands on the card in
+    one tensor-core product with fp32 out, otherwise on fp32 copies (a
+    bf16 product is exact in fp32)."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        lead = x.shape[:-1]
+        return torch.mm(x.reshape(-1, x.shape[-1]), w.T,
+                        out_dtype=torch.float32).reshape(*lead, -1)
+    return F.linear(x.to(torch.float32), w.to(torch.float32))
+
 
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """xq @ wqᵀ for int8 xq (M, K) and wq (N, K), summed exactly in int32
@@ -81,7 +112,12 @@ def quantize_rows(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     are by tensors: PyTorch's CUDA division by a Python number multiplies
     by its reciprocal, which can move a scale by an ulp and a quantised
     value across a rounding boundary."""
-    amax = t.abs().amax(dim=1, keepdim=True)
+    return quantize_with(t, t.abs().amax(dim=1, keepdim=True))
+
+
+def quantize_with(t: torch.Tensor, amax: torch.Tensor):
+    """`quantize_rows` with the rows' abs-max given (R, 1): a row shard's
+    quantisation by its whole rows' maxima."""
     scale = amax / torch.full_like(amax, 127.0) + 1e-12
     return torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8), scale
 
@@ -100,6 +136,19 @@ class LN(nn.Module):
                          self.bias, eps=1e-5)
         return y.to(x.dtype)
 
+    def sharded_parts(self, x: torch.Tensor, width: int, group):
+        """Parts: this LayerNorm over features split over `group` (x and
+        the parameters hold this rank's of `width`): each row's (Σx, Σx²)
+        in fp32 summed over the group in one request, then
+        var = Σx²/width − mean²."""
+        xf = x.to(torch.float32)
+        stats = torch.stack([xf.sum(dim=-1), (xf * xf).sum(dim=-1)], dim=-1)
+        yield Collective("sum", stats, group=group)
+        mean = stats[..., :1] / width
+        var = (stats[..., 1:] / width - mean * mean).clamp_min(0.0)
+        y = (xf - mean) * torch.rsqrt(var + 1e-5) * self.weight + self.bias
+        return y.to(x.dtype)
+
 
 class QuantDense(Dense):
     """`Dense` with dynamic int8 × int8 arithmetic (the JAX `QuantDense`):
@@ -116,10 +165,30 @@ class QuantDense(Dense):
         lead = x.shape[:-1]
         xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).to(torch.float32))
         wq, sw = quantize_rows(self.weight.to(torch.float32))
-        out = int8_matmul(xq, wq).to(torch.float32) * sx * sw.T
+        return self._rescale(int8_matmul(xq, wq), sx, sw, lead, x.dtype)
+
+    def _rescale(self, acc, sx, sw, lead, dtype):
+        out = acc.to(torch.float32) * sx * sw.T
         if self.bias is not None:
             out = out + self.bias.to(torch.float32)
-        return out.reshape(*lead, -1).to(x.dtype)
+        return out.reshape(*lead, -1).to(dtype)
+
+    def row_parts(self, x: torch.Tensor, group):
+        """Parts: this layer on a row shard, as JAX's sharded program
+        computes it: the activations' row maxima (max over the group) and
+        the weight's whole-row maxima (`weight_amax`, kept when the layer
+        was sharded) quantise as one process does, and the int32 partial
+        products are summed over the group exactly before the rescale."""
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        amax = xf.abs().amax(dim=1, keepdim=True)
+        yield Collective("max", amax, group=group)
+        xq, sx = quantize_with(xf, amax)
+        wq, sw = quantize_with(self.weight.to(torch.float32),
+                               self.weight_amax)
+        acc = int8_matmul(xq, wq).contiguous()
+        yield Collective("sum", acc, group=group)
+        return self._rescale(acc, sx, sw, lead, x.dtype)
 
 
 def make_dense(quantize: bool) -> type:
@@ -207,12 +276,15 @@ class EvaAttention(nn.Module):
     JAX module's transposed branch instead: the projections applied as
     modules, the LayerNorms on (B, H, N, hd), `attend` (on the card the
     `ops.attention_heads` kernel), then `proj`, and with `return_attn`
-    the maps from `attn_probs` on the normalised q, k."""
+    the maps from `attn_probs` on the normalised q, k.  The heads' width
+    is the q projection's, which a head shard (`tp_group` set) holds for
+    its `num_heads` heads only."""
 
     def __init__(self, dim: int, num_heads: int, quantize: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.quantize = quantize
+        self.tp_group = None
         hd = dim // num_heads
         dense = make_dense(quantize)
         self.q_proj = dense(dim, dim)
@@ -222,17 +294,22 @@ class EvaAttention(nn.Module):
         self.k_norm = LN(hd)
         self.proj = dense(dim, dim)
 
-    def forward(self, x: torch.Tensor, return_attn: bool = False):
-        B, N, D = x.shape
+    def _block(self, x: torch.Tensor, bo) -> torch.Tensor:
         H = self.num_heads
-        hd = D // H
-        if not return_attn and not self.quantize:
-            return eva_attn_block(
-                x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
-                self.v_proj.weight, self.v_proj.bias, self.q_norm.weight,
-                self.q_norm.bias, self.k_norm.weight, self.k_norm.bias,
-                self.proj.weight, self.proj.bias, num_heads=H,
-                scale=hd ** -0.5)
+        hd = self.q_proj.weight.shape[0] // H
+        return eva_attn_block(
+            x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
+            self.v_proj.weight, self.v_proj.bias, self.q_norm.weight,
+            self.q_norm.bias, self.k_norm.weight, self.k_norm.bias,
+            self.proj.weight, bo, num_heads=H, scale=hd ** -0.5)
+
+    def _heads(self, x: torch.Tensor):
+        """The transposed branch up to `proj`: q̂, k̂ (B, H, N, hd) and the
+        head concat (B, N, Dh)."""
+        B, N, _ = x.shape
+        H = self.num_heads
+        Dh = self.q_proj.weight.shape[0]
+        hd = Dh // H
 
         def heads(t):                                       # (B, H, N, hd)
             return t.reshape(B, N, H, hd).transpose(1, 2)
@@ -241,19 +318,43 @@ class EvaAttention(nn.Module):
         k = self.k_norm(heads(self.k_proj(x)))
         v = heads(self.v_proj(x))
         out = attend(q, k, v, hd ** -0.5)
-        out = self.proj(out.transpose(1, 2).reshape(B, N, D))
+        return q, k, out.transpose(1, 2).reshape(B, N, Dh)
+
+    def forward(self, x: torch.Tensor, return_attn: bool = False):
+        if not return_attn and not self.quantize:
+            return self._block(x, self.proj.bias)
+        q, k, cat = self._heads(x)
+        out = self.proj(cat)
         if not return_attn:
             return out
+        hd = q.shape[-1]
         return out, attn_probs(q, k, hd ** -0.5)
+
+    def parts(self, x: torch.Tensor):
+        """Parts: `forward(x)`; on a head shard the block kernel's head-
+        sharded entry (no `bo`: the fp32 partial sum) or, with `quantize`,
+        the transposed branch and `proj.row_parts`, the partial sums
+        summed over `tp_group`, then rounded and biased."""
+        if self.tp_group is None:
+            return self(x)
+        if self.quantize:
+            return (yield from self.proj.row_parts(self._heads(x)[2],
+                                                   self.tp_group))
+        part = self._block(x, None)
+        yield Collective("sum", part, group=self.tp_group)
+        return part.to(x.dtype) + self.proj.bias
 
 
 class SwiGLU(nn.Module):
     """EVA02 SwiGLU MLP with its mid LayerNorm (its dense layers int8
-    `QuantDense` with `quantize`)."""
+    `QuantDense` with `quantize`).  `hidden_dim` stays the whole width on
+    a shard of the hidden columns (`tp_group` set)."""
 
     def __init__(self, dim: int, hidden_dim: int, quantize: bool = False):
         super().__init__()
         dense = make_dense(quantize)
+        self.hidden_dim = hidden_dim
+        self.tp_group = None
         self.fc1_g = dense(dim, hidden_dim)
         self.fc1_x = dense(dim, hidden_dim)
         self.norm = LN(hidden_dim)
@@ -262,6 +363,17 @@ class SwiGLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.silu(self.fc1_g(x)) * self.fc1_x(x)
         return self.fc2(self.norm(x))
+
+    def parts(self, x: torch.Tensor):
+        """Parts: `forward(x)`; on a shard of the hidden columns the
+        LayerNorm's row statistics and `fc2`'s partial product summed
+        over `tp_group`."""
+        if self.tp_group is None:
+            return self(x)
+        h = F.silu(self.fc1_g(x)) * self.fc1_x(x)
+        h = yield from self.norm.sharded_parts(h, self.hidden_dim,
+                                               self.tp_group)
+        return (yield from self.fc2.row_parts(h, self.tp_group))
 
 
 class EvaBlock(nn.Module):
@@ -286,6 +398,12 @@ class EvaBlock(nn.Module):
         x = x + self.mlp(self.norm2(x))
         return (x, attn) if return_attn else x
 
+    def parts(self, x: torch.Tensor):
+        """Parts: `forward(x)`, with its sums over the group of a
+        tensor-parallel shard yielded (three, five with int8 layers)."""
+        x = x + (yield from self.attn.parts(self.norm1(x)))
+        return x + (yield from self.mlp.parts(self.norm2(x)))
+
 
 class Mlp(nn.Module):
     """Two-layer MLP: the erf GELU by default (Point-BERT / PPTA
@@ -295,11 +413,20 @@ class Mlp(nn.Module):
                  act: Callable[[torch.Tensor], torch.Tensor] = gelu_exact):
         super().__init__()
         self.act = act
+        self.tp_group = None
         self.fc1 = Dense(dim, hidden_dim)
         self.fc2 = Dense(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
+
+    def parts(self, x: torch.Tensor):
+        """Parts: `forward(x)`; on a shard of the hidden columns `fc2`'s
+        partial product summed over `tp_group`."""
+        if self.tp_group is None:
+            return self(x)
+        return (yield from self.fc2.row_parts(self.act(self.fc1(x)),
+                                              self.tp_group))
 
 
 class ViTAttention(nn.Module):
@@ -312,34 +439,55 @@ class ViTAttention(nn.Module):
     of 8 take the (B, H, N, hd) transpose of `qkv` through `attend`
     instead, and `return_attn` adds the maps of `attn_probs`.  Its
     `project_out=False` (one head of width dim, which no preset of any
-    model builds) is left out."""
+    model builds) is left out.  On a head shard (`tp_group` set) `qkv`
+    holds the q, k and v columns of heads `head_offset` ... and `inner`
+    is their width."""
 
     def __init__(self, dim: int, num_heads: int,
                  inner_dim: Optional[int] = None, qkv_bias: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.inner = inner_dim or dim
+        self.tp_group = None
+        self.head_offset = 0
         self.qkv = Dense(dim, 3 * self.inner, bias=qkv_bias)
         self.proj = Dense(self.inner, dim)
 
-    def forward(self, x: torch.Tensor, mask=None, attn_bias=None,
-                return_attn: bool = False):
+    def _attention(self, x, mask, attn_bias, return_attn: bool):
+        """The heads' concat (B, N, inner) before `proj`, and with
+        `return_attn` the maps."""
         qkv = self.qkv(x)                                  # (B, N, 3·inner)
         i, H = self.inner, self.num_heads
         hd = i // H
+        if attn_bias is not None and attn_bias.shape[1] > 1:
+            attn_bias = attn_bias[:, self.head_offset:self.head_offset + H]
         if (not return_attn and attn_bias is None and mask is None
                 and hd % 8 == 0):
-            out = eva_attention_fused(qkv[..., :i], qkv[..., i:2 * i],
-                                      qkv[..., 2 * i:], num_heads=H,
-                                      scale=hd ** -0.5)
-            return self.proj(out)
+            return eva_attention_fused(qkv[..., :i], qkv[..., i:2 * i],
+                                       qkv[..., 2 * i:], num_heads=H,
+                                       scale=hd ** -0.5), None
         B, N = x.shape[:2]
         q, k, v = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         out = attend(q, k, v, hd ** -0.5, attn_bias, mask)  # (B, H, N, hd)
-        out = self.proj(out.transpose(1, 2).reshape(B, N, i))
+        out = out.transpose(1, 2).reshape(B, N, i)
         if return_attn:
             return out, attn_probs(q, k, hd ** -0.5, attn_bias, mask)
-        return out
+        return out, None
+
+    def forward(self, x: torch.Tensor, mask=None, attn_bias=None,
+                return_attn: bool = False):
+        out, maps = self._attention(x, mask, attn_bias, return_attn)
+        out = self.proj(out)
+        return (out, maps) if return_attn else out
+
+    def parts(self, x: torch.Tensor, mask=None, attn_bias=None):
+        """Parts: `forward(x, ...)`; on a head shard this rank's heads (a
+        per-head `attn_bias` sliced to them), then `proj`'s partial
+        product summed over `tp_group`."""
+        if self.tp_group is None:
+            return self(x, mask, attn_bias)
+        out, _ = self._attention(x, mask, attn_bias, False)
+        return (yield from self.proj.row_parts(out, self.tp_group))
 
 
 class ViTBlock(nn.Module):
@@ -360,6 +508,12 @@ class ViTBlock(nn.Module):
         x = x + a
         x = x + self.mlp(self.norm2(x))
         return (x, attn) if return_attn else x
+
+    def parts(self, x: torch.Tensor):
+        """Parts: `forward(x)`, with a tensor-parallel shard's two sums
+        yielded."""
+        x = x + (yield from self.attn.parts(self.norm1(x)))
+        return x + (yield from self.mlp.parts(self.norm2(x)))
 
 
 def finish_model(model: nn.Module, device: torch.device | str,

@@ -42,9 +42,9 @@ class PointTransformer(nn.Module):
             ViTBlock(trans_dim, num_heads) for _ in range(depth))
         self.norm = LN(trans_dim)
 
-    def forward(self, pts: torch.Tensor, return_attn: bool = False):
-        """concat[CLS, max] features; with `return_attn` also every block's
-        (B, H, N, N) fp32 attention map."""
+    def embed(self, pts: torch.Tensor):
+        """The tokens [CLS ‖ groups] and the positions added at every
+        block."""
         neighborhood, center, _ = group_points(pts, None, self.num_group,
                                                self.group_size)
         tokens = self.reduce_dim(self.encoder(neighborhood))
@@ -53,15 +53,31 @@ class PointTransformer(nn.Module):
                       dim=1)
         pos = torch.cat([self.cls_pos.to(self.dtype).expand(B, 1, W),
                          self.pos_embed(center)], dim=1)
+        return x, pos
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm(x)
+        return torch.cat([x[:, 0], x[:, 1:].amax(dim=1)], dim=-1)
+
+    def forward(self, pts: torch.Tensor, return_attn: bool = False):
+        """concat[CLS, max] features; with `return_attn` also every block's
+        (B, H, N, N) fp32 attention map."""
+        x, pos = self.embed(pts)
         maps = []
         for blk in self.blocks:
             x = blk(x + pos, return_attn=return_attn)   # pos at every block
             if return_attn:
                 x, attn = x
                 maps.append(attn)
-        x = self.norm(x)
-        feat = torch.cat([x[:, 0], x[:, 1:].amax(dim=1)], dim=-1)
+        feat = self.head(x)
         return (feat, maps) if return_attn else feat
+
+    def forward_parts(self, pts: torch.Tensor):
+        """Parts: `forward`'s features, the blocks' collectives yielded."""
+        x, pos = self.embed(pts)
+        for blk in self.blocks:
+            x = yield from blk.parts(x + pos)
+        return self.head(x)
 
 
 class ULIP(nn.Module):
@@ -85,6 +101,11 @@ class ULIP(nn.Module):
         feat, maps = out if return_attn else (out, None)
         proj = torch.matmul(feat.to(torch.float32), self.pc_projection)
         return (proj, maps) if return_attn else proj
+
+    def forward_parts(self, pc: torch.Tensor):
+        """Parts: `forward(pc)`, the trunk's collectives yielded."""
+        feat = yield from self.point_encoder.forward_parts(pc)
+        return torch.matmul(feat.to(torch.float32), self.pc_projection)
 
 
 def create_ulip(cfg, device: torch.device | str,

@@ -124,6 +124,14 @@ class PPTABlockPair(nn.Module):
         x = x + self.ff(self.ff_norm(x))
         return (x, attn) if return_attn else x
 
+    def parts(self, x: torch.Tensor, centroid_delta: torch.Tensor):
+        """Parts: `forward`, with a tensor-parallel shard's two sums
+        yielded."""
+        bias = None if self.pe is None else self.pe(centroid_delta)
+        x = x + (yield from self.attn.parts(self.attn_norm(x),
+                                            attn_bias=bias))
+        return x + (yield from self.ff.parts(self.ff_norm(x)))
+
 
 class PointPatchTransformer(nn.Module):
     """The PPTA trunk: the CLS token out (and the patch tokens)."""
@@ -148,6 +156,19 @@ class PointPatchTransformer(nn.Module):
         """The CLS token, with `return_tokens` (CLS, patch tokens); with
         `return_attn` also every layer's (B, H, N, N) fp32 attention
         map."""
+        x, delta = self.embed(xyz, features)
+        maps = []
+        for layer in self.layers:
+            x = layer(x, delta, return_attn=return_attn)
+            if return_attn:
+                x, attn = x
+                maps.append(attn)
+        out = (x[:, 0], x[:, 1:]) if return_tokens else x[:, 0]
+        return (out, maps) if return_attn else out
+
+    def embed(self, xyz: torch.Tensor, features: torch.Tensor):
+        """The tokens [CLS ‖ patches] and, with `rel_pe`, the (B, S+1, S+1,
+        3) centroid deltas."""
         centroids, feat = self.sa(xyz, features)
         x = self.lift_norm(self.lift(
             torch.cat([centroids.to(self.dtype), feat], dim=-1)))
@@ -159,14 +180,15 @@ class PointPatchTransformer(nn.Module):
             # the CLS token's centroid is 0
             c = torch.cat([centroids.new_zeros(B, 1, 3), centroids], dim=1)
             delta = c[:, :, None, :] - c[:, None, :, :]  # (B, S+1, S+1, 3)
-        maps = []
+        return x, delta
+
+    def forward_parts(self, xyz: torch.Tensor, features: torch.Tensor,
+                      return_tokens: bool = False):
+        """Parts: `forward`'s output, the layers' collectives yielded."""
+        x, delta = self.embed(xyz, features)
         for layer in self.layers:
-            x = layer(x, delta, return_attn=return_attn)
-            if return_attn:
-                x, attn = x
-                maps.append(attn)
-        out = (x[:, 0], x[:, 1:]) if return_tokens else x[:, 0]
-        return (out, maps) if return_attn else out
+            x = yield from layer.parts(x, delta)
+        return (x[:, 0], x[:, 1:]) if return_tokens else x[:, 0]
 
 
 class Projected(nn.Module):
@@ -194,9 +216,21 @@ class Projected(nn.Module):
                              "cache_type='global' (the TTA/extraction path)")
         out = self.ppat(xyz, features, return_tokens=want_tokens,
                         return_attn=return_attn)
-        if not want_tokens:
-            if return_attn:
-                return self.proj(out[0].to(torch.float32)), out[1]
+        if return_attn:
+            return self.proj(out[0].to(torch.float32)), out[1]
+        return self._project(out)
+
+    def forward_parts(self, xyz: torch.Tensor, features: torch.Tensor):
+        """Parts: `forward(xyz, features)`, the trunk's collectives
+        yielded."""
+        out = yield from self.ppat.forward_parts(
+            xyz, features, return_tokens=self.cache_type != "global")
+        return self._project(out)
+
+    def _project(self, out):
+        """The CLIP-space output of the trunk's CLS token (and patch
+        tokens) by `cache_type`."""
+        if self.cache_type == "global":
             return self.proj(out.to(torch.float32))
         cls_token, patch_tokens = out
         centers = self.proj(kmeans.cluster_patches(

@@ -86,10 +86,8 @@ class PointcloudEncoder(nn.Module):
         self.fc_norm = LN(trans_dim)
         self.trans2embed = Dense(trans_dim, embed_dim)
 
-    def forward(self, xyz: torch.Tensor, color: torch.Tensor,
-                return_attn: bool = False):
-        """(B, embed) features; with `return_attn` also the (B, H, N, N)
-        fp32 attention map of every block, in block order."""
+    def embed(self, xyz: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
+        """The tokens the blocks take: [CLS ‖ groups] + positions."""
         _, center, features = group_points(xyz, color, self.num_group,
                                            self.group_size)
         tokens = self.encoder2trans(self.encoder(features))
@@ -98,15 +96,32 @@ class PointcloudEncoder(nn.Module):
                       dim=1)
         pos = torch.cat([self.cls_pos.to(self.dtype).expand(B, 1, W),
                          self.pos_embed(center)], dim=1)
-        x = x + pos                    # added once, before the blocks
+        return x + pos                 # added once, before the blocks
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        return self.trans2embed(self.fc_norm(self.norm(x[:, 0, :])))
+
+    def forward(self, xyz: torch.Tensor, color: torch.Tensor,
+                return_attn: bool = False):
+        """(B, embed) features; with `return_attn` also the (B, H, N, N)
+        fp32 attention map of every block, in block order."""
+        x = self.embed(xyz, color)
         maps = []
         for blk in self.blocks:
             x = blk(x, return_attn=return_attn)
             if return_attn:
                 x, attn = x
                 maps.append(attn)
-        x = self.trans2embed(self.fc_norm(self.norm(x[:, 0, :])))
+        x = self.head(x)
         return (x, maps) if return_attn else x
+
+    def forward_parts(self, xyz: torch.Tensor, color: torch.Tensor):
+        """Parts: `forward`'s features, the blocks' collectives yielded
+        (a tensor-parallel shard's, `models/common.py`)."""
+        x = self.embed(xyz, color)
+        for blk in self.blocks:
+            x = yield from blk.parts(x)
+        return self.head(x)
 
 
 class Uni3D(nn.Module):
@@ -129,6 +144,12 @@ class Uni3D(nn.Module):
                                  return_attn=return_attn)
         if return_attn:
             return out[0].to(torch.float32), out[1]
+        return out.to(torch.float32)
+
+    def forward_parts(self, pc: torch.Tensor):
+        """Parts: `forward(pc)`, the trunk's collectives yielded."""
+        out = yield from self.point_encoder.forward_parts(pc[:, :, :3],
+                                                          pc[:, :, 3:])
         return out.to(torch.float32)
 
 

@@ -9,7 +9,13 @@ fp32 scores, p = exp((s − max)·scale), o = (p·v)/Σp with p·v on p rounded
 to the compute dtype; heads concatenated; then ·Woᵀ + bo.
 
 Weights are in PyTorch's (out, in) layout; `weights.from_jax_params`
-transposes the flax (in, out) kernels.  On the card bf16 and fp32 each
+transposes the flax (in, out) kernels.  Two widths: D, the tokens', and
+Dh = hd·H, the heads'.  The whole attention has D == Dh; a rank's head
+shard under tensor parallelism (`parallel/tp.py`) has q/k/v weights
+(Dh, D) and biases (Dh,) of its heads and the out projection's (D, Dh)
+columns, and passes no `bo`: it then gets the out projection's partial
+sum in fp32, unrounded and unbiased, which the ranks sum before the
+rounding and the bias that one process applies.  On the card bf16 and fp32 each
 have their entry of the kernel; the fp32 one (`eva_attn_block_fp32_cuda`)
 rounds nothing below fp32: FFMA projections, and the attention step on
 the tensor cores in split TF32 (three TF32 products per fp32 product, a
@@ -50,7 +56,8 @@ def eva_attn_block_plain(xn: torch.Tensor, wq: torch.Tensor,
 
     Products run on fp32 copies of the operands (exact for bf16 inputs, so
     they equal an fp32-accumulating bf16 product up to summation order);
-    `xn.dtype` is the compute dtype.
+    `xn.dtype` is the compute dtype.  With `bo` None the out projection's
+    fp32 partial sum is returned, unrounded (a head shard's).
     """
     return _plain_parts(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
                         num_heads, scale, eps)[0]
@@ -59,9 +66,10 @@ def eva_attn_block_plain(xn: torch.Tensor, wq: torch.Tensor,
 def _plain_parts(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
                  num_heads: int, scale: Optional[float], eps: float):
     """`eva_attn_block_plain`'s output, and its q̂, k̂, v (B, H, N, hd) and
-    head concat (B, N, D) in the compute dtype."""
-    B, N, D = xn.shape
-    hd = D // num_heads
+    head concat (B, N, Dh) in the compute dtype."""
+    B, N, _ = xn.shape
+    Dh = wq.shape[0]
+    hd = Dh // num_heads
     scale = float(scale if scale is not None else hd ** -0.5)
     dt = xn.dtype
     x = xn.to(torch.float32)
@@ -86,9 +94,11 @@ def _plain_parts(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
     p = torch.exp((s - m) * scale)
     o = torch.matmul(p.to(dt).to(torch.float32), v.to(torch.float32))
     o = o / p.sum(dim=-1, keepdim=True)
-    cat = o.transpose(1, 2).reshape(B, N, D).to(dt)
-    out = torch.matmul(cat.to(torch.float32), wo.to(torch.float32).T).to(dt)
-    return out + bo.to(dt), q, k, v, cat
+    cat = o.transpose(1, 2).reshape(B, N, Dh).to(dt)
+    out = torch.matmul(cat.to(torch.float32), wo.to(torch.float32).T)
+    if bo is None:
+        return out, q, k, v, cat
+    return out.to(dt) + bo.to(dt), q, k, v, cat
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -112,44 +122,57 @@ def _lib() -> ctypes.CDLL:
 def _launch(entry: str, dtype: torch.dtype, tensors, num_heads: int,
             scale: Optional[float], eps: float, *report) -> torch.Tensor:
     """Check the block's twelve tensors (activations, projection weights
-    and biases of `dtype`, fp32 LayerNorm parameters), then launch `entry`
-    of `csrc/eva_attn_block.cu`: three kernels on the current stream;
-    `report` (the fp32 entry's out-parameter) is passed last."""
+    and biases of `dtype`, fp32 LayerNorm parameters; `bo` may be None),
+    then launch `entry` of `csrc/eva_attn_block.cu`: three kernels on the
+    current stream; `report` (the fp32 entry's out-parameter) is passed
+    last.  xn is (B, N, D); the q/k/v weights (Dh, D) and the out
+    projection (D, Dh), Dh = 64·num_heads; with `bo` None the output is
+    the fp32 partial sum."""
     xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo = tensors
     build.require_cuda(xn, dtype, 3, "eva_attn_block xn")
     B, N, D = xn.shape
-    if D != num_heads * HEAD_DIM:
+    Dh = num_heads * HEAD_DIM
+    if wq.dim() == 2 and wq.shape[0] != Dh:
         raise ValueError(f"eva_attn_block: the kernel needs head dim "
-                         f"{HEAD_DIM}, got D={D} with {num_heads} heads")
-    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+                         f"{HEAD_DIM}, got {wq.shape[0]} q/k/v columns "
+                         f"with {num_heads} heads")
+    if D % HEAD_DIM:
+        raise ValueError(f"eva_attn_block: the input width D={D} must be a "
+                         f"multiple of {HEAD_DIM}")
+    for name, w, shape in (("wq", wq, (Dh, D)), ("wk", wk, (Dh, D)),
+                           ("wv", wv, (Dh, D)), ("wo", wo, (D, Dh))):
         build.require_cuda(w, dtype, 2, f"eva_attn_block {name}")
-        if tuple(w.shape) != (D, D):
-            raise ValueError(f"eva_attn_block {name}: expected {(D, D)}, "
+        if tuple(w.shape) != shape:
+            raise ValueError(f"eva_attn_block {name}: expected {shape}, "
                              f"got {tuple(w.shape)}")
-    for name, b in (("bq", bq), ("bv", bv), ("bo", bo)):
+    for name, b, n in (("bq", bq, Dh), ("bv", bv, Dh), ("bo", bo, D)):
+        if b is None and name == "bo":
+            continue
         build.require_cuda(b, dtype, 1, f"eva_attn_block {name}")
-        if b.shape[0] != D:
-            raise ValueError(f"eva_attn_block {name}: expected ({D},)")
+        if b.shape[0] != n:
+            raise ValueError(f"eva_attn_block {name}: expected ({n},)")
     for name, p in (("gq", gq), ("bqh", bqh), ("gk", gk), ("bkh", bkh)):
         build.require_cuda(p, torch.float32, 1, f"eva_attn_block {name}")
         if p.shape[0] != HEAD_DIM:
             raise ValueError(f"eva_attn_block {name}: expected ({HEAD_DIM},)")
-    if any(t.device != xn.device for t in tensors):
+    given = [t for t in tensors if t is not None]
+    if any(t.device != xn.device for t in given):
         raise ValueError("eva_attn_block: tensors on different devices")
     if any(t.data_ptr() % 16 for t in (xn, wq, wk, wv, wo)):
         # the kernels move activations and weights in 16-byte vectors
         raise ValueError("eva_attn_block: xn and weights must be 16-byte "
                          "aligned")
-    build.require_no_grad(entry, *tensors)
+    build.require_no_grad(entry, *given)
     scale = float(scale if scale is not None else HEAD_DIM ** -0.5)
-    qkv = torch.empty(B * N, 3 * D, dtype=dtype, device=xn.device)
-    attn = torch.empty(B * N, D, dtype=dtype, device=xn.device)
-    out = torch.empty_like(xn)
+    qkv = torch.empty(B * N, 3 * Dh, dtype=dtype, device=xn.device)
+    attn = torch.empty(B * N, Dh, dtype=dtype, device=xn.device)
+    out = torch.empty(B, N, D, device=xn.device,
+                      dtype=dtype if bo is not None else torch.float32)
     with torch.cuda.device(xn.device):
         rc = getattr(_lib(), entry)(
-            *(t.data_ptr() for t in tensors), qkv.data_ptr(),
-            attn.data_ptr(), out.data_ptr(), B, N, D, num_heads, scale, eps,
-            build.stream_of(xn), *report)
+            *(0 if t is None else t.data_ptr() for t in tensors),
+            qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), B, N, D,
+            num_heads, scale, eps, build.stream_of(xn), *report)
     build.check(rc, entry)
     return out, qkv, attn
 
@@ -159,11 +182,14 @@ def eva_attn_block_cuda(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
                         eps: float = 1e-5) -> torch.Tensor:
     """Launch `csrc/eva_attn_block.cu` (three kernels on the current
     stream).  Takes bf16 activations and projection weights and fp32
-    LayerNorm parameters, all contiguous on one CUDA device."""
+    LayerNorm parameters, all contiguous on one CUDA device; with `bo`
+    None (a head shard) returns the fp32 partial sum."""
     out, _, _ = _launch("uat_eva_attn_block", torch.bfloat16,
                         (xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo),
                         num_heads, scale, eps)
     eva_attn_block.launches += 3            # q/k/v GEMM, attention, out GEMM
+    if bo is None:                          # of them, a head shard's
+        eva_attn_block.head_shard_launches += 3
     return out
 
 
@@ -174,20 +200,24 @@ def eva_attn_block_fp32_cuda(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo,
     """Launch the fp32 entry of `csrc/eva_attn_block.cu`: a hand-written
     FFMA GEMM for the projections, the fp32 attention in split TF32.
     Takes fp32 activations, weights and LayerNorm parameters, all
-    contiguous on one CUDA device.  With `workspaces`, returns (out, qkv,
-    attn): also q̂ | k̂ | v (B·N, 3D) and the head concat (B·N, D) that
-    the kernel wrote on the way."""
+    contiguous on one CUDA device (`bo` None: a head shard's partial sum,
+    unbiased).  With `workspaces`, returns (out, qkv, attn): also
+    q̂ | k̂ | v (B·N, 3Dh) and the head concat (B·N, Dh) that the kernel
+    wrote on the way."""
     ran_tc = ctypes.c_int(0)
     out, qkv, attn = _launch(
         "uat_eva_attn_block_fp32", torch.float32,
         (xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo), num_heads, scale,
         eps, ctypes.byref(ran_tc))
     eva_attn_block_fp32_cuda.launches += 3  # q/k/v GEMM, attention, out GEMM
+    if bo is None:                          # of them, a head shard's
+        eva_attn_block_fp32_cuda.head_shard_launches += 3
     build.attn_f32_tc.launches += ran_tc.value
     return (out, qkv, attn) if workspaces else out
 
 
 eva_attn_block_fp32_cuda.launches = 0
+eva_attn_block_fp32_cuda.head_shard_launches = 0
 
 
 def cuda_kernel(dtype: torch.dtype):
@@ -205,10 +235,12 @@ def eva_attn_block(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
     A CUDA `xn` runs the Hopper kernel of its dtype (bf16 or fp32); a CPU
     `xn` runs `eva_attn_block_plain` in its dtype.  An fp32 block under
     autograd runs `EvaAttnBlockFunction` on either device.  Returns (B, N,
-    D) in xn's dtype.
+    D) in xn's dtype; with `bo` None (a rank's head shard: (Dh, D) q/k/v
+    weights, a (D, Dh) out projection) the fp32 partial sum.
     """
     tensors = (xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo)
-    if xn.dtype == torch.float32 and build.needs_grad(*tensors):
+    if xn.dtype == torch.float32 and build.needs_grad(
+            *(t for t in tensors if t is not None)):
         D = xn.shape[-1]
         hd = HEAD_DIM if xn.is_cuda else D // num_heads
         return EvaAttnBlockFunction.apply(
@@ -220,13 +252,15 @@ def eva_attn_block(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
             c(xn), c(wq), c(bq), c(wk), c(wv), c(bv),
             c(gq.to(torch.float32)), c(bqh.to(torch.float32)),
             c(gk.to(torch.float32)), c(bkh.to(torch.float32)),
-            c(wo), c(bo), num_heads=num_heads, scale=scale, eps=eps)
+            c(wo), None if bo is None else c(bo), num_heads=num_heads,
+            scale=scale, eps=eps)
     return eva_attn_block_plain(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh,
                                 wo, bo, num_heads=num_heads, scale=scale,
                                 eps=eps)
 
 
 eva_attn_block.launches = 0
+eva_attn_block.head_shard_launches = 0
 
 
 # ---------------------------------------------------------------- backward

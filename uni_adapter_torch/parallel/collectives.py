@@ -8,9 +8,12 @@ the same (NCCL's or gloo's copy), but for the loss's gathers, which are
 the identity there (`gather_rows`, `sum_across`).
 
   * `Collective` is what a step's parts generator yields between two of
-    its parts (`engine.drive`, a captured step's segments): a sum in
-    place, or a gather of the ranks' rows into a buffer the part
-    allocated; `issue` runs it on the step's group.  A sum takes a tuple
+    its parts (`engine.drive`, a captured step's segments): a sum or a
+    max in place, or a gather of the ranks' rows into a buffer the part
+    allocated; `issue` runs it on the step's group, or on its own
+    `group` where it names one (a tensor-parallel trunk's sums over its
+    model group inside a step whose own group is the data's or the
+    classes').  A sum takes a tuple
     of tensors packed into one flat fp32 buffer (`pack`, `unpack`), one
     all-reduce, as a data-parallel step merges its fits' sufficient
     statistics (`engine._fit`) and the train step averages its gradients
@@ -50,13 +53,15 @@ def unpack(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> tuple:
 
 class Collective(NamedTuple):
     """A request of a step's parts, issued between two parts: `kind`
-    'sum' sums `buf` over the group in place; 'gather' writes the ranks'
-    `buf`s, concatenated on axis 0 in rank order, into `out` (the part
-    allocates both, so that a captured part's buffers stay where the
-    next part reads them)."""
+    'sum' ('max') sums (maximises) `buf` over the group in place;
+    'gather' writes the ranks' `buf`s, concatenated on axis 0 in rank
+    order, into `out` (the part allocates both, so that a captured part's
+    buffers stay where the next part reads them).  `group`: the process
+    group it runs over, where not the step's."""
     kind: str
     buf: torch.Tensor
     out: Optional[torch.Tensor] = None
+    group: Optional[object] = None
 
 
 def gather_request(buf: torch.Tensor, n: int) -> Collective:
@@ -66,12 +71,18 @@ def gather_request(buf: torch.Tensor, n: int) -> Collective:
                       buf.new_empty((n * buf.shape[0], *buf.shape[1:])))
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
 def issue(req: Collective, group) -> None:
-    """Run a part's request over `group` (None: a world of this process
-    alone, where a sum is the identity and a gather a copy)."""
-    if req.kind == "sum":
+    """Run a part's request over its own group, else over `group` (None: a
+    world of this process alone, where a sum or a max is the identity and
+    a gather a copy)."""
+    if req.group is not None:
+        group = req.group
+    if req.kind in _REDUCE_OPS:
         if group is not None:
-            dist.all_reduce(req.buf, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(req.buf, op=_REDUCE_OPS[req.kind], group=group)
         return
     if req.kind != "gather":
         raise ValueError(f"unknown collective {req.kind!r}")

@@ -43,10 +43,9 @@ captured in segments with the collectives between their replays
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from uni_adapter_torch import engine
@@ -54,6 +53,7 @@ from uni_adapter_torch.adapt import (adaptive, cache, dota, fusion, gmm,
                                      mode_dota, residual)
 from uni_adapter_torch.config import Config
 from uni_adapter_torch.parallel import collectives
+from uni_adapter_torch.parallel import mesh as pmesh
 from uni_adapter_torch.parallel.mesh import World, make_mesh
 from uni_adapter_torch.utils import math as umath
 from uni_adapter_torch.utils.math import normalized_entropy, softmax_entropy
@@ -212,7 +212,7 @@ def _encode_fused(encode, shard: ClassShard, pcs, rgbs, shard_encoder):
     each rank encodes ⌈R/n⌉ rows of the batch zero-padded to a multiple
     of n, and the features are gathered (the pad rows sliced off)."""
     if not shard_encoder:
-        return encode(pcs, rgbs)
+        return (yield from engine.encoded(encode, pcs, rgbs))
     total = pcs.shape[0]
     chunk = -(-total // shard.n)
     pad = chunk * shard.n - total
@@ -220,7 +220,8 @@ def _encode_fused(encode, shard: ClassShard, pcs, rgbs, shard_encoder):
         pcs = torch.cat([pcs, pcs.new_zeros((pad, *pcs.shape[1:]))])
         rgbs = torch.cat([rgbs, rgbs.new_zeros((pad, *rgbs.shape[1:]))])
     rows = slice(shard.rank * chunk, (shard.rank + 1) * chunk)
-    feat = yield from _gather(shard, encode(pcs[rows], rgbs[rows]), 0)
+    feat = yield from engine.encoded(encode, pcs[rows], rgbs[rows])
+    feat = yield from _gather(shard, feat, 0)
     return feat[:total]
 
 
@@ -323,8 +324,9 @@ def _variant_step(cfg: Config, encode, shard: ClassShard) -> engine.Step:
         pc, rgb, target = batch
         text_local = text_local.to(torch.float32)
         *lead, B, N, _ = pc.shape
-        feat = encode(pc.reshape(-1, N, 3),
-                      rgb.reshape(-1, N, 3)).reshape(*lead, B, -1)
+        feat = yield from engine.encoded(encode, pc.reshape(-1, N, 3),
+                                         rgb.reshape(-1, N, 3))
+        feat = feat.reshape(*lead, B, -1)
         logits_local = scale * torch.matmul(feat.to(torch.float32),
                                             text_local.T)
         ms = state.method_state
@@ -426,8 +428,9 @@ class ShardedCacheStep(engine.CacheStep):
                 f"the prototype-cache path requires batch_size=1 (got {B}): "
                 f"one sample a step enters the cache")
         clip_w = text_local.to(torch.float32).T
-        feat = self.encode(pc.reshape(-1, N, 3),
-                           rgb.reshape(-1, N, 3)).reshape(*lead, B, -1)
+        feat = yield from engine.encoded(self.encode, pc.reshape(-1, N, 3),
+                                         rgb.reshape(-1, N, 3))
+        feat = feat.reshape(*lead, B, -1)
         clip_logits = yield from _gather_classes(
             shard, scale * torch.matmul(feat.to(torch.float32), clip_w))
         ent = softmax_entropy(clip_logits)
@@ -613,13 +616,19 @@ def _readout(pc_features: torch.Tensor, ref: ShardedRefinement,
 
 
 def make_ep_step_fn(cfg: Config, model, shard: ClassShard,
-                    shard_encoder: bool = False):
+                    shard_encoder: bool = False,
+                    encode_fn: Optional[Callable] = None):
     """The class-sharded step of `cfg`'s method on this rank's block
     `shard`: `engine.Step` of the DOTA family, step(text_local, state,
     batch, noise=None), or `ShardedCacheStep`.  `shard_encoder` splits
     MODE-DOTA's fused encoder batch over the class group; the methods of
-    one forward a step raise, as the JAX package does."""
-    encode = engine.encode_with(cfg.model.vlm3d, model)
+    one forward a step raise, as the JAX package does.  `encode_fn`
+    replaces the model's forward (`engine.make_step_fn`): EP × TP, a
+    trunk sharded over a model group of its own
+    (`tp.make_tp_encode_fn`), its sums yielded with the class group's
+    collectives."""
+    encode = (encode_fn if encode_fn is not None
+              else engine.encode_with(cfg.model.vlm3d, model))
     dc = cfg.dota
     what = None
     if engine.uses_cache(cfg):
@@ -820,13 +829,14 @@ def strip_padded_state(state: engine.EngineState, num_classes: int,
 # ---- the runs ------------------------------------------------------------
 
 def make_ep_scan_fn(cfg: Config, model, shard: ClassShard,
-                    shard_encoder: bool = False) -> engine.ScanFn:
+                    shard_encoder: bool = False,
+                    encode_fn: Optional[Callable] = None) -> engine.ScanFn:
     """The stream's scan of the class-sharded step: on the card its parts
     captured as CUDA graphs (a graph a part between two collectives),
     replayed with the collectives between them; pass one to every
     `run_stream_ep` of a run to reuse them."""
     return engine.ScanFn(cfg, model, step=make_ep_step_fn(
-        cfg, model, shard, shard_encoder))
+        cfg, model, shard, shard_encoder, encode_fn))
 
 
 def run_stream_ep(cfg: Config, model, text_features_initial: torch.Tensor,
@@ -835,13 +845,18 @@ def run_stream_ep(cfg: Config, model, text_features_initial: torch.Tensor,
                   initial_state: Optional[engine.EngineState] = None,
                   shard_encoder: bool = False,
                   scan_fn: Optional[engine.ScanFn] = None,
-                  return_outputs: bool = False):
+                  return_outputs: bool = False,
+                  encode_fn: Optional[Callable] = None):
     """One stream with the adaptation state class-sharded over the
     world's ranks (default: the initialised process group, else this
     process alone).  Every rank feeds the whole (T, B, ...) stream; the
     adaptation order is the single-process order.
 
     Args:
+      mesh: the class group's world; with `encode_fn` the classes axis of
+        a (classes, model) grid (`tp.make_tp_grid`): EP × TP.
+      encode_fn: the step's encoder (`make_ep_step_fn`), e.g.
+        `tp.make_tp_encode_fn`'s over the grid's model group.
       initial_state: resume from this full-K carry (continual TTA; as
         returned here or by the replicated engine); its real rows go to
         their ranks, the pad classes start fresh.
@@ -857,7 +872,8 @@ def run_stream_ep(cfg: Config, model, text_features_initial: torch.Tensor,
     text = torch.as_tensor(text_features_initial).to(torch.float32)
     K = text.shape[0]
     shard = class_shard(world, K)
-    scan_fn = scan_fn or make_ep_scan_fn(cfg, model, shard, shard_encoder)
+    scan_fn = scan_fn or make_ep_scan_fn(cfg, model, shard, shard_encoder,
+                                         encode_fn)
     text_local = pad_classes(text, shard.n)[0][
         shard.offset:shard.offset + shard.k_local]
     state = local_padded_state(cfg, text, shard, seed, initial_state)
@@ -890,24 +906,10 @@ class Grid(NamedTuple):
 
 def make_grid(n_data: int, world: Optional[World] = None) -> Grid:
     """The grid of `world` (default: the process group) with `n_data`
-    data rows.  A grid of one row (or one column) takes the world's group
-    for its classes (or its streams); otherwise every rank makes every
-    group, in the same order (as `dist.new_group` requires)."""
-    world = world or make_mesh()
-    if world.size % n_data:
-        raise ValueError(f"a world of {world.size} ranks does not divide "
-                         f"into {n_data} data rows")
-    n_cls = world.size // n_data
-    d, c = divmod(world.rank, n_cls)
-    if n_data == 1:
-        return Grid(1, n_cls, 0, c, world.group, None)
-    if n_cls == 1:
-        return Grid(n_data, 1, d, 0, None, world.group)
-    cls_groups = [dist.new_group([i * n_cls + j for j in range(n_cls)])
-                  for i in range(n_data)]
-    data_groups = [dist.new_group([i * n_cls + j for i in range(n_data)])
-                   for j in range(n_cls)]
-    return Grid(n_data, n_cls, d, c, cls_groups[d], data_groups[c])
+    data rows (`mesh.make_grid`): a row's ranks share each stream's
+    classes, a column's share the streams."""
+    g = pmesh.make_grid(n_data, world)
+    return Grid(g.rows, g.cols, g.row, g.col, g.row_group, g.col_group)
 
 
 def run_streams_ep(cfg: Config, model, text_features_initial: torch.Tensor,

@@ -51,6 +51,41 @@ def make_mesh(group=None) -> World:
     return World(dist.get_rank(group), dist.get_world_size(group), group)
 
 
+class Grid(NamedTuple):
+    """A 2-D grid of a world's ranks, rows × cols, rank = i·cols + j:
+    this rank's row i and column j, the group of its row (the cols ranks
+    of row i; None where a row is one rank) and of its column (the rows
+    ranks of column j; None where a column is one rank)."""
+    rows: int
+    cols: int
+    row: int
+    col: int
+    row_group: Optional[object]
+    col_group: Optional[object]
+
+
+def make_grid(rows: int, world: Optional[World] = None) -> Grid:
+    """The grid of `world` (default: the process group) with `rows` rows.
+    A grid of one row (or one column) takes the world's group for its
+    rows (or its columns); otherwise every rank makes every group, in the
+    same order (as `dist.new_group` requires)."""
+    world = world or make_mesh()
+    if rows < 1 or world.size % rows:
+        raise ValueError(f"a world of {world.size} ranks does not divide "
+                         f"into {rows} rows")
+    cols = world.size // rows
+    i, j = divmod(world.rank, cols)
+    if rows == 1:
+        return Grid(1, cols, 0, j, world.group, None)
+    if cols == 1:
+        return Grid(rows, 1, i, 0, None, world.group)
+    row_groups = [dist.new_group([a * cols + b for b in range(cols)])
+                  for a in range(rows)]
+    col_groups = [dist.new_group([a * cols + b for a in range(rows)])
+                  for b in range(cols)]
+    return Grid(rows, cols, i, j, row_groups[i], col_groups[j])
+
+
 def is_primary() -> bool:
     """The rank-0 gate for logging and writing results."""
     return make_mesh().rank == 0

@@ -39,6 +39,15 @@ reset, warmup, snapshot, restore, stop) over a gloo control group with a
 timeout, and the followers run the same operation, collectives and all.
 Rank 0 sends a heartbeat while idle, so a follower whose rank 0 has
 stopped answering raises at the timeout instead of waiting for ever.
+
+`encode_fn` swaps the encoder forward, as the JAX server's does: a
+tensor-parallel trunk (`parallel/tp.make_tp_encode_fn`) whose blocks sum
+over a model group.  Every rank of the world then runs every operation,
+so rank 0 serves and the other ranks follow it as under EP; the
+replicated ladder is kept (each rank holds every client's carry).  With
+`dist_mode='ep'` and a (classes, model) grid (`tp.make_tp_grid`: the
+class group as `mesh`, the trunk over the model group) it serves EP ×
+TP.
 """
 from __future__ import annotations
 
@@ -72,11 +81,10 @@ class _Control:
     one at a time, and a heartbeat from rank 0 when it has sent nothing
     for `heartbeat_s` seconds."""
 
-    def __init__(self, world: World, timeout_s: float = 120.0,
-                 heartbeat_s: float = 20.0):
+    def __init__(self, timeout_s: float = 120.0, heartbeat_s: float = 20.0):
         self.group = dist.new_group(backend="gloo",
                                     timeout=timedelta(seconds=timeout_s))
-        self.primary = world.rank == 0
+        self.primary = dist.get_rank() == 0
         self.lock = threading.RLock()
         self._heartbeat_s = heartbeat_s
         self._last = time.monotonic()
@@ -117,12 +125,13 @@ class TTAServer:
     def __init__(self, cfg: Config, model, text_features: torch.Tensor,
                  sizes: Sequence[int] = (1, 2, 4, 8, 16), seed: int = 42,
                  dist_mode: str = "replicated",
-                 mesh: Optional[World] = None):
+                 mesh: Optional[World] = None, encode_fn=None):
         """`model` and `text_features` lie on the device the server runs
         on.  `dist_mode` 'ep' splits the clients' classes over the ranks
         of `mesh` (default: the initialised process group, else this
-        process alone); the trunk-parallel encoders of the JAX server are
-        ROADMAP M16's."""
+        process alone).  `encode_fn` replaces the model's forward
+        (`engine.make_step_fn`): a tensor-parallel trunk, in a world of
+        several ranks served by rank 0 and followed by the others."""
         if dist_mode not in ("replicated", "ep"):
             raise ValueError(
                 f"dist_mode {dist_mode!r}: the serving loop supports "
@@ -139,21 +148,25 @@ class TTAServer:
         self._snapshotter: Optional[checkpoint.AsyncSnapshotter] = None
         self._ep: Optional[pep.ClassShard] = None
         self._control: Optional[_Control] = None
+        world = mesh or make_mesh()
         if dist_mode == "ep":
-            world = mesh or make_mesh()
             shard = pep.class_shard(world, text_features.shape[0])
             self._ep, self._full_text = shard, text_features
             self.text = pep.pad_classes(text_features, shard.n)[0][
                 shard.offset:shard.offset + shard.k_local]
-            self._step = pep.make_ep_step_fn(cfg, model, shard)
+            self._step = pep.make_ep_step_fn(cfg, model, shard,
+                                             encode_fn=encode_fn)
             self.sizes = [1]
-            if world.group is not None:
-                self._control = _Control(world)
             logging.info("EP serving: K=%d over %d ranks (%d classes a "
                          "rank; ladder [1])", shard.num_classes, shard.n,
                          shard.k_local)
         else:
-            self._step = engine.make_step_fn(cfg, model)
+            self._step = engine.make_step_fn(cfg, model, encode_fn=encode_fn)
+        # every rank runs each operation where the step has collectives
+        # over other processes: the class group's, the trunk's
+        if (world.group is not None and dist_mode == "ep") or (
+                encode_fn is not None and make_mesh().size > 1):
+            self._control = _Control()
 
     @property
     def primary(self) -> bool:
@@ -161,8 +174,9 @@ class TTAServer:
         return self._control is None or self._control.primary
 
     def _call(self, name: str, *args):
-        """Run operation `name`: on rank 0 of an EP world, first sent to
-        the other ranks (which run it in `follow`)."""
+        """Run operation `name`: on rank 0 of an EP or a tensor-parallel
+        world, first sent to the other ranks (which run it in
+        `follow`)."""
         if self._control is None or not self._control.primary:
             return getattr(self, "_" + name)(*args)
         with self._control.lock:
@@ -170,8 +184,8 @@ class TTAServer:
             return getattr(self, "_" + name)(*args)
 
     def stop(self) -> None:
-        """End the other ranks' `follow` loops (rank 0 of an EP world; a
-        no-op otherwise)."""
+        """End the other ranks' `follow` loops (rank 0 of an EP or a
+        tensor-parallel world; a no-op otherwise)."""
         if self._control is not None and self._control.primary:
             self._control.close()
             self._control.send(("stop",))
@@ -334,8 +348,8 @@ class TTAServer:
         state = self.states[client_id]
         if self._ep is not None:
             state = pep.gather_state(state, self._ep)
-            if not self.primary:
-                return
+        if not self.primary:
+            return
         if blocking:
             checkpoint.save_state(path, state)
             return
@@ -381,7 +395,8 @@ class TTAServer:
 
 
 def follow(server: TTAServer) -> None:
-    """The loop of an EP server's rank other than 0: run each operation
+    """The loop of an EP or a tensor-parallel server's rank other than 0
+    (`TTAServer.primary` false): run each operation
     rank 0 sends, until it sends 'stop'.  An operation that raises is
     logged and the loop goes on, as rank 0 goes on serving after it:
     what an operation checks (the clients, the request, the snapshot's
@@ -398,4 +413,4 @@ def follow(server: TTAServer) -> None:
         try:
             getattr(server, "_" + name)(*args)
         except Exception as e:
-            logging.warning("EP follower: %s failed: %r", name, e)
+            logging.warning("follower: %s failed: %r", name, e)
