@@ -265,6 +265,25 @@ exits non-zero before the result line:
      ranks (SwiGLU width 2730); the CLI (`torch.distributed.run ...
      --trunk-parallel tp`) and `cli.serve --trunk-parallel tp` over
      HTTP on two ranks.
+ 14. the pipeline-parallel trunk (`run_pp`, `parallel/pp.py`): at world 1
+     over NCCL in this process the same captured Uni3D-L stream through
+     `prepare_trunk_parallel`'s PP encoder, bitwise equal to the plain
+     scan and traced; at world 2 (two processes sharing the card over
+     gloo) Uni3D-L's features in bf16 and fp32, GPipe and interleaved
+     (V = 2), at one microbatch bitwise one process's, its captured bf16
+     stream bitwise the plain scan's and traced (ms a step, segments a
+     step, bytes shifted and broadcast a step, peak GB a rank beside one
+     process's, launches a rank), the fp32 trajectory's logits within
+     1e-4 with acc@1 equal, the planted fault 'one stage's shift skipped'
+     failing, OpenShape-G's and ULIP-2's features bitwise; pretraining at
+     full width (Uni3D-L fp32, depth 24, batch 16 of 10,000 points, two
+     stages of two microbatches) against one process (the loss within
+     rtol 1e-5, 99% of the parameters within DP_PARAM_ATOL), and at depth
+     2 a run resumed from the gathered checkpoint bitwise the
+     uninterrupted one; at world 4 PP × TP (two stages of two model
+     ranks, depth 2, fp32) against one process; the CLI
+     (`torch.distributed.run ... --trunk-parallel pp`) and `cli.serve
+     --trunk-parallel pp` over HTTP on two ranks.
 
 Phase 3 also holds the block's head-sharded entry (a tensor-parallel
 rank's heads: q/k/v (64H, D), out projection (D, 64H), no `bo`: the fp32
@@ -289,13 +308,14 @@ is `{"ok": true, "device": {...}}`.
     python3 chip_smoke.py --dist-only
     python3 chip_smoke.py --ep-only
     python3 chip_smoke.py --tp-only
+    python3 chip_smoke.py --pp-only
 
 builds the kernels and runs phase 11's distributed part and phases 12
-and 13 alone (`run_dist_streams`, `run_dp_pretraining`, `run_ep`,
-`run_tp`): on a machine with two cards or more that is where the worlds
-of two run over NCCL, a card a rank, besides gloo (with four, phase 13's
-world of four too).  `--ep-only` builds the kernels and runs phase 12
-alone, `--tp-only` phase 13.  Each prints its phases' summary and the same last line.  Without a CUDA device, or without the
+to 14 alone (`run_dist_streams`, `run_dp_pretraining`, `run_ep`,
+`run_tp`, `run_pp`): on a machine with two cards or more that is where
+the worlds of two run over NCCL, a card a rank, besides gloo (with four,
+phase 13's and 14's worlds of four too).  `--ep-only` builds the kernels
+and runs phase 12 alone, `--tp-only` phase 13, `--pp-only` phase 14.  Each prints its phases' summary and the same last line.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
 """
@@ -6518,12 +6538,10 @@ def run_ep_cli(tmp: Path, torch) -> dict:
     whose logits equal a replicated server's here, rank 0 interrupted,
     both ranks exiting 0."""
     import os
-    import signal
 
     import numpy as np
 
     from uni_adapter_torch.cli import tta
-    from uni_adapter_torch.client import TTAClient
     from uni_adapter_torch.config import CORRUPTIONS
     from uni_adapter_torch.models.loader import build_backbone
     from uni_adapter_torch.serve import TTAServer
@@ -6554,72 +6572,44 @@ def run_ep_cli(tmp: Path, torch) -> dict:
             .numpy().astype(np.int64))
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
                PYTHONPATH=str(Path(__file__).resolve().parent))
+    runs = (("continual", ["--continual", "true"]),
+            ("vmap", ["--vmap-corruptions", "true"]))
+    # every launch started first, this process's runs made meanwhile
+    clis = {name: start_tta_cli(env, [*common, *flags, "--dist-mode", "ep",
+                                      "--output-dir",
+                                      str(tmp / f"ep_cli_{name}")],
+                                tmp / f"ep_cli_{name}.log")
+            for name, flags in runs}
+    port = free_port()
+    procs = start_servers(env, [
+        "--port", str(port), "--gather-ms", "0", "--eva-depth", "2",
+        "--dota-res-learning", "false", "--precomputed-text-features",
+        "large", "--dist-mode", "ep", "--output-dir", str(tmp / "ep_serve")],
+        tmp, "ep")
+    wants = {name: tta.main([*common, *flags, "--output-dir",
+                             str(tmp / f"ep_cli_{name}_base")])
+             for name, flags in runs}
+    clouds = np.load(root / "data_uniform_5.npy")
+    clouds = np.concatenate([clouds, clouds[:1]])[:, None]
+    ref = TTAServer(cfg, model, text40, seed=42)
+    ref.register("x")
+    want = [ref.submit([("x", c, None)])["x"] for c in clouds]
     out, secs = {}, {}
-    for name, flags in (("continual", ["--continual", "true"]),
-                        ("vmap", ["--vmap-corruptions", "true"])):
-        want = tta.main([*common, *flags, "--output-dir",
-                         str(tmp / f"ep_cli_{name}_base")])
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc-per-node", "2", "-m", "uni_adapter_torch.cli.tta",
-             *common, *flags, "--dist-mode", "ep", "--output-dir",
-             str(tmp / f"ep_cli_{name}")], env=env, capture_output=True,
-            text=True, timeout=300)
-        secs[name] = time.perf_counter() - t0
-        if proc.returncode:
-            fail(f"ep CLI ({name}): exit {proc.returncode}\n"
-                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for name, _ in runs:
+        secs[name] = finish_process(f"ep CLI ({name})", clis[name],
+                                    tmp / f"ep_cli_{name}.log")
         got = json.loads((tmp / f"ep_cli_{name}" / "run" / "results.json")
                          .read_text())
-        if got != want["acc1"]:
+        if got != wants[name]["acc1"]:
             fail(f"ep CLI ({name}): results.json {got} against the run "
-                 f"without EP {want['acc1']}")
+                 f"without EP {wants[name]['acc1']}")
         log = (tmp / f"ep_cli_{name}" / "run" / "out.log").read_text()
         if "dist mode ep" not in log:
             fail(f"ep CLI ({name}): out.log does not say it ran ep")
         out[name] = got
     # the HTTP server on two ranks
-    port, mport = free_port(), free_port()
-    argv = ["--port", str(port), "--gather-ms", "0", "--eva-depth", "2",
-            "--dota-res-learning", "false", "--precomputed-text-features",
-            "large", "--dist-mode", "ep", "--output-dir",
-            str(tmp / "ep_serve")]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "uni_adapter_torch.cli.serve", *argv],
-        env=dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
-                 LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(mport)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
-    try:
-        t0 = time.perf_counter()
-        client = TTAClient("127.0.0.1", port, "x")
-        while True:
-            try:
-                client.register()
-                break
-            except OSError:
-                if time.perf_counter() - t0 > 180:
-                    raise
-                time.sleep(1.0)
-        clouds = np.load(root / "data_uniform_5.npy")
-        clouds = np.concatenate([clouds, clouds[:1]])[:, None]
-        logits = [client.submit(c) for c in clouds]
-        health = client.healthz()
-        procs[0].send_signal(signal.SIGINT)
-        codes = [p.wait(timeout=60) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if codes != [0, 0]:
-        fail(f"ep serve CLI: exit codes {codes}\n"
-             + "\n".join(p.stderr.read()[-2000:] for p in procs))
-    ref = TTAServer(cfg, model, text40, seed=42)
-    ref.register("x")
-    want = [ref.submit([("x", c, None)])["x"] for c in clouds]
+    logits, health = serve_requests("ep serve CLI", procs, port, clouds, tmp,
+                                    "ep")
     diff = max(float(np.abs(a - b).max()) for a, b in zip(logits, want))
     if diff > 1e-3 or health["clients"] != 1 or health["sizes"] != [1]:
         fail(f"ep serve CLI: logits max |Δ| {diff:.3g} against a replicated "
@@ -7254,6 +7244,8 @@ def tp_rank(rank: int, world: int, tmp: str, port: int, mode: str) -> None:
                 _, encode = trunk.prepare_trunk_parallel(
                     c, tp_model(torch, c, "openshape"))
                 out["openshape"] = tp_features(torch, encode, *flat)
+            # phase 14's PP × TP, in this world (one spawn for both)
+            out.update(pp_tp_rank(torch, flat))
             torch.save(out, Path(tmp) / f"tp_rank{rank}_w{world}_{mode}.pt")
             return
         # Uni3D-L bf16: features, the traced captured stream, its timing
@@ -7335,65 +7327,64 @@ def run_tp_world(tmp: Path, world: int, mode: str = "gloo") -> list:
                        weights_only=False) for r in range(world)]
 
 
-def run_tp_cli(tmp: Path, torch) -> dict:
-    """The CLI and the HTTP server at world 2 over gloo on card 0:
-    `python -m torch.distributed.run --nproc-per-node 2 -m
-    uni_adapter_torch.cli.tta --trunk-parallel tp` (Uni3D-L width, depth 2,
-    fp32, residuals off, 16 clouds) writing the results.json of the same
-    run in this process without TP; then `cli.serve --trunk-parallel tp`
-    on two ranks (rank 0 the HTTP front end), one client posting 3 clouds
-    whose logits are within 1e-3 of a replicated server's here, rank 0
-    interrupted, both ranks exiting 0."""
-    import os
+#: What rank 0's out.log says of each trunk mode at world 2.
+TRUNK_LOG = {"tp": "trunk parallelism: tensor (Megatron), 2-way",
+             "pp": "trunk parallelism: pipeline, 2 stages x 1 chunks/stage"}
+
+
+def start_tta_cli(env: dict, args: list, log: Path):
+    """`python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    uni_adapter_torch.cli.tta ARGS` started, its output into `log`:
+    (process, start time)."""
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "uni_adapter_torch.cli.tta",
+             *args], env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, time.perf_counter()
+
+
+def finish_process(what: str, started, log: Path,
+                   timeout: float = 300) -> float:
+    """Wait for a process of `start_tta_cli`; fail with the end of its log
+    if it exits non-zero.  Returns its seconds from the start."""
+    proc, t0 = started
+    try:
+        code = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if code:
+        fail(f"{what}: exit {code}\n{log.read_text()[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def start_servers(env: dict, argv: list, tmp: Path, tag: str) -> list:
+    """`python -m uni_adapter_torch.cli.serve ARGV` on two ranks (rank 0
+    the HTTP front end), each one's output into tmp/{tag}_serve{r}.log."""
+    mport = free_port()
+    procs = []
+    for r in range(2):
+        with open(tmp / f"{tag}_serve{r}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "uni_adapter_torch.cli.serve", *argv],
+                env=dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                         LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT=str(mport)),
+                stdout=out, stderr=subprocess.STDOUT))
+    return procs
+
+
+def serve_requests(what: str, procs: list, port: int, clouds, tmp: Path,
+                   tag: str) -> tuple:
+    """One client registered on the server of `start_servers` (waiting for
+    it to come up), posting `clouds`; then rank 0 interrupted and both
+    ranks' exit codes read (both must be 0).  Returns (logits, healthz)."""
     import signal
 
-    import numpy as np
-
-    from uni_adapter_torch.anchors import load_precomputed
-    from uni_adapter_torch.cli import tta
     from uni_adapter_torch.client import TTAClient
-    from uni_adapter_torch.models.loader import build_backbone
-    from uni_adapter_torch.serve import TTAServer
 
-    root = tmp / "tp_cli_data"
-    write_stream(root, 1024, 40)
-    common = ["--root", str(root), "--corruption", "uniform", "--eva-depth",
-              "2", "--compute-dtype", "float32", "--dota-res-learning",
-              "false", "--precomputed-text-features", "large", "--name",
-              "run"]
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
-               PYTHONPATH=str(Path(__file__).resolve().parent))
-    want = tta.main([*common, "--output-dir", str(tmp / "tp_cli_base")])
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", "uni_adapter_torch.cli.tta",
-         *common, "--trunk-parallel", "tp", "--output-dir",
-         str(tmp / "tp_cli")], env=env, capture_output=True, text=True,
-        timeout=300)
-    cli_s = time.perf_counter() - t0
-    if proc.returncode:
-        fail(f"tp CLI: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
-             f"{proc.stderr[-3000:]}")
-    got = json.loads((tmp / "tp_cli" / "run" / "results.json").read_text())
-    if got != want["acc1"]:
-        fail(f"tp CLI: results.json {got} against the run without TP "
-             f"{want['acc1']}")
-    log = (tmp / "tp_cli" / "run" / "out.log").read_text()
-    if "trunk parallelism: tensor (Megatron), 2-way" not in log:
-        fail("tp CLI: out.log does not say it ran the TP trunk")
-    port, mport = free_port(), free_port()
-    argv = ["--port", str(port), "--gather-ms", "0", "--eva-depth", "2",
-            "--compute-dtype", "float32", "--dota-res-learning", "false",
-            "--precomputed-text-features", "large", "--trunk-parallel", "tp",
-            "--output-dir", str(tmp / "tp_serve")]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "uni_adapter_torch.cli.serve", *argv],
-        env=dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
-                 LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(mport)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
     try:
         t0 = time.perf_counter()
         client = TTAClient("127.0.0.1", port, "x")
@@ -7405,7 +7396,6 @@ def run_tp_cli(tmp: Path, torch) -> dict:
                 if time.perf_counter() - t0 > 180:
                     raise
                 time.sleep(1.0)
-        clouds = np.load(root / "data_uniform_5.npy")[:3, None]
         logits = [client.submit(c) for c in clouds]
         health = client.healthz()
         procs[0].send_signal(signal.SIGINT)
@@ -7416,26 +7406,166 @@ def run_tp_cli(tmp: Path, torch) -> dict:
                 p.kill()
                 p.wait()
     if codes != [0, 0]:
-        fail(f"tp serve CLI: exit codes {codes}\n"
-             + "\n".join(p.stderr.read()[-2000:] for p in procs))
+        fail(f"{what}: exit codes {codes}\n" + "\n".join(
+            (tmp / f"{tag}_serve{r}.log").read_text()[-2000:]
+            for r in range(2)))
+    return logits, health
+
+
+def run_tp_cli(tmp: Path, torch, modes=("tp",)) -> dict:
+    """The CLI and the HTTP server at world 2 over gloo on card 0, for each
+    trunk mode of `modes` (tp, pp) at once: `python -m
+    torch.distributed.run --nproc-per-node 2 -m uni_adapter_torch.cli.tta
+    --trunk-parallel MODE` (Uni3D-L width, depth 2, fp32, residuals off,
+    16 clouds) writing the results.json of the same run in this process
+    without it; and `cli.serve --trunk-parallel MODE` on two ranks (rank
+    0 the HTTP front end), one client posting 3 clouds whose logits are
+    within 1e-3 of a replicated server's here, rank 0 interrupted, both
+    ranks exiting 0.  Every launch is started first and the runs in this
+    process made while they start.  Returns {mode: summary}."""
+    import os
+
+    import numpy as np
+
+    from uni_adapter_torch.anchors import load_precomputed
+    from uni_adapter_torch.cli import tta
+    from uni_adapter_torch.models.loader import build_backbone
+    from uni_adapter_torch.serve import TTAServer
+
+    root = tmp / "trunk_cli_data"
+    write_stream(root, 1024, 40)
+    common = ["--root", str(root), "--corruption", "uniform", "--eva-depth",
+              "2", "--compute-dtype", "float32", "--dota-res-learning",
+              "false", "--precomputed-text-features", "large", "--name",
+              "run"]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    clis, servers = {}, {}
+    for mode in modes:
+        clis[mode] = start_tta_cli(
+            env, [*common, "--trunk-parallel", mode, "--output-dir",
+                  str(tmp / f"{mode}_cli")], tmp / f"{mode}_cli.log")
+        port = free_port()
+        servers[mode] = port, start_servers(env, [
+            "--port", str(port), "--gather-ms", "0", "--eva-depth", "2",
+            "--compute-dtype", "float32", "--dota-res-learning", "false",
+            "--precomputed-text-features", "large", "--trunk-parallel",
+            mode, "--output-dir", str(tmp / f"{mode}_serve")], tmp, mode)
+    want = tta.main([*common, "--output-dir", str(tmp / "trunk_cli_base")])
     cfg = tp_cfg("float32", depth=2, dota=dict(res_learning=False))
     model, _, _ = build_backbone("uni3d", cfg.model, "cuda", seed=42)
     ref = TTAServer(cfg, model, load_precomputed("large", "modelnet").cuda(),
                     seed=42)
     ref.register("x")
+    clouds = np.load(root / "data_uniform_5.npy")[:3, None]
     want_l = [ref.submit([("x", c, None)])["x"] for c in clouds]
-    diff = max(float(np.abs(a - b).max()) for a, b in zip(logits, want_l))
-    if diff > 1e-3 or health["clients"] != 1:
-        fail(f"tp serve CLI: logits max |Δ| {diff:.3g} against a replicated "
-             f"server, healthz {health}")
-    print(f"tp CLI: --trunk-parallel tp at world 2 wrote the run's "
-          f"results.json without TP ({cli_s:.1f} s with the launch); "
-          f"cli.serve --trunk-parallel tp: 3 requests over HTTP, logits max "
-          f"|Δ| {diff:.3g} against a replicated server, both ranks exited 0")
-    return {"cli_s": cli_s, "serve_logits_max_abs_diff": diff}
+    out = {}
+    for mode in modes:
+        cli_s = finish_process(f"{mode} CLI", clis[mode],
+                               tmp / f"{mode}_cli.log")
+        got = json.loads((tmp / f"{mode}_cli" / "run" / "results.json")
+                         .read_text())
+        if got != want["acc1"]:
+            fail(f"{mode} CLI: results.json {got} against the run without "
+                 f"it {want['acc1']}")
+        log = (tmp / f"{mode}_cli" / "run" / "out.log").read_text()
+        if TRUNK_LOG[mode] not in log:
+            fail(f"{mode} CLI: out.log does not say it ran the {mode} trunk")
+        port, procs = servers[mode]
+        logits, health = serve_requests(f"{mode} serve CLI", procs, port,
+                                        clouds, tmp, mode)
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(logits,
+                                                             want_l))
+        if diff > 1e-3 or health["clients"] != 1:
+            fail(f"{mode} serve CLI: logits max |Δ| {diff:.3g} against a "
+                 f"replicated server, healthz {health}")
+        print(f"{mode} CLI: --trunk-parallel {mode} at world 2 wrote the "
+              f"run's results.json without it ({cli_s:.1f} s with the "
+              f"launch); cli.serve --trunk-parallel {mode}: 3 requests over "
+              f"HTTP, logits max |Δ| {diff:.3g} against a replicated server, "
+              f"both ranks exited 0")
+        out[mode] = {"cli_s": cli_s, "serve_logits_max_abs_diff": diff}
+    return out
 
 
-def run_tp(tmp: Path, card: str) -> tuple:
+def trunk_refs(torch) -> dict:
+    """Phases 13 and 14's one-process references, computed once: the
+    inputs (`tp_inputs`) with the targets each run meets on every other
+    cloud; Uni3D-L's bf16 and fp32 features of TP_CLOUDS clouds, its
+    captured bf16 stream (the state and logits `want`, its ms a step and
+    peak GB), the fp32 trajectory's logits and acc@1, OpenShape-G's and
+    ULIP-2's features, and the depth-2 fp32 model's features and stream
+    (EP × TP, PP × TP)."""
+    from uni_adapter_torch import engine
+
+    t0 = time.perf_counter()
+    inp = tp_inputs(torch)
+    pcs, rgbs = inp["pcs"].cuda(), inp["rgbs"].cuda()
+    flat = (pcs[:TP_CLOUDS, 0], rgbs[:TP_CLOUDS, 0])
+    bank = inp["bank"].cuda()
+    ms = {}
+    cfg = tp_cfg()
+    model = tp_model(torch, cfg)
+    ref = {"uni3d": tp_features(torch, engine.encode_with("uni3d", model),
+                                *flat)}
+    _, outs = engine.run_stream_scan(cfg, model, bank, pcs, rgbs,
+                                     torch.zeros(16, 1, dtype=torch.int64),
+                                     seed=42)
+    inp["targets"] = half_met(torch, outs.final_logits)
+    scan_fn = engine.make_scan_fn(cfg, model)
+    (state, outs), _, peak = ep_peak(torch, lambda: engine.run_stream_scan(
+        cfg, model, bank, pcs, rgbs, inp["targets"].cuda(), seed=42,
+        scan_fn=scan_fn))
+    want = (engine_tensors(state), outs.final_logits.cpu(),
+            engine.summarize(outs, 16)["acc1"])
+    ms["plain_bf16"] = statistics.median(scan_fn.step_ms[1:])
+    del model, scan_fn, state, outs
+    torch.cuda.empty_cache()
+    cfg32 = tp_cfg("float32")
+    model = tp_model(torch, cfg32)
+    ref["uni3d_fp32"] = tp_features(torch, engine.encode_with("uni3d", model),
+                                    *flat)
+    fp = (pcs[:TP_FP32_STEPS], rgbs[:TP_FP32_STEPS])
+    _, outs = engine.run_stream_scan(
+        cfg32, model, bank, *fp, torch.zeros(TP_FP32_STEPS, 1,
+                                             dtype=torch.int64), seed=42)
+    inp["targets_fp32"] = half_met(torch, outs.final_logits)
+    scan_fn = engine.make_scan_fn(cfg32, model)
+    _, outs = engine.run_stream_scan(cfg32, model, bank, *fp,
+                                     inp["targets_fp32"].cuda(), seed=42,
+                                     scan_fn=scan_fn)
+    ref["trajectory"] = (outs.final_logits.cpu(),
+                         engine.summarize(outs, TP_FP32_STEPS)["acc1"])
+    ms["plain_fp32"] = statistics.median(scan_fn.step_ms[1:])
+    del model, scan_fn, outs
+    torch.cuda.empty_cache()
+    for kind in ("openshape", "ulip"):
+        m = tp_model(torch, tp_backbone_cfg(kind), kind)
+        ref[kind] = tp_features(torch, engine.encode_with(kind, m), *flat)
+        del m
+    cfg_ep = tp_cfg("float32", depth=2, dota=dict(res_learning=False))
+    m = tp_model(torch, cfg_ep)
+    ref["depth2_fp32"] = tp_features(torch, engine.encode_with("uni3d", m),
+                                     *flat)
+    bank15 = inp["bank15"].cuda()
+    ep_in = (pcs[:TP_FP32_STEPS], rgbs[:TP_FP32_STEPS])
+    _, outs = engine.run_stream_scan(
+        cfg_ep, m, bank15, *ep_in, torch.zeros(TP_FP32_STEPS, 1,
+                                               dtype=torch.int64), seed=42)
+    inp["targets_ep"] = half_met(torch, outs.final_logits)
+    state, outs = engine.run_stream_scan(cfg_ep, m, bank15, *ep_in,
+                                         inp["targets_ep"].cuda(), seed=42)
+    ref["ep_tp"] = (ep_state(state), engine.summarize(outs,
+                                                      TP_FP32_STEPS)["acc1"])
+    del m, state, outs
+    torch.cuda.empty_cache()
+    print(f"trunk references (one process): {time.perf_counter() - t0:.1f} "
+          f"s; the plain bf16 stream peaked at {peak:.2f} GB")
+    return {"inp": inp, "ref": ref, "want": want, "ms": ms,
+            "peak_gb": peak}
+
+
+def run_tp(tmp: Path, card: str, refs=None, cli: bool = True) -> tuple:
     """Phase 13: the tensor-parallel trunk (`parallel/tp.py`).
 
     (a) world 1 over NCCL in this process: Uni3D-L bf16 at full width and
@@ -7471,29 +7601,16 @@ def run_tp(tmp: Path, card: str) -> tuple:
         print(f"tp check failed: {msg}")
         problems.append(msg)
 
-    inp = tp_inputs(torch)
+    refs = refs or trunk_refs(torch)
+    inp, ref, want = refs["inp"], refs["ref"], refs["want"]
+    summary["ms_a_step"].update(refs["ms"])
     pcs, rgbs = inp["pcs"].cuda(), inp["rgbs"].cuda()
-    flat = (pcs[:TP_CLOUDS, 0], rgbs[:TP_CLOUDS, 0])
     bank = inp["bank"].cuda()
 
-    # (a) the references, and world 1 over NCCL
+    # (a) world 1 over NCCL
     t0 = time.perf_counter()
     cfg = tp_cfg()
     model = tp_model(torch, cfg)
-    ref = {"uni3d": tp_features(torch, engine.encode_with("uni3d", model),
-                                *flat)}
-    _, outs = engine.run_stream_scan(cfg, model, bank, pcs, rgbs,
-                                     torch.zeros(16, 1, dtype=torch.int64),
-                                     seed=42)
-    inp["targets"] = half_met(torch, outs.final_logits)
-    scan_fn = engine.make_scan_fn(cfg, model)
-    state, outs = engine.run_stream_scan(cfg, model, bank, pcs, rgbs,
-                                         inp["targets"].cuda(), seed=42,
-                                         scan_fn=scan_fn)
-    want = (engine_tensors(state), outs.final_logits.cpu(),
-            engine.summarize(outs, 16)["acc1"])
-    summary["ms_a_step"]["plain_bf16"] = statistics.median(
-        scan_fn.step_ms[1:])
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{free_port()}", world_size=1, rank=0,
                             device_id=torch.device("cuda", 0))
@@ -7519,43 +7636,6 @@ def run_tp(tmp: Path, card: str) -> tuple:
           f"scan's: {same}; acc@1 {engine.summarize(outs, 16)['acc1']} "
           f"(plain {want[2]}); launches {launches}")
     del model, rank_model, encode, scan_fn, state, outs
-    torch.cuda.empty_cache()
-    cfg32 = tp_cfg("float32")
-    model = tp_model(torch, cfg32)
-    ref["uni3d_fp32"] = tp_features(torch, engine.encode_with("uni3d", model),
-                                    *flat)
-    fp = (pcs[:TP_FP32_STEPS], rgbs[:TP_FP32_STEPS])
-    _, outs = engine.run_stream_scan(
-        cfg32, model, bank, *fp, torch.zeros(TP_FP32_STEPS, 1,
-                                             dtype=torch.int64), seed=42)
-    inp["targets_fp32"] = half_met(torch, outs.final_logits)
-    scan_fn = engine.make_scan_fn(cfg32, model)
-    _, outs = engine.run_stream_scan(cfg32, model, bank, *fp,
-                                     inp["targets_fp32"].cuda(), seed=42,
-                                     scan_fn=scan_fn)
-    ref["trajectory"] = (outs.final_logits.cpu(),
-                         engine.summarize(outs, TP_FP32_STEPS)["acc1"])
-    summary["ms_a_step"]["plain_fp32"] = statistics.median(
-        scan_fn.step_ms[1:])
-    del model, scan_fn, outs
-    torch.cuda.empty_cache()
-    for kind in ("openshape", "ulip"):
-        m = tp_model(torch, tp_backbone_cfg(kind), kind)
-        ref[kind] = tp_features(torch, engine.encode_with(kind, m), *flat)
-        del m
-    cfg_ep = tp_cfg("float32", depth=2, dota=dict(res_learning=False))
-    m = tp_model(torch, cfg_ep)
-    bank15 = inp["bank15"].cuda()
-    ep_in = (pcs[:TP_FP32_STEPS], rgbs[:TP_FP32_STEPS])
-    _, outs = engine.run_stream_scan(
-        cfg_ep, m, bank15, *ep_in, torch.zeros(TP_FP32_STEPS, 1,
-                                               dtype=torch.int64), seed=42)
-    inp["targets_ep"] = half_met(torch, outs.final_logits)
-    state, outs = engine.run_stream_scan(cfg_ep, m, bank15, *ep_in,
-                                         inp["targets_ep"].cuda(), seed=42)
-    ref["ep_tp"] = (ep_state(state), engine.summarize(outs,
-                                                      TP_FP32_STEPS)["acc1"])
-    del m, state, outs
     torch.cuda.empty_cache()
     times["a"] = time.perf_counter() - t0
 
@@ -7656,20 +7736,24 @@ def run_tp(tmp: Path, card: str) -> tuple:
                      if "openshape" in out else ""))
         print(f"tp world 4{tag}: Uni3D-L raised: {ranks[0]['indivisible']}")
 
-    check_world4(run_tp_world(tmp, 4), "")
+    refs["tp_world4"] = run_tp_world(tmp, 4)
+    check_world4(refs["tp_world4"], "")
     times["c"] = time.perf_counter() - t0
 
-    # (d) the CLI and the HTTP server at world 2
-    t0 = time.perf_counter()
-    summary["cli"] = run_tp_cli(tmp, torch)
-    times["d"] = time.perf_counter() - t0
+    # (d) the CLI and the HTTP server at world 2 (with `cli`; else the
+    # caller runs them beside phase 14's)
+    if cli:
+        t0 = time.perf_counter()
+        summary["cli"] = run_tp_cli(tmp, torch)["tp"]
+        times["d"] = time.perf_counter() - t0
 
     if torch.cuda.device_count() >= 2:
         t0 = time.perf_counter()
         summary["world2_nccl"] = check_world2(run_tp_world(tmp, 2, "nccl"),
                                               " (nccl)")
         if torch.cuda.device_count() >= 4:
-            check_world4(run_tp_world(tmp, 4, "nccl"), " (nccl)")
+            refs["tp_world4_nccl"] = run_tp_world(tmp, 4, "nccl")
+            check_world4(refs["tp_world4_nccl"], " (nccl)")
         times["nccl"] = time.perf_counter() - t0
     else:
         print("tp worlds over NCCL: not run, this machine has one card (the "
@@ -7684,6 +7768,521 @@ def run_tp(tmp: Path, card: str) -> tuple:
         fail(f"phase tp: {len(problems)} checks failed: "
              + "; ".join(problems))
     return launches, summary
+
+
+#: Phase 14: the pipeline-parallel trunk.  At one microbatch a stage runs
+#: the same kernels on the same bits as one process, and the shift and
+#: the broadcast carry the activations exactly: the features, the
+#: captured stream and OpenShape-G's and ULIP-2's features are held
+#: bitwise, the fp32 trajectory within TP_LOGITS with acc@1 equal; PP ×
+#: TP (fp32) within TP_COS_F32; pretraining as phase 11b's DP step
+#: (DP_LOSS_RTOL, 99% of the parameters within DP_PARAM_ATOL after
+#: PP_TRAIN_STEPS steps: lr 0, then DP_LR), the resume bitwise.  The
+#: planted fault (the first shift skipped on both ranks, its receive
+#: zero-filled) must take some cloud's fp32 features outside TP_COS_F32.
+PP_TRAIN_STEPS = 2
+PP_KERNELS = TP_KERNELS
+PP_TRAIN_KERNELS = ("fps_grid", "knn_gather", "eva_attn_block_fp32",
+                    "attn_f32_tc", "eva_attn_block_bwd")
+
+
+def pp_cfg(dtype: str = "bfloat16", depth: int = 24, dota=None,
+           interleave: int = 1, kind: str = "uni3d"):
+    """`tp_cfg`'s model (or `tp_backbone_cfg`'s for `kind`), its trunk
+    pipeline-parallel over the world, `interleave` chunks a stage."""
+    cfg = tp_cfg(dtype, depth, dota) if kind == "uni3d" else \
+        tp_backbone_cfg(kind)
+    return dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, trunk_parallel="pp", pp_interleave=interleave))
+
+
+def pp_step_bytes(scan_fn) -> dict:
+    """The bytes a captured step's 'shift' and 'broadcast' requests send,
+    by program (residual gate): the requests between its segments."""
+    out = {}
+    for runner in scan_fn.runners.values():
+        for gate, program in runner.programs.items():
+            sent = {"shift": 0, "broadcast": 0}
+            for part in program:
+                for seg in getattr(part, "segments", [])[:-1]:
+                    req = seg.out
+                    if req.kind in sent and req.buf is not None:
+                        sent[req.kind] += req.buf.numel() * \
+                            req.buf.element_size()
+            out[str(gate)] = sent
+    return out
+
+
+def pp_fault_shift(torch, encode, pcs, rgbs):
+    """The planted fault 'one stage's shift skipped': the forward's first
+    shift not issued on any rank (no deadlock: both sides skip it), its
+    receive buffer zero-filled, the rest as it is."""
+    from uni_adapter_torch.parallel import collectives
+
+    parts, skipped = encode(pcs, rgbs), False
+    with torch.no_grad():
+        try:
+            while True:
+                req = next(parts)
+                if req.kind == "shift" and not skipped:
+                    skipped = True
+                    if req.out is not None:
+                        req.out.zero_()
+                    continue
+                collectives.issue(req, None)
+        except StopIteration as done:
+            return done.value.float().cpu()
+
+
+def pp_train_rank(torch, inp: dict, tmp: Path) -> dict:
+    """A rank's pretraining at world 2 (`pp_rank`): PP_TRAIN_STEPS steps of
+    Uni3D-L fp32 at full width and depth over two stages of two
+    microbatches, the batch of `dist_inputs`, traced for its launches and
+    held against the one process's parameters `run_pp` saved; then at
+    depth 2, four steps in one go against two, the state gathered and
+    saved as the CLI saves it, restored on every rank and cut to its
+    stage, and two more: bitwise."""
+    import torch.distributed as dist
+
+    from uni_adapter_torch import checkpoint, train
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import pp
+
+    batch = [inp["batch"][k].cuda() for k in ("pc", "text_embed",
+                                               "image_embed", "mask")]
+
+    def fresh(depth):
+        model = create_uni3d(ModelConfig(eva_depth=depth,
+                                         compute_dtype="float32"), "cuda",
+                             torch.float32, seed=0, trainable=True)
+        tx = train.make_optimizer(lr=DP_LR, total_steps=4, warmup_steps=1)
+        rank_model, step = pp.make_pp_train_step(model, tx, pp.make_stages(),
+                                                 n_micro=2)
+        return rank_model, step, train.init_train_state(rank_model, tx)
+
+    rank_model, step, state = fresh(PRETRAIN_DEPTH)
+    losses, ms = [], []
+
+    def steps():
+        nonlocal state
+        for _ in range(PP_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, *batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+
+    torch.cuda.reset_peak_memory_stats()
+    _, launches, _ = traced_run(torch, "the PP train step (world 2)", steps,
+                                PP_TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = torch.load(tmp / "pp_train_ref.pt", mmap=True)
+    diffs = torch.cat([(p.detach().cpu() - want[n]).abs().reshape(-1)
+                       for n, p in state.params.items()])
+    out = {"losses": losses, "ms": ms, "launches": launches, "peak_gb": peak,
+           "max_abs": diffs.max().item(),
+           "within": (diffs <= DP_PARAM_ATOL).float().mean().item(),
+           "blocks": sorted({int(n.split(".")[2]) for n in state.params
+                             if ".blocks." in n})}
+    del rank_model, step, state, want, diffs
+    torch.cuda.empty_cache()
+    rank_model, step, state = fresh(2)
+    for _ in range(4):
+        state, _ = step(state, *batch)
+    whole = {n: p.detach().clone() for n, p in state.params.items()}
+    rank_model, step, state = fresh(2)
+    for _ in range(2):
+        state, _ = step(state, *batch)
+    full = pp.gather_train_state(state, rank_model)
+    if dist.get_rank() == 0:
+        checkpoint.save_state(str(tmp / "pp_ckpt"), {"train": full})
+    dist.barrier()
+    rank_model, step, _ = fresh(2)
+    saved = checkpoint.restore_state(str(tmp / "pp_ckpt"), device="cuda")
+    state = train.load_train_state(rank_model, pp.local_train_state(
+        saved["train"], rank_model))
+    for _ in range(2):
+        state, _ = step(state, *batch)
+    out["resumed_bitwise"] = all(torch.equal(whole[n], p) for n, p in
+                                 state.params.items())
+    out["gathered"] = 0 if full is None else len(full.params)
+    return out
+
+
+def pp_tp_rank(torch, flat) -> dict:
+    """A rank's PP × TP at world 4: two stages of two model ranks
+    (`pp.make_pp_grid(2, 2)`), Uni3D-L fp32 at depth 2, the features of
+    `flat`, the launches and the rank's (stage, model rank)."""
+    from uni_adapter_torch.parallel import pp
+
+    cfg = tp_cfg("float32", depth=2)
+    grid = pp.make_pp_grid(2, 2)
+    counters = zeroed_counters()
+    _, encode = pp.make_pp_encode_fn(tp_model(torch, cfg), grid.stages,
+                                     "uni3d", tp_group=grid.model_group)
+    return {"pp_tp": tp_features(torch, encode, *flat),
+            "pp_tp_launches": {k: c.launches for k, c in counters.items()
+                               if c.launches},
+            "grid": (grid.stages.index, grid.model_rank)}
+
+
+def pp_rank(rank: int, world: int, tmp: str, port: int, mode: str) -> None:
+    """One rank of phase 14's worlds of 2 and 4, started by `run_pp_world`:
+    mode 'gloo', every rank on card 0 (the bootstrap picks gloo), or
+    'nccl', a card a rank; writes tmp/pp_rank{rank}_w{world}_{mode}.pt."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if mode == "gloo":
+        os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.cli.tta import set_numerics
+    from uni_adapter_torch.parallel import pp, trunk
+    from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+
+    boot = init_distributed_device("cuda")
+    set_numerics()
+    try:
+        inp = torch.load(Path(tmp) / "pp_inputs.pt", weights_only=False)
+        out = {"backend": boot["backend"]}
+        pcs, rgbs = inp["pcs"].cuda(), inp["rgbs"].cuda()
+        flat = (pcs[:TP_CLOUDS, 0], rgbs[:TP_CLOUDS, 0])
+        bank = inp["bank"].cuda()
+        if world == 4:
+            out.update(pp_tp_rank(torch, flat))
+            torch.save(out, Path(tmp) / f"pp_rank{rank}_w{world}_{mode}.pt")
+            return
+        for V in (1, 2):
+            cfg = pp_cfg(interleave=V)
+            model, encode = trunk.prepare_trunk_parallel(cfg, tp_model(torch,
+                                                                       cfg))
+            out[f"uni3d_v{V}"] = tp_features(torch, encode, *flat)
+            if V == 1:
+                scan_fn = engine.make_scan_fn(cfg, model, encode_fn=encode)
+                go = lambda: engine.run_stream_scan(  # noqa: E731
+                    cfg, model, bank, pcs, rgbs, inp["targets"].cuda(),
+                    seed=42, scan_fn=scan_fn)
+                ((state, outs), launches, _), _, peak = ep_peak(
+                    torch, lambda: traced_run(
+                        torch, f"the PP stream (world {world}, {mode})", go,
+                        PP_KERNELS))
+                out["stream"] = {"state": engine_tensors(state),
+                                 "final_logits": outs.final_logits.cpu(),
+                                 "acc1": engine.summarize(outs, 16)["acc1"],
+                                 "ms": list(scan_fn.step_ms),
+                                 "launches": launches, "peak_gb": peak,
+                                 "segments": ep_segments(scan_fn),
+                                 "bytes": pp_step_bytes(scan_fn),
+                                 "blocks": len(list(model.point_encoder
+                                                    .blocks))}
+                del scan_fn, state, outs
+            del model, encode
+            torch.cuda.empty_cache()
+            cfg = pp_cfg("float32", interleave=V)
+            model, encode = trunk.prepare_trunk_parallel(cfg, tp_model(torch,
+                                                                       cfg))
+            out[f"uni3d_fp32_v{V}"] = tp_features(torch, encode, *flat)
+            if V == 1:
+                _, outs = engine.run_stream_scan(
+                    cfg, model, bank, pcs[:TP_FP32_STEPS],
+                    rgbs[:TP_FP32_STEPS], inp["targets_fp32"].cuda(),
+                    seed=42, scan_fn=engine.make_scan_fn(cfg, model,
+                                                         encode_fn=encode))
+                out["trajectory"] = {
+                    "final_logits": outs.final_logits.cpu(),
+                    "acc1": engine.summarize(outs, TP_FP32_STEPS)["acc1"]}
+                out["fault_shift"] = pp_fault_shift(torch, encode, *flat)
+                del outs
+            del model, encode
+            torch.cuda.empty_cache()
+        for kind in ("openshape", "ulip"):
+            c = pp_cfg(kind=kind)
+            model, encode = trunk.prepare_trunk_parallel(
+                c, tp_model(torch, c, kind))
+            counters = zeroed_counters()
+            out[kind] = tp_features(torch, encode, *flat)
+            out[f"{kind}_launches"] = {k: n.launches
+                                       for k, n in counters.items()
+                                       if n.launches}
+            del model, encode
+            torch.cuda.empty_cache()
+        out["train"] = pp_train_rank(torch, inp, Path(tmp))
+        torch.save(out, Path(tmp) / f"pp_rank{rank}_w{world}_{mode}.pt")
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def run_pp_world(tmp: Path, world: int, mode: str = "gloo") -> list:
+    """Phase 14's world of `world` ranks (`pp_rank`): over gloo on card 0,
+    or over NCCL, a card a rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.start_processes(pp_rank, args=(world, str(tmp), free_port(), mode),
+                       nprocs=world, join=True, start_method="spawn")
+    print(f"pp world {world} ({mode}): all ranks done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(tmp / f"pp_rank{r}_w{world}_{mode}.pt",
+                       weights_only=False) for r in range(world)]
+
+
+def pp_train_reference(torch, inp: dict, tmp: Path) -> dict:
+    """One process's PP_TRAIN_STEPS train steps of Uni3D-L fp32 at full
+    width and depth on the batch of `dist_inputs` (`train.train_step`):
+    the losses, ms a step and peak GB; its parameters saved for the ranks
+    (tmp/pp_train_ref.pt)."""
+    from uni_adapter_torch import train
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.uni3d import create_uni3d
+
+    batch = [inp["batch"][k].cuda() for k in ("pc", "text_embed",
+                                               "image_embed", "mask")]
+    model = create_uni3d(ModelConfig(eva_depth=PRETRAIN_DEPTH,
+                                     compute_dtype="float32"), "cuda",
+                         torch.float32, seed=0, trainable=True)
+    tx = train.make_optimizer(lr=DP_LR, total_steps=4, warmup_steps=1)
+    state = train.init_train_state(model, tx)
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train.train_step(model, tx, state, *batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.save({n: p.detach().cpu() for n, p in state.params.items()},
+               tmp / "pp_train_ref.pt")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "peak_gb": peak}
+
+
+def run_pp(tmp: Path, card: str, refs=None, cli: bool = True) -> tuple:
+    """Phase 14: the pipeline-parallel trunk (`parallel/pp.py`).
+
+    (a) world 1 over NCCL in this process: Uni3D-L bf16 at full width and
+    depth, MODE-DOTA with residuals, 16 clouds, captured, through
+    `prepare_trunk_parallel`'s PP encoder (one stage holds the whole
+    trunk): state and outputs bitwise the plain scan's (`trunk_refs`);
+    traced: FPS, kNN and the block, no other kernel; then one process's
+    full-width train steps (`pp_train_reference`).  (b) world 2, two
+    processes sharing the card over gloo (`pp_rank`): Uni3D-L's bf16 and
+    fp32 features of TP_CLOUDS clouds in one microbatch, GPipe and
+    interleaved (V = 2), bitwise one process's; the captured bf16 stream
+    bitwise the plain scan's, traced (rows 1, 2 and 3 on each rank: 12
+    blocks a rank), with its ms a step, segments a step, bytes shifted
+    and broadcast a step and peak GB a rank; the fp32 trajectory within
+    TP_LOGITS, acc@1 equal; the planted fault outside TP_COS_F32;
+    OpenShape-G's and ULIP-2's features bitwise; pretraining at full
+    width against one process and the depth-2 resume bitwise
+    (`pp_train_rank`).  (c) world 4 over gloo: PP × TP within TP_COS_F32
+    of one process (`pp_tp_rank`, in phase 13's world of 4 where it ran,
+    else in a world of its own).  (d) the CLI and the HTTP server at world 2
+    (`run_tp_cli`; with `cli` False the caller runs it, beside phase 13's).
+    With two cards or more (b) runs again over
+    NCCL, a card a rank; with four, (c) too.  Returns (the world-1 run's
+    launches, summary)."""
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.parallel import trunk
+
+    t_phase = time.perf_counter()
+    times, problems, summary = {}, [], {"ms_a_step": {}}
+
+    def bad(msg: str) -> None:
+        print(f"pp check failed: {msg}")
+        problems.append(msg)
+
+    refs = refs or trunk_refs(torch)
+    inp, ref, want = dict(refs["inp"]), refs["ref"], refs["want"]
+    summary["ms_a_step"].update(refs["ms"])
+    pcs, rgbs = inp["pcs"].cuda(), inp["rgbs"].cuda()
+    bank = inp["bank"].cuda()
+
+    # (a) world 1 over NCCL, and one process's train steps
+    t0 = time.perf_counter()
+    cfg = pp_cfg()
+    model = tp_model(torch, cfg)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        rank_model, encode = trunk.prepare_trunk_parallel(cfg, model)
+        scan_fn = engine.make_scan_fn(cfg, rank_model, encode_fn=encode)
+        (state, outs), launches, _ = traced_run(
+            torch, "the PP stream (world 1, NCCL)",
+            lambda: engine.run_stream_scan(
+                cfg, rank_model, bank, pcs, rgbs, inp["targets"].cuda(),
+                seed=42, scan_fn=scan_fn), PP_KERNELS)
+    finally:
+        dist.destroy_process_group()
+    got = engine_tensors(state)
+    same = all(torch.equal(got[k], want[0][k]) for k in want[0]) and \
+        torch.equal(outs.final_logits.cpu(), want[1])
+    if not same:
+        bad("pp world 1: the state or the logits differ from the plain scan")
+    summary["ms_a_step"]["world1_bf16"] = statistics.median(
+        scan_fn.step_ms[1:])
+    print(f"pp world 1 (NCCL), Uni3D-L bf16, MODE-DOTA with residuals, 16 "
+          f"clouds captured: state and logits bitwise equal to the plain "
+          f"scan's: {same}; launches {launches}")
+    del model, rank_model, encode, scan_fn, state, outs
+    torch.cuda.empty_cache()
+    inp["batch"] = dist_inputs(torch)["batch"]
+    train_ref = pp_train_reference(torch, inp, tmp)
+    times["a"] = time.perf_counter() - t0
+
+    # (b) world 2 over gloo
+    t0 = time.perf_counter()
+    torch.save({k: (v.cpu() if hasattr(v, "cpu") else v)
+                for k, v in inp.items()}, tmp / "pp_inputs.pt")
+
+    def check_world2(ranks: list, tag: str) -> dict:
+        res = {}
+        for r, out in enumerate(ranks):
+            want_backend = "nccl" if "nccl" in tag else "gloo"
+            if out["backend"] != want_backend:
+                bad(f"pp world 2{tag}: rank {r} runs {out['backend']}")
+            pairs = {f"uni3d_v{V}": "uni3d" for V in (1, 2)}
+            pairs.update({f"uni3d_fp32_v{V}": "uni3d_fp32" for V in (1, 2)})
+            pairs.update(openshape="openshape", ulip="ulip")
+            unequal = [k for k, w in pairs.items()
+                       if not torch.equal(out[k], ref[w])]
+            if unequal:
+                bad(f"pp world 2{tag} rank {r}: features not bitwise one "
+                    f"process's: {unequal}")
+            fault = tp_min_cos(out["fault_shift"], ref["uni3d_fp32"])
+            if fault >= TP_COS_F32:
+                bad(f"pp world 2{tag} rank {r}: the planted fault passes "
+                    f"(least cosine {fault:.6f})")
+            tr = out["trajectory"]
+            d = float((tr["final_logits"] - ref["trajectory"][0]).abs().max())
+            if not torch.allclose(tr["final_logits"], ref["trajectory"][0],
+                                  rtol=TP_LOGITS, atol=TP_LOGITS) or \
+                    tr["acc1"] != ref["trajectory"][1]:
+                bad(f"pp world 2{tag} rank {r}: fp32 logits max |Δ| {d:.3g}"
+                    f", acc@1 {tr['acc1']} against {ref['trajectory'][1]}")
+            st = out["stream"]
+            same = all(torch.equal(st["state"][k], want[0][k])
+                       for k in want[0]) and \
+                torch.equal(st["final_logits"], want[1])
+            if not same or st["blocks"] != 12:
+                bad(f"pp world 2{tag} rank {r}: the captured stream is not "
+                    f"bitwise the plain scan's ({same}) or the rank holds "
+                    f"{st['blocks']} blocks")
+            for kind in ("openshape", "ulip"):
+                if not out[f"{kind}_launches"]:
+                    bad(f"pp world 2{tag} rank {r}: {kind} launched nothing")
+            tr_ = out["train"]
+            loss_ok = all(abs(a - b) <= DP_LOSS_RTOL * abs(b) for a, b in
+                          zip(tr_["losses"], train_ref["losses"]))
+            if not loss_ok or tr_["within"] < 0.99 or \
+                    not tr_["resumed_bitwise"]:
+                bad(f"pp world 2{tag} rank {r}: train losses "
+                    f"{tr_['losses']} against {train_ref['losses']}, "
+                    f"{tr_['within']:.4f} of the parameters within "
+                    f"{DP_PARAM_ATOL}, resumed bitwise "
+                    f"{tr_['resumed_bitwise']}")
+            print(f"pp world 2{tag} rank {r}: features bitwise one process's "
+                  f"(bf16 and fp32, GPipe and V = 2, OpenShape-G, ULIP-2): "
+                  f"{not unequal}; planted fault least cosine {fault:.4f}; "
+                  f"fp32 trajectory logits max |Δ| {d:.3g}, acc@1 "
+                  f"{tr['acc1']}; bf16 stream bitwise the plain scan's "
+                  f"{same}, {st['blocks']} blocks, launches "
+                  f"{st['launches']}, segments a step {st['segments']}, "
+                  f"bytes a step {st['bytes']}, peak {st['peak_gb']:.2f} GB "
+                  f"(one process {refs['peak_gb']:.2f} GB); OpenShape-G "
+                  f"launches {out['openshape_launches']}, ULIP-2 "
+                  f"{out['ulip_launches']}; train (blocks {tr_['blocks'][0]}"
+                  f"-{tr_['blocks'][-1]}): losses {tr_['losses']} (one "
+                  f"process {train_ref['losses']}), {tr_['within']:.4f} of "
+                  f"the parameters within {DP_PARAM_ATOL} (max |Δ| "
+                  f"{tr_['max_abs']:.3g}), ms a step {tr_['ms']} (one "
+                  f"process {train_ref['ms']}), peak {tr_['peak_gb']:.2f} GB "
+                  f"(one process {train_ref['peak_gb']:.2f} GB), launches "
+                  f"{tr_['launches']}, depth-2 resume bitwise "
+                  f"{tr_['resumed_bitwise']}")
+            res[f"rank{r}"] = {"segments": st["segments"],
+                               "bytes": st["bytes"], "peak_gb": st["peak_gb"],
+                               "launches": st["launches"],
+                               "fault_cos": fault, "logits_max_abs": d,
+                               "train": {k: tr_[k] for k in (
+                                   "losses", "ms", "peak_gb", "max_abs",
+                                   "within", "launches")}}
+        summary["ms_a_step"][f"world2_bf16{tag}"] = statistics.median(
+            ranks[0]["stream"]["ms"][1:])
+        return res
+
+    summary["world2"] = check_world2(run_pp_world(tmp, 2), "")
+    summary["one_process"] = {"peak_gb": refs["peak_gb"], "train": train_ref}
+    times["b"] = time.perf_counter() - t0
+
+    # (c) world 4 over gloo: PP × TP
+    t0 = time.perf_counter()
+
+    def check_world4(ranks: list, tag: str) -> None:
+        for r, out in enumerate(ranks):
+            c = tp_min_cos(out["pp_tp"], ref["depth2_fp32"])
+            if c < TP_COS_F32 or out["grid"] != (r // 2, r % 2):
+                bad(f"pp × tp world 4{tag} rank {r}: least cosine {c:.6f}, "
+                    f"grid {out['grid']}")
+            print(f"pp × tp world 4{tag} (stages 2 × model 2) rank {r}: "
+                  f"least cosine to one process {c:.7f}; launches "
+                  f"{out['pp_tp_launches']}")
+
+    check_world4(refs.get("tp_world4") or run_pp_world(tmp, 4), "")
+    times["c"] = time.perf_counter() - t0
+
+    # (d) the CLI and the HTTP server at world 2 (with `cli`; else the
+    # caller runs them beside phase 13's)
+    if cli:
+        t0 = time.perf_counter()
+        summary["cli"] = run_tp_cli(tmp, torch, ("pp",))["pp"]
+        times["d"] = time.perf_counter() - t0
+
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        summary["world2_nccl"] = check_world2(run_pp_world(tmp, 2, "nccl"),
+                                              " (nccl)")
+        if torch.cuda.device_count() >= 4:
+            check_world4(refs.get("tp_world4_nccl")
+                         or run_pp_world(tmp, 4, "nccl"), " (nccl)")
+        times["nccl"] = time.perf_counter() - t0
+    else:
+        print("pp worlds over NCCL: not run, this machine has one card (the "
+              "ranks shared it over gloo)")
+    summary["seconds"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = times
+    print(f"pp ms a step ({card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in summary["ms_a_step"].items()))
+    print(f"phase pp: {summary['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in times.items()) + ")")
+    if problems:
+        fail(f"phase pp: {len(problems)} checks failed: "
+             + "; ".join(problems))
+    return launches, summary
+
+
+_T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Print the seconds since the script started, after `what`."""
+    print(f"[{time.perf_counter() - _T_START:.1f} s] {what} done",
+          flush=True)
 
 
 def main() -> None:
@@ -7702,6 +8301,9 @@ def main() -> None:
     ap.add_argument("--tp-only", action="store_true",
                     help="build the kernels and run only phase 13, the "
                          "tensor-parallel trunk")
+    ap.add_argument("--pp-only", action="store_true",
+                    help="build the kernels and run only phase 14, the "
+                         "pipeline-parallel trunk")
     args = ap.parse_args()
     dist_only = args.dist_only
     t_start = time.perf_counter()
@@ -7730,6 +8332,17 @@ def main() -> None:
     from uni_adapter_torch.cli.tta import set_numerics
 
     set_numerics()
+    if args.pp_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            pp_launches, pp_run = run_pp(Path(tmp), card)
+        print(f"chip_smoke --pp-only total: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"pp": pp_run, "launches": {"pp_world1":
+                                                     pp_launches}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if args.tp_only:
         with tempfile.TemporaryDirectory() as tmp:
             tp_launches, tp_run = run_tp(Path(tmp), card)
@@ -7760,15 +8373,20 @@ def main() -> None:
             dp_launches, dp_run = run_dp_pretraining(Path(tmp), card, inputs,
                                                      dp_ranks)
             ep_launches, ep_run = run_ep(Path(tmp), card)
-            tp_launches, tp_run = run_tp(Path(tmp), card)
+            refs = trunk_refs(torch)
+            tp_launches, tp_run = run_tp(Path(tmp), card, refs, cli=False)
+            pp_launches, pp_run = run_pp(Path(tmp), card, refs, cli=False)
+            clis = run_tp_cli(Path(tmp), torch, ("tp", "pp"))
+            tp_run["cli"], pp_run["cli"] = clis["tp"], clis["pp"]
         print(f"chip_smoke --dist-only total: "
               f"{time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"dist_streams": dist_run, "dp_pretraining": dp_run,
-                          "ep": ep_run, "tp": tp_run,
+                          "ep": ep_run, "tp": tp_run, "pp": pp_run,
                           "launches": {"dist_psum_world1": launches,
                                        "dp_pretrain_world1": dp_launches,
                                        "ep_world1": ep_launches,
-                                       "tp_world1": tp_launches}}))
+                                       "tp_world1": tp_launches,
+                                       "pp_world1": pp_launches}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -7789,6 +8407,7 @@ def main() -> None:
     kernels.append(check_block_backward(torch, gen))
     kernels.append(check_attention_f32_tc(torch, gen))
     check_f32_routes(torch, gen)
+    stamp("the kernels against their plain versions")
     block_errs = check_block_shapes(torch, gen)
     head_shards = check_block_head_shards(torch, gen)
     for k in kernels:
@@ -7802,6 +8421,7 @@ def main() -> None:
                 rec["max_abs_err"] for rec in shards.values()))
     check_float16_raises(torch)
     check_sweep_batch(torch, gen, kernels)
+    stamp("the head shards, float16 and the sweep batch")
     for k in kernels:
         dev = ("" if k.get("device_ms") is None
                else f", device {k['device_ms']:.4f} ms")
@@ -7815,15 +8435,18 @@ def main() -> None:
     by_path, batch1_ms, sweeps = {}, {}, {}
     by_path["openshape_rest"] = check_openshape_rest(torch, gen)
     by_path["pointnet"] = check_pointnet(torch, gen)
+    stamp("features, OpenShape's rest, PointNet++")
     with tempfile.TemporaryDirectory() as tmp:
         for kind in PATHS:
             by_path[kind], batch1_ms[kind] = run_main_path(Path(tmp), kind)
         check_float16_cli(Path(tmp))
         by_path["uni3d_batch3_eager"] = run_short_last_batch(Path(tmp))
         by_path["uni3d_dota_profiled"] = run_profile_dir(Path(tmp))
+        stamp("the main paths")
         for name, (_, path, extra, _) in SWEEPS.items():
             by_path[f"sweep_{name}"], sweeps[name] = run_sweep(
                 Path(tmp), name, None if extra else batch1_ms[path], card)
+        stamp("the sweeps")
         check_streams_equal_sequential(torch)
         check_cache_streams_equal_sequential(torch)
         scan_ms = check_scan(torch)
@@ -7831,6 +8454,7 @@ def main() -> None:
         check_cache_card_vs_cpu(torch)
         dota_update_ms = check_variants_card_vs_cpu(torch)
         tier_ms = check_residual_tiers(torch, gen)
+        stamp("streams, scans, cache and variants on the card and the CPU")
         by_path["continual_uni3d"] = run_continual(Path(tmp))
         for path in ("uni3d_dota", "uni3d_gmm", "uni3d_adaptive"):
             by_path[f"continual_{path}"] = run_continual(Path(tmp), 2, path)
@@ -7838,25 +8462,38 @@ def main() -> None:
             by_path[f"extract_{kind}"] = run_extraction(Path(tmp), kind)
         for kind in EXTRACT_PATHS:
             by_path[f"extract_{kind}_fp32"] = run_extraction_fp32(kind)
+        stamp("continual and extraction")
         text_ms = check_text_tower(torch)
         load_s = check_loader(torch)
         by_path.update(run_loaded_path(Path(tmp)))
+        stamp("the text tower and the loader")
         check_serving_equals_sequential(torch)
         by_path["serve_uni3d"], serving = run_serving(Path(tmp), card)
         by_path["uni3d_int8"], int8_ms = check_quant(torch, Path(tmp),
                                                      batch1_ms["uni3d"])
+        stamp("serving and int8")
         check_grad_guard(torch)
         by_path["pretrain_uni3d"], pretraining = run_pretraining(Path(tmp),
                                                                  card)
         by_path["dvae"], dvae_run = run_dvae(torch)
+        stamp("pretraining and the dVAE")
         inputs = dist_inputs(torch)
         by_path["dist_psum_world1"], dist_run, dp_ranks = run_dist_streams(
             Path(tmp), card, inputs)
         by_path["dp_pretrain_world1"], dp_run = run_dp_pretraining(
             Path(tmp), card, inputs, dp_ranks)
         by_path["cross_class"], cross_run = run_cross_class(Path(tmp), card)
+        stamp("data parallelism and the cross-class analysis")
         by_path["ep_world1"], ep_run = run_ep(Path(tmp), card)
-        by_path["tp_world1"], tp_run = run_tp(Path(tmp), card)
+        refs = trunk_refs(torch)
+        by_path["tp_world1"], tp_run = run_tp(Path(tmp), card, refs,
+                                              cli=False)
+        by_path["pp_world1"], pp_run = run_pp(Path(tmp), card, refs,
+                                              cli=False)
+        del refs
+        clis = run_tp_cli(Path(tmp), torch, ("tp", "pp"))
+        tp_run["cli"], pp_run["cli"] = clis["tp"], clis["pp"]
+        stamp("EP, TP and PP")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -7867,7 +8504,7 @@ def main() -> None:
                       "serving": serving, "pretraining": pretraining,
                       "dvae": dvae_run, "dist_streams": dist_run,
                       "dp_pretraining": dp_run, "cross_class": cross_run,
-                      "ep": ep_run, "tp": tp_run,
+                      "ep": ep_run, "tp": tp_run, "pp": pp_run,
                       "uni3d_int8_ms": {"uni3d_int8": int8_ms,
                                         "uni3d": batch1_ms["uni3d"]}}))
     print(json.dumps({"kernels": kernels}))

@@ -86,18 +86,30 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--trunk-parallel", "pp"], "M16"),
+    (["--trunk-parallel", "pp"], None),
     (["--trunk-parallel", "sp"], "M16"),
 ])
 def test_unported_paths_raise_and_name_their_roadmap_item(flags, item,
-                                                          stream_dir):
-    """What waits for ROADMAP M16 part 2 raises by name: the pipeline and
-    sequence-parallel trunks.  (`--dist-mode sharded` and `psum` run:
-    tests/test_torch_parallel.py; `ep`: test_torch_ep.py and below;
-    `--trunk-parallel tp`: test_torch_tp_cli.py.)"""
+                                                          stream_dir,
+                                                          tmp_path):
+    """What waits for ROADMAP M16 part 2 raises by name: the
+    sequence-parallel trunk.  The pipeline-parallel trunk runs: in a world
+    of this process alone it is one stage, and results.json is the run's
+    without it (its multi-rank runs: test_torch_pp_cli.py).
+    (`--dist-mode sharded` and `psum` run: tests/test_torch_parallel.py;
+    `ep`: test_torch_ep.py and below; `--trunk-parallel tp`:
+    test_torch_tp_cli.py.)"""
+    argv = ["--device", "cpu", "--root", str(stream_dir), *SMALL_ARGS,
+            "--corruption", "uniform", "--name", "run"]
+    if item is None:
+        got = tta.main([*argv, *flags, "--output-dir", str(tmp_path / "pp")])
+        want = tta.main([*argv, "--output-dir", str(tmp_path / "plain")])
+        assert got["acc1"] == want["acc1"]
+        log = (tmp_path / "pp" / "run" / "out.log").read_text()
+        assert "trunk parallelism: pipeline, 1 stages x 1 chunks/stage" in log
+        return
     with pytest.raises(NotImplementedError, match=item):
-        tta.main(["--device", "cpu", "--root", str(stream_dir), *SMALL_ARGS,
-                  *flags])
+        tta.main([*argv, *flags])
 
 
 @pytest.mark.parametrize("flags", [

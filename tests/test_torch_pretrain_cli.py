@@ -1,8 +1,8 @@
 """The port's pretraining CLI (`cli/pretrain.py`) on the CPU at the demo
 size: its synthetic corpus bitwise the JAX CLI's, a resumed run (sync and
 `--ckpt-async`) bitwise equal to an uninterrupted one, every refusal of
-the resume guard word for word the JAX CLI's, and the paths that wait
-for ROADMAP M16 part 2 raising."""
+the resume guard word for word the JAX CLI's, the sequence-parallel path that waits
+for ROADMAP M16 part 2 raising, and `--parallel pp` in a world of one."""
 import os
 from pathlib import Path
 
@@ -130,25 +130,70 @@ def test_resume_guard_refuses_as_the_jax_cli(monkeypatch, tmp_path, case):
     assert got == want
 
 
+@pytest.fixture(scope="module")
+def plain_run(tmp_path_factory):
+    """Two steps of the plain one-process run (`--parallel dp`)."""
+    return pretrain.main(COMMON + ["--out", str(tmp_path_factory.mktemp(
+        "plain")), "--steps", "2"])
+
+
 @pytest.mark.parametrize("flags", [
     ["--parallel", "pp"], ["--parallel", "sp"], ["--pp-stages", "2"],
     ["--pp-microbatches", "4"], ["--pp-interleave", "2"],
     ["--pp-tp-size", "2"]])
-def test_parallel_modes_wait_for_m16(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="M16"):
-        pretrain.main(COMMON + flags + ["--out", str(tmp_path)])
+def test_parallel_modes_wait_for_m16(tmp_path, flags, plain_run):
+    """`--parallel sp` waits for ROADMAP M16 and raises by name.  The
+    pipeline runs (parallel/pp.py): in a world of one process `--parallel
+    pp` is one stage, its two steps equal the plain run's within 1e-6 (the
+    clipping norm summed in another order); the `--pp-*` flags without
+    it are ignored, as the JAX CLI ignores them (the run bitwise the
+    plain one).  Its multi-rank runs: tests/test_torch_pp_cli.py."""
+    if "sp" in flags:
+        with pytest.raises(NotImplementedError, match="M16"):
+            pretrain.main(COMMON + flags + ["--out", str(tmp_path)])
+        return
+    state = pretrain.main(COMMON + flags + ["--out", str(tmp_path),
+                                            "--steps", "2"])
+    assert state.step == plain_run.step == 2
+    for name, p in plain_run.params.items():
+        if "pp" in flags:
+            torch.testing.assert_close(state.params[name], p, rtol=0,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(state.params[name], p), name
 
 
 def test_multi_process_launch_waits_for_m16(tmp_path, monkeypatch):
     """A multi-process launch runs `--parallel dp` (two ranks:
-    tests/test_torch_dp_train.py); under one, the pipeline and sequence
-    modes still raise, naming M16, before any process group is set up."""
+    tests/test_torch_dp_train.py) and `--parallel pp`
+    (tests/test_torch_pp_cli.py); under one, the sequence mode still
+    raises, naming M16, and a pipeline whose stages × tp size is not the
+    world raises the JAX CLI's texts (the launch's size in the device
+    count's place), all before any process group is set up."""
+    import re
+
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")
-    for flags in (["--parallel", "pp"], ["--parallel", "sp"],
-                  ["--pp-stages", "2"]):
-        with pytest.raises(NotImplementedError, match="M16"):
-            pretrain.main(COMMON + flags + ["--out", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="M16"):
+        pretrain.main(COMMON + ["--parallel", "sp", "--out", str(tmp_path)])
+    for flags, jflags in (
+            (["--pp-stages", "4"], ["--pp-stages", "16"]),
+            (["--pp-tp-size", "3"], ["--pp-tp-size", "3"])):
+        with pytest.raises(ValueError) as got:
+            pretrain.main(COMMON + ["--parallel", "pp", *flags, "--out",
+                                    str(tmp_path / "p")])
+        monkeypatch.delenv("WORLD_SIZE")
+        with pytest.raises(ValueError) as want:
+            jax_cli.main([a for a in COMMON if a != "cpu" and a != "--device"]
+                         + ["--device", "cpu", "--parallel", "pp", *jflags,
+                            "--out", str(tmp_path / "j")])
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        digits = lambda t: re.sub(r"\d+", "N", str(t.value))  # noqa: E731
+        assert digits(got) == digits(want)
+    with pytest.raises(ValueError, match="needs a launch of exactly 1 "
+                       "processes, this one has 2"):
+        pretrain.main(COMMON + ["--parallel", "pp", "--pp-stages", "1",
+                                "--out", str(tmp_path / "q")])
     assert not torch.distributed.is_initialized()
 
 

@@ -212,8 +212,18 @@ def test_trunk_parallel_flags_validate_as_jax(flags):
 
 @pytest.mark.parametrize("mode", ["pp", "sp"])
 def test_pipeline_and_sequence_trunks_still_refused(mode):
-    """`--trunk-parallel pp|sp` parse and are refused by name."""
+    """`--trunk-parallel sp` parses and is refused by name; `pp` parses and
+    runs (tests/test_torch_pp_cli.py), its stage count and interleave as
+    the JAX parser reads them."""
     cfg = pcfg.parse_args(["--trunk-parallel", mode])
+    if mode == "pp":
+        assert pcfg.unported_paths(cfg) == []
+        flags = ["--trunk-parallel", "pp", "--trunk-stages", "2",
+                 "--pp-interleave", "2"]
+        got, want = pcfg.parse_args(flags).run, jcfg.parse_args(flags).run
+        assert (got.trunk_stages, got.pp_interleave) == \
+            (want.trunk_stages, want.pp_interleave) == (2, 2)
+        return
     assert pcfg.unported_paths(cfg) == [f"--trunk-parallel {mode} "
                                         "(ROADMAP M16)"]
     assert pcfg.unported_paths(dataclasses.replace(

@@ -16,6 +16,7 @@ does its JAX side while the ranks run.
 """
 from __future__ import annotations
 
+import functools
 import os
 import subprocess
 import sys
@@ -676,10 +677,281 @@ def tp_cli_program(inputs: dict, rank: int) -> dict:
                       "server": server, "indivisible": indivisible})
 
 
+def _logged(forward, *inputs) -> tuple:
+    """A parts forward's output and its requests as (kind, bytes sent,
+    shape sent) — a shift's sent buffer, a sum's or broadcast's buffer —
+    each issued over its own group."""
+    from uni_adapter_torch.parallel import collectives
+
+    parts, log = forward(*inputs), []
+    try:
+        while True:
+            req = next(parts)
+            buf = req.buf
+            log.append((req.kind,
+                        0 if buf is None else buf.numel() * buf.element_size(),
+                        None if buf is None else tuple(buf.shape)))
+            collectives.issue(req, None)
+    except StopIteration as done:
+        return done.value, log
+
+
+def build_pp_model(kind: str, dims: dict, dtype: str, state_dict):
+    """A frozen port backbone of the PP tests on the CPU: `kind` uni3d,
+    ulip or openshape at `dims`, its weights `state_dict` (None: random
+    from seed 0) stored as `finish_model` stores them in `dtype`."""
+    import torch
+
+    from uni_adapter_torch.models import pointbert, ppta, uni3d
+    from uni_adapter_torch.models.common import finish_model
+
+    dt = getattr(torch, dtype)
+    if kind == "uni3d":
+        m = uni3d.Uni3D(**dims, dtype=dt)
+    elif kind == "ulip":
+        m = pointbert.ULIP(**dims, dtype=dt)
+    else:
+        m = ppta.Projected(ppta.PPTAPreset(**dims["preset"]), dims["out"],
+                           dtype=dt, rel_pe=dims["rel_pe"])
+    return finish_model(m, "cpu", dt, 0, state_dict, lambda g: None,
+                        keep_fp32=(m.proj,) if kind == "openshape" else ())
+
+
+def pp_program(inputs: dict, rank: int) -> dict:
+    """The pipeline-parallel trunk (tests/test_torch_pp.py and
+    tests/test_torch_pp_interleave.py): the cases of `inputs["cases"]`
+    whose world is this one, each on a (stage, model, data) grid of the
+    world (`pp.make_pp_grid`): forwards with their requests, gradients,
+    train steps, MODE-DOTA trajectories, the stages' blocks, errors and
+    the toy executors."""
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine, train
+    from uni_adapter_torch.parallel import pp
+
+    world = dist.get_world_size()
+    t = torch.from_numpy
+
+    def build(name):
+        return build_pp_model(*inputs["models"][name])
+
+    def grid_of(c):
+        return pp.make_pp_grid(c["S"], c.get("tp", 1), c.get("dp", 1))
+
+    def forward_of(c, model, grid):
+        return pp.make_pp_forward(
+            model, grid.stages, c.get("n_micro"), data_group=grid.data_group,
+            tp_group=grid.model_group, interleave=c.get("V", 1))
+
+    def forward(c):
+        grid = grid_of(c)
+        model = build(c["model"])
+        _, fwd = forward_of(c, model, grid)
+        with torch.no_grad():
+            feat, log = _logged(fwd, *(t(x) for x in c["inputs"]))
+            plain = model(*(t(x) for x in c["inputs"])) if c.get(
+                "plain") else None
+        return {"feat": feat.float().numpy(), "log": log,
+                "plain": None if plain is None else plain.float().numpy()}
+
+    def grad(c):
+        grid = grid_of(c)
+        model = build(c["model"]).requires_grad_(True)
+        rank_model, fwd = forward_of(c, model, grid)
+        with torch.enable_grad():
+            out = engine.drive(fwd(*(t(x) for x in c["inputs"])), None)
+            names = [n for n, _ in rank_model.named_parameters()]
+            gs = torch.autograd.grad((out * t(c["ct"])).sum(),
+                                     list(rank_model.parameters()),
+                                     allow_unused=True)
+        return {"grads": {n: None if g is None else g.numpy()
+                          for n, g in zip(names, gs)}}
+
+    def train_steps(c):
+        grid = grid_of(c)
+        model = build(c["model"]).requires_grad_(True)
+        tx = train.make_optimizer(**c["optimizer"])
+        rank_model, step = pp.make_pp_train_step(
+            model, tx, grid.stages, c.get("n_micro"),
+            tp_group=grid.model_group, data_group=grid.data_group,
+            interleave=c.get("V", 1))
+        state = train.init_train_state(rank_model, tx)
+        metrics = []
+        for b in c["batches"]:
+            state, m = step(state, *(t(x) for x in b))
+            metrics.append({k: v.item() for k, v in m.items()})
+        full = pp.gather_train_state(state, rank_model, grid.model_group)
+        return {"metrics": metrics,
+                "params": {n: p.detach().numpy().copy()
+                           for n, p in state.params.items()},
+                "full": None if full is None else {
+                    n: p.numpy() for n, p in full.params.items()},
+                "logit_scale": state.logit_scale.item()}
+
+    def trajectory(c):
+        stages = pp.make_stages(c["S"])
+        model = build(c["model"])
+        rank_model, encode = pp.make_pp_encode_fn(
+            model, stages, c["kind"], interleave=c.get("V", 1))
+        scan_fn = _fed(engine.make_scan_fn(c["cfg"], rank_model,
+                                           encode_fn=encode), c["noise"])
+        _, outs = engine.run_stream_scan(c["cfg"], rank_model, t(c["text"]),
+                                         *c["stream"], seed=42,
+                                         scan_fn=scan_fn)
+        out = {"final_logits": outs.final_logits.numpy(),
+               "correct": outs.correct.numpy()}
+        if c.get("replicated"):         # the same run in this one process
+            _, rep = engine.run_stream_scan(
+                c["cfg"], model, t(c["text"]), *c["stream"], seed=42,
+                scan_fn=_fed(engine.make_scan_fn(c["cfg"], model),
+                             c["noise"]))
+            out.update(replicated=rep.final_logits.numpy(),
+                       replicated_correct=rep.correct.numpy())
+        return out
+
+    def blocks(c):
+        grid = grid_of(c)
+        rank_model = pp.shard_model_pp(build(c["model"]), grid.stages,
+                                       c.get("V", 1))
+        return {"params": {n: p.numpy().copy() for n, p in
+                           rank_model.named_parameters()},
+                "decay": train.decay_mask(rank_model),
+                "stage": grid.stages.index}
+
+    def error(c):
+        try:
+            grid = grid_of(c)
+            _, fwd = forward_of(c, build(c["model"]), grid)
+            with torch.no_grad():
+                engine.drive(fwd(*(t(x) for x in c["inputs"])), None)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def toy(c):
+        S, V, M, Lc = c["S"], c["V"], c["M"], c["Lc"]
+        W = t(c["W"])
+        stages = pp.make_stages(S)
+        chunks = []
+        for blocks_ in pp.stage_blocks(S * V * Lc, S, stages.index, V):
+            def chunk(x, e, ws=[W[i] for i in blocks_]):
+                for w in ws:
+                    x = x @ w + e
+                return x
+                yield
+            chunks.append(chunk)
+        xs, ex = t(c["xs"]), t(c["ex"])
+        if V > 1:
+            from uni_adapter_torch.parallel.pp_interleave import (
+                build_interleaved_schedule, pipeline_interleaved)
+            gen = pipeline_interleaved(
+                chunks, xs, build_interleaved_schedule(S, V, M),
+                stages.ring, ex)
+        else:
+            gen = pp._pipeline(chunks, xs, stages.ring, ex)
+        outs, log = _logged(lambda: gen)
+        out = pp._stacked(outs, xs)
+        if stages.group is not None:
+            dist.broadcast(out, src=S - 1, group=stages.group)
+        return {"out": out.numpy(), "n_shifts": sum(k == "shift"
+                                                    for k, *_ in log)}
+
+    def ring(c):
+        """`ring_shift` and `broadcast_from` on this rank's tensor r·1, with
+        the cotangent (r + 1)·1: their values and gradients."""
+        from uni_adapter_torch.parallel import collectives
+
+        r = dist.get_rank()
+        x = torch.full((2, 3), float(r), requires_grad=True)
+        out = {}
+        for name, y in (("shift", collectives.ring_shift(x, dist.group.WORLD)),
+                        ("broadcast", collectives.broadcast_from(
+                            x, c["src"], dist.group.WORLD))):
+            g, = torch.autograd.grad((y * (r + 1)).sum(), x)
+            out[name] = (y.detach().numpy(), g.numpy())
+        return out
+
+    kinds = {"forward": forward, "grad": grad, "train": train_steps,
+             "trajectory": trajectory, "blocks": blocks, "error": error,
+             "toy": toy, "ring": ring}
+    return run_cases({c["name"]: functools.partial(kinds[c["type"]], c)
+                      for c in inputs["cases"] if c["world"] == world})
+
+
+def pp_cli_program(inputs: dict, rank: int) -> dict:
+    """`--trunk-parallel pp` through the TTA CLI, `TTAServer(encode_fn=...)`
+    with the PP encoder, the trunk's errors, and `--parallel pp` through
+    the pretraining CLI, uninterrupted and resumed (tests/
+    test_torch_pp_cli.py).  Rank 0 serves; rank 1 follows."""
+    import torch
+
+    from uni_adapter_torch import serve
+    from uni_adapter_torch.cli import pretrain, tta
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import pp, trunk
+
+    models = {name: create_uni3d(mcfg, "cpu", state_dict=sd)
+              for name, (mcfg, sd) in inputs["models"].items()}
+
+    def cli(name):
+        def case():
+            argv, model = inputs["cli"][name]
+            return _patched_cli(tta, models[model],
+                                inputs["cli_corruptions"])(argv)
+        return case
+
+    def server():
+        rank_model, encode = pp.make_pp_encode_fn(
+            models["small"], pp.make_stages(), "uni3d")
+        srv = serve.TTAServer(inputs["cfg"], rank_model,
+                              torch.from_numpy(inputs["text"]),
+                              sizes=(1, 2), encode_fn=encode)
+        if not srv.primary:
+            serve.follow(srv)
+            return {"followed": True}
+        streams = inputs["streams"]
+        for cid in ("a", "b"):
+            srv.register(cid)
+        ticks = [srv.submit([(cid, streams[i, s], None)
+                             for i, cid in enumerate(("a", "b"))])
+                 for s in range(2)]
+        ticks.append(srv.submit([("a", streams[0, 2], None)]))
+        srv.stop()
+        return {"ticks": ticks}
+
+    def errors():
+        out = {}
+        for name, (cfg, model) in inputs["errors"].items():
+            try:
+                trunk.prepare_trunk_parallel(cfg, models[model])
+                out[name] = None
+            except ValueError as e:
+                out[name] = str(e)
+        return out
+
+    def pretrain_runs():
+        out = {}
+        for name, argv in inputs["pretrain"]:
+            state = pretrain.main(argv)
+            out[name] = {"step": state.step,
+                         "params": {n: p.detach().numpy().copy()
+                                    for n, p in state.params.items()},
+                         "mu": {n: m.numpy().copy() for n, m in
+                                state.opt_state.mu.items()},
+                         "logit_scale": state.logit_scale.item()}
+        return out
+
+    return run_cases({**{f"cli_{n}": cli(n) for n in inputs["cli"]},
+                      "server": server, "errors": errors,
+                      "pretrain": pretrain_runs})
+
+
 PROGRAMS = {"parallel": parallel_program, "dp_train": dp_train_program,
             "ep": ep_program, "ep_methods": ep_methods_program,
             "ep_serve": ep_serve_program, "tp": tp_program,
-            "tp_cli": tp_cli_program}
+            "tp_cli": tp_cli_program, "pp": pp_program,
+            "pp_cli": pp_cli_program}
 
 
 def main() -> None:

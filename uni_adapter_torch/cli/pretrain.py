@@ -12,7 +12,11 @@
     → train.train_step (fp32 Uni3D; on the card the EVA blocks' attention
       side through the hand-written kernels forward and backward), or
       under a multi-process launch train.make_dp_train_step (negatives
-      gathered over the ranks, gradients averaged)
+      gathered over the ranks, gradients averaged), or `--parallel pp`:
+      parallel/pp.make_pp_train_step (pipeline stages over the ranks,
+      each stage's blocks and AdamW moments on its rank, every rank
+      reading the whole batch; `--pp-tp-size K` shards each stage's
+      blocks over K ranks too, PP × TP)
     → checkpoint.save_state every --ckpt-every steps, stamped with the
       recipe; `--resume` continues the exact batch schedule and refuses a
       checkpoint of another recipe.
@@ -30,8 +34,19 @@ device (`parallel/bootstrap.py`: NCCL where each rank has a card of its
 own, gloo for CPU ranks and ranks that share a card); each rank reads
 only its rows of every global `--batch-size` batch, only rank 0 logs and
 writes checkpoints, and `--resume` restores on every rank (`--out` on a
-filesystem all ranks share).  `--parallel pp|sp` and their `--pp-*` flags
-wait for ROADMAP M16 part 2 and raise.
+filesystem all ranks share).
+
+`--parallel pp` needs a launch of exactly `--pp-stages` × `--pp-tp-size`
+processes (`--pp-stages` default: the world over the tp size), rank =
+stage·tp + model rank, one process a device where JAX takes the first
+devices of one process (a world of another size raises by name);
+`--pp-microbatches` (default: one a stage) splits the batch, and
+`--pp-interleave V` runs the interleaved schedule.  Its checkpoint is one
+process's whole state (rank 0 gathers the stages' blocks and moments),
+stamped with `pp_stages`, `pp_interleave` and `pp_tp_size`; `--resume`
+refuses another stage count or interleave, as the JAX CLI does, and
+re-shards onto another tp size.  `--parallel sp` waits for ROADMAP M16
+part 2 and raises.
 """
 from __future__ import annotations
 
@@ -69,19 +84,32 @@ _M16 = "(ROADMAP M16, parallelism)"
 
 def _refuse_unported(args) -> None:
     """What waits for M16 raises before anything runs."""
-    if args.parallel != "dp":
+    if args.parallel == "sp":
         raise NotImplementedError(
             f"--parallel {args.parallel} is not ported yet {_M16}; --parallel "
-            "dp runs data-parallel over the launched processes")
-    pp = {"--pp-microbatches": (args.pp_microbatches, None),
-          "--pp-stages": (args.pp_stages, None),
-          "--pp-interleave": (args.pp_interleave, 1),
-          "--pp-tp-size": (args.pp_tp_size, 1)}
-    given = [flag for flag, (now, default) in pp.items() if now != default]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: pipeline parallelism is not ported yet "
-            f"{_M16}")
+            "dp runs data-parallel over the launched processes, pp pipeline "
+            "stages over them")
+
+
+def _pp_layout(args, world_size: int) -> tuple:
+    """(stages, tp size) of `--parallel pp` over a launch of `world_size`
+    processes: the JAX CLI's checks, then the world must be exactly
+    stages × tp (one process a device; JAX takes the first devices)."""
+    tp = args.pp_tp_size
+    if tp < 1 or world_size % tp:
+        raise ValueError(f"--pp-tp-size {tp} must divide the device "
+                         f"count ({world_size})")
+    n_stages = (args.pp_stages if args.pp_stages is not None
+                else world_size // tp)
+    if not 1 <= n_stages * tp <= world_size:
+        raise ValueError(f"--pp-stages {n_stages} x --pp-tp-size {tp} "
+                         f"needs {n_stages * tp} devices, have {world_size}")
+    if n_stages * tp != world_size:
+        raise ValueError(
+            f"--parallel pp runs one process a device: --pp-stages "
+            f"{n_stages} x --pp-tp-size {tp} needs a launch of exactly "
+            f"{n_stages * tp} processes, this one has {world_size}")
+    return n_stages, tp
 
 
 def main(argv=None):
@@ -124,16 +152,28 @@ def main(argv=None):
                         choices=["dp", "pp", "sp"],
                         help="dp: data-parallel over the launched "
                              "processes (negatives gathered, gradients "
-                             "averaged; one process: the plain step).  pp "
-                             "and sp: not ported yet, ROADMAP M16")
+                             "averaged; one process: the plain step).  pp: "
+                             "pipeline stages over the launched processes "
+                             "(depth divisible by the stage count; every "
+                             "rank reads the whole batch).  sp: not ported "
+                             "yet, ROADMAP M16")
     parser.add_argument("--pp-microbatches", type=int, default=None,
-                        help="not ported yet (ROADMAP M16)")
+                        help="GPipe microbatch count (default: one per "
+                             "stage); the batch must divide by it")
     parser.add_argument("--pp-stages", type=int, default=None,
-                        help="not ported yet (ROADMAP M16)")
+                        help="pipeline stage count (default: the world "
+                             "over --pp-tp-size); the model depth must "
+                             "divide by it")
     parser.add_argument("--pp-interleave", type=int, default=1,
-                        help="not ported yet (ROADMAP M16)")
+                        help="virtual chunks per stage (interleaved "
+                             "schedule, parallel/pp_interleave.py): the "
+                             "fill/drain bubble shrinks ~V x; depth must "
+                             "divide by stages x V")
     parser.add_argument("--pp-tp-size", type=int, default=1,
-                        help="not ported yet (ROADMAP M16)")
+                        help="compose PP x TP: Megatron-shard each "
+                             "stage's block matrices over this many "
+                             "processes; heads and the SwiGLU hidden dim "
+                             "must divide by it")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (needs a GPU) or cpu")
     args = parser.parse_args(argv)
@@ -149,13 +189,19 @@ def main(argv=None):
                                                   global_batch)
     from uni_adapter_torch.models.uni3d import create_uni3d
     from uni_adapter_torch.parallel import collectives
-    from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+    from uni_adapter_torch.parallel import pp as ppar
+    from uni_adapter_torch.parallel.bootstrap import (init_distributed_device,
+                                                      world_info_from_env)
     from uni_adapter_torch.parallel.mesh import make_mesh
     from uni_adapter_torch.train import (init_train_state, load_train_state,
                                          make_dp_train_step, make_optimizer,
                                          train_step)
     from uni_adapter_torch.utils.logging import setup_logging
 
+    pipelined = args.parallel == "pp"
+    if pipelined:
+        # the launch's layout is checked before any process group exists
+        n_stages, tp_size = _pp_layout(args, world_info_from_env()[2])
     # before anything touches the device (one process: a no-op); without
     # it every process of a launch would stream the same rows
     boot = init_distributed_device(args.device)
@@ -196,8 +242,11 @@ def main(argv=None):
         if not primary:
             pc, tx, im = _synthetic_corpus(synth_root, dim=args.embed_dim)
     corpus = ShardedCorpus(pc, tx, im)
+    # PP: every rank reads the whole batch (JAX's PP batch replicates)
     loader = StreamingLoader(corpus, args.batch_size, seed=args.seed,
-                             prefetch=args.prefetch)
+                             prefetch=args.prefetch,
+                             **(dict(process_index=0, process_count=1)
+                                if pipelined else {}))
     logging.info("corpus: %d samples in %d shards; %d steps/epoch "
                  "(global batch %d, local %d)", len(corpus), len(corpus.pc),
                  loader.steps_per_epoch, args.batch_size,
@@ -212,6 +261,20 @@ def main(argv=None):
     tx_opt = make_optimizer(lr=args.lr, weight_decay=args.weight_decay,
                             total_steps=args.steps,
                             warmup_steps=args.warmup_steps)
+    tp_group = None
+    if pipelined:
+        # this rank's stage (and model shard); the whole model goes
+        grid = ppar.make_pp_grid(n_stages, tp_size, 1, world)
+        tp_group = grid.model_group
+        model, pp_step = ppar.make_pp_train_step(
+            model, tx_opt, grid.stages, n_micro=args.pp_microbatches,
+            tp_group=tp_group, interleave=args.pp_interleave)
+        logging.info("pipeline parallel: %d stages x %d chunks/stage x "
+                     "%d blocks/chunk, %d microbatches%s", n_stages,
+                     args.pp_interleave,
+                     args.depth // (n_stages * args.pp_interleave),
+                     args.pp_microbatches or n_stages,
+                     f", x {tp_size}-way tensor" if tp_size > 1 else "")
     state = init_train_state(model, tx_opt)
 
     ckpt_path = os.path.join(args.out, "ckpt")
@@ -236,6 +299,18 @@ def main(argv=None):
                   # re-stretches the cosine tail by documented design
                   ("lr", args.lr), ("weight_decay", args.weight_decay),
                   ("warmup_steps", args.warmup_steps)]
+        if pipelined:
+            checks.append(("pp_stages", n_stages))
+            checks.append(("pp_interleave", args.pp_interleave))
+            # tp resizing is layout-safe (the checkpoint holds one
+            # process's whole tree; each rank cuts its shards) but
+            # unstamped provenance is not — default 1 for pre-tp ones
+            if int(blob.get("pp_tp_size", 1)) != args.pp_tp_size:
+                logging.info("resuming a pp checkpoint trained at "
+                             "pp_tp_size=%d with --pp-tp-size %d (layout "
+                             "identical; re-sharding onto the new mesh)",
+                             int(blob.get("pp_tp_size", 1)),
+                             args.pp_tp_size)
         for key, now in checks:
             if key not in blob:
                 # a missing stamp means unknown provenance — exactly when
@@ -268,7 +343,10 @@ def main(argv=None):
                 "resuming across a mask change silently alters which "
                 "params decay — restart training or re-stamp the "
                 "checkpoint if its recipe is known")
-        state = load_train_state(model, blob["train"])
+        saved = blob["train"]
+        if pipelined:
+            saved = ppar.local_train_state(saved, model, tp_group)
+        state = load_train_state(model, saved)
         # the cursor is DERIVED from the checkpointed step — one atomic
         # artifact, nothing to desynchronize on a crash mid-save
         start_step = int(state.step)
@@ -290,6 +368,9 @@ def main(argv=None):
                 f"ranks disagree on the resume step ({steps.tolist()}): "
                 "--out must be a SHARED filesystem so every process sees "
                 "the rank-0 checkpoint")
+    if pipelined:
+        step_fn = pp_step
+    elif world.group is not None:
         step_fn = make_dp_train_step(model, tx_opt, world)
     else:
         def step_fn(state, pc, text_embed, image_embed, mask):
@@ -300,17 +381,25 @@ def main(argv=None):
     last_saved_step = [start_step - 1]
 
     def save(at_step: int):
-        if not primary:
-            return   # replicated state: one writer (shared-filesystem safe)
         if at_step == last_saved_step[0]:
             return   # final save already landed on a --ckpt-every boundary
         last_saved_step[0] = at_step
-        blob = {"train": state, "data_seed": args.seed,
+        train_state = state
+        if pipelined:
+            # one process's whole tree on rank 0 (every rank takes part)
+            train_state = ppar.gather_train_state(state, model, tp_group)
+        if not primary:
+            return   # replicated state: one writer (shared-filesystem safe)
+        blob = {"train": train_state, "data_seed": args.seed,
                 "global_batch": args.batch_size, "parallel": args.parallel,
                 "depth": args.depth, "wd_mask": "name",
                 "corpus_size": len(corpus),
                 "lr": args.lr, "weight_decay": args.weight_decay,
                 "warmup_steps": args.warmup_steps}
+        if pipelined:
+            blob["pp_stages"] = n_stages
+            blob["pp_interleave"] = args.pp_interleave
+            blob["pp_tp_size"] = args.pp_tp_size
         if snapshotter is not None:
             # at most one in-flight snapshot: wait for the previous first
             # so writes land in order and a slow disk backpressures

@@ -17,11 +17,12 @@ source of model and data flags; `--help` prints both.  Runs on the GPU
 unless `--device cpu` is passed (asked for `cuda` without one, it
 raises).  `--warmup` runs one step of every ladder size at start-up, so
 every kernel is built before the first request; a build that fails stops
-the server from starting.  `--trunk-parallel tp` under a multi-process
-launch shards the encoder trunk over the world's ranks
-(`parallel/trunk.py`, `serve.TTAServer(encode_fn=...)`), the clients'
-carries replicated on every rank; `--trunk-parallel pp|sp` raise
-`NotImplementedError` (ROADMAP M16).
+the server from starting.  `--trunk-parallel tp` (or `pp`, with
+`--trunk-stages` and `--pp-interleave`) under a multi-process launch
+shards the encoder trunk over the world's ranks (`parallel/trunk.py`,
+`serve.TTAServer(encode_fn=...)`), the clients' carries replicated on
+every rank; `--trunk-parallel sp` raises `NotImplementedError` (ROADMAP
+M16).
 
 `--dist-mode ep` splits every client's classes over the ranks of a
 multi-process launch (`serve.TTAServer(dist_mode='ep')`):
@@ -97,7 +98,7 @@ def main(argv=None):
     if cfg.model.checkpoint_path is None:
         logging.warning("No checkpoint configured — random weights; "
                         "served logits are not meaningful.")
-    # --trunk-parallel tp: the encoder over the world's ranks
+    # --trunk-parallel tp or pp: the encoder over the world's ranks
     encode_fn = None
     if cfg.run.trunk_parallel != "none":
         model, encode_fn = prepare_trunk_parallel(cfg, model)

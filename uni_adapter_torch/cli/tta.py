@@ -84,8 +84,12 @@ results_zs.json as the run without it does (rank 0).  It takes
 `--dist-mode replicated` only and not `--vmap-corruptions`, as the JAX
 CLI; `--use-scan`, `--continual` and `--quantize-int8` run with it.  A
 model whose heads or MLP hidden width do not divide over the world
-raises the JAX CLI's ValueError.  `--trunk-parallel pp|sp` raise
-NotImplementedError (ROADMAP M16).
+raises the JAX CLI's ValueError.  `--trunk-parallel pp` runs the trunk
+as pipeline stages over the first `--trunk-stages` ranks (default: the
+world), `--pp-interleave` chunks a stage (`parallel/pp.py`), under the
+same rules; a depth that does not divide by stages × chunks raises the
+JAX CLI's ValueError.  `--trunk-parallel sp` raises NotImplementedError
+(ROADMAP M16).
 """
 from __future__ import annotations
 
@@ -342,7 +346,7 @@ def main(argv=None) -> dict:
     if cfg.model.checkpoint_path is None:
         logging.warning("No checkpoint configured — random weights; "
                         "accuracy numbers are not meaningful.")
-    # the trunk over the world's ranks (--trunk-parallel tp); the
+    # the trunk over the world's ranks (--trunk-parallel tp or pp); the
     # adaptation stays replicated
     encode_fn = None
     if cfg.run.trunk_parallel != "none":

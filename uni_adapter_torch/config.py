@@ -158,9 +158,16 @@ class RunConfig:
     # `parallel/ep.make_grid`)
     data_axis: str = "data"
     # none | tp: the encoder trunk tensor-parallel over the whole world
-    # (parallel/tp.py; every backbone), the adaptation replicated; pp and
-    # sp parse and raise (ROADMAP M16)
+    # (parallel/tp.py; every backbone) | pp: pipeline stages over the
+    # first `trunk_stages` ranks (parallel/pp.py; every backbone), the
+    # adaptation replicated; sp parses and raises (ROADMAP M16)
     trunk_parallel: str = "none"
+    # pp: the number of pipeline stages (default: the whole world); the
+    # trunk depth must divide by trunk_stages × pp_interleave
+    trunk_stages: Optional[int] = None
+    # pp: virtual chunks a stage (the interleaved schedule,
+    # parallel/pp_interleave.py)
+    pp_interleave: int = 1
     # a torch.profiler trace (CPU and CUDA) of the corruption loop, written
     # into this directory (`utils/profiling.trace`); None: no trace
     profile_dir: Optional[str] = None
@@ -242,13 +249,14 @@ def load_templates(cfg: Config) -> list[str]:
 
 def unported_paths(cfg: Config) -> list[str]:
     """What `cfg` asks for that this package does not run yet, each with
-    the ROADMAP item that ports it: the pipeline and sequence-parallel
-    trunks (`--trunk-parallel pp|sp`); 'tp' runs (`parallel/tp.py`)."""
+    the ROADMAP item that ports it: the sequence-parallel trunk
+    (`--trunk-parallel sp`); 'tp' and 'pp' run (`parallel/tp.py`,
+    `parallel/pp.py`)."""
     m, r = cfg.model, cfg.run
     out = []
     if m.vlm3d not in ("uni3d", "ulip", "openshape"):
         out.append(f"--vlm3d {m.vlm3d}")
-    if r.trunk_parallel in ("pp", "sp"):
+    if r.trunk_parallel == "sp":
         out.append(f"--trunk-parallel {r.trunk_parallel} (ROADMAP M16)")
     return out
 

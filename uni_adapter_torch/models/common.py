@@ -15,7 +15,12 @@ read them), and the blocks' `parts(x)` are generators that yield each
 sum over the group as a `collectives.Collective` where one is due: the
 attention's partial out projection, the SwiGLU hidden LayerNorm's row
 statistics and `fc2`'s partial product (`Dense.row_parts`).  A block
-without a group yields nothing and computes `forward`.
+without a group yields nothing and computes `forward`.  Under autograd
+(pipeline-parallel training of a tensor-parallel stage, `parallel/pp.py`)
+a shard's replicated input has its gradient summed over the group
+(`collectives.sum_grads_across`, Megatron's f), the row-parallel sums
+pass their gradient as it is, and the LayerNorm's row statistics have
+theirs summed (`sum_grads`).
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ from torch import nn
 from uni_adapter_torch.ops.attention import eva_attn_block
 from uni_adapter_torch.ops.attention_heads import attention_heads
 from uni_adapter_torch.ops.eva_attention import eva_attention_fused
-from uni_adapter_torch.parallel.collectives import Collective
+from uni_adapter_torch.parallel.collectives import (Collective,
+                                                    sum_grads_across)
 
 #: flax's lecun_normal: a normal truncated at ±2σ, rescaled to unit variance.
 _TRUNC_STD = 0.87962566103423978
@@ -143,7 +149,7 @@ class LN(nn.Module):
         var = Σx²/width − mean²."""
         xf = x.to(torch.float32)
         stats = torch.stack([xf.sum(dim=-1), (xf * xf).sum(dim=-1)], dim=-1)
-        yield Collective("sum", stats, group=group)
+        yield Collective("sum", stats, group=group, sum_grads=True)
         mean = stats[..., :1] / width
         var = (stats[..., 1:] / width - mean * mean).clamp_min(0.0)
         y = (xf - mean) * torch.rsqrt(var + 1e-5) * self.weight + self.bias
@@ -297,10 +303,14 @@ class EvaAttention(nn.Module):
     def _block(self, x: torch.Tensor, bo) -> torch.Tensor:
         H = self.num_heads
         hd = self.q_proj.weight.shape[0] // H
+        # the head LayerNorms are shared by every head: on a head shard
+        # their gradient is this rank's heads' part, summed over the group
+        norms = (sum_grads_across(t, self.tp_group) for t in (
+            self.q_norm.weight, self.q_norm.bias, self.k_norm.weight,
+            self.k_norm.bias))
         return eva_attn_block(
             x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
-            self.v_proj.weight, self.v_proj.bias, self.q_norm.weight,
-            self.q_norm.bias, self.k_norm.weight, self.k_norm.bias,
+            self.v_proj.weight, self.v_proj.bias, *norms,
             self.proj.weight, bo, num_heads=H, scale=hd ** -0.5)
 
     def _heads(self, x: torch.Tensor):
@@ -337,6 +347,7 @@ class EvaAttention(nn.Module):
         summed over `tp_group`, then rounded and biased."""
         if self.tp_group is None:
             return self(x)
+        x = sum_grads_across(x, self.tp_group)
         if self.quantize:
             return (yield from self.proj.row_parts(self._heads(x)[2],
                                                    self.tp_group))
@@ -370,6 +381,7 @@ class SwiGLU(nn.Module):
         over `tp_group`."""
         if self.tp_group is None:
             return self(x)
+        x = sum_grads_across(x, self.tp_group)
         h = F.silu(self.fc1_g(x)) * self.fc1_x(x)
         h = yield from self.norm.sharded_parts(h, self.hidden_dim,
                                                self.tp_group)
@@ -425,6 +437,7 @@ class Mlp(nn.Module):
         partial product summed over `tp_group`."""
         if self.tp_group is None:
             return self(x)
+        x = sum_grads_across(x, self.tp_group)
         return (yield from self.fc2.row_parts(self.act(self.fc1(x)),
                                               self.tp_group))
 
@@ -486,6 +499,7 @@ class ViTAttention(nn.Module):
         product summed over `tp_group`."""
         if self.tp_group is None:
             return self(x, mask, attn_bias)
+        x = sum_grads_across(x, self.tp_group)
         out, _ = self._attention(x, mask, attn_bias, False)
         return (yield from self.proj.row_parts(out, self.tp_group))
 

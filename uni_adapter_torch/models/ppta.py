@@ -141,6 +141,7 @@ class PointPatchTransformer(nn.Module):
         super().__init__()
         p = preset
         self.dtype = dtype
+        self.rel_pe = rel_pe
         # the set abstraction sees rel-xyz ‖ the per-point xyz ‖ color
         self.sa = SetAbstraction(p.patches, p.prad, p.nsamp, 3 + 6,
                                  (64, 64, p.sa_dim), dtype=dtype)
@@ -176,7 +177,7 @@ class PointPatchTransformer(nn.Module):
         x = torch.cat([self.cls_token.to(self.dtype).expand(B, 1, W), x],
                       dim=1)
         delta = None
-        if self.layers[0].pe is not None:
+        if self.rel_pe:
             # the CLS token's centroid is 0
             c = torch.cat([centroids.new_zeros(B, 1, 3), centroids], dim=1)
             delta = c[:, :, None, :] - c[:, None, :, :]  # (B, S+1, S+1, 3)

@@ -241,10 +241,9 @@ def eva_attn_block(xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo,
     tensors = (xn, wq, bq, wk, wv, bv, gq, bqh, gk, bkh, wo, bo)
     if xn.dtype == torch.float32 and build.needs_grad(
             *(t for t in tensors if t is not None)):
-        D = xn.shape[-1]
-        hd = HEAD_DIM if xn.is_cuda else D // num_heads
+        hd = HEAD_DIM if xn.is_cuda else wq.shape[0] // num_heads
         return EvaAttnBlockFunction.apply(
-            *(t.contiguous() for t in tensors), num_heads,
+            *(t if t is None else t.contiguous() for t in tensors), num_heads,
             float(scale if scale is not None else hd ** -0.5), eps)
     if xn.is_cuda:
         c = lambda t: t.contiguous()
@@ -408,7 +407,9 @@ def eva_attn_block_backward(dy, xn, wq, bq, wk, wv, gq, gk, wo, qkv, attn,
                             step=None) -> tuple:
     """The twelve gradients of the fp32 block (xn, wq, bq, wk, wv, bv, gq,
     bqh, gk, bkh, wo, bo) from dy (B, N, D) and what its forward kept:
-    dO = dy·Wo, dWo = dyᵀ·O, dbo = Σdy; `step` (the attention step and
+    dO = dy·Wo, dWo = dyᵀ·O, dbo = Σdy (a head shard's wq (Dh, D): the
+    heads' width Dh throughout, the partial sum's bo None); `step` (the
+    attention step and
     q/k LayerNorm backward: `eva_attn_block_bwd_cuda` on the card,
     `eva_attn_block_bwd_plain` on the CPU by default) on the raw q | k,
     recomputed as xn·[Wq|Wk]ᵀ + [bq|0] from the kept xn; then dxn =
@@ -416,6 +417,7 @@ def eva_attn_block_backward(dy, xn, wq, bq, wk, wv, gq, gk, wo, qkv, attn,
     dbv = Σdv.  Products in fp32 (`torch.matmul`; TF32 as the caller set
     it, off on the port's paths)."""
     B, N, D = xn.shape
+    Dh = wq.shape[0]
     M = B * N
     if step is None:
         step = eva_attn_block_bwd_cuda if xn.is_cuda else \
@@ -425,14 +427,14 @@ def eva_attn_block_backward(dy, xn, wq, bq, wk, wv, gq, gk, wo, qkv, attn,
     dwo = torch.matmul(dy2.T, attn)
     dbo = dy2.sum(dim=0)
     raw = torch.matmul(x2, torch.cat([wq, wk]).T)
-    raw[:, :D] += bq
+    raw[:, :Dh] += bq
     dqkv, dln = step(qkv, attn, dout.contiguous(), raw, gq, gk, B, N,
                      num_heads, scale, eps)
     w = torch.cat([wq, wk, wv])
     dxn = torch.matmul(dqkv, w).reshape(B, N, D)
     dw = torch.matmul(dqkv.T, x2)
-    dq, dv = dqkv[:, :D], dqkv[:, 2 * D:]
-    return (dxn, dw[:D], dq.sum(dim=0), dw[D:2 * D], dw[2 * D:],
+    dq, dv = dqkv[:, :Dh], dqkv[:, 2 * Dh:]
+    return (dxn, dw[:Dh], dq.sum(dim=0), dw[Dh:2 * Dh], dw[2 * Dh:],
             dv.sum(dim=0), dln[0], dln[1], dln[2], dln[3], dwo, dbo)
 
 
@@ -455,16 +457,20 @@ class EvaAttnBlockFunction(torch.autograd.Function):
                 workspaces=True)
         else:
             out, q, k, v, cat = _plain_parts(*args, num_heads, scale, eps)
-            B, N, D = xn.shape
-            qkv = torch.cat([t.transpose(1, 2).reshape(B * N, D)
+            B, N, _ = xn.shape
+            Dh = wq.shape[0]
+            qkv = torch.cat([t.transpose(1, 2).reshape(B * N, Dh)
                              for t in (q, k, v)], dim=1)
-            attn = cat.reshape(B * N, D)
+            attn = cat.reshape(B * N, Dh)
         ctx.save_for_backward(xn, wq, bq, wk, wv, gq, gk, wo, qkv, attn)
         ctx.consts = (num_heads, scale, eps)
+        ctx.partial = bo is None
         return out
 
     @staticmethod
     def backward(ctx, dy):
         grads = eva_attn_block_backward(dy.contiguous(), *ctx.saved_tensors,
                                         *ctx.consts)
+        if ctx.partial:                     # a head shard's: no bo
+            grads = (*grads[:-1], None)
         return (*grads, None, None, None)

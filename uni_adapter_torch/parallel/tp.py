@@ -129,6 +129,16 @@ def _shard(t: torch.Tensor, name: str, d: int, r: int, n: int):
                       for b in range(blocks)], dim=d).contiguous()
 
 
+def unshard(pieces: list, name: str, d: int) -> torch.Tensor:
+    """`_shard`'s inverse: the whole parameter `name` from its ranks'
+    blocks along dim d, in rank order (a fused qkv's q, k and v each
+    reassembled from the ranks' heads)."""
+    blocks = 3 if name.split(".")[-2] == "qkv" else 1
+    c = pieces[0].shape[d] // blocks
+    return torch.cat([p.narrow(d, b * c, c) for b in range(blocks)
+                      for p in pieces], dim=d)
+
+
 def shard_model_tp(model: nn.Module, group, axis: str = "model"):
     """This rank's module of `model` over `group`: a copy that holds only
     its shards of the trunk's parameters (`tp_param_specs`) and whose

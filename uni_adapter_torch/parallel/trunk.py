@@ -7,8 +7,12 @@ process group and returns the matching `encode_fn` for
 adaptation loop itself stays replicated: only the encoder forward
 changes.  Shared by the evaluation CLI (`cli/tta.py`) and the serving CLI
 (`cli/serve.py`).  'tp' is tensor parallelism over the whole world
-(`parallel/tp.py`); 'pp' and 'sp' raise NotImplementedError by name
-until their ROADMAP items land.
+(`parallel/tp.py`); 'pp' pipeline stages over the first
+`--trunk-stages` ranks (default: all), `--pp-interleave` chunks a stage
+(`parallel/pp.py`), the ranks beyond them taking the trunk's output
+from the last stage's broadcast (JAX's stage mesh of the first S
+devices); 'sp' raises NotImplementedError by name until its ROADMAP
+item lands.
 """
 from __future__ import annotations
 
@@ -25,21 +29,40 @@ def prepare_trunk_parallel(cfg, model, group=None):
     ValueError."""
     mode = cfg.run.trunk_parallel
     world = pmesh.make_mesh(group)
-    if mode in ("pp", "sp"):
+    kind = cfg.model.vlm3d
+    if mode == "sp":
         raise NotImplementedError(
             f"--trunk-parallel {mode} is not ported yet (ROADMAP M16)")
-    if mode != "tp":
-        raise ValueError(mode)
-    from uni_adapter_torch.parallel.tp import make_tp_encode_fn
+    if mode == "pp":
+        from uni_adapter_torch.parallel.pp import make_pp_encode_fn, \
+            make_stages
 
+        stages = make_stages(cfg.run.trunk_stages, world)
+        size = stages.n
+
+        def prepare():
+            return make_pp_encode_fn(model, stages, kind,
+                                     interleave=cfg.run.pp_interleave)
+        what = ("pipeline, %d stages x %d chunks/stage", stages.n,
+                cfg.run.pp_interleave)
+    elif mode == "tp":
+        from uni_adapter_torch.parallel.tp import make_tp_encode_fn
+
+        size = world.size
+
+        def prepare():
+            return make_tp_encode_fn(model, world.group, kind)
+        what = ("tensor (Megatron), %d-way", world.size)
+    else:
+        raise ValueError(mode)
     try:
-        prepared = make_tp_encode_fn(model, world.group, cfg.model.vlm3d)
+        prepared = prepare()
     except ValueError as e:
         raise ValueError(
             f"--trunk-parallel {mode}: the model's shapes don't divide "
-            f"over the {world.size}-device mesh ({e}).  Pick "
+            f"over the {size}-device mesh ({e}).  Pick "
             "dimensions divisible by the device count — MLP hidden size "
             "and head count for tp, trunk depth (x --pp-interleave) for "
             "pp.") from e
-    logging.info("trunk parallelism: tensor (Megatron), %d-way", world.size)
+    logging.info("trunk parallelism: " + what[0], *what[1:])
     return prepared

@@ -42,7 +42,9 @@ stopped answering raises at the timeout instead of waiting for ever.
 
 `encode_fn` swaps the encoder forward, as the JAX server's does: a
 tensor-parallel trunk (`parallel/tp.make_tp_encode_fn`) whose blocks sum
-over a model group.  Every rank of the world then runs every operation,
+over a model group, or a pipeline-parallel one
+(`parallel/pp.make_pp_encode_fn`) whose stages shift their activations
+along a ring and broadcast the trunk's output.  Every rank of the world then runs every operation,
 so rank 0 serves and the other ranks follow it as under EP; the
 replicated ladder is kept (each rank holds every client's carry).  With
 `dist_mode='ep'` and a (classes, model) grid (`tp.make_tp_grid`: the
@@ -130,8 +132,9 @@ class TTAServer:
         on.  `dist_mode` 'ep' splits the clients' classes over the ranks
         of `mesh` (default: the initialised process group, else this
         process alone).  `encode_fn` replaces the model's forward
-        (`engine.make_step_fn`): a tensor-parallel trunk, in a world of
-        several ranks served by rank 0 and followed by the others."""
+        (`engine.make_step_fn`): a tensor- or pipeline-parallel trunk, in
+        a world of several ranks served by rank 0 and followed by the
+        others."""
         if dist_mode not in ("replicated", "ep"):
             raise ValueError(
                 f"dist_mode {dist_mode!r}: the serving loop supports "

@@ -112,16 +112,19 @@ class AdamW:
         return AdamWState(0, zeros, {n: z.clone() for n, z in zeros.items()})
 
     def update(self, grads: dict, state: AdamWState, tree: dict,
-               decay: Optional[dict] = None) -> tuple:
+               decay: Optional[dict] = None,
+               g_norm: Optional[torch.Tensor] = None) -> tuple:
         """(updates, new state) for `grads` on `tree` ({name: tensor}, the
         parameters before the step); `decay` ({name: bool}) where
-        `masked`."""
+        `masked`.  `g_norm`: the clipping norm where `grads` are one
+        rank's part of a sharded tree (its global norm), else ‖grads‖."""
         if self.masked and decay is None:
             raise ValueError("a masked AdamW needs the decay mask")
-        g_norm = 0
-        for g in grads.values():
-            g_norm = g_norm + torch.sum(g * g)
-        g_norm = torch.sqrt(g_norm)
+        if g_norm is None:
+            g_norm = 0
+            for g in grads.values():
+                g_norm = g_norm + torch.sum(g * g)
+            g_norm = torch.sqrt(g_norm)
         keep = g_norm < self.max_norm
         count = state.count + 1
         f32 = torch.float32
@@ -199,13 +202,15 @@ def _loss_fn(model, logit_scale, pc, text_embed, image_embed, mask,
 
 
 def apply_grads(state: TrainState, tx: AdamW, grads: dict,
-                decay: Optional[dict]) -> TrainState:
+                decay: Optional[dict],
+                g_norm: Optional[torch.Tensor] = None) -> TrainState:
     """One optimizer step on `grads` ({name: tensor}, the model's names and
     LOGIT_SCALE), in place; then the log-scale clamped to [0, log 100]
     (after the step, never in the forward: a clamp there would zero its
-    gradient above the cap)."""
+    gradient above the cap).  `g_norm`: `AdamW.update`'s."""
     tree = {**state.params, LOGIT_SCALE: state.logit_scale}
-    updates, opt_state = tx.update(grads, state.opt_state, tree, decay)
+    updates, opt_state = tx.update(grads, state.opt_state, tree, decay,
+                                   g_norm)
     with torch.no_grad():
         for name, u in updates.items():
             tree[name].add_(u)
@@ -214,14 +219,16 @@ def apply_grads(state: TrainState, tx: AdamW, grads: dict,
                       state.step + 1)
 
 
-def _grads(model, state: TrainState, pc, text_embed, image_embed, mask,
-           axis_name=None) -> tuple:
-    """(the loss's gradients by name, its metrics, detached)."""
+def loss_grads(model, state: TrainState, inputs: tuple, text_embed,
+               image_embed, mask, axis_name=None) -> tuple:
+    """(the contrastive loss's gradients by name, its metrics, detached),
+    with `model(*inputs)` the point embeddings (a module, or a pipeline
+    forward driven to its end, `parallel/pp.py`)."""
     names = [*state.params, LOGIT_SCALE]
     logit_scale = state.logit_scale.detach().requires_grad_(True)
     with torch.enable_grad():
-        loss, metrics = _loss_fn(model, logit_scale, pc, text_embed,
-                                 image_embed, mask, axis_name)
+        loss, metrics = _loss_fn(lambda x: model(*x), logit_scale, inputs,
+                                 text_embed, image_embed, mask, axis_name)
         grads = torch.autograd.grad(
             loss, [*state.params.values(), logit_scale], allow_unused=True,
             materialize_grads=True)
@@ -236,7 +243,8 @@ def train_step(model: nn.Module, tx: AdamW, state: TrainState,
     """One contrastive step on one device.  pc: (B, N, C); embeds: (B, D).
     Returns (the state, updated in place, with step + 1; the loss's
     metrics, detached)."""
-    grads, metrics = _grads(model, state, pc, text_embed, image_embed, mask)
+    grads, metrics = loss_grads(model, state, (pc,), text_embed,
+                                image_embed, mask)
     state = apply_grads(state, tx, grads,
                         decay_mask(model) if tx.masked else None)
     return state, metrics
@@ -266,8 +274,8 @@ def make_dp_train_step(model: nn.Module, tx: AdamW, mesh=None):
                 mask: Optional[torch.Tensor] = None) -> tuple:
         if mask is None:
             mask = torch.ones(pc.shape[0], device=pc.device)
-        grads, metrics = _grads(model, state, pc, text_embed, image_embed,
-                                mask, axis_name=group)
+        grads, metrics = loss_grads(model, state, (pc,), text_embed,
+                                    image_embed, mask, axis_name=group)
         grads = dict(zip(grads, collectives.pmean(list(grads.values()),
                                                   group)))
         metrics = dict(zip(metrics, collectives.pmean(

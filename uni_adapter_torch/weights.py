@@ -13,6 +13,8 @@ flatten with these renames:
 
 The JAX package's block-kernel parameter holders build the same
 Dense/LayerNorm tree, so one mapping covers both of its attention paths.
+`from_jax_stacked` carries the pipeline's stacked trunk parameters
+(`parallel/pp.py`'s two layouts) into the same per-block names.
 No JAX is imported: the input is the nested dict of numpy arrays that
 `jax.tree_util.tree_map(np.asarray, params)` gives.
 """
@@ -57,4 +59,38 @@ def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
                 np.ascontiguousarray(arr))
 
     walk(tree, [])
+    return out
+
+
+def _map_leaves(fn, tree: Mapping):
+    return {k: _map_leaves(fn, v) if isinstance(v, Mapping) else fn(v)
+            for k, v in tree.items()}
+
+
+def _first_leaf(tree: Mapping):
+    for v in tree.values():
+        return _first_leaf(v) if isinstance(v, Mapping) else v
+    raise ValueError("an empty parameter tree")
+
+
+def from_jax_stacked(stacked: Mapping, prefix: str,
+                     interleaved: bool = False) -> dict[str, torch.Tensor]:
+    """The JAX pipeline's stacked trunk blocks → the port's state_dict
+    entries `{prefix}.{i}.…` of each block i: GPipe's (S, L/S, ...)
+    leaves hold block s·L/S + j at [s, j] (`stack_trunk_params`), the
+    interleaved (S, V, L/(S·V), ...) leaves block (v·S + s)·Lc + c at
+    [s, v, c] (`stack_trunk_params_interleaved`)."""
+    shape = np.shape(_first_leaf(stacked))
+    if interleaved:
+        S, V, Lc = shape[:3]
+        where = {(v * S + s) * Lc + c: (s, v, c) for s in range(S)
+                 for v in range(V) for c in range(Lc)}
+    else:
+        S, n = shape[:2]
+        where = {s * n + j: (s, j) for s in range(S) for j in range(n)}
+    out: dict[str, torch.Tensor] = {}
+    for i in sorted(where):
+        block = _map_leaves(lambda a: np.asarray(a)[where[i]], stacked)
+        for name, t in from_jax_params(block).items():
+            out[f"{prefix}.{i}.{name}"] = t
     return out
