@@ -284,6 +284,31 @@ exits non-zero before the result line:
      ranks, depth 2, fp32) against one process; the CLI
      (`torch.distributed.run ... --trunk-parallel pp`) and `cli.serve
      --trunk-parallel pp` over HTTP on two ranks.
+ 15. the sequence-parallel trunk (`run_sp`, `parallel/sp.py`, exact ring
+     attention in plain PyTorch, no row 3): at world 1 over NCCL in this
+     process the same captured Uni3D-L stream through
+     `prepare_trunk_parallel`'s SP encoder, its features within cosine
+     0.99 (bf16) and 1 − 1e-4 (fp32) of the plain forward's, traced (FPS
+     and kNN only), ms a step beside the plain scan's; at world 2 (two
+     processes sharing the card over gloo) Uni3D-L's bf16 and fp32
+     features against world 1's (fp32 within SP_F32_ATOL: only the fold
+     order differs), the planted fault 'the last arriving block's fold
+     skipped' failing it, ULIP-2's features, the fp32 MODE-DOTA
+     trajectory's logits within 1e-4 of one process's with `correct`
+     equal, the captured bf16 stream traced (ms a step, segments a step,
+     24·(S − 1) shifts a forward and the bytes they send, peak GB a
+     rank); pretraining at full width (Uni3D-L fp32, depth 24, batch 16
+     of 10,000 points) against one process, and a depth-2 checkpoint
+     saved at world 2 resumed here at world 1; at world 4 SP × DP on a
+     (data, seq) = (2, 2) grid (fp32, depth 2) against one process; the
+     CLI (`torch.distributed.run ... --trunk-parallel sp`) and
+     `cli.serve --trunk-parallel sp` over HTTP on two ranks.
+
+The launches of phases 11 to 15 (the pretraining CLI's two, the EP and
+trunk CLIs and their servers) start together after phase 15
+(`run_clis`): none is timed beyond its own wall seconds.  Every process
+the script starts (`spawn`) is ended with all it started when the
+script exits, failing or not.
 
 Phase 3 also holds the block's head-sharded entry (a tensor-parallel
 rank's heads: q/k/v (64H, D), out projection (D, 64H), no `bo`: the fp32
@@ -309,25 +334,31 @@ is `{"ok": true, "device": {...}}`.
     python3 chip_smoke.py --ep-only
     python3 chip_smoke.py --tp-only
     python3 chip_smoke.py --pp-only
+    python3 chip_smoke.py --sp-only
 
 builds the kernels and runs phase 11's distributed part and phases 12
-to 14 alone (`run_dist_streams`, `run_dp_pretraining`, `run_ep`,
-`run_tp`, `run_pp`): on a machine with two cards or more that is where
-the worlds of two run over NCCL, a card a rank, besides gloo (with four,
-phase 13's and 14's worlds of four too).  `--ep-only` builds the kernels
-and runs phase 12 alone, `--tp-only` phase 13, `--pp-only` phase 14.  Each prints its phases' summary and the same last line.  Without a CUDA device, or without the
+to 15 alone (`run_dist_streams`, `run_dp_pretraining`, `run_ep`,
+`run_tp`, `run_pp`, `run_sp`): on a machine with two cards or more that
+is where the worlds of two run over NCCL, a card a rank, besides gloo
+(with four, phase 13's to 15's worlds of four too).  `--ep-only` builds
+the kernels and runs phase 12 alone, `--tp-only` phase 13, `--pp-only`
+phase 14, `--sp-only` phase 15.  Each prints its phases' summary and the
+same last line.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -379,6 +410,69 @@ BLOCK_LN_GAMMA = 2.2
 def fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+#: Every process this script started through `spawn`; when the script
+#: exits, `stop_spawned` ends those still running and all they started.
+SPAWNED: list = []
+
+
+def spawn(cmd: list, **kw) -> subprocess.Popen:
+    """subprocess.Popen(cmd, **kw), remembered in SPAWNED."""
+    proc = subprocess.Popen(cmd, **kw)
+    SPAWNED.append(proc)
+    return proc
+
+
+def process_tree(pid: int) -> list:
+    """`pid` and every process under it, read from /proc.  The children
+    of a `torch.distributed.run` launch run in sessions of their own, so
+    only the parent links reach them."""
+    children = collections.defaultdict(list)
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:
+            continue
+        ppid = int(text[text.rindex(")") + 2:].split()[1])
+        children[ppid].append(int(stat.parent.name))
+    tree, todo = [], [pid]
+    while todo:
+        tree.append(todo.pop())
+        todo.extend(children[tree[-1]])
+    return tree
+
+
+def stop_process(proc: subprocess.Popen) -> None:
+    """SIGKILL `proc` and every process under it (taken all at once, so
+    that none is orphaned first), then reap `proc`."""
+    if proc.poll() is None:
+        for pid in process_tree(proc.pid):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    proc.wait()
+
+
+@atexit.register
+def stop_spawned() -> None:
+    for proc in SPAWNED:
+        stop_process(proc)
+
+
+def run_cmd(cmd: list, timeout: float, **kw) -> subprocess.CompletedProcess:
+    """subprocess.run(cmd, capture_output=True, text=True) through
+    `spawn`: at the timeout the command and every process under it are
+    ended, and TimeoutExpired raised."""
+    proc = spawn(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                 text=True, **kw)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_process(proc)
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
 
 def time_ms(fn, runs: int = 20, per_run: int = 10, warmup: int = 3) -> float:
@@ -5199,10 +5293,10 @@ def run_pretraining(tmp: Path, card: str) -> tuple:
     out_b = tmp / "pretrain_b"
     repo = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = run_cmd(
         [sys.executable, "-m", "uni_adapter_torch.cli.pretrain", *args,
          "--steps", str(half), "--ckpt-every", str(half), "--out",
-         str(out_b)], cwd=repo, capture_output=True, text=True, timeout=600)
+         str(out_b)], cwd=repo, timeout=600)
     if proc.returncode != 0:
         fail(f"python -m uni_adapter_torch.cli.pretrain exited "
              f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
@@ -5427,9 +5521,30 @@ TSNE_REL = 1e-6
 
 
 def free_port() -> int:
-    """A free TCP port on the loopback interface (a rendezvous address)."""
+    """A free TCP port on the loopback interface (a rendezvous or an HTTP
+    address), chosen at random below the kernel's ephemeral range where
+    there is room.  The kernel hands out the ports of that range by
+    itself, to gloo's and NCCL's listeners and to every outgoing
+    connection, so a port taken from it could go to another process of
+    this run before its own process binds it; a client would then wait
+    on a listener that never answers."""
+    import random
     import socket
 
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range")
+                  .read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 0
+    pick = random.SystemRandom()
+    for _ in range(200 if low >= 12000 else 0):
+        port = pick.randrange(low - 10000, low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -5934,8 +6049,9 @@ def run_dp_pretraining(tmp: Path, card: str, inputs: dict,
     bitwise equal; with two cards or more the same over NCCL.  (c) a two-rank
     `python -m torch.distributed.run -m uni_adapter_torch.cli.pretrain`
     (depth 2, 1024-point clouds) for 2 steps, then `--resume` to 4: rank 0 wrote the
-    checkpoint, both ranks resumed from it.  Returns (the world-1 DP
-    run's launches, summary)."""
+    checkpoint, both ranks resumed from it (`start_dp_cli`, which the
+    caller starts with the other phases' launches: `run_clis`).  Returns
+    (the world-1 DP run's launches, summary)."""
     import torch
     import torch.distributed as dist
 
@@ -6042,7 +6158,20 @@ def run_dp_pretraining(tmp: Path, card: str, inputs: dict,
     summary["world1_depth2"] = {"losses": ref["losses"],
                                 "grad_norms": ref["grad_norms"]}
 
-    # (c) two ranks through the CLI, stopped and resumed
+    print(f"DP ms a step ({card}): " + "; ".join(
+        f"{k} {[round(x, 1) for x in v]}" for k, v in ms.items()))
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"phase DP pretraining: {summary['seconds']:.1f} s")
+    return launches, summary
+
+
+def start_dp_cli(tmp: Path) -> dict:
+    """Phase 11b (c) started: a two-rank `python -m torch.distributed.run
+    -m uni_adapter_torch.cli.pretrain` (depth 2, 1024-point clouds) for 2
+    steps, then `--resume` to 4, one after the other on a thread of their
+    own.  `finish_dp_cli` waits for them and checks them."""
+    import threading
+
     out = tmp / "pretrain_dp"
     cli = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "2", "-m", "uni_adapter_torch.cli.pretrain",
@@ -6050,16 +6179,36 @@ def run_dp_pretraining(tmp: Path, card: str, inputs: dict,
            *write_corpus(tmp / "corpus_dp", n_points=1024), "--out",
            str(out)]
     repo = Path(__file__).resolve().parent
-    runs_s = []
-    for extra in (["--steps", "2", "--ckpt-every", "2"],
-                  ["--steps", "4", "--resume"]):
-        t0 = time.perf_counter()
-        proc = subprocess.run(cli + extra, cwd=repo, capture_output=True,
-                              text=True, timeout=600)
-        runs_s.append(time.perf_counter() - t0)
+    runs = []
+
+    def launch() -> None:
+        for extra in (["--steps", "2", "--ckpt-every", "2"],
+                      ["--steps", "4", "--resume"]):
+            t0 = time.perf_counter()
+            proc = run_cmd(cli + extra, cwd=repo, timeout=600)
+            runs.append((proc, time.perf_counter() - t0))
+            if proc.returncode != 0:
+                return
+
+    thread = threading.Thread(target=launch, daemon=True)
+    thread.start()
+    return {"out": out, "runs": runs, "thread": thread}
+
+
+def finish_dp_cli(started: dict, torch) -> list:
+    """Wait for `start_dp_cli`'s launches: each must exit 0, rank 0 must
+    have written the checkpoint and both ranks resumed from it, with 4
+    finite losses.  Returns each launch's seconds."""
+    started["thread"].join()
+    runs, out = started["runs"], started["out"]
+    for proc, _ in runs:
         if proc.returncode != 0:
             fail(f"the two-rank pretraining run exited {proc.returncode}:\n"
                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    if len(runs) != 2:
+        fail(f"the two-rank pretraining runs: {len(runs)} of 2 ended (a "
+             f"launch overran its 600 s)")
+    runs_s = [secs for _, secs in runs]
     log = (out / "pretrain.log").read_text()
     losses = logged_losses(out / "pretrain.log")
     # a card a rank takes NCCL; ranks that share one card, gloo
@@ -6073,12 +6222,7 @@ def run_dp_pretraining(tmp: Path, card: str, inputs: dict,
           f" batch 16): 2 steps + rank 0's checkpoint in {runs_s[0]:.1f} s, "
           f"both ranks resumed to step 4 in {runs_s[1]:.1f} s; losses "
           f"{losses}")
-    summary["cli_s"] = runs_s
-    print(f"DP ms a step ({card}): " + "; ".join(
-        f"{k} {[round(x, 1) for x in v]}" for k, v in ms.items()))
-    summary["seconds"] = time.perf_counter() - t_phase
-    print(f"phase DP pretraining: {summary['seconds']:.1f} s")
-    return launches, summary
+    return runs_s
 
 
 def run_cross_class(tmp: Path, card: str) -> tuple:
@@ -6528,7 +6672,8 @@ def run_ep_world(tmp: Path, world: int, mode: str = "gloo") -> list:
 
 
 def run_ep_cli(tmp: Path, torch) -> dict:
-    """(d) the CLI and the HTTP server at world 2 over gloo on card 0:
+    """(d) the CLI and the HTTP server at world 2 over gloo on card 0
+    (`start_ep_cli`, then `finish_ep_cli`):
     `python -m torch.distributed.run --nproc-per-node 2 -m
     uni_adapter_torch.cli.tta --dist-mode ep` with `--continual true` and
     with `--vmap-corruptions true` (15 corruptions of 2 clouds, Uni3D-L
@@ -6537,14 +6682,18 @@ def run_ep_cli(tmp: Path, torch) -> dict:
     two ranks (rank 0 the HTTP front end), one client posting 3 clouds
     whose logits equal a replicated server's here, rank 0 interrupted,
     both ranks exiting 0."""
+    return finish_ep_cli(start_ep_cli(tmp, torch))
+
+
+def start_ep_cli(tmp: Path, torch) -> dict:
+    """`run_ep_cli`'s data and labels written, its launches and servers
+    started; what `finish_ep_cli` needs returned."""
     import os
 
     import numpy as np
 
-    from uni_adapter_torch.cli import tta
     from uni_adapter_torch.config import CORRUPTIONS
     from uni_adapter_torch.models.loader import build_backbone
-    from uni_adapter_torch.serve import TTAServer
 
     root = tmp / "ep_cli_data"
     write_stream(root, 1024, 40, 2, CORRUPTIONS)
@@ -6586,6 +6735,22 @@ def run_ep_cli(tmp: Path, torch) -> dict:
         "--dota-res-learning", "false", "--precomputed-text-features",
         "large", "--dist-mode", "ep", "--output-dir", str(tmp / "ep_serve")],
         tmp, "ep")
+    return {"tmp": tmp, "root": root, "common": common, "runs": runs,
+            "cfg": cfg, "model": model, "text40": text40, "clis": clis,
+            "port": port, "procs": procs}
+
+
+def finish_ep_cli(started: dict) -> dict:
+    """`run_ep_cli`'s runs in this process, then its launches and servers
+    (`start_ep_cli`) waited for and held to them."""
+    import numpy as np
+
+    from uni_adapter_torch.cli import tta
+    from uni_adapter_torch.serve import TTAServer
+
+    tmp, root, common, runs, cfg, model, text40, clis, port, procs = (
+        started[k] for k in ("tmp", "root", "common", "runs", "cfg",
+                             "model", "text40", "clis", "port", "procs"))
     wants = {name: tta.main([*common, *flags, "--output-dir",
                              str(tmp / f"ep_cli_{name}_base")])
              for name, flags in runs}
@@ -6622,7 +6787,7 @@ def run_ep_cli(tmp: Path, torch) -> dict:
     return {"cli_s": secs, "serve_logits_max_abs_diff": diff}
 
 
-def run_ep(tmp: Path, card: str) -> tuple:
+def run_ep(tmp: Path, card: str, cli: bool = True) -> tuple:
     """Phase 12: class-sharded adaptation (`parallel/ep.py`).
 
     (a) world 1 over NCCL in this process: Uni3D-L bf16, full depth,
@@ -6643,7 +6808,8 @@ def run_ep(tmp: Path, card: str) -> tuple:
     `run_stream_ep`.  (c) world 4 over gloo: `run_streams_ep` on a 2 × 2
     grid, 4 streams of 4 clouds, depth 2, every stream's acc@1 equal to
     `run_streams_scan` here.  (d) the CLI and the HTTP server at world 2
-    (`run_ep_cli`).  With two cards or more, (b)'s checks run again over
+    (`run_ep_cli`; left to the caller without `cli`).  With two cards or
+    more, (b)'s checks run again over
     NCCL, a card a rank (the K 15 methods, K 1156 with residuals off and
     on, the gradient and its planted fault, plain DOTA's means).  Targets are met on half the clouds
     by the reference runs (`half_met`).  Prints ms a step, peak memory,
@@ -7035,10 +7201,12 @@ def run_ep(tmp: Path, card: str) -> tuple:
           f"run_streams_scan's on every rank ({want_dp})")
     times["c"] = time.perf_counter() - t0
 
-    # (d) the CLI and the HTTP server at world 2
-    t0 = time.perf_counter()
-    summary["cli"] = run_ep_cli(tmp, torch)
-    times["d"] = time.perf_counter() - t0
+    # (d) the CLI and the HTTP server at world 2 (without `cli`, the
+    # caller's: `run_clis`)
+    if cli:
+        t0 = time.perf_counter()
+        summary["cli"] = run_ep_cli(tmp, torch)
+        times["d"] = time.perf_counter() - t0
     summary["seconds"] = time.perf_counter() - t_phase
     summary["part_seconds"] = times
     print(f"ep ms a step ({card}): " + ", ".join(
@@ -7244,8 +7412,10 @@ def tp_rank(rank: int, world: int, tmp: str, port: int, mode: str) -> None:
                 _, encode = trunk.prepare_trunk_parallel(
                     c, tp_model(torch, c, "openshape"))
                 out["openshape"] = tp_features(torch, encode, *flat)
-            # phase 14's PP × TP, in this world (one spawn for both)
+            # phase 14's PP × TP and phase 15's SP × DP, in this world
+            # (one spawn for all three)
             out.update(pp_tp_rank(torch, flat))
+            out.update(sp_dp_rank(torch, flat))
             torch.save(out, Path(tmp) / f"tp_rank{rank}_w{world}_{mode}.pt")
             return
         # Uni3D-L bf16: features, the traced captured stream, its timing
@@ -7329,7 +7499,8 @@ def run_tp_world(tmp: Path, world: int, mode: str = "gloo") -> list:
 
 #: What rank 0's out.log says of each trunk mode at world 2.
 TRUNK_LOG = {"tp": "trunk parallelism: tensor (Megatron), 2-way",
-             "pp": "trunk parallelism: pipeline, 2 stages x 1 chunks/stage"}
+             "pp": "trunk parallelism: pipeline, 2 stages x 1 chunks/stage",
+             "sp": "trunk parallelism: sequence (ring attention), 2-way"}
 
 
 def start_tta_cli(env: dict, args: list, log: Path):
@@ -7337,7 +7508,7 @@ def start_tta_cli(env: dict, args: list, log: Path):
     uni_adapter_torch.cli.tta ARGS` started, its output into `log`:
     (process, start time)."""
     with open(log, "w") as out:
-        proc = subprocess.Popen(
+        proc = spawn(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", "2", "-m", "uni_adapter_torch.cli.tta",
              *args], env=env, stdout=out, stderr=subprocess.STDOUT)
@@ -7352,9 +7523,7 @@ def finish_process(what: str, started, log: Path,
     try:
         code = proc.wait(timeout=timeout)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        stop_process(proc)
     if code:
         fail(f"{what}: exit {code}\n{log.read_text()[-4000:]}")
     return time.perf_counter() - t0
@@ -7367,7 +7536,7 @@ def start_servers(env: dict, argv: list, tmp: Path, tag: str) -> list:
     procs = []
     for r in range(2):
         with open(tmp / f"{tag}_serve{r}.log", "w") as out:
-            procs.append(subprocess.Popen(
+            procs.append(spawn(
                 [sys.executable, "-m", "uni_adapter_torch.cli.serve", *argv],
                 env=dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
                          LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
@@ -7378,43 +7547,49 @@ def start_servers(env: dict, argv: list, tmp: Path, tag: str) -> list:
 
 def serve_requests(what: str, procs: list, port: int, clouds, tmp: Path,
                    tag: str) -> tuple:
-    """One client registered on the server of `start_servers` (waiting for
-    it to come up), posting `clouds`; then rank 0 interrupted and both
-    ranks' exit codes read (both must be 0).  Returns (logits, healthz)."""
-    import signal
-
+    """One client registered on the server of `start_servers` (waiting up
+    to 180 s for it to come up, and failing at once if a rank exits
+    first), posting `clouds`; then rank 0 interrupted and both ranks'
+    exit codes read (both must be 0).  Returns (logits, healthz)."""
     from uni_adapter_torch.client import TTAClient
+
+    def logs() -> str:
+        return "\n".join((tmp / f"{tag}_serve{r}.log").read_text()[-2000:]
+                         for r in range(2))
 
     try:
         t0 = time.perf_counter()
-        client = TTAClient("127.0.0.1", port, "x")
+        client = TTAClient("127.0.0.1", port, "x", timeout=60.0)
         while True:
             try:
                 client.register()
                 break
-            except OSError:
+            except OSError as e:
+                codes = [p.poll() for p in procs]
+                if codes != [None, None]:
+                    fail(f"{what}: a rank exited ({codes}) before the "
+                         f"server answered\n{logs()}")
                 if time.perf_counter() - t0 > 180:
-                    raise
+                    fail(f"{what}: no answer to /register in "
+                         f"{time.perf_counter() - t0:.0f} s ({e!r})\n"
+                         f"{logs()}")
                 time.sleep(1.0)
+        client.timeout = 300.0
         logits = [client.submit(c) for c in clouds]
         health = client.healthz()
         procs[0].send_signal(signal.SIGINT)
         codes = [p.wait(timeout=60) for p in procs]
     finally:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+            stop_process(p)
     if codes != [0, 0]:
-        fail(f"{what}: exit codes {codes}\n" + "\n".join(
-            (tmp / f"{tag}_serve{r}.log").read_text()[-2000:]
-            for r in range(2)))
+        fail(f"{what}: exit codes {codes}\n{logs()}")
     return logits, health
 
 
 def run_tp_cli(tmp: Path, torch, modes=("tp",)) -> dict:
     """The CLI and the HTTP server at world 2 over gloo on card 0, for each
-    trunk mode of `modes` (tp, pp) at once: `python -m
+    trunk mode of `modes` (tp, pp, sp) at once: `python -m
     torch.distributed.run --nproc-per-node 2 -m uni_adapter_torch.cli.tta
     --trunk-parallel MODE` (Uni3D-L width, depth 2, fp32, residuals off,
     16 clouds) writing the results.json of the same run in this process
@@ -7488,6 +7663,22 @@ def run_tp_cli(tmp: Path, torch, modes=("tp",)) -> dict:
     return out
 
 
+def run_clis(tmp: Path, torch, dp_run: dict, ep_run: dict,
+             trunk_runs: dict) -> None:
+    """The launches of phases 11b (c) (`start_dp_cli`), 12 (d)
+    (`start_ep_cli`) and 13–15's CLIs and servers at world 2
+    (`run_tp_cli`), all started before any is waited for: none of them
+    is timed beyond its own wall seconds, so they share the card and the
+    host's cores.  Their summaries go into the phases' `dp_run`,
+    `ep_run` and `trunk_runs` ({mode: summary} for tp, pp, sp)."""
+    dp = start_dp_cli(tmp)
+    ep = start_ep_cli(tmp, torch)
+    clis = run_tp_cli(tmp, torch, tuple(trunk_runs))
+    ep_run["cli"] = finish_ep_cli(ep)
+    dp_run["cli_s"] = finish_dp_cli(dp, torch)
+    for mode, run in trunk_runs.items():
+        run["cli"] = clis[mode]
+
 def trunk_refs(torch) -> dict:
     """Phases 13 and 14's one-process references, computed once: the
     inputs (`tp_inputs`) with the targets each run meets on every other
@@ -7535,7 +7726,8 @@ def trunk_refs(torch) -> dict:
                                      inp["targets_fp32"].cuda(), seed=42,
                                      scan_fn=scan_fn)
     ref["trajectory"] = (outs.final_logits.cpu(),
-                         engine.summarize(outs, TP_FP32_STEPS)["acc1"])
+                         engine.summarize(outs, TP_FP32_STEPS)["acc1"],
+                         outs.correct.cpu())
     ms["plain_fp32"] = statistics.median(scan_fn.step_ms[1:])
     del model, scan_fn, outs
     torch.cuda.empty_cache()
@@ -7796,20 +7988,22 @@ def pp_cfg(dtype: str = "bfloat16", depth: int = 24, dota=None,
         cfg.run, trunk_parallel="pp", pp_interleave=interleave))
 
 
-def pp_step_bytes(scan_fn) -> dict:
-    """The bytes a captured step's 'shift' and 'broadcast' requests send,
-    by program (residual gate): the requests between its segments."""
+def step_requests(scan_fn) -> dict:
+    """The requests between a captured step's segments, by program
+    (residual gate): {kind: [how many, bytes their buffers send]} (a
+    shift that only receives sends none)."""
     out = {}
     for runner in scan_fn.runners.values():
         for gate, program in runner.programs.items():
-            sent = {"shift": 0, "broadcast": 0}
+            sent = collections.defaultdict(lambda: [0, 0])
             for part in program:
                 for seg in getattr(part, "segments", [])[:-1]:
                     req = seg.out
-                    if req.kind in sent and req.buf is not None:
-                        sent[req.kind] += req.buf.numel() * \
+                    sent[req.kind][0] += 1
+                    if req.buf is not None:
+                        sent[req.kind][1] += req.buf.numel() * \
                             req.buf.element_size()
-            out[str(gate)] = sent
+            out[str(gate)] = dict(sent)
     return out
 
 
@@ -7979,7 +8173,7 @@ def pp_rank(rank: int, world: int, tmp: str, port: int, mode: str) -> None:
                                  "ms": list(scan_fn.step_ms),
                                  "launches": launches, "peak_gb": peak,
                                  "segments": ep_segments(scan_fn),
-                                 "bytes": pp_step_bytes(scan_fn),
+                                 "bytes": step_requests(scan_fn),
                                  "blocks": len(list(model.point_encoder
                                                     .blocks))}
                 del scan_fn, state, outs
@@ -8228,6 +8422,7 @@ def run_pp(tmp: Path, card: str, refs=None, cli: bool = True) -> tuple:
 
     summary["world2"] = check_world2(run_pp_world(tmp, 2), "")
     summary["one_process"] = {"peak_gb": refs["peak_gb"], "train": train_ref}
+    refs["train_ref"] = train_ref           # phase 15's, on the same batch
     times["b"] = time.perf_counter() - t0
 
     # (c) world 4 over gloo: PP × TP
@@ -8276,6 +8471,489 @@ def run_pp(tmp: Path, card: str, refs=None, cli: bool = True) -> tuple:
     return launches, summary
 
 
+# ---- phase 15: the sequence-parallel trunk (parallel/sp.py) ---------------
+
+#: Phase 15: the sequence-parallel trunk.  SP restates the blocks in plain
+#: PyTorch around its ring (no row 3): at world 1 its features are held to
+#: the plain forward's within TP_COS_BF16 (bf16) and TP_COS_F32 (fp32);
+#: at world 2 to world 1's, bf16 within TP_COS_BF16, fp32 within
+#: SP_F32_ATOL of each feature (only the order of the folds differs),
+#: which the planted fault (the last arriving block's fold skipped) must
+#: exceed; ULIP-2 within TP_COS_BF16 of one process; the captured fp32
+#: MODE-DOTA trajectory's logits within TP_LOGITS of one process's plain
+#: trajectory, its `correct` equal (bf16 predictions flip at near-ties
+#: with the GEMMs' row counts, cuBLAS's bf16 not being batch-invariant,
+#: so the bf16 stream is timed, not compared); SP × DP (fp32) within
+#: TP_COS_F32;
+#: pretraining as phase 14's (DP_LOSS_RTOL, 99% of the parameters within
+#: DP_PARAM_ATOL after SP_TRAIN_STEPS steps), and the depth-2 run resumed
+#: at world 1 from world 2's checkpoint held to world 2's uninterrupted
+#: run the same way.
+SP_F32_ATOL = 1e-5
+SP_TRAIN_STEPS = 2
+#: The SP paths' kernels: the grouping only (rows 1, 2 on 1024 points;
+#: rows 8, 6 on the 10,000-point training batch).
+SP_KERNELS = ("fps", "knn")
+SP_TRAIN_KERNELS = ("fps_grid", "knn_gather")
+
+
+def sp_cfg(dtype: str = "bfloat16", depth: int = 24, dota=None,
+           kind: str = "uni3d"):
+    """`tp_cfg`'s model (or `tp_backbone_cfg`'s for `kind`), its trunk
+    sequence-parallel over the world."""
+    cfg = tp_cfg(dtype, depth, dota) if kind == "uni3d" else \
+        tp_backbone_cfg(kind)
+    return dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, trunk_parallel="sp"))
+
+
+def sp_fault_last_fold(torch, encode, pcs, rgbs, n_ranks: int):
+    """The planted fault 'the last arriving block's fold skipped': every
+    ring's S-th fold returns its accumulators unchanged, the forward
+    otherwise the same."""
+    from uni_adapter_torch.parallel import sp
+
+    real, calls = sp._fold, [0]
+
+    def fold(acc, *args):
+        calls[0] += 1
+        return acc if calls[0] % n_ranks == 0 else real(acc, *args)
+
+    sp._fold = fold
+    try:
+        return tp_features(torch, encode, pcs, rgbs)
+    finally:
+        sp._fold = real
+
+
+def sp_train_rank(torch, inp: dict, tmp: Path) -> dict:
+    """A rank's pretraining at world 2 (`sp_rank`): SP_TRAIN_STEPS steps of
+    Uni3D-L fp32 at full width and depth, the tokens over the two ranks,
+    the batch of `dist_inputs`, traced for its launches and held against
+    the one process's parameters saved as tmp/pp_train_ref.pt; then four
+    steps at depth 2, the state after the second saved (rank 0, one
+    process's state, as the CLI saves it) for `run_sp` to resume at
+    world 1 and hold against the fourth."""
+    import torch.distributed as dist
+
+    from uni_adapter_torch import checkpoint, train
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import sp
+
+    batch = [inp["batch"][k].cuda() for k in ("pc", "text_embed",
+                                               "image_embed", "mask")]
+
+    def fresh(depth):
+        model = create_uni3d(ModelConfig(eva_depth=depth,
+                                         compute_dtype="float32"), "cuda",
+                             torch.float32, seed=0, trainable=True)
+        tx = train.make_optimizer(lr=DP_LR, total_steps=4, warmup_steps=1)
+        return sp.make_sp_train_step(model, tx, dist.group.WORLD), \
+            train.init_train_state(model, tx)
+
+    step, state = fresh(PRETRAIN_DEPTH)
+    losses, ms = [], []
+
+    def steps():
+        nonlocal state
+        for _ in range(SP_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, *batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+
+    torch.cuda.reset_peak_memory_stats()
+    _, launches, _ = traced_run(torch, "the SP train step (world 2)", steps,
+                                SP_TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = torch.load(tmp / "pp_train_ref.pt", mmap=True)
+    diffs = torch.cat([(p.detach().cpu() - want[n]).abs().reshape(-1)
+                       for n, p in state.params.items()])
+    out = {"losses": losses, "ms": ms, "launches": launches, "peak_gb": peak,
+           "max_abs": diffs.max().item(),
+           "within": (diffs <= DP_PARAM_ATOL).float().mean().item()}
+    del step, state, want, diffs
+    torch.cuda.empty_cache()
+    step, state = fresh(2)
+    for i in range(4):
+        if i == 2:
+            if dist.get_rank() == 0:
+                checkpoint.save_state(str(tmp / "sp_ckpt"), {"train": state})
+            dist.barrier()
+        state, _ = step(state, *batch)
+    out["depth2"] = {n: p.detach().cpu() for n, p in state.params.items()}
+    return out
+
+
+def sp_resume_at_world1(torch, inp: dict, tmp: Path, whole: dict) -> dict:
+    """The depth-2 checkpoint `sp_train_rank` saved at world 2 after two
+    steps, restored in this process (a world of one) and trained two
+    more: its parameters against world 2's after its fourth step."""
+    from uni_adapter_torch import checkpoint, train
+    from uni_adapter_torch.config import ModelConfig
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel import sp
+
+    batch = [inp["batch"][k].cuda() for k in ("pc", "text_embed",
+                                               "image_embed", "mask")]
+    model = create_uni3d(ModelConfig(eva_depth=2, compute_dtype="float32"),
+                         "cuda", torch.float32, seed=0, trainable=True)
+    tx = train.make_optimizer(lr=DP_LR, total_steps=4, warmup_steps=1)
+    step = sp.make_sp_train_step(model, tx)
+    saved = checkpoint.restore_state(str(tmp / "sp_ckpt"), device="cuda")
+    state = train.load_train_state(model, saved["train"])
+    for _ in range(2):
+        state, _ = step(state, *batch)
+    diffs = torch.cat([(p.detach().cpu() - whole[n]).abs().reshape(-1)
+                       for n, p in state.params.items()])
+    out = {"step": int(state.step), "max_abs": diffs.max().item(),
+           "within": (diffs <= DP_PARAM_ATOL).float().mean().item()}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_dp_rank(torch, flat) -> dict:
+    """A rank's SP × DP at world 4: a (data, seq) = (2, 2) grid
+    (`sp.make_sp_grid(2, 2)`), Uni3D-L fp32 at depth 2, the features of
+    `flat`, the launches and the rank's (seq rank, data rank)."""
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.parallel import sp
+
+    grid = sp.make_sp_grid(2, 2)
+    counters = zeroed_counters()
+    encode = engine.encode_parts("uni3d", sp.make_sp_forward(
+        tp_model(torch, tp_cfg("float32", depth=2)), grid.seq_group,
+        grid.data_group))
+    return {"sp_dp": tp_features(torch, encode, *flat),
+            "sp_dp_launches": {k: c.launches for k, c in counters.items()
+                               if c.launches},
+            "sp_grid": (grid.seq_rank, grid.data_rank)}
+
+
+def sp_rank(rank: int, world: int, tmp: str, port: int, mode: str) -> None:
+    """One rank of phase 15's worlds of 2 and 4, started by `run_sp_world`:
+    mode 'gloo', every rank on card 0 (the bootstrap picks gloo), or
+    'nccl', a card a rank; writes tmp/sp_rank{rank}_w{world}_{mode}.pt."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if mode == "gloo":
+        os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.cli.tta import set_numerics
+    from uni_adapter_torch.parallel import trunk
+    from uni_adapter_torch.parallel.bootstrap import init_distributed_device
+
+    boot = init_distributed_device("cuda")
+    set_numerics()
+    try:
+        inp = torch.load(Path(tmp) / "sp_inputs.pt", weights_only=False)
+        out = {"backend": boot["backend"]}
+        pcs, rgbs = inp["pcs"].cuda(), inp["rgbs"].cuda()
+        flat = (pcs[:TP_CLOUDS, 0], rgbs[:TP_CLOUDS, 0])
+        if world == 4:
+            out.update(sp_dp_rank(torch, flat))
+            torch.save(out, Path(tmp) / f"sp_rank{rank}_w{world}_{mode}.pt")
+            return
+        # Uni3D-L bf16: features, the traced captured stream
+        cfg = sp_cfg()
+        model, encode = trunk.prepare_trunk_parallel(cfg, tp_model(torch,
+                                                                   cfg))
+        out["uni3d"] = tp_features(torch, encode, *flat)
+        scan_fn = engine.make_scan_fn(cfg, model, encode_fn=encode)
+        go = lambda: engine.run_stream_scan(  # noqa: E731
+            cfg, model, inp["bank"].cuda(), pcs, rgbs,
+            inp["targets"].cuda(), seed=42, scan_fn=scan_fn)
+        ((state, outs), launches, _), _, peak = ep_peak(
+            torch, lambda: traced_run(
+                torch, f"the SP stream (world {world}, {mode})", go,
+                SP_KERNELS))
+        out["stream"] = {"acc1": engine.summarize(outs, 16)["acc1"],
+                         "ms": list(scan_fn.step_ms),
+                         "launches": launches, "peak_gb": peak,
+                         "segments": ep_segments(scan_fn),
+                         "requests": step_requests(scan_fn)}
+        del model, encode, scan_fn, state, outs
+        torch.cuda.empty_cache()
+        # Uni3D-L fp32: features and the planted fault
+        cfg = sp_cfg("float32")
+        model, encode = trunk.prepare_trunk_parallel(cfg, tp_model(torch,
+                                                                   cfg))
+        out["uni3d_fp32"] = tp_features(torch, encode, *flat)
+        out["fault"] = sp_fault_last_fold(torch, encode, *flat, world)
+        _, outs = engine.run_stream_scan(
+            cfg, model, inp["bank"].cuda(), pcs[:TP_FP32_STEPS],
+            rgbs[:TP_FP32_STEPS], inp["targets_fp32"].cuda(), seed=42,
+            scan_fn=engine.make_scan_fn(cfg, model, encode_fn=encode))
+        out["trajectory"] = {"final_logits": outs.final_logits.cpu(),
+                             "correct": outs.correct.cpu()}
+        del model, encode, outs
+        torch.cuda.empty_cache()
+        c = sp_cfg(kind="ulip")
+        model, encode = trunk.prepare_trunk_parallel(
+            c, tp_model(torch, c, "ulip"))
+        counters = zeroed_counters()
+        out["ulip"] = tp_features(torch, encode, *flat)
+        out["ulip_launches"] = {k: n.launches for k, n in counters.items()
+                                if n.launches}
+        del model, encode
+        torch.cuda.empty_cache()
+        out["train"] = sp_train_rank(torch, inp, Path(tmp))
+        torch.save(out, Path(tmp) / f"sp_rank{rank}_w{world}_{mode}.pt")
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def run_sp_world(tmp: Path, world: int, mode: str = "gloo") -> list:
+    """Phase 15's world of `world` ranks (`sp_rank`): over gloo on card 0,
+    or over NCCL, a card a rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.start_processes(sp_rank, args=(world, str(tmp), free_port(), mode),
+                       nprocs=world, join=True, start_method="spawn")
+    print(f"sp world {world} ({mode}): all ranks done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(tmp / f"sp_rank{r}_w{world}_{mode}.pt",
+                       weights_only=False) for r in range(world)]
+
+
+def run_sp(tmp: Path, card: str, refs=None, cli: bool = True) -> tuple:
+    """Phase 15: the sequence-parallel trunk (`parallel/sp.py`).
+
+    (a) world 1 over NCCL in this process: Uni3D-L at full width and
+    depth through `prepare_trunk_parallel`'s SP encoder, its bf16 and
+    fp32 features against the plain forward's (`trunk_refs`), the
+    captured bf16 stream (MODE-DOTA with residuals, 16 clouds) traced:
+    FPS and kNN, no other kernel, ms a step beside the plain scan's.  (b)
+    world 2, two processes sharing the card over gloo (`sp_rank`): the
+    bf16 and fp32 features against world 1's, the planted fault failing,
+    ULIP-2's features, the fp32 trajectory against one process's
+    (`correct` equal), the captured bf16 stream (ms, segments, shifts and
+    their bytes a step, peak GB a rank),
+    pretraining at full width against one process (`pp_train_reference`,
+    phase 14's where it ran) and the depth-2 checkpoint resumed here at
+    world 1 (`sp_resume_at_world1`).  (c) world 4 over gloo: SP × DP
+    within TP_COS_F32 of one process (`sp_dp_rank`, in phase 13's world
+    of 4 where it ran, else in a world of its own).  (d) the CLI and the
+    HTTP server at world 2 (`run_tp_cli`; with `cli` False the caller
+    runs it, beside phases 13's and 14's).  With two cards or more (b)
+    runs again over NCCL, a card a rank; with four, (c) too.  Returns
+    (the world-1 run's launches, summary)."""
+    import torch
+    import torch.distributed as dist
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.parallel import trunk
+
+    t_phase = time.perf_counter()
+    times, problems, summary = {}, [], {"ms_a_step": {}}
+
+    def bad(msg: str) -> None:
+        print(f"sp check failed: {msg}")
+        problems.append(msg)
+
+    refs = refs or trunk_refs(torch)
+    inp, ref, want = dict(refs["inp"]), refs["ref"], refs["want"]
+    summary["ms_a_step"].update(refs["ms"])
+    pcs, rgbs = inp["pcs"].cuda(), inp["rgbs"].cuda()
+    flat = (pcs[:TP_CLOUDS, 0], rgbs[:TP_CLOUDS, 0])
+    bank = inp["bank"].cuda()
+
+    # (a) world 1 over NCCL
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        cfg = sp_cfg("float32")
+        _, encode = trunk.prepare_trunk_parallel(cfg, tp_model(torch, cfg))
+        world1 = {"uni3d_fp32": tp_features(torch, encode, *flat)}
+        del encode
+        torch.cuda.empty_cache()
+        cfg = sp_cfg()
+        rank_model, encode = trunk.prepare_trunk_parallel(
+            cfg, tp_model(torch, cfg))
+        world1["uni3d"] = tp_features(torch, encode, *flat)
+        scan_fn = engine.make_scan_fn(cfg, rank_model, encode_fn=encode)
+        (state, outs), launches, _ = traced_run(
+            torch, "the SP stream (world 1, NCCL)",
+            lambda: engine.run_stream_scan(
+                cfg, rank_model, bank, pcs, rgbs, inp["targets"].cuda(),
+                seed=42, scan_fn=scan_fn), SP_KERNELS)
+    finally:
+        dist.destroy_process_group()
+    cos = {k: tp_min_cos(world1[k], ref[k]) for k in ("uni3d", "uni3d_fp32")}
+    for k, c in cos.items():
+        tol = TP_COS_F32 if k == "uni3d_fp32" else TP_COS_BF16
+        if c < tol:
+            bad(f"sp world 1, {k}: features' least cosine {c:.7f} to the "
+                f"plain forward < {tol}")
+    acc1 = engine.summarize(outs, 16)["acc1"]
+    summary["ms_a_step"]["world1_bf16"] = statistics.median(
+        scan_fn.step_ms[1:])
+    summary["world1"] = {"cos": cos, "acc1": acc1}
+    print(f"sp world 1 (NCCL), Uni3D-L, features' least cosine to the plain "
+          f"forward {cos}; MODE-DOTA with residuals, 16 clouds captured: "
+          f"acc@1 {acc1} (the plain scan {want[2]}), "
+          f"{summary['ms_a_step']['world1_bf16']:.2f} ms a step (plain "
+          f"{refs['ms']['plain_bf16']:.2f}); launches {launches}")
+    del rank_model, encode, scan_fn, state, outs
+    torch.cuda.empty_cache()
+    inp["batch"] = dist_inputs(torch)["batch"]
+    train_ref = refs.get("train_ref")
+    if train_ref is None or not (tmp / "pp_train_ref.pt").exists():
+        train_ref = pp_train_reference(torch, inp, tmp)
+    times["a"] = time.perf_counter() - t0
+
+    # (b) world 2 over gloo
+    t0 = time.perf_counter()
+    torch.save({k: (v.cpu() if hasattr(v, "cpu") else v)
+                for k, v in inp.items()}, tmp / "sp_inputs.pt")
+
+    def check_world2(ranks: list, tag: str) -> dict:
+        res = {}
+        resumed = sp_resume_at_world1(torch, inp, tmp,
+                                      ranks[0]["train"]["depth2"])
+        for r, out in enumerate(ranks):
+            want_backend = "nccl" if "nccl" in tag else "gloo"
+            if out["backend"] != want_backend:
+                bad(f"sp world 2{tag}: rank {r} runs {out['backend']}")
+            cos2 = {"uni3d": tp_min_cos(out["uni3d"], world1["uni3d"]),
+                    "ulip": tp_min_cos(out["ulip"], ref["ulip"])}
+            for k, c in cos2.items():
+                if c < TP_COS_BF16:
+                    bad(f"sp world 2{tag} rank {r}, {k}: features' least "
+                        f"cosine {c:.6f} < {TP_COS_BF16}")
+            d32 = float((out["uni3d_fp32"] - world1["uni3d_fp32"]).abs()
+                        .max())
+            fault = float((out["fault"] - world1["uni3d_fp32"]).abs().max())
+            if d32 > SP_F32_ATOL or fault <= SP_F32_ATOL:
+                bad(f"sp world 2{tag} rank {r}: fp32 features max |Δ| "
+                    f"{d32:.3g} from world 1's, the planted fault "
+                    f"{fault:.3g} (tolerance {SP_F32_ATOL})")
+            st, tj = out["stream"], out["trajectory"]
+            shifts = {g: q["shift"][0] for g, q in st["requests"].items()}
+            if set(shifts.values()) != {24}:
+                bad(f"sp world 2{tag} rank {r}: shifts a step {shifts} "
+                    f"(expected 24)")
+            d = float((tj["final_logits"] - ref["trajectory"][0]).abs()
+                      .max())
+            if not torch.allclose(tj["final_logits"], ref["trajectory"][0],
+                                  rtol=TP_LOGITS, atol=TP_LOGITS) or \
+                    not torch.equal(tj["correct"], ref["trajectory"][2]):
+                bad(f"sp world 2{tag} rank {r}: fp32 trajectory logits max "
+                    f"|Δ| {d:.3g} (tolerance {TP_LOGITS}), correct equal "
+                    f"to one process's "
+                    f"{torch.equal(tj['correct'], ref['trajectory'][2])}")
+            if not {"fps", "knn"} <= set(out["ulip_launches"]):
+                bad(f"sp world 2{tag} rank {r}: ULIP-2 launched "
+                    f"{out['ulip_launches']}")
+            tr = out["train"]
+            loss_ok = all(abs(a - b) <= DP_LOSS_RTOL * abs(b) for a, b in
+                          zip(tr["losses"], train_ref["losses"]))
+            if not loss_ok or tr["within"] < 0.99 or \
+                    resumed["within"] < 0.99:
+                bad(f"sp world 2{tag} rank {r}: train losses {tr['losses']}"
+                    f" against {train_ref['losses']}, {tr['within']:.4f} of "
+                    f"the parameters within {DP_PARAM_ATOL}; resumed at "
+                    f"world 1 {resumed['within']:.4f}")
+            print(f"sp world 2{tag} rank {r}: least cosine (bf16 to world "
+                  f"1, ULIP-2 to one process) {cos2}; fp32 features max |Δ| "
+                  f"{d32:.3g} from world 1's, planted fault {fault:.3g}; "
+                  f"fp32 trajectory logits max |Δ| {d:.3g} from one "
+                  f"process's, correct equal; bf16 stream acc@1 "
+                  f"{st['acc1']} (world 1 {summary['world1']['acc1']}, the "
+                  f"plain scan {want[2]}), launches {st['launches']}, "
+                  f"segments a step "
+                  f"{st['segments']}, requests a step {st['requests']}, "
+                  f"peak {st['peak_gb']:.2f} GB (one process "
+                  f"{refs['peak_gb']:.2f} GB); ULIP-2 launches "
+                  f"{out['ulip_launches']}; train: losses {tr['losses']} "
+                  f"(one process {train_ref['losses']}), {tr['within']:.4f} "
+                  f"of the parameters within {DP_PARAM_ATOL} (max |Δ| "
+                  f"{tr['max_abs']:.3g}), ms a step {tr['ms']} (one process "
+                  f"{train_ref['ms']}), peak {tr['peak_gb']:.2f} GB (one "
+                  f"process {train_ref['peak_gb']:.2f} GB), launches "
+                  f"{tr['launches']}; depth-2 checkpoint resumed at world 1: "
+                  f"{resumed['within']:.4f} within {DP_PARAM_ATOL} of world "
+                  f"2's uninterrupted run (max |Δ| {resumed['max_abs']:.3g})")
+            res[f"rank{r}"] = {"cos": cos2, "fp32_max_abs": d32,
+                               "fault_max_abs": fault,
+                               "logits_max_abs": d, "acc1": st["acc1"],
+                               "segments": st["segments"],
+                               "requests": st["requests"],
+                               "peak_gb": st["peak_gb"],
+                               "launches": st["launches"],
+                               "train": {k: tr[k] for k in (
+                                   "losses", "ms", "peak_gb", "max_abs",
+                                   "within", "launches")},
+                               "resumed_at_world1": resumed}
+        summary["ms_a_step"][f"world2_bf16{tag}"] = statistics.median(
+            ranks[0]["stream"]["ms"][1:])
+        return res
+
+    summary["world2"] = check_world2(run_sp_world(tmp, 2), "")
+    summary["one_process"] = {"peak_gb": refs["peak_gb"], "train": train_ref}
+    times["b"] = time.perf_counter() - t0
+
+    # (c) world 4 over gloo: SP × DP
+    t0 = time.perf_counter()
+
+    def check_world4(ranks: list, tag: str) -> None:
+        for r, out in enumerate(ranks):
+            c = tp_min_cos(out["sp_dp"], ref["depth2_fp32"])
+            if c < TP_COS_F32 or out["sp_grid"] != (r % 2, r // 2):
+                bad(f"sp × dp world 4{tag} rank {r}: least cosine {c:.6f}, "
+                    f"grid {out['sp_grid']}")
+            print(f"sp × dp world 4{tag} (data 2 × seq 2) rank {r}: least "
+                  f"cosine to one process {c:.7f}; launches "
+                  f"{out['sp_dp_launches']}")
+
+    check_world4(refs.get("tp_world4") or run_sp_world(tmp, 4), "")
+    times["c"] = time.perf_counter() - t0
+
+    # (d) the CLI and the HTTP server at world 2 (with `cli`; else the
+    # caller runs them beside phases 13's and 14's)
+    if cli:
+        t0 = time.perf_counter()
+        summary["cli"] = run_tp_cli(tmp, torch, ("sp",))["sp"]
+        times["d"] = time.perf_counter() - t0
+
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        summary["world2_nccl"] = check_world2(run_sp_world(tmp, 2, "nccl"),
+                                              " (nccl)")
+        if torch.cuda.device_count() >= 4:
+            check_world4(refs.get("tp_world4_nccl")
+                         or run_sp_world(tmp, 4, "nccl"), " (nccl)")
+        times["nccl"] = time.perf_counter() - t0
+    else:
+        print("sp worlds over NCCL: not run, this machine has one card (the "
+              "ranks shared it over gloo)")
+    summary["seconds"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = times
+    print(f"sp ms a step ({card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in summary["ms_a_step"].items()))
+    print(f"phase sp: {summary['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in times.items()) + ")")
+    if problems:
+        fail(f"phase sp: {len(problems)} checks failed: "
+             + "; ".join(problems))
+    return launches, summary
+
+
 _T_START = time.perf_counter()
 
 
@@ -8304,6 +8982,9 @@ def main() -> None:
     ap.add_argument("--pp-only", action="store_true",
                     help="build the kernels and run only phase 14, the "
                          "pipeline-parallel trunk")
+    ap.add_argument("--sp-only", action="store_true",
+                    help="build the kernels and run only phase 15, the "
+                         "sequence-parallel trunk")
     args = ap.parse_args()
     dist_only = args.dist_only
     t_start = time.perf_counter()
@@ -8332,6 +9013,17 @@ def main() -> None:
     from uni_adapter_torch.cli.tta import set_numerics
 
     set_numerics()
+    if args.sp_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            sp_launches, sp_run = run_sp(Path(tmp), card)
+        print(f"chip_smoke --sp-only total: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"sp": sp_run, "launches": {"sp_world1":
+                                                     sp_launches}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if args.pp_only:
         with tempfile.TemporaryDirectory() as tmp:
             pp_launches, pp_run = run_pp(Path(tmp), card)
@@ -8372,21 +9064,24 @@ def main() -> None:
                                                             inputs)
             dp_launches, dp_run = run_dp_pretraining(Path(tmp), card, inputs,
                                                      dp_ranks)
-            ep_launches, ep_run = run_ep(Path(tmp), card)
+            ep_launches, ep_run = run_ep(Path(tmp), card, cli=False)
             refs = trunk_refs(torch)
             tp_launches, tp_run = run_tp(Path(tmp), card, refs, cli=False)
             pp_launches, pp_run = run_pp(Path(tmp), card, refs, cli=False)
-            clis = run_tp_cli(Path(tmp), torch, ("tp", "pp"))
-            tp_run["cli"], pp_run["cli"] = clis["tp"], clis["pp"]
+            sp_launches, sp_run = run_sp(Path(tmp), card, refs, cli=False)
+            run_clis(Path(tmp), torch, dp_run, ep_run,
+                     {"tp": tp_run, "pp": pp_run, "sp": sp_run})
         print(f"chip_smoke --dist-only total: "
               f"{time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"dist_streams": dist_run, "dp_pretraining": dp_run,
                           "ep": ep_run, "tp": tp_run, "pp": pp_run,
+                          "sp": sp_run,
                           "launches": {"dist_psum_world1": launches,
                                        "dp_pretrain_world1": dp_launches,
                                        "ep_world1": ep_launches,
                                        "tp_world1": tp_launches,
-                                       "pp_world1": pp_launches}}))
+                                       "pp_world1": pp_launches,
+                                       "sp_world1": sp_launches}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -8484,16 +9179,18 @@ def main() -> None:
             Path(tmp), card, inputs, dp_ranks)
         by_path["cross_class"], cross_run = run_cross_class(Path(tmp), card)
         stamp("data parallelism and the cross-class analysis")
-        by_path["ep_world1"], ep_run = run_ep(Path(tmp), card)
+        by_path["ep_world1"], ep_run = run_ep(Path(tmp), card, cli=False)
         refs = trunk_refs(torch)
         by_path["tp_world1"], tp_run = run_tp(Path(tmp), card, refs,
                                               cli=False)
         by_path["pp_world1"], pp_run = run_pp(Path(tmp), card, refs,
                                               cli=False)
+        by_path["sp_world1"], sp_run = run_sp(Path(tmp), card, refs,
+                                              cli=False)
         del refs
-        clis = run_tp_cli(Path(tmp), torch, ("tp", "pp"))
-        tp_run["cli"], pp_run["cli"] = clis["tp"], clis["pp"]
-        stamp("EP, TP and PP")
+        run_clis(Path(tmp), torch, dp_run, ep_run,
+                 {"tp": tp_run, "pp": pp_run, "sp": sp_run})
+        stamp("EP, TP, PP and SP, and the CLIs at world 2")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -8505,7 +9202,7 @@ def main() -> None:
                       "dvae": dvae_run, "dist_streams": dist_run,
                       "dp_pretraining": dp_run, "cross_class": cross_run,
                       "ep": ep_run, "tp": tp_run, "pp": pp_run,
-                      "uni3d_int8_ms": {"uni3d_int8": int8_ms,
+                      "sp": sp_run, "uni3d_int8_ms": {"uni3d_int8": int8_ms,
                                         "uni3d": batch1_ms["uni3d"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -86,30 +86,45 @@ def test_cli_without_gpu_and_without_device_cpu_raises(stream_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--trunk-parallel", "pp"], None),
-    (["--trunk-parallel", "sp"], "M16"),
+    (["--trunk-parallel", "pp"], "pipeline, 1 stages x 1 chunks/stage"),
+    (["--trunk-parallel", "sp"], "sequence (ring attention), 1-way"),
 ])
 def test_unported_paths_raise_and_name_their_roadmap_item(flags, item,
                                                           stream_dir,
                                                           tmp_path):
-    """What waits for ROADMAP M16 part 2 raises by name: the
-    sequence-parallel trunk.  The pipeline-parallel trunk runs: in a world
-    of this process alone it is one stage, and results.json is the run's
-    without it (its multi-rank runs: test_torch_pp_cli.py).
-    (`--dist-mode sharded` and `psum` run: tests/test_torch_parallel.py;
-    `ep`: test_torch_ep.py and below; `--trunk-parallel tp`:
+    """Nothing waits for ROADMAP M16 any more: the pipeline-parallel trunk
+    and the sequence-parallel one run.  In a world of this process alone
+    the pipeline is one stage and the ring one shard, and results.json is
+    the run's without them; the log names the trunk (`item`).  (Their
+    multi-rank runs: test_torch_pp_cli.py, test_torch_sp_cli.py;
+    `--dist-mode sharded` and `psum`: tests/test_torch_parallel.py; `ep`:
+    test_torch_ep.py and below; `--trunk-parallel tp`:
     test_torch_tp_cli.py.)"""
     argv = ["--device", "cpu", "--root", str(stream_dir), *SMALL_ARGS,
             "--corruption", "uniform", "--name", "run"]
-    if item is None:
-        got = tta.main([*argv, *flags, "--output-dir", str(tmp_path / "pp")])
-        want = tta.main([*argv, "--output-dir", str(tmp_path / "plain")])
-        assert got["acc1"] == want["acc1"]
-        log = (tmp_path / "pp" / "run" / "out.log").read_text()
-        assert "trunk parallelism: pipeline, 1 stages x 1 chunks/stage" in log
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        tta.main([*argv, *flags])
+    got = tta.main([*argv, *flags, "--output-dir", str(tmp_path / "trunk")])
+    want = tta.main([*argv, "--output-dir", str(tmp_path / "plain")])
+    assert got["acc1"] == want["acc1"]
+    log = (tmp_path / "trunk" / "run" / "out.log").read_text()
+    assert f"trunk parallelism: {item}" in log
+
+
+@pytest.mark.parametrize("cli", ["tta", "serve"])
+def test_unknown_backbone_raises_the_jax_clis_error(cli, stream_dir,
+                                                    tmp_path):
+    """`--vlm3d foo` raises the JAX CLIs' ValueError, its type and text
+    (their `build_model`), before a backbone is built."""
+    import importlib
+
+    argv = ["--device", "cpu", "--root", str(stream_dir), *SMALL_ARGS,
+            "--corruption", "uniform", "--vlm3d", "foo"]
+    errors = []
+    for package in ("uni_adapter_torch", "uni_adapter_tpu"):
+        main = importlib.import_module(f"{package}.cli.{cli}").main
+        with pytest.raises(Exception) as e:
+            main([*argv, "--output-dir", str(tmp_path / package)])
+        errors.append((type(e.value), str(e.value)))
+    assert errors[0] == errors[1] == (ValueError, "foo")
 
 
 @pytest.mark.parametrize("flags", [

@@ -254,28 +254,34 @@ def test_client_round_trip(setup, tmp_path):
 
 def test_serve_cli_starts_and_serves(tmp_path):
     """`cli.serve.main` on the CPU builds the model and the bundled
-    anchors, warms up and serves one client over the wire."""
+    anchors, warms up and serves one client over the wire; with
+    `--trunk-parallel sp` (one process: one shard of the tokens) it
+    answers the same request with the same logits, within 1e-4."""
     from uni_adapter_torch.cli import serve as serve_cli
 
-    http_srv = serve_cli.main([
-        "--port", "0", "--gather-ms", "0", "--sizes", "1,2", "--warmup",
-        "--device", "cpu", "--npoints", "64", "--eva-depth", "1",
-        "--pc-feat-dim", "64", "--num-group", "8", "--group-size", "8",
-        "--pc-encoder-dim", "32", "--eva-heads", "4",
-        "--compute-dtype", "float32", "--precomputed-text-features", "large",
-        "--output-dir", str(tmp_path)])
+    argv = ["--port", "0", "--gather-ms", "0", "--sizes", "1,2", "--warmup",
+            "--device", "cpu", "--npoints", "64", "--eva-depth", "1",
+            "--pc-feat-dim", "64", "--num-group", "8", "--group-size", "8",
+            "--pc-encoder-dim", "32", "--eva-heads", "4",
+            "--compute-dtype", "float32", "--precomputed-text-features",
+            "large", "--output-dir", str(tmp_path)]
+    http_srv = serve_cli.main(argv)
+    cloud = np.random.default_rng(0).standard_normal((1, 64, 3)).astype(
+        np.float32)
     try:
         port = http_srv.port
         assert request(port, "POST", "/register?client=x")[0] == 200
-        rng = np.random.default_rng(0)
-        out = submit(port, "x", rng.standard_normal((1, 64, 3))
-                     .astype(np.float32))
+        out = submit(port, "x", cloud)
         assert out.shape == (1, 40) and np.isfinite(out).all()
         health = json.loads(request(port, "GET", "/healthz")[2])
         assert health["clients"] == 1 and health["sizes"] == [1, 2]
     finally:
         http_srv.close()
     assert (tmp_path / "serve.log").exists()
-    with pytest.raises(NotImplementedError, match="M16"):
-        serve_cli.main(["--device", "cpu", "--output-dir", str(tmp_path),
-                        "--trunk-parallel", "sp"])
+    http_srv = serve_cli.main([*argv, "--trunk-parallel", "sp"])
+    try:
+        assert request(http_srv.port, "POST", "/register?client=x")[0] == 200
+        sp_out = submit(http_srv.port, "x", cloud)
+        np.testing.assert_allclose(sp_out, out, rtol=1e-4, atol=1e-4)
+    finally:
+        http_srv.close()

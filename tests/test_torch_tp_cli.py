@@ -212,19 +212,33 @@ def test_trunk_parallel_flags_validate_as_jax(flags):
 
 @pytest.mark.parametrize("mode", ["pp", "sp"])
 def test_pipeline_and_sequence_trunks_still_refused(mode):
-    """`--trunk-parallel sp` parses and is refused by name; `pp` parses and
-    runs (tests/test_torch_pp_cli.py), its stage count and interleave as
-    the JAX parser reads them."""
-    cfg = pcfg.parse_args(["--trunk-parallel", mode])
-    if mode == "pp":
-        assert pcfg.unported_paths(cfg) == []
-        flags = ["--trunk-parallel", "pp", "--trunk-stages", "2",
-                 "--pp-interleave", "2"]
-        got, want = pcfg.parse_args(flags).run, jcfg.parse_args(flags).run
-        assert (got.trunk_stages, got.pp_interleave) == \
-            (want.trunk_stages, want.pp_interleave) == (2, 2)
-        return
-    assert pcfg.unported_paths(cfg) == [f"--trunk-parallel {mode} "
-                                        "(ROADMAP M16)"]
-    assert pcfg.unported_paths(dataclasses.replace(
-        cfg, run=dataclasses.replace(cfg.run, trunk_parallel="tp"))) == []
+    """Neither trunk is refused any more: `pp` and `sp` parse as the JAX
+    parser reads them (pp's stage count and interleave too) and run
+    (tests/test_torch_pp_cli.py, tests/test_torch_sp_cli.py); here, in a
+    world of this process alone, the trunk's encoder gives the plain
+    encoder's features within 1e-5."""
+    import torch
+
+    from uni_adapter_torch import engine
+    from uni_adapter_torch.models.uni3d import create_uni3d
+    from uni_adapter_torch.parallel.trunk import prepare_trunk_parallel
+
+    flags = ["--trunk-parallel", mode] + (
+        ["--trunk-stages", "1", "--pp-interleave", "2"] if mode == "pp"
+        else [])
+    got, want = pcfg.parse_args(flags).run, jcfg.parse_args(flags).run
+    assert (got.trunk_parallel, got.trunk_stages, got.pp_interleave) == \
+        (want.trunk_parallel, want.trunk_stages, want.pp_interleave)
+    mcfg = pcfg.ModelConfig(pc_feat_dim=48, embed_dim=32, num_group=8,
+                            group_size=8, pc_encoder_dim=24, eva_depth=2,
+                            eva_heads=4, compute_dtype="float32")
+    cfg = dataclasses.replace(pcfg.parse_args(flags), model=mcfg)
+    model = create_uni3d(mcfg, "cpu")
+    pc = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 64, 3)).astype(np.float32))
+    rgb = torch.ones_like(pc)
+    with torch.no_grad():
+        _, encode = prepare_trunk_parallel(cfg, model)
+        feat = engine.drive(engine.encoded(encode, pc, rgb), None)
+        plain = engine.encode_with("uni3d", model)(pc, rgb)
+    torch.testing.assert_close(feat, plain, rtol=1e-5, atol=1e-5)

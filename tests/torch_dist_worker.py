@@ -879,17 +879,20 @@ def pp_program(inputs: dict, rank: int) -> dict:
                       for c in inputs["cases"] if c["world"] == world})
 
 
-def pp_cli_program(inputs: dict, rank: int) -> dict:
-    """`--trunk-parallel pp` through the TTA CLI, `TTAServer(encode_fn=...)`
-    with the PP encoder, the trunk's errors, and `--parallel pp` through
-    the pretraining CLI, uninterrupted and resumed (tests/
-    test_torch_pp_cli.py).  Rank 0 serves; rank 1 follows."""
+def trunk_cli_program(inputs: dict, rank: int) -> dict:
+    """`--trunk-parallel pp` or `sp` (`inputs["trunk"]`, default pp)
+    through the TTA CLI, `TTAServer(encode_fn=...)` with the trunk's
+    encoder, the trunk's errors, and `--parallel pp` or `sp` through the
+    pretraining CLI, uninterrupted and resumed (tests/test_torch_pp_cli.py,
+    tests/test_torch_sp_cli.py).  Rank 0 serves; rank 1 follows."""
+    import dataclasses
+
     import torch
 
     from uni_adapter_torch import serve
     from uni_adapter_torch.cli import pretrain, tta
     from uni_adapter_torch.models.uni3d import create_uni3d
-    from uni_adapter_torch.parallel import pp, trunk
+    from uni_adapter_torch.parallel import trunk
 
     models = {name: create_uni3d(mcfg, "cpu", state_dict=sd)
               for name, (mcfg, sd) in inputs["models"].items()}
@@ -902,9 +905,12 @@ def pp_cli_program(inputs: dict, rank: int) -> dict:
         return case
 
     def server():
-        rank_model, encode = pp.make_pp_encode_fn(
-            models["small"], pp.make_stages(), "uni3d")
-        srv = serve.TTAServer(inputs["cfg"], rank_model,
+        cfg = inputs["cfg"]
+        rank_model, encode = trunk.prepare_trunk_parallel(
+            dataclasses.replace(cfg, run=dataclasses.replace(
+                cfg.run, trunk_parallel=inputs.get("trunk", "pp"))),
+            models["small"])
+        srv = serve.TTAServer(cfg, rank_model,
                               torch.from_numpy(inputs["text"]),
                               sizes=(1, 2), encode_fn=encode)
         if not srv.primary:
@@ -947,11 +953,106 @@ def pp_cli_program(inputs: dict, rank: int) -> dict:
                       "pretrain": pretrain_runs})
 
 
+def sp_program(inputs: dict, rank: int) -> dict:
+    """The sequence-parallel trunk (tests/test_torch_sp.py): the cases of
+    `inputs["cases"]` whose world is this one, each on a (data, seq) grid
+    of the world (`sp.make_sp_grid`): ring attention on this rank's token
+    shard (the parts form with its requests, and the autograd form's
+    gradients), forwards with their requests, train steps and MODE-DOTA
+    trajectories."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from uni_adapter_torch import engine, train
+    from uni_adapter_torch.parallel import sp
+
+    world = dist.get_world_size()
+    t = torch.from_numpy
+
+    def build(name):
+        return build_pp_model(*inputs["models"][name])
+
+    def grid_of(c):
+        return sp.make_sp_grid(c["S"], c.get("dp", 1))
+
+    def ring(c):
+        """This rank's rows of ring attention over the padded tokens, its
+        requests, and under autograd the gradients of sum(out·ct) with
+        respect to its shard of q, k and v."""
+        q, k, v, ct = (t(c[n]) for n in ("q", "k", "v", "ct"))
+        n_tok = q.shape[2]
+        pad = -n_tok % world
+        n_loc = (n_tok + pad) // world
+        rows = slice(rank * n_loc, (rank + 1) * n_loc)
+        shard = [F.pad(a, (0, 0, 0, pad))[:, :, rows] for a in (q, k, v, ct)]
+        valid = (torch.arange(n_tok + pad) < n_tok).float()[rows]
+        group = dist.group.WORLD
+        out, log = _logged(lambda: sp.ring_attention(
+            *shard[:3], c["scale"], group, valid))
+        leaves = [a.clone().requires_grad_(True) for a in shard[:3]]
+        y = engine.drive(sp.ring_attention(
+            *leaves, c["scale"], group, valid, sp.autograd_hop(group)), None)
+        grads = torch.autograd.grad((y * shard[3]).sum(), leaves)
+        return {"out": out.numpy(), "log": log, "rows": (rows.start,
+                                                         rows.stop),
+                "autograd_out": y.detach().numpy(),
+                "grads": [g.numpy() for g in grads]}
+
+    def forward(c):
+        grid = grid_of(c)
+        model = build(c["model"])
+        fwd = sp.make_sp_forward(model, grid.seq_group, grid.data_group)
+        with torch.no_grad():
+            feat, log = _logged(fwd, *(t(x) for x in c["inputs"]))
+            plain = model(*(t(x) for x in c["inputs"])) if c.get(
+                "plain") else None
+        return {"feat": feat.float().numpy(), "log": log,
+                "grid": tuple(grid[:4]),
+                "plain": None if plain is None else plain.float().numpy()}
+
+    def train_steps(c):
+        grid = grid_of(c)
+        model = build(c["model"]).requires_grad_(True)
+        tx = train.make_optimizer(**c["optimizer"])
+        step = sp.make_sp_train_step(model, tx, grid.seq_group,
+                                     grid.data_group)
+        state = train.init_train_state(model, tx)
+        metrics = []
+        for b in c["batches"]:
+            state, m = step(state, *(t(x) for x in b))
+            metrics.append({k: v.item() for k, v in m.items()})
+        return {"metrics": metrics,
+                "params": {n: p.detach().numpy().copy()
+                           for n, p in state.params.items()},
+                "logit_scale": state.logit_scale.item()}
+
+    def trajectory(c):
+        model = build(c["model"])
+        model, encode = sp.make_sp_encode_fn(model, c["kind"],
+                                             dist.group.WORLD)
+        out = {}
+        for name, kw in (("sp", dict(encode_fn=encode)), ("replicated", {})):
+            scan_fn = _fed(engine.make_scan_fn(c["cfg"], model, **kw),
+                           c["noise"])
+            _, outs = engine.run_stream_scan(c["cfg"], model, t(c["text"]),
+                                             *c["stream"], seed=42,
+                                             scan_fn=scan_fn)
+            out[name] = (outs.final_logits.numpy(), outs.correct.numpy())
+        return out
+
+    kinds = {"ring": ring, "forward": forward, "train": train_steps,
+             "trajectory": trajectory}
+    return run_cases({c["name"]: functools.partial(kinds[c["type"]], c)
+                      for c in inputs["cases"] if c["world"] == world})
+
+
 PROGRAMS = {"parallel": parallel_program, "dp_train": dp_train_program,
             "ep": ep_program, "ep_methods": ep_methods_program,
             "ep_serve": ep_serve_program, "tp": tp_program,
             "tp_cli": tp_cli_program, "pp": pp_program,
-            "pp_cli": pp_cli_program}
+            "pp_cli": trunk_cli_program, "sp": sp_program,
+            "sp_cli": trunk_cli_program}
 
 
 def main() -> None:

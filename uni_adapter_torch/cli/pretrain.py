@@ -16,7 +16,9 @@
       parallel/pp.make_pp_train_step (pipeline stages over the ranks,
       each stage's blocks and AdamW moments on its rank, every rank
       reading the whole batch; `--pp-tp-size K` shards each stage's
-      blocks over K ranks too, PP × TP)
+      blocks over K ranks too, PP × TP), or `--parallel sp`:
+      parallel/sp.make_sp_train_step (the trunk's tokens over the ranks,
+      attention an exact ring, every rank reading the whole batch)
     → checkpoint.save_state every --ckpt-every steps, stamped with the
       recipe; `--resume` continues the exact batch schedule and refuses a
       checkpoint of another recipe.
@@ -45,8 +47,14 @@ devices of one process (a world of another size raises by name);
 process's whole state (rank 0 gathers the stages' blocks and moments),
 stamped with `pp_stages`, `pp_interleave` and `pp_tp_size`; `--resume`
 refuses another stage count or interleave, as the JAX CLI does, and
-re-shards onto another tp size.  `--parallel sp` waits for ROADMAP M16
-part 2 and raises.
+re-shards onto another tp size.
+
+`--parallel sp` runs over a launch of any size, every rank a shard of
+the tokens (the JAX CLI's one process over all its devices; a world of
+one is the plain step).  Its checkpoint is one process's plain state,
+saved by rank 0 and stamped `"parallel": "sp"`; it does not depend on
+the world's size, so a checkpoint saved at one size resumes at another,
+and `--resume` refuses another `--parallel`, as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -77,18 +85,6 @@ def _synthetic_corpus(root: str, n_shards: int = 2, per_shard: int = 64,
                 np.save(p, rng.standard_normal(shape).astype(np.float32))
             group.append(p)
     return pc, tx, im
-
-
-_M16 = "(ROADMAP M16, parallelism)"
-
-
-def _refuse_unported(args) -> None:
-    """What waits for M16 raises before anything runs."""
-    if args.parallel == "sp":
-        raise NotImplementedError(
-            f"--parallel {args.parallel} is not ported yet {_M16}; --parallel "
-            "dp runs data-parallel over the launched processes, pp pipeline "
-            "stages over them")
 
 
 def _pp_layout(args, world_size: int) -> tuple:
@@ -155,8 +151,10 @@ def main(argv=None):
                              "averaged; one process: the plain step).  pp: "
                              "pipeline stages over the launched processes "
                              "(depth divisible by the stage count; every "
-                             "rank reads the whole batch).  sp: not ported "
-                             "yet, ROADMAP M16")
+                             "rank reads the whole batch).  sp: the trunk's "
+                             "tokens over the launched processes, exact "
+                             "ring attention (every rank reads the whole "
+                             "batch)")
     parser.add_argument("--pp-microbatches", type=int, default=None,
                         help="GPipe microbatch count (default: one per "
                              "stage); the batch must divide by it")
@@ -177,7 +175,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (needs a GPU) or cpu")
     args = parser.parse_args(argv)
-    _refuse_unported(args)
 
     import torch
 
@@ -190,6 +187,7 @@ def main(argv=None):
     from uni_adapter_torch.models.uni3d import create_uni3d
     from uni_adapter_torch.parallel import collectives
     from uni_adapter_torch.parallel import pp as ppar
+    from uni_adapter_torch.parallel import sp as spar
     from uni_adapter_torch.parallel.bootstrap import (init_distributed_device,
                                                       world_info_from_env)
     from uni_adapter_torch.parallel.mesh import make_mesh
@@ -242,11 +240,11 @@ def main(argv=None):
         if not primary:
             pc, tx, im = _synthetic_corpus(synth_root, dim=args.embed_dim)
     corpus = ShardedCorpus(pc, tx, im)
-    # PP: every rank reads the whole batch (JAX's PP batch replicates)
+    # PP and SP: every rank reads the whole batch (JAX's batch replicates)
     loader = StreamingLoader(corpus, args.batch_size, seed=args.seed,
                              prefetch=args.prefetch,
                              **(dict(process_index=0, process_count=1)
-                                if pipelined else {}))
+                                if args.parallel != "dp" else {}))
     logging.info("corpus: %d samples in %d shards; %d steps/epoch "
                  "(global batch %d, local %d)", len(corpus), len(corpus.pc),
                  loader.steps_per_epoch, args.batch_size,
@@ -275,6 +273,11 @@ def main(argv=None):
                      args.depth // (n_stages * args.pp_interleave),
                      args.pp_microbatches or n_stages,
                      f", x {tp_size}-way tensor" if tp_size > 1 else "")
+    elif args.parallel == "sp":
+        # every rank holds the whole model, a shard of the tokens
+        sp_step = spar.make_sp_train_step(model, tx_opt, world.group)
+        logging.info("sequence parallel: %d tokens over %d devices "
+                     "(ring attention)", args.num_group + 1, world.size)
     state = init_train_state(model, tx_opt)
 
     ckpt_path = os.path.join(args.out, "ckpt")
@@ -370,6 +373,8 @@ def main(argv=None):
                 "the rank-0 checkpoint")
     if pipelined:
         step_fn = pp_step
+    elif args.parallel == "sp":
+        step_fn = sp_step
     elif world.group is not None:
         step_fn = make_dp_train_step(model, tx_opt, world)
     else:

@@ -18,11 +18,10 @@ unless `--device cpu` is passed (asked for `cuda` without one, it
 raises).  `--warmup` runs one step of every ladder size at start-up, so
 every kernel is built before the first request; a build that fails stops
 the server from starting.  `--trunk-parallel tp` (or `pp`, with
-`--trunk-stages` and `--pp-interleave`) under a multi-process launch
-shards the encoder trunk over the world's ranks (`parallel/trunk.py`,
-`serve.TTAServer(encode_fn=...)`), the clients' carries replicated on
-every rank; `--trunk-parallel sp` raises `NotImplementedError` (ROADMAP
-M16).
+`--trunk-stages` and `--pp-interleave`, or `sp`) under a multi-process
+launch shards the encoder trunk over the world's ranks
+(`parallel/trunk.py`, `serve.TTAServer(encode_fn=...)`), the clients'
+carries replicated on every rank.
 
 `--dist-mode ep` splits every client's classes over the ranks of a
 multi-process launch (`serve.TTAServer(dist_mode='ep')`):
@@ -68,10 +67,10 @@ def main(argv=None):
     if "-h" in (rest or []) or "--help" in (rest or []):
         print(ap.format_help())   # then the shared parser prints and exits
 
-    from uni_adapter_torch.cli.tta import (feature_width,
+    from uni_adapter_torch.cli.tta import (check_backbone, feature_width,
                                            get_text_anchors_with_fallback,
                                            resolve_device, set_numerics)
-    from uni_adapter_torch.config import parse_args, unported_paths
+    from uni_adapter_torch.config import parse_args
     from uni_adapter_torch.models.loader import build_backbone
     from uni_adapter_torch.parallel.bootstrap import init_distributed_device
     from uni_adapter_torch.parallel.trunk import prepare_trunk_parallel
@@ -80,9 +79,6 @@ def main(argv=None):
     from uni_adapter_torch.utils.logging import setup_logging
 
     cfg = parse_args(rest)
-    missing = unported_paths(cfg)
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
     boot = init_distributed_device(cfg.run.device)
     device = boot["device"] or resolve_device(cfg.run.device)
     set_numerics()
@@ -92,13 +88,14 @@ def main(argv=None):
                   if primary else None,
                   level=logging.INFO if primary else logging.WARNING)
 
+    check_backbone(cfg.model.vlm3d)
     model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,
                                  seed=cfg.run.seed,
                                  checkpoint_path=cfg.model.checkpoint_path)
     if cfg.model.checkpoint_path is None:
         logging.warning("No checkpoint configured — random weights; "
                         "served logits are not meaningful.")
-    # --trunk-parallel tp or pp: the encoder over the world's ranks
+    # --trunk-parallel tp, pp or sp: the encoder over the world's ranks
     encode_fn = None
     if cfg.run.trunk_parallel != "none":
         model, encode_fn = prepare_trunk_parallel(cfg, model)

@@ -88,8 +88,9 @@ raises the JAX CLI's ValueError.  `--trunk-parallel pp` runs the trunk
 as pipeline stages over the first `--trunk-stages` ranks (default: the
 world), `--pp-interleave` chunks a stage (`parallel/pp.py`), under the
 same rules; a depth that does not divide by stages × chunks raises the
-JAX CLI's ValueError.  `--trunk-parallel sp` raises NotImplementedError
-(ROADMAP M16).
+JAX CLI's ValueError.  `--trunk-parallel sp` shards the trunk's tokens
+over the world, attention an exact ring (`parallel/sp.py`; Uni3D and
+ULIP-2, OpenShape and int8 trunks raising the JAX CLI's ValueErrors).
 """
 from __future__ import annotations
 
@@ -106,7 +107,7 @@ import torch
 
 from uni_adapter_torch import engine
 from uni_adapter_torch.anchors import get_text_anchors
-from uni_adapter_torch.config import CORRUPTIONS, parse_args, unported_paths
+from uni_adapter_torch.config import CORRUPTIONS, parse_args
 from uni_adapter_torch.data.datasets import load_tta_dataset
 from uni_adapter_torch.models.clip_text import create_text_encoder
 from uni_adapter_torch.models.loader import build_backbone, load_checkpoint
@@ -140,6 +141,13 @@ def set_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def check_backbone(kind: str) -> None:
+    """An unknown `--vlm3d` raises the JAX CLIs' `ValueError(kind)` (their
+    `build_model`), before the backbone is built."""
+    if kind not in ("uni3d", "ulip", "openshape"):
+        raise ValueError(kind)
 
 
 def feature_width(m) -> int:
@@ -315,9 +323,6 @@ def main(argv=None) -> dict:
     `cg_iters` (the cache path's CG iterations a
     step, None on the DOTA family) and the run's `log_dir`."""
     cfg = parse_args(argv)
-    missing = unported_paths(cfg)
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
     # a multi-process launch joins its process group before anything
     # touches the device; one process is a no-op
     boot = init_distributed_device(cfg.run.device)
@@ -340,6 +345,7 @@ def main(argv=None) -> dict:
                      boot["backend"], cfg.run.dist_mode,
                      cfg.run.trunk_parallel)
 
+    check_backbone(cfg.model.vlm3d)
     model, _, _ = build_backbone(cfg.model.vlm3d, cfg.model, device,
                                  seed=cfg.run.seed,
                                  checkpoint_path=cfg.model.checkpoint_path)

@@ -14,11 +14,9 @@ changes the function (Uni3D's trunk on int8 `QuantDense` layers,
   * `--device` defaults to `cuda`, and a run asked for `cuda` on a host
     without a GPU raises instead of falling back to the CPU.
 
-Flags that select a path this package does not have yet parse as in the
-JAX package and raise `NotImplementedError` naming their ROADMAP item
-(`unported_paths`: `--trunk-parallel pp|sp`).  The combinations of
-`--dist-mode`, `--trunk-parallel`, `--vmap-corruptions` and
-`--continual` that the JAX parser rejects raise its `ValueError` here.
+The combinations of `--dist-mode`, `--trunk-parallel`,
+`--vmap-corruptions` and `--continual` that the JAX parser rejects raise
+its `ValueError` here.
 """
 from __future__ import annotations
 
@@ -159,8 +157,9 @@ class RunConfig:
     data_axis: str = "data"
     # none | tp: the encoder trunk tensor-parallel over the whole world
     # (parallel/tp.py; every backbone) | pp: pipeline stages over the
-    # first `trunk_stages` ranks (parallel/pp.py; every backbone), the
-    # adaptation replicated; sp parses and raises (ROADMAP M16)
+    # first `trunk_stages` ranks (parallel/pp.py; every backbone) | sp:
+    # the tokens sharded over the whole world, exact ring attention
+    # (parallel/sp.py; Uni3D and ULIP-2); the adaptation replicated
     trunk_parallel: str = "none"
     # pp: the number of pipeline stages (default: the whole world); the
     # trunk depth must divide by trunk_stages × pp_interleave
@@ -245,20 +244,6 @@ def load_templates(cfg: Config) -> list[str]:
     `cfg.data.templates_path`."""
     with open(cfg.data.templates_path) as f:
         return json.load(f)[cfg.data.template_key]
-
-
-def unported_paths(cfg: Config) -> list[str]:
-    """What `cfg` asks for that this package does not run yet, each with
-    the ROADMAP item that ports it: the sequence-parallel trunk
-    (`--trunk-parallel sp`); 'tp' and 'pp' run (`parallel/tp.py`,
-    `parallel/pp.py`)."""
-    m, r = cfg.model, cfg.run
-    out = []
-    if m.vlm3d not in ("uni3d", "ulip", "openshape"):
-        out.append(f"--vlm3d {m.vlm3d}")
-    if r.trunk_parallel == "sp":
-        out.append(f"--trunk-parallel {r.trunk_parallel} (ROADMAP M16)")
-    return out
 
 
 def _field_arg_type(f, default):

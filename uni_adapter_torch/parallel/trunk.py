@@ -11,8 +11,8 @@ changes.  Shared by the evaluation CLI (`cli/tta.py`) and the serving CLI
 `--trunk-stages` ranks (default: all), `--pp-interleave` chunks a stage
 (`parallel/pp.py`), the ranks beyond them taking the trunk's output
 from the last stage's broadcast (JAX's stage mesh of the first S
-devices); 'sp' raises NotImplementedError by name until its ROADMAP
-item lands.
+devices); 'sp' the trunk's tokens over the whole world, attention an
+exact ring (`parallel/sp.py`; Uni3D and ULIP-2).
 """
 from __future__ import annotations
 
@@ -31,8 +31,13 @@ def prepare_trunk_parallel(cfg, model, group=None):
     world = pmesh.make_mesh(group)
     kind = cfg.model.vlm3d
     if mode == "sp":
-        raise NotImplementedError(
-            f"--trunk-parallel {mode} is not ported yet (ROADMAP M16)")
+        from uni_adapter_torch.parallel.sp import make_sp_encode_fn
+
+        # the JAX branch raises outside its wrapper: no shape divides here
+        prepared = make_sp_encode_fn(model, kind, world.group)
+        logging.info("trunk parallelism: sequence (ring attention), %d-way",
+                     world.size)
+        return prepared
     if mode == "pp":
         from uni_adapter_torch.parallel.pp import make_pp_encode_fn, \
             make_stages
