@@ -269,9 +269,9 @@ def attn_step_bwd_plain(qkv: torch.Tensor, attn: torch.Tensor,
                         dout: torch.Tensor, B: int, N: int, num_heads: int,
                         scale: float) -> torch.Tensor:
     """The attention step's backward, the arithmetic of
-    `csrc/eva_attn_block_bwd.cu`'s kernels (1) and (2): from q̂ | k̂ | v
-    (B·N, 3D), the step's output O (B·N, D) and dO (B·N, D), with s = q̂·k̂ᵀ
-    unscaled, P = exp((s − max s)·scale) / ℓ and Δ = rowsum(dO ∘ O):
+    `csrc/eva_attn_block_bwd.cu`'s kernels (1) and (2) before their
+    LayerNorm epilogues: from q̂ | k̂ | v (B·N, 3D), the step's output O
+    (B·N, D) and dO (B·N, D), with s = q̂·k̂ᵀ unscaled, P = exp((s − max s)·scale) / ℓ and Δ = rowsum(dO ∘ O):
     dv = Pᵀ·dO, dS = P ∘ (dO·vᵀ − Δ), dq̂ = scale·dS·k̂, dk̂ = scale·dSᵀ·q̂.
     Returns dq̂ | dk̂ | dv (B·N, 3D) in the same layout."""
     D = attn.shape[1]
@@ -297,11 +297,11 @@ def attn_step_bwd_plain(qkv: torch.Tensor, attn: torch.Tensor,
 def head_ln_bwd_plain(raw: torch.Tensor, dqkv: torch.Tensor,
                       gq: torch.Tensor, gk: torch.Tensor, num_heads: int,
                       eps: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """The per-head q/k LayerNorm's backward, kernels (3) and (4) of
-    `csrc/eva_attn_block_bwd.cu`: x̂ recomputed from the raw q | k (B·N,
-    2D), dx̂ = dy·γ, dx = rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂·x̂)).  Returns
-    dq | dk | dv (B·N, 3D), dqkv with its dq̂ and dk̂ replaced, and (4, 64)
-    dγq, dβq, dγk, dβk."""
+    """The per-head q/k LayerNorm's backward, the epilogues of kernels (1)
+    and (2) of `csrc/eva_attn_block_bwd.cu` with the γ/β sum of (3): x̂
+    recomputed from the raw q | k (B·N, 2D), dx̂ = dy·γ, dx = rstd·(dx̂ −
+    mean(dx̂) − x̂·mean(dx̂·x̂)).  Returns dq | dk | dv (B·N, 3D), dqkv with
+    its dq̂ and dk̂ replaced, and (4, 64) dγq, dβq, dγk, dβk."""
     M, D2 = raw.shape
     D = D2 // 2
     hd = D // num_heads
@@ -338,12 +338,14 @@ eva_attn_block_bwd_plain.calls = 0
 
 def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument types of a built `csrc/eva_attn_block_bwd.cu`."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.uat_eva_attn_block_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        [ptr] * 8 + [i64, ptr, i64, ptr] + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_float, ptr])
     lib.uat_eva_attn_block_bwd.restype = ctypes.c_int
-    lib.uat_eva_attn_block_bwd_ln_blocks.argtypes = [ctypes.c_int] * 2
-    lib.uat_eva_attn_block_bwd_ln_blocks.restype = ctypes.c_int
+    lib.uat_eva_attn_block_bwd_workspace.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(i64)] * 2)
+    lib.uat_eva_attn_block_bwd_workspace.restype = ctypes.c_int
     return lib
 
 
@@ -354,7 +356,7 @@ def _lib_bwd() -> ctypes.CDLL:
 
 def eva_attn_block_bwd_cuda(qkv, attn, dout, raw, gq, gk, B: int, N: int,
                             num_heads: int, scale: float, eps: float):
-    """Launch `csrc/eva_attn_block_bwd.cu` (four kernels on the current
+    """Launch `csrc/eva_attn_block_bwd.cu` (three kernels on the current
     stream).  Takes the fp32 block's q̂ | k̂ | v (B·N, 3D) and head concat
     O (B·N, D) workspaces, dO (B·N, D), the raw q | k (B·N, 2D) and the
     LayerNorms' γ (64,), all fp32 and contiguous on one CUDA device.
@@ -383,19 +385,22 @@ def eva_attn_block_bwd_cuda(qkv, attn, dout, raw, gq, gk, B: int, N: int,
     lib = _lib_bwd()
     dev = qkv.device
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(B * num_heads * N * 3, device=dev)
-    partials = torch.empty(
-        lib.uat_eva_attn_block_bwd_ln_blocks(M, num_heads) * 4 * HEAD_DIM,
-        device=dev)
+    n_stats, n_partials = ctypes.c_int64(), ctypes.c_int64()
+    build.check(lib.uat_eva_attn_block_bwd_workspace(
+        B, N, num_heads, ctypes.byref(n_stats), ctypes.byref(n_partials)),
+        "uat_eva_attn_block_bwd_workspace")
+    n_stats, n_partials = n_stats.value, n_partials.value
+    stats = torch.empty(n_stats, device=dev)
+    partials = torch.empty(n_partials, device=dev)
     dln = torch.empty(4, HEAD_DIM, device=dev)
     with torch.cuda.device(dev):
         rc = lib.uat_eva_attn_block_bwd(
             *(t.data_ptr() for t in tensors), dqkv.data_ptr(),
-            stats.data_ptr(), partials.data_ptr(), dln.data_ptr(), B, N, D,
-            num_heads, scale, eps, build.stream_of(qkv))
+            stats.data_ptr(), n_stats, partials.data_ptr(), n_partials,
+            dln.data_ptr(), B, N, D, num_heads, scale, eps,
+            build.stream_of(qkv))
     build.check(rc, "uat_eva_attn_block_bwd")
-    # the dq / dk-dv / LayerNorm / reduction kernels
-    eva_attn_block_bwd_cuda.launches += 4
+    eva_attn_block_bwd_cuda.launches += 3   # dq, dk/dv, the γ/β sum
     return dqkv, dln
 
 
